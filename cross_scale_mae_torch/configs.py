@@ -1,9 +1,9 @@
-"""Typed model configs and the string-name registry.
+"""Typed model and training configs and the string-name registry.
 
-A copy of the model half of ``cross_scale_mae_tpu/configs.py`` (the port may
-not import the JAX package). The JSON written by either package's
-``MAEConfig.to_json`` reads back in the other: the field sets are equal and a
-test holds them so.
+A copy of ``MAEConfig``, ``get_mae_config`` and ``TrainConfig`` from
+``cross_scale_mae_tpu/configs.py`` (the port may not import the JAX
+package). The JSON written by either package's ``to_json`` reads back in the
+other: the field sets are equal and a test holds them so.
 """
 
 from __future__ import annotations
@@ -120,6 +120,11 @@ class MAEConfig:
     def patch_dim(self) -> int:
         return self.patch_size ** 2 * self.input_channels
 
+    def loss_name(self, term: str) -> str:
+        """The loss of a latent term ('e', 'ce', 'cd'): its own, else ``loss``."""
+        value = {"e": self.loss_e, "ce": self.loss_ce, "cd": self.loss_cd}[term]
+        return (value or self.loss).lower()
+
     def replace(self, **kw: Any) -> "MAEConfig":
         return dataclasses.replace(self, **kw)
 
@@ -179,3 +184,53 @@ def get_mae_config(name: str, **overrides: Any) -> MAEConfig:
     kw.update(_VARIANTS[variant])
     kw.update(overrides)
     return MAEConfig(**kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and runtime knobs (same fields and defaults as the
+    JAX package's ``TrainConfig``)."""
+
+    epochs: int = 400
+    warmup_epochs: int = 40
+    batch_size: int = 512            # global batch per optimizer step
+    accum_iter: int = 1
+    blr: float = 5e-5                # lr = blr * eff_batch / 256
+    lr: float | None = None
+    min_lr: float = 0.0
+    weight_decay: float = 0.05
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    clip_grad: float | None = None
+    layer_decay: float | None = None
+    optimizer: str = "adamw"          # "adamw" | "lars" | "sgd"
+    lars_momentum: float = 0.9
+    lars_trust_coefficient: float = 0.001
+    label_smoothing: float = 0.1
+    mixup: float = 0.0
+    cutmix: float = 0.0
+    mixup_prob: float = 1.0
+    mixup_switch_prob: float = 0.5
+    mixup_mode: str = "batch"        # "batch" | "pair" | "elem"
+    cutmix_minmax: "tuple[float, float] | None" = None
+    seed: int = 0
+    log_interval: int = 20
+    ckpt_interval_epochs: int = 25
+    mask_seed: int | None = None
+    consistent_mask: bool = False
+    watch_gradients: bool = False
+
+    def resolved_lr(self, world_batch: int) -> float:
+        if self.lr is not None:
+            return self.lr
+        return self.blr * world_batch / 256.0
+
+    def replace(self, **kw: Any) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @classmethod
+    def from_json(cls, s: str) -> "TrainConfig":
+        return cls(**json.loads(s))

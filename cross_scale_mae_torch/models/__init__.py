@@ -1,1 +1,1 @@
-"""The encoder and its transformer blocks, on dicts of tensors."""
+"""The MAE model (encoder, decoder, predictors, losses) on dicts of tensors."""

@@ -1,15 +1,22 @@
 """Transformer building blocks on plain dicts of tensors.
 
-Counterpart of ``cross_scale_mae_tpu/models/layers.py`` (forward only).
-Parameters keep the JAX package's layout, so a JAX tree carries over without
-transposes: linear kernels are (in, out) and ``linear`` computes
-``x @ W + b`` in the activation dtype. LayerNorm statistics and the attention
-softmax run in (at least) fp32. A block stack is a list of per-layer dicts
-(``utils/params.py`` unstacks the JAX package's stacked leaves).
+Counterpart of ``cross_scale_mae_tpu/models/layers.py``. Parameters keep the
+JAX package's layout, so a JAX tree carries over without transposes: linear
+kernels are (in, out) and ``linear`` computes ``x @ W + b`` in the
+activation dtype. LayerNorm statistics, the attention softmax and the
+predictor's BatchNorm statistics run in (at least) fp32. A block stack is a
+list of per-layer dicts (``utils/params.py`` unstacks the JAX package's
+stacked leaves). Gradients come from autograd, with two hand-written
+backwards: the attention kernels' (``ops/attention.py``) and
+:class:`GeluExactFastBwd`'s.
+
+The init functions draw from an explicit ``torch.Generator`` on the target
+device: the same distributions as the JAX package's, not the same bits.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -17,7 +24,7 @@ import torch.nn.functional as F
 
 from cross_scale_mae_torch.configs import GELU_MODES
 from cross_scale_mae_torch.ops.attention import mha_v3, mha_v3_reference
-from cross_scale_mae_torch.ops.numerics import accum_dtype
+from cross_scale_mae_torch.ops.numerics import accum_dtype, at_least_f32
 
 Params = dict[str, Any]
 
@@ -25,6 +32,38 @@ Params = dict[str, Any]
 # kernel 'pallas'/'pallas_t' and the variant attentions) are queued in
 # ROADMAP.md.
 ATTENTION_IMPLS = ("xla", "pallas_v3")
+
+
+def xavier_uniform(gen: torch.Generator, shape: tuple[int, ...], fan_in: int,
+                   fan_out: int) -> torch.Tensor:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return u * (2 * limit) - limit
+
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int) -> Params:
+    """Xavier-uniform kernel (in, out), zero bias (MAE_ViT_Baseline.py:233-241)."""
+    return {"kernel": xavier_uniform(gen, (d_in, d_out), d_in, d_out),
+            "bias": torch.zeros(d_out, device=gen.device)}
+
+
+def layer_norm_init(dim: int, device: torch.device | str) -> Params:
+    return {"scale": torch.ones(dim, device=device),
+            "bias": torch.zeros(dim, device=device)}
+
+
+def block_init(gen: torch.Generator, dim: int, mlp_ratio: int = 4) -> Params:
+    """One pre-LN transformer block (timm Block layout, qkv fused and
+    initialised as one Linear(dim, 3*dim))."""
+    hidden = dim * mlp_ratio
+    return {
+        "norm1": layer_norm_init(dim, gen.device),
+        "attn": {"qkv": linear_init(gen, dim, 3 * dim),
+                 "proj": linear_init(gen, dim, dim)},
+        "norm2": layer_norm_init(dim, gen.device),
+        "mlp": {"fc1": linear_init(gen, dim, hidden),
+                "fc2": linear_init(gen, hidden, dim)},
+    }
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -58,13 +97,43 @@ def attention(p: Params, x: torch.Tensor, num_heads: int,
     return linear(p["proj"], mha(linear(p["qkv"], x), num_heads))
 
 
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+class GeluExactFastBwd(torch.autograd.Function):
+    """Exact (erf) GELU whose backward is the tanh-GELU derivative
+    (``gelu='exact_tanhbwd'``; JAX ``gelu_exact_fastbwd``, layers.py:235-279):
+    the backward skips differentiating through erf."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return F.gelu(x, approximate="none")
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        xf = at_least_f32(x)
+        c = _SQRT_2_OVER_PI
+        t = torch.tanh(c * (xf + 0.044715 * (xf * xf * xf)))
+        d = 0.5 * (1.0 + t) + 0.5 * xf * (1.0 - t * t) * c * (
+            1.0 + 3.0 * 0.044715 * xf * xf)
+        return (at_least_f32(g) * d).to(x.dtype)
+
+
+gelu_exact_fastbwd = GeluExactFastBwd.apply
+
+
 def mlp(p: Params, x: torch.Tensor, gelu: str = "tanh") -> torch.Tensor:
-    """fc1 -> GELU -> fc2. 'exact_tanhbwd' differs from 'exact' only in its
-    backward, so its forward is the exact GELU."""
+    """fc1 -> GELU -> fc2. 'exact_tanhbwd' has the exact GELU's forward and
+    the tanh GELU's derivative as its backward."""
     if gelu not in GELU_MODES:
         raise ValueError(f"unknown gelu flavor {gelu!r}")
     h = linear(p["fc1"], x)
-    a = F.gelu(h, approximate="tanh" if gelu == "tanh" else "none")
+    if gelu == "exact_tanhbwd":
+        a = gelu_exact_fastbwd(h)
+    else:
+        a = F.gelu(h, approximate="tanh" if gelu == "tanh" else "none")
     return linear(p["fc2"], a)
 
 
@@ -88,3 +157,44 @@ def run_blocks(blocks: list[Params], x: torch.Tensor, num_heads: int,
     for p in blocks:
         x = block(p, x, num_heads, impl, norm_style, gelu)
     return x
+
+
+def predictor_init(gen: torch.Generator, dim: int, num_tokens: int, hidden: int) -> Params:
+    """The predictor MLP (models_mae/MLP.py): Linear -> BatchNorm1d over the
+    token axis (channel = token position) -> ReLU -> Linear."""
+    return {"fc1": linear_init(gen, dim, hidden),
+            "bn": {"scale": torch.ones(num_tokens, device=gen.device),
+                   "bias": torch.zeros(num_tokens, device=gen.device)},
+            "fc2": linear_init(gen, hidden, dim)}
+
+
+def predictor_state_init(num_tokens: int, device: torch.device | str) -> Params:
+    return {"bn": {"mean": torch.zeros(num_tokens, device=device),
+                   "var": torch.ones(num_tokens, device=device)}}
+
+
+def predictor_apply(p: Params, state: Params, x: torch.Tensor, train: bool = True,
+                    momentum: float = 0.1, eps: float = 1e-5
+                    ) -> tuple[torch.Tensor, Params]:
+    """x: (N, T, D) -> ((N, T, D), new_state). BatchNorm normalizes over
+    (N, hidden) per token position T (torch BatchNorm1d(T) on an (N, T, L)
+    input) with fp32 statistics and the biased batch variance; the running
+    variance is the unbiased one, updated without grad."""
+    h = linear(p["fc1"], x)
+    h32 = at_least_f32(h)
+    if train:
+        mean = h32.mean(dim=(0, 2))
+        var = h32.var(dim=(0, 2), correction=0)
+        with torch.no_grad():
+            n = h32.shape[0] * h32.shape[2]
+            unbiased = var * n / max(n - 1, 1)
+            new_state = {"bn": {
+                "mean": (1 - momentum) * state["bn"]["mean"] + momentum * mean,
+                "var": (1 - momentum) * state["bn"]["var"] + momentum * unbiased,
+            }}
+    else:
+        mean, var = state["bn"]["mean"], state["bn"]["var"]
+        new_state = state
+    h32 = (h32 - mean[None, :, None]) * torch.rsqrt(var[None, :, None] + eps)
+    h32 = h32 * p["bn"]["scale"][None, :, None] + p["bn"]["bias"][None, :, None]
+    return linear(p["fc2"], torch.relu(h32).to(h.dtype)), new_state

@@ -1,18 +1,24 @@
-"""Crop + resize as two matrix products (counterpart of part of
+"""Image augmentation on the device (counterpart of
 ``cross_scale_mae_tpu/ops/image.py``).
 
-A per-sample crop box becomes a pair of interpolation-weight matrices
-``W_y (out, H)`` and ``W_x (out, W)``; the resampled image is
-``W_y @ img @ W_xᵀ`` per channel. This slice ports the ``exact=True`` path
-that eval preprocessing runs: the JAX package runs its einsums in fp32 at
-``Precision.HIGHEST``, and the port runs them as IEEE fp32 matrix products.
-PyTorch has no per-call precision argument, so on the GPU the product
-refuses to run when the process has enabled TF32 for fp32 matmuls, rather
-than round its operands to 10 bits of mantissa.
+* Crop + resize as two matrix products: a per-sample crop box becomes a
+  pair of interpolation-weight matrices ``W_y (out, H)`` and
+  ``W_x (out, W)``; the resampled image is ``W_y @ img @ W_xᵀ`` per channel.
+  ``exact=True`` (eval preprocessing) is the JAX package's fp32
+  ``Precision.HIGHEST``: IEEE fp32 products, and on the GPU the product
+  refuses to run when the process has enabled TF32 for fp32 matmuls.
+  ``exact=False`` (training augmentation) is its ``Precision.DEFAULT``: on
+  the GPU the operands are rounded to bf16 and the products accumulate in
+  fp32, as the TPU's matrix unit does; on the CPU, where JAX's DEFAULT is
+  fp32, it is the fp32 product.
+* Flips and crop boxes take their random draws as inputs
+  (``train/pretrain.py::sample_pretrain_draws`` makes them), so a test can
+  hand both packages the same numbers.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -75,26 +81,73 @@ def _require_ieee_fp32(device: torch.device) -> None:
             "torch.set_float32_matmul_precision)")
 
 
+def _bf16_operand(x: torch.Tensor) -> torch.Tensor:
+    """A matmul operand at the TPU's DEFAULT precision on the GPU: rounded
+    to bf16 and held in fp32, so the fp32 product of two of them is exact
+    and only the accumulation rounds (TF32, if enabled, keeps bf16 values
+    exact too). On the CPU the operand is left in fp32."""
+    if x.device.type == "cpu":
+        return x
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def crop_resize(imgs: torch.Tensor, boxes: torch.Tensor, out_size: int,
                 method: str = "linear", exact: bool = True) -> torch.Tensor:
     """Batched per-sample crop+resize via weight-matrix products.
 
     imgs: (N, H, W, C); boxes: (N, 4) fp32 rows of (top, left, height, width)
     in (possibly fractional) pixels. Returns (N, out_size, out_size, C) in the
-    images' dtype; the products accumulate in fp32 (or wider)."""
-    if not exact:
-        raise NotImplementedError(
-            "crop_resize(exact=False), the training augmentation's fast "
-            "path, is not ported yet; see ROADMAP.md")
+    images' dtype; the products accumulate in fp32 (or wider). ``exact``
+    picks the operand precision (module docstring)."""
     n, h, w, c = imgs.shape
     boxes = boxes.to(imgs.device, torch.float32)
     row_mat = _resample_matrix(h, out_size, boxes[:, 0], boxes[:, 2], method)
     col_mat = _resample_matrix(w, out_size, boxes[:, 1], boxes[:, 3], method)
     acc = torch.promote_types(imgs.dtype, torch.float32)
-    _require_ieee_fp32(imgs.device)
-    tmp = torch.einsum("noh,nhwc->nowc", row_mat.to(acc), imgs.to(acc))
-    out = torch.einsum("npw,nowc->nopc", col_mat.to(acc), tmp)
+    if exact:
+        _require_ieee_fp32(imgs.device)
+        operand = (lambda x: x)
+    else:
+        operand = _bf16_operand
+    tmp = torch.einsum("noh,nhwc->nowc", operand(row_mat.to(acc)),
+                       operand(imgs.to(acc)))
+    out = torch.einsum("npw,nowc->nopc", operand(col_mat.to(acc)), operand(tmp))
     return out.to(imgs.dtype)
+
+
+def random_flips(imgs: torch.Tensor, hflip: torch.Tensor,
+                 vflip: torch.Tensor) -> torch.Tensor:
+    """Per-sample horizontal then vertical flips of NHWC images, where the
+    (N,) bool flags say so (JAX: ``random_flips``' Bernoulli(0.5) draws)."""
+    imgs = torch.where(hflip[:, None, None, None], imgs.flip(2), imgs)
+    return torch.where(vflip[:, None, None, None], imgs.flip(1), imgs)
+
+
+def sample_crop_boxes(u: torch.Tensor, height: int, width: int,
+                      scale: tuple[float, float],
+                      ratio: tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)
+                      ) -> torch.Tensor:
+    """Loop-free RandomResizedCrop boxes from four uniform [0, 1) draws per
+    sample, ``u`` of shape (4, N): area, log-aspect, top, left (the JAX
+    formula, fed the same uniforms). Returns (N, 4) fp32 (top, left, h, w);
+    sizes are clamped to the image, positions uniform over the valid range."""
+    u = u.to(torch.float32)
+    area = float(height * width)
+    target_area = area * (u[0] * (scale[1] - scale[0]) + scale[0])
+    lo, hi = math.log(ratio[0]), math.log(ratio[1])
+    aspect = torch.exp(u[1] * (hi - lo) + lo)
+    w = torch.clamp(torch.sqrt(target_area * aspect), max=float(width))
+    h = torch.clamp(torch.sqrt(target_area / aspect), max=float(height))
+    i = u[2] * (height - h)
+    j = u[3] * (width - w)
+    return torch.stack([i, j, h, w], dim=1)
+
+
+def random_resized_crop(imgs: torch.Tensor, boxes: torch.Tensor, out_size: int,
+                        method: str = "linear") -> torch.Tensor:
+    """Per-sample RandomResizedCrop on the training fast path
+    (``exact=False``), for boxes from :func:`sample_crop_boxes`."""
+    return crop_resize(imgs, boxes, out_size, method, exact=False)
 
 
 def center_crop_resize(imgs: torch.Tensor, out_size: int,

@@ -1,0 +1,141 @@
+"""The pretrain step (counterpart of ``cross_scale_mae_tpu/train/pretrain.py``):
+augment + two-view forward + every loss + backward + AdamW.
+
+The JAX step splits one key per step into the flip, crop, MsLd-crop and
+mask draws. Here the draws are explicit: :func:`sample_pretrain_draws`
+makes them on the device from a ``torch.Generator`` (seeded per step by
+:func:`_step_rng`), and the step takes them as an argument, so a test can
+inject the JAX package's draws instead. Gradient accumulation
+(``accum_iter``) is a Python loop over microbatches, one set of draws each.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import torch
+
+from cross_scale_mae_torch.configs import MAEConfig, TrainConfig
+from cross_scale_mae_torch.models.mae import mae_loss_fn
+from cross_scale_mae_torch.ops.augment import PRETRAIN_CROP_SCALE
+from cross_scale_mae_torch.ops.image import sample_crop_boxes
+from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_leaves
+
+
+@dataclasses.dataclass
+class PretrainDraws:
+    """The random numbers of one (micro)batch of N samples."""
+
+    hflip: torch.Tensor       # (N,) bool: augment's horizontal flips
+    vflip: torch.Tensor       # (N,) bool: augment's vertical flips
+    crop_boxes: torch.Tensor  # (N, 4) augment's RandomResizedCrop boxes
+    ms_boxes: torch.Tensor    # (N, 4) the low-GSD view's crop boxes
+    noise: torch.Tensor       # (2N, L) mask noise of both views (N, L single-scale)
+
+
+def sample_pretrain_draws(gen: torch.Generator, n: int, cfg: MAEConfig,
+                          tcfg: TrainConfig) -> PretrainDraws:
+    """Draw what one step of ``n`` samples needs, on ``gen``'s device, with
+    the JAX package's distributions: Bernoulli(0.5) flips, crop boxes from
+    four uniforms each (``ops/image.sample_crop_boxes``) on input-sized
+    images, uniform mask noise. The consistent mask (``consistent_mask`` or
+    ``mask_seed``) repeats the original view's noise for the crop view;
+    ``ms_per_sample_crop=False`` shares one MsLd box across the batch."""
+    dev = gen.device
+    size = cfg.input_size
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    hflip, vflip = uniform(n) < 0.5, uniform(n) < 0.5
+    crop_boxes = sample_crop_boxes(uniform(4, n), size, size, PRETRAIN_CROP_SCALE)
+    ms_boxes = sample_crop_boxes(uniform(4, n if cfg.ms_per_sample_crop else 1),
+                                 size, size, cfg.ms_range, cfg.ms_aspect_ratio).expand(n, 4)
+    noise = uniform(n, cfg.num_patches)
+    if cfg.multi_scale:
+        consistent = tcfg.consistent_mask or tcfg.mask_seed is not None
+        noise = torch.cat([noise, noise if consistent else uniform(n, cfg.num_patches)])
+    return PretrainDraws(hflip, vflip, crop_boxes, ms_boxes, noise)
+
+
+def _step_rng(tcfg: TrainConfig, seed: int, step: int,
+              device: torch.device | str) -> torch.Generator:
+    """The generator of one step: seeded from (seed, step), so one run seed
+    covers the whole run, or from ``mask_seed`` alone, which repeats the
+    same crops, flips and masks every step (the reference's
+    torch.manual_seed semantics, MAE_ViT_Baseline.py:301-302)."""
+    gen = torch.Generator(device=device)
+    if tcfg.mask_seed is not None:
+        return gen.manual_seed(tcfg.mask_seed)
+    return gen.manual_seed((seed * 1_000_003 + step) % 2 ** 63)
+
+
+def make_pretrain_loss_fn(cfg: MAEConfig, augment: Callable | None):
+    """The per-(micro)batch objective the step differentiates:
+    ``loss_fn(params, model_state, imgs, draws) -> (loss, MAEOutput)``.
+    (The JAX one also takes the TrainConfig for the consistent mask; here
+    the draws carry it.)"""
+
+    def loss_fn(params, model_state, imgs: torch.Tensor, draws: PretrainDraws):
+        if augment is not None:
+            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes)
+        out = mae_loss_fn(params, model_state, cfg, imgs, noise=draws.noise,
+                          ms_boxes=draws.ms_boxes, train=True)
+        return out.loss, out
+
+    return loss_fn
+
+
+def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
+                       schedule: Callable[[int], float],
+                       augment: Callable | None = None) -> Callable:
+    """Returns ``step(state, batch, draws) -> (state, metrics)``.
+
+    batch: (B, H, W, C) normalized images, or raw uint8 when ``augment``
+    (``ops/augment.make_pretrain_augment``) is given; B = accum_iter *
+    microbatch. draws: one :class:`PretrainDraws` per microbatch (a single
+    one when accum_iter is 1). The state's params are updated in place.
+    metrics hold 0-d device tensors (the loss terms, ``loss`` and
+    ``grad_norm``, before clipping) and the step's ``lr``; nothing in the
+    step waits on the device."""
+    loss_fn = make_pretrain_loss_fn(cfg, augment)
+    accum = tcfg.accum_iter
+    if accum < 1:
+        raise ValueError(f"accum_iter must be >= 1, got {accum}")
+
+    def step(state: TrainState, batch: torch.Tensor,
+             draws: PretrainDraws | Sequence[PretrainDraws]):
+        draws = [draws] if isinstance(draws, PretrainDraws) else list(draws)
+        if len(draws) != accum or batch.shape[0] % accum:
+            raise ValueError(
+                f"batch of {batch.shape[0]} with {len(draws)} draws does not split "
+                f"into accum_iter={accum} microbatches")
+        leaves = tree_leaves(state.params)
+        for p in leaves:
+            p.grad = None
+        micro = batch.shape[0] // accum
+        model_state = state.model_state
+        loss, losses = 0.0, {}
+        for k, d in enumerate(draws):
+            mb_loss, out = loss_fn(state.params, model_state, batch[k * micro:(k + 1) * micro], d)
+            mb_loss.backward()
+            loss = loss + mb_loss.detach()
+            for name, v in out.losses.items():
+                losses[name] = losses.get(name, 0.0) + v.detach()
+            model_state = out.state
+        # A parameter the objective does not reach (encoder_norm while
+        # apply_encoder_norm is False) has a zero gradient, as in JAX.
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        if accum > 1:
+            torch._foreach_mul_(grads, 1.0 / accum)
+            loss = loss / accum
+            losses = {k: v / accum for k, v in losses.items()}
+        metrics = dict(losses, loss=loss, grad_norm=global_norm(grads),
+                       lr=schedule(state.step))
+        state.apply_gradients(grads, model_state)
+        for p in leaves:
+            p.grad = None
+        return state, metrics
+
+    return step

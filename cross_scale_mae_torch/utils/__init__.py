@@ -1,1 +1,1 @@
-"""The npz checkpoint format and the weight carry from the JAX package."""
+"""The npz checkpoint format, the weight carry to and from the JAX package, FLOP counts."""

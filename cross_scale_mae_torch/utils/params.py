@@ -1,11 +1,14 @@
-"""The weight carry: the JAX package's parameter tree -> the port's tensors.
+"""The weight carry between the JAX package's parameter tree and the port's.
 
 The JAX package keeps parameters as a nested dict with linear kernels in
-(in, out) layout and every encoder-block leaf stacked on a leading
-(layers, ...) axis. The port keeps the (in, out) layout (``layers.linear``
-computes ``x @ W + b``), so nothing is transposed; the carry unstacks the
-block leaves into a list of per-layer dicts and keeps only what the encoder
-runs, as the JAX package's serving does (``serving.py:94-97``).
+(in, out) layout and every block leaf stacked on a leading (layers, ...)
+axis. The port keeps the (in, out) layout (``layers.linear`` computes
+``x @ W + b``), so nothing is transposed; the carry unstacks the block
+leaves into a list of per-layer dicts. ``params_from_jax`` keeps only what
+the encoder runs (serving, as the JAX package's ``serving.py:94-97``) or,
+with ``full=True``, the whole tree the training step runs;
+``state_from_jax`` carries the predictors' BatchNorm statistics;
+``params_to_jax`` is the way back.
 """
 
 from __future__ import annotations
@@ -52,6 +55,41 @@ def encoder_param_shapes(cfg: MAEConfig) -> dict:
     return shapes
 
 
+def mae_param_shapes(cfg: MAEConfig) -> dict:
+    """Shapes of the whole tree of the JAX package's ``mae_init`` (blocks
+    stacked): encoder, decoder, tokens and the configured predictors."""
+    d, dd = cfg.dim_model, cfg.decoder_embed_dim
+    spec = encoder_param_shapes(cfg.replace(apply_encoder_norm=True))
+    spec.update({
+        "mask_token": (1, 1, dd),
+        "decoder_embed": _linear_shapes(d, dd),
+        "decoder_blocks": _block_shapes(dd, dd * cfg.ffn_ratio, cfg.decoder_num_layers),
+        "decoder_norm": _norm_shapes(dd),
+        "decoder_pred": _linear_shapes(dd, cfg.patch_dim),
+    })
+    hidden = cfg.predictor_hidden_size
+    if cfg.use_cd_pred:
+        spec["predictor_cd"] = {"fc1": _linear_shapes(dd, hidden),
+                                "bn": _norm_shapes(cfg.num_patches),
+                                "fc2": _linear_shapes(hidden, dd)}
+    if cfg.use_ce_pred:
+        spec["predictor_ce"] = {"fc1": _linear_shapes(d, hidden),
+                                "bn": _norm_shapes(cfg.len_keep),
+                                "fc2": _linear_shapes(hidden, d)}
+    return spec
+
+
+def mae_state_shapes(cfg: MAEConfig) -> dict:
+    """Shapes of the JAX ``mae_init`` state: predictor BatchNorm statistics."""
+    spec = {}
+    if cfg.use_cd_pred:
+        spec["predictor_cd"] = {"bn": {"mean": (cfg.num_patches,),
+                                       "var": (cfg.num_patches,)}}
+    if cfg.use_ce_pred:
+        spec["predictor_ce"] = {"bn": {"mean": (cfg.len_keep,), "var": (cfg.len_keep,)}}
+    return spec
+
+
 def _checked(node: Any, spec: Any, path: str) -> Any:
     if isinstance(spec, dict):
         if not isinstance(node, Mapping):
@@ -77,25 +115,56 @@ def _to_torch(tree: Any, device, index: int | None = None) -> Any:
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: MAEConfig,
-                    device: torch.device | str = "cpu") -> dict[str, Any]:
+                    device: torch.device | str = "cpu", *,
+                    full: bool = False) -> dict[str, Any]:
     """Map a JAX MAE parameter tree (nested dict of numpy arrays) to the
-    port's encoder params: fp32 tensors on ``device``, with
-    ``encoder_blocks`` a list of per-layer dicts. Subtrees the encoder does
-    not run (decoder, mask token, predictors) are dropped; a missing key,
-    an unexpected key inside a kept subtree or a wrong shape raises."""
-    spec = encoder_param_shapes(cfg)
+    port's params: fp32 tensors on ``device``, with each ``*_blocks`` stack
+    a list of per-layer dicts.
+
+    By default only the encoder's subtrees are kept and the others
+    (decoder, mask token, predictors) dropped. ``full=True`` carries the
+    whole ``mae_init`` tree and refuses any other top-level key. A missing
+    key, an unexpected key inside a kept subtree or a wrong shape raises."""
+    spec = mae_param_shapes(cfg) if full else encoder_param_shapes(cfg)
+    if full:
+        extra = sorted(set(tree) - set(spec))
+        if extra:
+            raise KeyError(f"unexpected parameter {extra[0]}")
     checked = {}
     for key, sub in spec.items():
         if key not in tree:
             raise KeyError(f"parameter tree lacks {key}")
         checked[key] = _checked(tree[key], sub, key)
-    out = {k: _to_torch(v, device) for k, v in checked.items()
-           if k != "encoder_blocks"}
-    out["encoder_blocks"] = [
-        _to_torch(checked["encoder_blocks"], device, i)
-        for i in range(cfg.encoder_num_layers)
-    ]
-    return out
+    depth = {"encoder_blocks": cfg.encoder_num_layers,
+             "decoder_blocks": cfg.decoder_num_layers}
+    return {k: ([_to_torch(v, device, i) for i in range(depth[k])] if k in depth
+                else _to_torch(v, device))
+            for k, v in checked.items()}
+
+
+def state_from_jax(state: Mapping[str, Any], cfg: MAEConfig,
+                   device: torch.device | str = "cpu") -> dict[str, Any]:
+    """The JAX ``mae_init`` state (predictor BatchNorm statistics) as fp32
+    tensors on ``device``; the same checks as :func:`params_from_jax`."""
+    return _to_torch(_checked(state, mae_state_shapes(cfg), "state"), device)
+
+
+def params_to_jax(tree: Any) -> Any:
+    """The inverse carry: the port's params or state (tensors, block stacks
+    as lists) -> the JAX layout as numpy arrays (fp32), block leaves stacked
+    on a leading layer axis."""
+    if isinstance(tree, Mapping):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        layers = [params_to_jax(v) for v in tree]
+        return _stack(layers)
+    return tree.detach().to("cpu", torch.float32).numpy()
+
+
+def _stack(layers: list) -> Any:
+    if isinstance(layers[0], dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
+    return np.stack(layers, axis=0)
 
 
 def random_mae_tree(cfg: MAEConfig, seed: int) -> dict[str, Any]:
@@ -120,23 +189,4 @@ def random_mae_tree(cfg: MAEConfig, seed: int) -> dict[str, Any]:
             return {k: fill(v, k) for k, v in spec.items()}
         return draw(spec, name)
 
-    d, dd = cfg.dim_model, cfg.decoder_embed_dim
-    spec = encoder_param_shapes(cfg.replace(apply_encoder_norm=True))
-    spec.update({
-        "mask_token": (1, 1, dd),
-        "decoder_embed": _linear_shapes(d, dd),
-        "decoder_blocks": _block_shapes(dd, dd * cfg.ffn_ratio,
-                                        cfg.decoder_num_layers),
-        "decoder_norm": _norm_shapes(dd),
-        "decoder_pred": _linear_shapes(dd, cfg.patch_dim),
-    })
-    hidden = cfg.predictor_hidden_size
-    if cfg.use_cd_pred:
-        spec["predictor_cd"] = {"fc1": _linear_shapes(dd, hidden),
-                                "bn": _norm_shapes(cfg.num_patches),
-                                "fc2": _linear_shapes(hidden, dd)}
-    if cfg.use_ce_pred:
-        spec["predictor_ce"] = {"fc1": _linear_shapes(d, hidden),
-                                "bn": _norm_shapes(cfg.len_keep),
-                                "fc2": _linear_shapes(hidden, d)}
-    return fill(spec)
+    return fill(mae_param_shapes(cfg))

@@ -1,18 +1,20 @@
 """The PyTorch port's attention (cross_scale_mae_torch/ops/attention.py)
-held against the JAX package's v3 Pallas kernel.
+held against the JAX package's v3 Pallas kernels, forward and backward.
 
-On the CPU the port's ``mha_v3`` runs its plain version,
-``mha_v3_reference``; the JAX side runs ``pallas_mha_v3`` in interpret mode,
-as tests/test_models.py does. The CUDA kernel itself is compared with the
-plain version on the card (tests/test_torch_port_cuda.py, chip_smoke.py).
+On the CPU the port's ``mha_v3`` runs its plain versions,
+``mha_v3_reference`` and ``mha3_bwd_reference``; the JAX side runs
+``pallas_mha_v3`` (and its custom VJP, ``_mha3_bwd_kernel``) in interpret
+mode, as tests/test_models.py does. The CUDA kernels themselves are
+compared with the plain versions on the card (tests/test_torch_port_cuda.py,
+chip_smoke.py).
 
 Tolerances:
 * fp32: atol 1e-5 (the bound tests/test_models.py holds the v3 kernel to);
   the two sides differ only in the order of fp32 sums.
 * bf16: one bf16 ulp at the output's largest magnitude,
-  2**-7 * max(1, max|ref|). Both sides round P and the output to bf16 from
-  fp32 values that differ in their last fp32 bits, so a value sitting on a
-  rounding boundary may land one bf16 ulp apart.
+  2**-7 * max(1, max|ref|). Both sides round P (and in the backward dS) and
+  the output to bf16 from fp32 values that differ in their last fp32 bits,
+  so a value sitting on a rounding boundary may land one bf16 ulp apart.
 """
 
 import numpy as np
@@ -45,6 +47,44 @@ def test_mha_v3_matches_jax_pallas_v3(n, l, h, hd, dtype):
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("n,l,h,hd", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_v3_grad_matches_jax_pallas_v3_vjp(n, l, h, hd, dtype):
+    """The port's backward (mha3_bwd_reference directly, and through
+    autograd of mha_v3) against jax.vjp of pallas_mha_v3, which runs
+    _mha3_bwd_kernel."""
+    import jax
+
+    from cross_scale_mae_tpu.ops.attention import pallas_mha_v3
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, l, 3 * h * hd)).astype(np.float32)
+    g = rng.normal(size=(n, l, h * hd)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda a: pallas_mha_v3(a, h, True), jnp.asarray(x, jdt))
+    ref = np.asarray(vjp(jnp.asarray(g, jdt))[0].astype(jnp.float32))
+    atol = 1e-5 if dtype == "float32" else _bf16_bound(ref)
+
+    direct = port_attn.mha3_bwd_reference(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt), h)
+    assert direct.shape == x.shape and direct.dtype == tdt
+    np.testing.assert_allclose(direct.float().numpy(), ref, rtol=0, atol=atol)
+
+    leaf = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    port_attn.mha_v3(leaf, h).backward(torch.from_numpy(g).to(tdt))
+    assert leaf.grad.dtype == tdt
+    np.testing.assert_allclose(leaf.grad.float().numpy(), ref, rtol=0, atol=atol)
+
+
+def test_mha_v3_saves_only_qkv():
+    """The autograd node keeps qkv and nothing else (the JAX custom VJP's
+    residuals are (qkv,)): the backward recomputes the probabilities."""
+    qkv = torch.randn(2, 5, 3 * 32, requires_grad=True)
+    out = port_attn.mha_v3(qkv, 2)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 1 and saved[0] is qkv
+
+
 def test_xla_mha_matches_jax_xla_mha():
     from cross_scale_mae_tpu.ops.attention import xla_mha
 
@@ -56,9 +96,10 @@ def test_xla_mha_matches_jax_xla_mha():
 
 
 def test_cpu_wrapper_never_counts_a_launch():
-    before = port_attn.mha_v3.launches
-    port_attn.mha_v3(torch.zeros(1, 4, 3 * 32), 2)
-    assert port_attn.mha_v3.launches == before
+    before = port_attn.mha_v3.launches, port_attn.mha_v3.bwd_launches
+    qkv = torch.zeros(1, 4, 3 * 32, requires_grad=True)
+    port_attn.mha_v3(qkv, 2).sum().backward()
+    assert (port_attn.mha_v3.launches, port_attn.mha_v3.bwd_launches) == before
 
 
 def test_mha_v3_rejects_other_devices():
@@ -76,6 +117,47 @@ def test_mha_v3_rejects_other_devices():
 def test_kernel_wrapper_validates_before_launch(make, err, match):
     with pytest.raises(err, match=match):
         port_attn._mha3_fwd_cuda(make(), 2)
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: torch.zeros(1, 5, 64), "shape"),
+    (lambda: torch.zeros(1, 4, 64, dtype=torch.float64), "float32"),
+    (lambda: torch.zeros(1, 64, 4).transpose(1, 2), "contiguous"),
+])
+def test_bwd_kernel_wrapper_validates_do_before_launch(make, match):
+    with pytest.raises(ValueError, match=match):
+        port_attn._mha3_bwd_cuda(torch.zeros(1, 4, 3 * 2 * 32), make(), 2)
+
+
+def test_bwd_kernel_wrapper_validates_qkv_before_launch():
+    with pytest.raises(ValueError, match="head_dim"):
+        port_attn._mha3_bwd_cuda(torch.zeros(1, 4, 3 * 2 * 24), torch.zeros(1, 4, 48), 2)
+
+
+def test_bwd_smem_layout_matches_kernel_source():
+    # Two (L, hd+8) bf16 tiles, 3 fp32 row stats per query row, per warp
+    # 2*hd + 2*L fp32 (csrc/mha3_bwd.cu smem_bytes): 28*L + 16*hd bytes
+    # above the forward.
+    assert port_attn.mha3_bwd_smem_bytes(65, 32, torch.bfloat16) == (
+        2 * 65 * 40 * 2 + 3 * 65 * 4 + 4 * (2 * 32 + 2 * 65) * 4)
+    for l, hd, dt in [(17, 64, torch.bfloat16), (257, 80, torch.float32)]:
+        extra = (port_attn.mha3_bwd_smem_bytes(l, hd, dt)
+                 - port_attn.mha3_smem_bytes(l, hd, dt))
+        assert extra == 28 * l + 16 * hd
+
+
+def test_bwd_kernel_fits_every_config_the_forward_runs():
+    """Every ViT size of the configs, at inputs up to 256 px with patch 16
+    (up to 257 tokens), in fp32 and bf16: the backward block fits an H100
+    block wherever the training forward runs."""
+    from cross_scale_mae_torch.configs import VIT_SIZES
+
+    for size in VIT_SIZES.values():
+        for d, h in ((size.dim_model, size.encoder_num_heads),
+                     (size.decoder_embed_dim, size.decoder_num_heads)):
+            for l in (17, 65, 257):
+                for dt in (torch.float32, torch.bfloat16):
+                    assert port_attn.mha3_bwd_smem_bytes(l, d // h, dt) <= port_attn.MAX_SMEM_BYTES
 
 
 def test_smem_layout_matches_kernel_source():

@@ -36,3 +36,32 @@ def test_scan_sees_a_forbidden_import(tmp_path):
     bad.write_text("def f():\n    from cross_scale_mae_tpu.ops import attention\n"
                    "import importlib\nimportlib.import_module('jax.numpy')\n")
     assert _imported_roots(bad) >= {"cross_scale_mae_tpu", "jax"}
+
+
+TRAINING_MODULES = [
+    "cross_scale_mae_torch/ops/masking.py", "cross_scale_mae_torch/losses/recon.py",
+    "cross_scale_mae_torch/losses/ntxent.py", "cross_scale_mae_torch/train/schedule.py",
+    "cross_scale_mae_torch/train/optim.py", "cross_scale_mae_torch/train/state.py",
+    "cross_scale_mae_torch/train/pretrain.py", "cross_scale_mae_torch/utils/flops.py",
+    "cross_scale_mae_torch/cli/pretrain.py",
+]
+
+
+def test_scan_covers_the_training_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in FILES}
+    assert set(TRAINING_MODULES) <= scanned
+
+
+def test_importing_the_training_path_loads_no_jax():
+    """Import every module of the training path in a fresh interpreter and
+    check that no JAX module was loaded along the way."""
+    import subprocess
+    import sys
+
+    mods = [m[:-3].replace("/", ".") for m in TRAINING_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(sorted(FORBIDDEN)) + ")\nassert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -160,8 +160,10 @@ def test_crop_resize_per_sample_boxes_match():
         ref = np.asarray(jcrop(jnp.asarray(imgs), jnp.asarray(boxes), 16, method))
         got = crop_resize(torch.from_numpy(imgs), torch.from_numpy(boxes), 16, method)
         np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        crop_resize(torch.from_numpy(imgs), torch.from_numpy(boxes), 16, exact=False)
+    # The training fast path: JAX's DEFAULT precision is fp32 on the CPU.
+    ref = np.asarray(jcrop(jnp.asarray(imgs), jnp.asarray(boxes), 16, exact=False))
+    got = crop_resize(torch.from_numpy(imgs), torch.from_numpy(boxes), 16, exact=False)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
