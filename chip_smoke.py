@@ -6,13 +6,16 @@
 Phases, one line each (a failed phase raises and the script exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: compile every CUDA kernel (``csrc/mha3_fwd.cu``, ``csrc/mha3_bwd.cu``),
-   one nvcc each, all at once.
+2. build: compile every CUDA kernel (``ops/cuda_build.KERNELS``: K1
+   ``csrc/mha3_fwd.cu`` and ``csrc/mha3_bwd.cu``, K2 ``csrc/mha_fwd.cu`` and
+   ``csrc/mha_bwd.cu``), one nvcc each, all at once.
 3. kernel: each kernel against its plain PyTorch version on the card, in
-   bf16, at the shapes the serving and training paths give it, with its
-   time, the plain version's, one PyTorch library call's as a yardstick
-   (``scaled_dot_product_attention``, forward or backward), and the least
-   time the card could take (``bound_ms``).
+   bf16, at the shapes the serving, pretraining and finetuning paths give
+   it, with its time, the plain version's, one PyTorch library call's as a
+   yardstick (``scaled_dot_product_attention`` on (N, H, L, hd) head views,
+   forward or backward), and the least time the card could take
+   (``bound_ms``). K2's outputs are gated one by one, with K1's rounding
+   order on the same inputs as the control the gate must catch.
 4. serving: a seeded random ``mae_vit_base_MsLdCeCd`` checkpoint (ViT-B
    width and depth, 128 px, bf16, ``attention_impl="pallas_v3"``) served by
    ``cli/serve.build_app`` over HTTP; concurrent ``/predict`` requests of 1,
@@ -31,6 +34,19 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    version, leaf by leaf, with two controls (dS left in fp32; one head's dV
    zeroed) that the gates must catch; the step's ms, images/s and MFU, and
    a torch.profiler window (device time by kind, idle share).
+7. finetune: ``cli/finetune.main`` finetunes ViT-L (``vit_large_patch16``,
+   64 px, patch 8, 62 classes, batch 512, bf16, ``attention_impl="pallas"``,
+   tanh GELU, drop_path 0.1, smoothing 0.1, layer decay 0.75) for 10 steps
+   over five synthetic batches and evaluates (the last eval batch ragged),
+   then 12 steps on one repeated batch: every loss finite, the loss falling
+   on the repeated batch at a constant lr, 24 K2 forward and backward
+   launches per step and 24 forward per eval batch, eval stats finite with
+   the confusion matrix summing to the eval count. Then the step from the
+   same weights and draws through the kernels and the plain attention
+   (timed in turns; loss and gradient norm within the bf16 budget), a
+   torch.profiler window, and every parameter's gradient through K2b
+   against K2b's plain version with two controls (dS rounded to bf16, K1's
+   rounding; head 0's dV zeroed) that the gates must catch.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -72,7 +88,18 @@ ATTN_PER_STEP = 20
 SHAPES = {"serving": (64, 65, 12, 64), "train_enc": (768, 17, 12, 64),
           "train_dec": (768, 65, 16, 32), "long_seq": (8, 257, 12, 64)}
 BWD_SHAPES = ("train_enc", "train_dec", "long_seq")
-REPORTED = {"mha3_fwd": "serving", "mha3_bwd": "train_dec"}
+# The K2 kernels' shapes, (N, L, H, hd) folded to (N*H, L, hd): the ViT-L
+# finetune step, ViT-B's 65 tokens, and ViT-H at 224 px, the longest.
+K2_SHAPES = {"finetune": (512, 65, 16, 64), "vit_b": (64, 65, 12, 64),
+             "long_seq": (8, 257, 16, 80)}
+REPORTED = {"mha3_fwd": "serving", "mha3_bwd": "train_dec", "mha_fwd": "finetune",
+            "mha_bwd": "finetune"}
+# The K2 kernels' gate on each output beside one bf16 ulp at its largest
+# magnitude: mean |kernel - plain| / mean |plain|, set between the kernels'
+# reading and that of K1's order on the same inputs, which rounds P (out,
+# dv) or dS (dq, dk) to bf16 and so flips the rounding of a large share of
+# the outputs (PERF.md section 6).
+K2_MEAN_TOL = 2.0 ** -15
 # Relative gaps ||g_kernel - g_plain|| / ||g_plain|| of the parameters'
 # gradients of one step, K1b against its plain version (same forward
 # kernel, weights and draws), each limit set between the sound reading and
@@ -82,6 +109,21 @@ REPORTED = {"mha3_fwd": "serving", "mha3_bwd": "train_dec"}
 # that differs anywhere grows through the depth to about 2**-9.
 DIRECT_TOL = 2.0 ** -17
 LEAF_TOL = 2.0 ** -6
+# The ViT-L finetune step (cli/finetune.py defaults, finetune.py:54-56):
+# batch 512 of 64 px images, patch 8: 65 tokens through 24 blocks of 16
+# heads of 64. Five batches make an epoch; the eval set is a quarter of
+# that, 640 images, so its second batch is ragged.
+FT_BATCH = 512
+FT_STEPS = 10
+FT_REPEAT_STEPS = 12
+FT_ATTN = 24
+FT_SYNTHETIC = 5 * FT_BATCH
+FT_LR = 5e-4  # constant: no warmup, and a cosine far longer than the run
+# Limits of the finetune step's leaf-wise gradient gate, K2b against its
+# plain version: the last block's qkv kernel (one K2b launch) and every
+# leaf, each between the sound reading and its control's (PERF.md, section 6).
+FT_DIRECT_TOL = 2.0 ** -17
+FT_LEAF_TOL = 2.0 ** -6
 
 
 def log(phase: str, **fields) -> None:
@@ -128,6 +170,19 @@ def mha3_bwd_bound_ms(n: int, l: int, h: int, hd: int, item: int) -> tuple[float
     return _bound(7 * n * l * h * hd * item, 10 * n * h * l * l * hd)
 
 
+def mha_bound_ms(n: int, l: int, h: int, hd: int, item: int) -> tuple[float, str]:
+    """K2f's least time (the Pallas CostEstimate, attention.py:118-122):
+    q, k, v read and out written once, 4*BH*L*hd elements, and 4*BH*L*L*hd
+    flops at the bf16 tensor-core peak."""
+    return _bound(4 * n * h * l * hd * item, 4 * n * h * l * l * hd)
+
+
+def mha_bwd_bound_ms(n: int, l: int, h: int, hd: int, item: int) -> tuple[float, str]:
+    """K2b's least time (attention.py:149-153): q, k, v, dO read and dq, dk,
+    dv written once, 7*BH*L*hd elements, and 10*BH*L*L*hd flops."""
+    return _bound(7 * n * h * l * hd * item, 10 * n * h * l * l * hd)
+
+
 def phase_device() -> str:
     """Returns the card's nvidia-smi "name, power limit" line, which every
     measured line carries as ``card``."""
@@ -144,10 +199,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from cross_scale_mae_torch.ops.cuda_build import build_libraries
+    from cross_scale_mae_torch.ops.cuda_build import KERNELS, build_libraries
 
     t0 = time.perf_counter()
-    logs = build_libraries(["mha3_fwd", "mha3_bwd"])
+    logs = build_libraries(list(KERNELS))
     ptxas = [ln.strip() for text in logs.values() for ln in text.splitlines()
              if "registers" in ln or "spill" in ln]
     log("build", seconds=round(time.perf_counter() - t0, 2), ptxas=json.dumps(ptxas))
@@ -172,7 +227,7 @@ def phase_kernel(card: str) -> dict:
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {"mha3_fwd": {}, "mha3_bwd": {}}
+    rows = {"mha3_fwd": {}, "mha3_bwd": {}, "mha_fwd": {}, "mha_bwd": {}}
 
     def heads(x, n, l, h, hd):
         r = x.view(n, l, 3, h, hd).permute(2, 0, 3, 1, 4)
@@ -242,7 +297,119 @@ def phase_kernel(card: str) -> dict:
             "bound_ms": bound, "bound_by": bound_by,
         })
         del bufs, graphs, got, ref
+    phase_kernel_k2(gen, report)
     return rows
+
+
+def _k1_order(q, k, v, do, h):
+    """The control of the K2 kernel gates: K1's plain versions
+    (``mha_v3_reference``, ``mha3_bwd_reference``) on the same folded
+    (N*H, L, hd) inputs, which round P to the input dtype before PV and dV,
+    and dS before dQ and dK, where K2 keeps both in fp32. Returns out and
+    (dq, dk, dv), folded."""
+    from cross_scale_mae_torch.ops.attention import (
+        _fold,
+        _unfold,
+        mha3_bwd_reference,
+        mha_v3_reference,
+    )
+
+    bh, l, hd = q.shape
+    n = bh // h
+    qkv = torch.stack([_unfold(t, n, h) for t in (q, k, v)], dim=2).reshape(n, l, 3 * h * hd)
+    out = _fold(mha_v3_reference(qkv, h).view(n, l, h, hd))
+    dqkv = mha3_bwd_reference(qkv, _unfold(do, n, h).reshape(n, l, h * hd), h)
+    return out, tuple(_fold(t) for t in dqkv.view(n, l, 3, h, hd).unbind(2))
+
+
+def _output_errors(got, ref, control) -> dict:
+    """One output's readings: max abs error against the plain version, its
+    limit (one bf16 ulp at the largest magnitude), and mean abs error over
+    mean |ref| for the kernel and for the K1-order control."""
+    ref = ref.float()
+    mean_ref = ref.abs().mean().item()
+    return {"max_abs_err": (got.float() - ref).abs().max().item(),
+            "tol": 2.0 ** -7 * max(1.0, ref.abs().max().item()),
+            "rel_mean_err": (got.float() - ref).abs().mean().item() / mean_ref,
+            "control_rel_mean_err": (control.float() - ref).abs().mean().item() / mean_ref}
+
+
+def _gate_outputs(name: str, label: str, readings: dict) -> None:
+    """Each output within its own limits, and the K1-order control outside
+    the mean-error limit, or the gate could not see that fault."""
+    for out, r in readings.items():
+        where = f"{name} {label} {out}"
+        check(math.isfinite(r["max_abs_err"]) and r["max_abs_err"] <= r["tol"],
+              f"{where}: max abs err {r['max_abs_err']} above {r['tol']}")
+        check(r["rel_mean_err"] <= K2_MEAN_TOL,
+              f"{where}: mean abs err / mean |ref| {r['rel_mean_err']} above {K2_MEAN_TOL}")
+        check(r["control_rel_mean_err"] > K2_MEAN_TOL,
+              f"{where}: the K1-order control {r['control_rel_mean_err']} stays within "
+              f"{K2_MEAN_TOL}")
+
+
+def phase_kernel_k2(gen, report) -> None:
+    """K2f and K2b against their plain versions on folded (N*H, L, hd)
+    q, k, v (and dO), bf16, at every K2 shape, each output gated on its own
+    with K1's order as the control."""
+    import torch.nn.functional as F
+
+    from cross_scale_mae_torch.ops.attention import (
+        _mha_bwd_cuda,
+        _mha_fwd_cuda,
+        mha_folded_bwd_reference,
+        mha_folded_reference,
+    )
+
+    for label, (n, l, h, hd) in K2_SHAPES.items():
+        bh = n * h
+        bufs = _buffers(gen, 4 * bh * l * hd * 2, lambda g: tuple(
+            torch.randn(bh, l, hd, device="cuda", generator=g).bfloat16() for _ in range(4)))
+        q, k, v, do = bufs[0]
+
+        def heads(x):
+            # The folded buffers seen as (N, H, L, hd), a free view: the
+            # layout SDPA's fused kernels take.
+            return [t.view(n, h, l, hd) for t in x]
+
+        got, grads = _mha_fwd_cuda(q, k, v), _mha_bwd_cuda(q, k, v, do)
+        torch.cuda.synchronize()
+        control, control_grads = _k1_order(q, k, v, do, h)
+        fwd = {"out": _output_errors(got, mha_folded_reference(q, k, v), control)}
+        bwd = {name: _output_errors(a, r, c) for name, a, r, c in zip(
+            ("dq", "dk", "dv"), grads, mha_folded_bwd_reference(q, k, v, do), control_grads)}
+        _gate_outputs("mha_fwd", label, fwd)
+        _gate_outputs("mha_bwd", label, bwd)
+        check(all(torch.equal(a, b) for a, b in zip(_mha_bwd_cuda(q, k, v, do), grads)),
+              f"mha_bwd {label}: a second launch gave other bits")
+        del got, grads, control, control_grads
+
+        bound, bound_by = mha_bound_ms(n, l, h, hd, 2)
+        report("mha_fwd", label, {
+            "shape": [n, l, h, hd], "max_abs_err": fwd["out"]["max_abs_err"], "outputs": fwd,
+            "kernel_ms": time_ms(lambda x: _mha_fwd_cuda(*x[:3]), bufs),
+            "plain_ms": time_ms(lambda x: mha_folded_reference(*x[:3]), bufs),
+            "library_ms": time_ms(lambda x: F.scaled_dot_product_attention(*heads(x[:3])), bufs),
+            "bound_ms": bound, "bound_by": bound_by,
+        })
+        # The library yardstick: scaled_dot_product_attention's backward
+        # through autograd, on graphs built before the timing.
+        graphs = []
+        for x in bufs:
+            leaves = [t.detach().requires_grad_(True) for t in x[:3]]
+            graphs.append((F.scaled_dot_product_attention(*heads(leaves)), leaves,
+                           heads(x[3:])[0]))
+        bound, bound_by = mha_bwd_bound_ms(n, l, h, hd, 2)
+        report("mha_bwd", label, {
+            "shape": [n, l, h, hd], "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+            "outputs": bwd,
+            "kernel_ms": time_ms(lambda x: _mha_bwd_cuda(*x), bufs),
+            "plain_ms": time_ms(lambda x: mha_folded_bwd_reference(*x), bufs),
+            "library_ms": time_ms(lambda g: torch.autograd.grad(
+                g[0], g[1], g[2], retain_graph=True), graphs),
+            "bound_ms": bound, "bound_by": bound_by,
+        })
+        del bufs, graphs
 
 
 def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:
@@ -362,19 +529,25 @@ def phase_serving(card: str) -> int:
     return launches
 
 
-def _kernel_ms_by_kind(prof) -> dict:
-    """Device ms by kernel kind from a torch.profiler run."""
-    kinds = {"mha3_fwd": 0.0, "mha3_bwd": 0.0, "matmul": 0.0, "other": 0.0}
+MATMUL_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+K1_KINDS = (("mha3_fwd", ("mha3_fwd",)), ("mha3_bwd", ("mha3_bwd",)),
+            ("matmul", MATMUL_NAMES))
+# The finetune step's: copy kernels (strided copies and stacks) hold the K2
+# layout's fold/unfold transposes and the dtype casts.
+K2_KINDS = (("mha_fwd", ("mha_fwd_kernel",)), ("mha_bwd", ("mha_bwd_kernel",)),
+            ("matmul", MATMUL_NAMES), ("copies", ("copy", "catarray")))
+
+
+def _kernel_ms_by_kind(prof, rules=K1_KINDS) -> dict:
+    """Device ms by kernel kind from a torch.profiler run: the first rule
+    whose name fragments a kernel's name holds, else "other"."""
+    kinds = {name: 0.0 for name, _ in rules}
+    kinds["other"] = 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.key.lower()
-        if "mha3_fwd" in name or "mha3_bwd" in name:
-            kind = "mha3_fwd" if "mha3_fwd" in name else "mha3_bwd"
-        elif any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
-            kind = "matmul"
-        else:
-            kind = "other"
+        kind = next((k for k, frags in rules if any(f in name for f in frags)), "other")
         kinds[kind] += e.self_device_time_total / 1e3
     return kinds
 
@@ -603,6 +776,234 @@ def phase_train(card: str) -> tuple[int, int]:
     return fwd, bwd
 
 
+def _ft_argv(tmp: str, impl: str, images: int, steps: int):
+    from cross_scale_mae_torch.cli.finetune import get_args_parser
+
+    return get_args_parser().parse_args([
+        "--model", "vit_large_patch16", "--input_size", "64", "--patch_size", "8",
+        "--nb_classes", "62", "--batch_size", str(FT_BATCH), "--synthetic_len", str(images),
+        "--compute_dtype", "bfloat16", "--attention_impl", impl, "--gelu", "tanh",
+        "--drop_path", "0.1", "--smoothing", "0.1", "--layer_decay", "0.75",
+        "--lr", str(FT_LR), "--warmup_epochs", "0", "--epochs", "100000",
+        "--eval_interval", "100000", "--max_steps", str(steps), "--log_interval", "5",
+        "--seed", "0", "--device", "cuda", "--output_dir", tmp])
+
+
+def _ft_leaf_grads(run, draws, bwd=None) -> tuple[float, dict]:
+    """One finetune batch's loss and every parameter's gradient by tree
+    path, with no optimizer update; ``bwd`` stands in for K2b's wrapper."""
+    from cross_scale_mae_torch.data.datasets import DATASET_STATS
+    from cross_scale_mae_torch.ops import attention
+    from cross_scale_mae_torch.ops.augment import make_finetune_augment
+    from cross_scale_mae_torch.train.classify import make_classify_loss_fn
+    from cross_scale_mae_torch.train.state import tree_items
+
+    augment = make_finetune_augment(*DATASET_STATS["synthetic"], run.cfg.input_size,
+                                    dtype=run.cfg.compute_dtype)
+    loss_fn = make_classify_loss_fn(run.cfg, run.tcfg, augment)
+    kernel_bwd = attention._mha_bwd_cuda
+    attention._mha_bwd_cuda = bwd or kernel_bwd
+    try:
+        loss, _ = loss_fn(run.state.params, run.state.model_state, run.images[:FT_BATCH],
+                          run.labels[:FT_BATCH], draws)
+        loss.backward()
+    finally:
+        attention._mha_bwd_cuda = kernel_bwd
+    grads = {}
+    for path, p in tree_items(run.state.params):
+        grads["/".join(map(str, path))] = torch.zeros_like(p) if p.grad is None else p.grad
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _k2_bwd_ds_rounded(q, k, v, do):
+    """The control of the direct-leaf gate: ``mha_folded_bwd_reference``
+    with dS rounded to the input dtype before dQ and dK, K1's rounding,
+    which K2 must not have."""
+    from cross_scale_mae_torch.ops.attention import _folded_probs
+
+    q32, k32, v32, g = q.float(), k.float(), v.float(), do.float()
+    p = _folded_probs(q32, k32)
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, v32.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * (q.shape[-1] ** -0.5))
+    ds = ds.to(q.dtype).float()
+    return (torch.matmul(ds, k32).to(q.dtype), torch.matmul(ds.transpose(-1, -2), q32).to(q.dtype),
+            dv.to(q.dtype))
+
+
+def _k2_dv_head0_zeroed(kernel_bwd, num_heads: int):
+    """The control of the every-leaf gate: K2b with head 0's dV zeroed, a
+    fault confined to one head's columns of every block's qkv gradient."""
+    def bwd(q, k, v, do):
+        dq, dk, dv = kernel_bwd(q, k, v, do)
+        dv.view(-1, num_heads, *dv.shape[1:])[:, 0] = 0
+        return dq, dk, dv
+    return bwd
+
+
+def _fold_unfold_ms(n: int, l: int, h: int, hd: int, reps: int = 20) -> float:
+    """Device ms of one block's K2 layout copies at the finetune shape,
+    timed alone: the forward folds of q, k, v and the unfold of the output,
+    and the backward's dO fold and the stack of dq, dk, dv into the qkv
+    layout (the unbind's backward)."""
+    from cross_scale_mae_torch.ops.attention import _fold, _unfold
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn(n, l, 3 * h * hd, device="cuda", generator=gen).bfloat16()
+    out = torch.randn(n * h, l, hd, device="cuda", generator=gen).bfloat16()
+    do = torch.randn(n, l, h * hd, device="cuda", generator=gen).bfloat16()
+
+    def copies(_):
+        folded = [_fold(t) for t in qkv.reshape(n, l, 3, h, hd).unbind(2)]
+        _unfold(out, n, h).reshape(n, l, h * hd)
+        do.reshape(n, l, h, hd).transpose(1, 2).reshape(n * h, l, hd)
+        torch.stack([_unfold(t, n, h) for t in folded], dim=2)
+
+    return time_ms(copies, [None], reps)
+
+
+def phase_finetune(card: str) -> tuple[int, int]:
+    """Finetune ViT-L through ``cli/finetune.main`` and evaluate; returns
+    the K2 kernels' (forward, backward) launches during those runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cross_scale_mae_torch.cli.finetune import build_run
+    from cross_scale_mae_torch.cli.finetune import main as finetune_main
+    from cross_scale_mae_torch.ops.attention import _mha_bwd_cuda, mha, mha_folded_bwd_reference, mha_v3
+    from cross_scale_mae_torch.train.state import tree_leaves
+    from cross_scale_mae_torch.utils.flops import mfu, vit_train_flops_per_image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mha.launches = mha.bwd_launches = mha_v3.launches = mha_v3.bwd_launches = 0
+        result = finetune_main(_ft_argv(tmp, "pallas", FT_SYNTHETIC, FT_STEPS))
+        repeated = finetune_main(_ft_argv(tmp, "pallas", FT_BATCH, FT_REPEAT_STEPS))
+        fwd, bwd = mha.launches, mha.bwd_launches
+        check(mha_v3.launches == mha_v3.bwd_launches == 0, "finetuning launched the K1 kernels")
+        steps = result["steps"] + repeated["steps"]
+        eval_batches = result["eval_batches"] + repeated["eval_batches"]
+        check(result["steps"] == FT_STEPS and repeated["steps"] == FT_REPEAT_STEPS,
+              f"steps {result['steps']}, {repeated['steps']}")
+        check(result["eval_batches"] == 2 and repeated["eval_batches"] == 1,
+              f"eval batches {result['eval_batches']}, {repeated['eval_batches']}")
+        check(fwd == FT_ATTN * (steps + eval_batches) and bwd == FT_ATTN * steps,
+              f"K2 launches fwd {fwd}, bwd {bwd}: expected {FT_ATTN} x ({steps} steps + "
+              f"{eval_batches} eval batches) and {FT_ATTN} x {steps} steps")
+        losses = result["losses"] + repeated["losses"]
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"non-finite loss in {losses}")
+        rep = repeated["losses"]
+        check(rep[-1] < rep[0], f"loss did not fall on the repeated batch: {rep}")
+        # The eval set is a quarter of the train set, at least 64 images.
+        for stats, n_eval in ((result["eval"], FT_SYNTHETIC // 4),
+                              (repeated["eval"], max(FT_BATCH // 4, 64))):
+            check(stats["n"] == n_eval == int(stats["cm"].sum()),
+                  f"confusion matrix sums to {stats['cm'].sum()}, eval count {n_eval}")
+            check(all(math.isfinite(stats[k]) for k in ("loss", "acc1", "acc5", "macro_f1",
+                                                         "micro_f1", "miou")),
+                  f"non-finite eval stats {stats}")
+        torch.cuda.empty_cache()
+
+        # The step from the same weights and draws through the kernels and
+        # through the plain attention ('xla' runs mha_v3_reference forward
+        # and its autograd backward).
+        runs = {impl: build_run(_ft_argv(tmp, impl, FT_BATCH, 1)) for impl in ("pallas", "xla")}
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(runs["pallas"].state.params), tree_leaves(runs["xla"].state.params))),
+            "the two runs did not start from the same weights")
+        kernel, plain = runs["pallas"], runs["xla"]
+        draws = kernel.draws(0)
+
+        def one_step(run, d):
+            return run.step_fn(run.state, run.images[:FT_BATCH], run.labels[:FT_BATCH], d)[1]
+
+        first = {}
+        for impl, run in runs.items():
+            f0, b0 = mha.launches, mha.bwd_launches
+            m = one_step(run, draws)
+            first[impl] = (float(m["loss"]), float(m["grad_norm"]))
+            launched = (mha.launches - f0, mha.bwd_launches - b0)
+            check(launched == ((FT_ATTN,) * 2 if impl == "pallas" else (0, 0)),
+                  f"{impl} step launched {launched}")
+        (kl, kg), (pl, pg) = first["pallas"], first["xla"]
+        # bf16 budget of [train]: the two paths round attention's P, dP and
+        # dS at other places in 24 blocks.
+        dl, dg = abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg)
+        check(dl <= 2.0 ** -7 and dg <= 2.0 ** -5,
+              f"kernel vs plain step: loss {kl} vs {pl} (rel {dl}), "
+              f"grad norm {kg} vs {pg} (rel {dg})")
+
+        def step_ms(run, reps=3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                one_step(run, run.draws(run.state.step))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        p1, k1, k2, p2 = step_ms(plain), step_ms(kernel), step_ms(kernel), step_ms(plain)
+        del plain, runs["xla"]
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                one_step(kernel, kernel.draws(kernel.state.step))
+            torch.cuda.synchronize()
+        kinds = _kernel_ms_by_kind(prof, K2_KINDS)
+        busy = sum(kinds.values())
+        fold_ms = FT_ATTN * _fold_unfold_ms(*K2_SHAPES["finetune"])
+        cfg = kernel.cfg
+        log("finetune_profile", card=json.dumps(card),
+            device_ms_per_step=json.dumps({k: v / reps for k, v in kinds.items()}),
+            fold_unfold_ms_per_step_timed_alone=fold_ms,
+            device_idle_share=(1 - busy / reps / ((k1 + k2) / 2)) if busy else "not measured")
+
+        del kernel, runs
+        torch.cuda.empty_cache()
+        # Every parameter's gradient of one batch through K2b, through its
+        # plain version (same forward kernel), through the two controls and
+        # through the plain attention path, from the same weights and draws.
+        fresh = {impl: build_run(_ft_argv(tmp, impl, FT_BATCH, 1)) for impl in ("pallas", "xla")}
+        d0 = fresh["pallas"].draws(0)[0]
+        ref = _ft_leaf_grads(fresh["pallas"], d0, mha_folded_bwd_reference)[1]
+        gaps = {name: _rel_gaps(_ft_leaf_grads(fresh[impl], d0, bwd)[1], ref)
+                for name, impl, bwd in (
+                    ("kernel", "pallas", None),
+                    ("control_ds_bf16", "pallas", _k2_bwd_ds_rounded),
+                    ("control_dv_head0_zeroed", "pallas",
+                     _k2_dv_head0_zeroed(_mha_bwd_cuda, cfg.num_heads)),
+                    ("xla_path", "xla", None))}
+        del ref, fresh
+        direct = f"blocks/{cfg.depth - 1}/attn/qkv/kernel"
+        readings = {name: {"direct": g[direct], "worst": max((v, k) for k, v in g.items()),
+                           "least_qkv": min((v, k) for k, v in g.items()
+                                            if k.endswith("attn/qkv/kernel"))}
+                    for name, g in gaps.items()}
+        log("finetune_grads", card=json.dumps(card), leaves=len(gaps["kernel"]),
+            direct_leaf=direct, direct_tol=FT_DIRECT_TOL, leaf_tol=FT_LEAF_TOL,
+            **{name: json.dumps(r) for name, r in readings.items()})
+
+    ms = result["steady_ms_per_step"]
+    imgs_per_s = FT_BATCH / (ms / 1e3)
+    flops = vit_train_flops_per_image(cfg)
+    log("finetune", card=json.dumps(card), steps=result["steps"], batch=FT_BATCH,
+        losses=json.dumps(result["losses"]), repeated_batch_losses=json.dumps(rep),
+        eval=json.dumps({k: v for k, v in result["eval"].items() if k != "cm"}),
+        launches_fwd=fwd, launches_bwd=bwd, ms_per_step=ms, imgs_per_s=imgs_per_s,
+        train_flops_per_image=flops, mfu=mfu(imgs_per_s, flops),
+        kernel_vs_plain_loss=json.dumps([kl, pl]), kernel_vs_plain_grad_norm=json.dumps([kg, pg]),
+        kernel_step_ms=json.dumps([k1, k2]), plain_step_ms=json.dumps([p1, p2]))
+    sound = readings["kernel"]
+    check(sound["direct"] <= FT_DIRECT_TOL and sound["worst"][0] <= FT_LEAF_TOL,
+          f"K2b vs its plain version in the step: {sound}, limits {FT_DIRECT_TOL} "
+          f"({direct}) and {FT_LEAF_TOL} (every leaf)")
+    # Each control must trip its gate, or the gate could not see that fault.
+    check(readings["control_ds_bf16"]["direct"] > FT_DIRECT_TOL,
+          f"dS rounded to bf16 stays within {FT_DIRECT_TOL} at {direct}")
+    check(readings["control_dv_head0_zeroed"]["least_qkv"][0] > FT_LEAF_TOL,
+          f"head 0's dV zeroed leaves a block's qkv kernel within {FT_LEAF_TOL}")
+    return fwd, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -612,13 +1013,17 @@ def main() -> int:
     phase_build()
     rows = phase_kernel(card)
     # Each path is driven with the counts set to 0 just before it and read
-    # just after it: serving (forward only), then training.
+    # just after it: serving (forward only), pretraining, then finetuning.
     served = phase_serving(card)
     train_fwd, train_bwd = phase_train(card)
+    ft_fwd, ft_bwd = phase_finetune(card)
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd},
-               "mha3_bwd": {"serving": 0, "train": train_bwd}}
+               "mha3_bwd": {"serving": 0, "train": train_bwd},
+               "mha_fwd": {"finetune": ft_fwd}, "mha_bwd": {"finetune": ft_bwd}}
     replaces = {"mha3_fwd": "cross_scale_mae_tpu/ops/attention.py:326",
-                "mha3_bwd": "cross_scale_mae_tpu/ops/attention.py:355"}
+                "mha3_bwd": "cross_scale_mae_tpu/ops/attention.py:355",
+                "mha_fwd": "cross_scale_mae_tpu/ops/attention.py:68",
+                "mha_bwd": "cross_scale_mae_tpu/ops/attention.py:33"}
     kernels = []
     for name, line in replaces.items():
         case = REPORTED[name]

@@ -31,11 +31,10 @@ import os
 import time
 from typing import Any, Callable
 
-import numpy as np
 import torch
 
 from cross_scale_mae_torch.configs import MAEConfig, TrainConfig, get_mae_config
-from cross_scale_mae_torch.data.datasets import DATASET_STATS
+from cross_scale_mae_torch.data.datasets import DATASET_STATS, synthetic_images
 from cross_scale_mae_torch.losses.recon import RECON_LOSSES
 from cross_scale_mae_torch.models.mae import mae_init
 from cross_scale_mae_torch.ops.augment import make_pretrain_augment
@@ -47,7 +46,7 @@ from cross_scale_mae_torch.train.pretrain import (
     sample_pretrain_draws,
 )
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
-from cross_scale_mae_torch.train.state import TrainState, tree_leaves
+from cross_scale_mae_torch.train.state import TrainState, finite_loss, tree_leaves
 from cross_scale_mae_torch.utils.checkpoint import save_params_npz
 from cross_scale_mae_torch.utils.params import params_to_jax
 
@@ -122,17 +121,6 @@ def refuse_unported(args) -> None:
             raise SystemExit(
                 f"{name}: the fault-injection knobs are not ported yet; see "
                 "ROADMAP.md (queue 1 item 16)")
-
-
-def synthetic_images(n: int, canvas: int, channels: int, seed: int,
-                     device: torch.device) -> torch.Tensor:
-    """(n, canvas, canvas, C) uint8 on ``device``: image i is the JAX
-    package's ``SyntheticDataset(n, canvas, seed=seed).load(i)``."""
-    imgs = np.empty((n, canvas, canvas, channels), np.uint8)
-    for i in range(n):
-        rng = np.random.default_rng(seed * 1_000_003 + i)
-        imgs[i] = rng.integers(0, 256, (canvas, canvas, channels), np.uint8)
-    return torch.from_numpy(imgs).to(device)
 
 
 @dataclasses.dataclass
@@ -212,7 +200,7 @@ def main(args) -> dict[str, Any]:
             # NaN abort (engine_pretrain.py:57-59) one step behind, so the
             # host does not wait for the step it just enqueued.
             if prev_loss is not None:
-                losses.append(_finite(prev_loss))
+                losses.append(finite_loss(prev_loss))
             prev_loss = metrics["loss"]
             total += 1
             if total == 1 and run.device.type == "cuda":
@@ -228,7 +216,7 @@ def main(args) -> dict[str, Any]:
         if args.max_steps and total >= args.max_steps:
             break
     if prev_loss is not None:
-        losses.append(_finite(prev_loss))
+        losses.append(finite_loss(prev_loss))
     steady_ms = None
     if run.device.type == "cuda":
         torch.cuda.synchronize(run.device)
@@ -240,13 +228,6 @@ def main(args) -> dict[str, Any]:
     print(f"training done: {total} steps; params written to {npz}", flush=True)
     return {"steps": total, "losses": losses, "last_metrics": last_metrics,
             "steady_ms_per_step": steady_ms, "npz": npz}
-
-
-def _finite(loss: torch.Tensor) -> float:
-    value = float(loss)
-    if not np.isfinite(value):
-        raise FloatingPointError(f"Loss is {value}, stopping training")
-    return value
 
 
 if __name__ == "__main__":

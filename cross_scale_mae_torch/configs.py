@@ -1,9 +1,10 @@
 """Typed model and training configs and the string-name registry.
 
-A copy of ``MAEConfig``, ``get_mae_config`` and ``TrainConfig`` from
-``cross_scale_mae_tpu/configs.py`` (the port may not import the JAX
-package). The JSON written by either package's ``to_json`` reads back in the
-other: the field sets are equal and a test holds them so.
+A copy of ``MAEConfig``, ``get_mae_config``, ``ViTClassifierConfig``,
+``get_vit_config`` and ``TrainConfig`` from ``cross_scale_mae_tpu/configs.py``
+(the port may not import the JAX package). The JSON written by either
+package's ``to_json`` reads back in the other: the field sets are equal and a
+test holds them so.
 """
 
 from __future__ import annotations
@@ -187,6 +188,74 @@ def get_mae_config(name: str, **overrides: Any) -> MAEConfig:
 
 
 @dataclass(frozen=True)
+class ViTClassifierConfig:
+    """Downstream classifier (same fields and defaults as the JAX package's
+    ``ViTClassifierConfig``; reference: models_vit.py:17-99)."""
+
+    input_size: int = 224
+    input_channels: int = 3
+    patch_size: int = 16
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    num_classes: int = 1000
+    global_pool: bool = False
+    drop_path_rate: float = 0.0
+    # linprobe: frozen-affine BatchNorm before the head (main_linprobe.py:517-520)
+    use_bn_head: bool = False
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    attention_impl: str = "xla"
+    # Layout knobs, as in MAEConfig: the port runs one loop for every setting.
+    remat: bool = False
+    gelu: str = "tanh"
+    scan_blocks: bool = True
+    sequence_parallel: bool = False
+
+    @property
+    def grid_size(self) -> int:
+        if self.input_size % self.patch_size:
+            raise ValueError(
+                f"input_size {self.input_size} is not a multiple of "
+                f"patch_size {self.patch_size}")
+        return self.input_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size ** 2
+
+    def replace(self, **kw: Any) -> "ViTClassifierConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @classmethod
+    def from_json(cls, s: str) -> "ViTClassifierConfig":
+        d = json.loads(s)
+        d.setdefault("gelu", "exact")  # see MAEConfig.from_json
+        if d["gelu"] not in GELU_MODES:
+            raise ValueError(f"unknown gelu flavor {d['gelu']!r}")
+        d["sequence_parallel"] = False  # see MAEConfig.from_json
+        return cls(**d)
+
+
+_VIT_SIZES: Mapping[str, Mapping[str, int]] = {
+    # models_vit.py:63-99
+    "vit_base_patch16": dict(embed_dim=768, depth=12, num_heads=12, patch_size=16),
+    "vit_large_patch16": dict(embed_dim=1024, depth=24, num_heads=16, patch_size=16),
+    "vit_huge_patch14": dict(embed_dim=1280, depth=32, num_heads=16, patch_size=14),
+}
+
+
+def get_vit_config(name: str, **overrides: Any) -> ViTClassifierConfig:
+    if name not in _VIT_SIZES:
+        raise ValueError(f"unknown classifier {name!r}; have {sorted(_VIT_SIZES)}")
+    return ViTClassifierConfig(**{**_VIT_SIZES[name], **overrides})
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Optimizer, schedule and runtime knobs (same fields and defaults as the
     JAX package's ``TrainConfig``)."""
@@ -202,7 +271,7 @@ class TrainConfig:
     adam_b1: float = 0.9
     adam_b2: float = 0.95
     clip_grad: float | None = None
-    layer_decay: float | None = None
+    layer_decay: float | None = None  # finetune: 0.75 (main_finetune.py:176)
     optimizer: str = "adamw"          # "adamw" | "lars" | "sgd"
     lars_momentum: float = 0.9
     lars_trust_coefficient: float = 0.001

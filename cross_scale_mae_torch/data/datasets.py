@@ -1,7 +1,13 @@
 """Dataset normalization statistics (a copy of the constants of
-``cross_scale_mae_tpu/data/datasets.py``; a test holds the two equal)."""
+``cross_scale_mae_tpu/data/datasets.py``; a test holds the two equal) and
+the synthetic dataset, made on the host as the JAX package's
+``SyntheticDataset`` makes it and held on the device. Real datasets and the
+loader are not ported yet (ROADMAP.md, queue 1 item 10)."""
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 # Reference stats (util/datasets.py:167-168, 215-216, 322-352, 490-519).
 FMOW_RGB_MEAN = (0.43392888, 0.43578541, 0.40744025)
@@ -48,3 +54,26 @@ def normalize_on_device_for(dataset_type: str) -> bool:
     if dataset_type not in _NORMALIZE_ON_DEVICE:
         raise ValueError(f"Invalid dataset type: {dataset_type}")
     return _NORMALIZE_ON_DEVICE[dataset_type]
+
+
+def canvas_size(input_size: int, canvas_scale: float) -> int:
+    """The host canvas side for an input size (``build_dataset``'s rule)."""
+    return int(round(input_size * canvas_scale))
+
+
+def synthetic_images(n: int, canvas: int, channels: int, seed: int,
+                     device: torch.device | str) -> torch.Tensor:
+    """(n, canvas, canvas, C) uint8 on ``device``: image i is the JAX
+    package's ``SyntheticDataset(n, canvas, seed=seed).load(i)[0]``."""
+    imgs = np.empty((n, canvas, canvas, channels), np.uint8)
+    for i in range(n):
+        rng = np.random.default_rng(seed * 1_000_003 + i)
+        imgs[i] = rng.integers(0, 256, (canvas, canvas, channels), np.uint8)
+    return torch.from_numpy(imgs).to(device)
+
+
+def synthetic_labels(n: int, num_classes: int, seed: int,
+                     device: torch.device | str) -> torch.Tensor:
+    """(n,) int64 labels on ``device``: the JAX ``SyntheticDataset``'s."""
+    labels = np.random.default_rng(seed).integers(0, num_classes, n).astype(np.int32)
+    return torch.from_numpy(labels).long().to(device)

@@ -23,15 +23,14 @@ import torch
 import torch.nn.functional as F
 
 from cross_scale_mae_torch.configs import GELU_MODES
-from cross_scale_mae_torch.ops.attention import mha_v3, mha_v3_reference
+from cross_scale_mae_torch.ops.attention import mha, mha_folded, mha_v3, mha_v3_reference
 from cross_scale_mae_torch.ops.numerics import accum_dtype, at_least_f32
 
 Params = dict[str, Any]
 
-# attention_impl values this slice runs. The JAX package's others (the v1
-# kernel 'pallas'/'pallas_t' and the variant attentions) are queued in
-# ROADMAP.md.
-ATTENTION_IMPLS = ("xla", "pallas_v3")
+# attention_impl values the port runs. The JAX package's variant attentions
+# are queued in ROADMAP.md.
+ATTENTION_IMPLS = ("xla", "pallas_v3", "pallas", "pallas_t")
 
 
 def xavier_uniform(gen: torch.Generator, shape: tuple[int, ...], fan_in: int,
@@ -82,19 +81,46 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _attention_pallas_t(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The K2 kernels with the head transpose in the projections
+    (layers.py:115-143): the qkv einsum emits head-major (N, 3, H, L, hd)
+    output, the bias added in the compute dtype, and the proj einsum
+    consumes (N, H, L, hd) back."""
+    n, l, d = x.shape
+    hd = d // num_heads
+    wq = p["qkv"]["kernel"].to(x.dtype).reshape(d, 3, num_heads, hd)
+    bq = p["qkv"]["bias"].to(x.dtype).reshape(3, num_heads, hd)
+    qkv = torch.einsum("nld,dshk->nshlk", x, wq) + bq[None, :, :, None, :]
+    q, k, v = (qkv[:, i].reshape(n * num_heads, l, hd) for i in range(3))
+    out = mha_folded(q, k, v).reshape(n, num_heads, l, hd)
+    wp = p["proj"]["kernel"].to(x.dtype).reshape(num_heads, hd, d)
+    return torch.einsum("nhlk,hkd->nld", out, wp) + p["proj"]["bias"].to(x.dtype)
+
+
 def attention(p: Params, x: torch.Tensor, num_heads: int,
               impl: str = "xla") -> torch.Tensor:
     """Multi-head self-attention with fused qkv (timm Attention layout).
 
-    'pallas_v3' runs the Hopper kernel on a CUDA tensor (``ops/attention.py``
-    ``mha_v3``); 'xla' runs its plain PyTorch version, which computes the
-    JAX package's einsum attention in the same op order."""
+    'pallas_v3' runs the K1 kernels on the raw qkv layout and 'pallas' and
+    'pallas_t' the K2 kernels on head-folded q, k, v (``ops/attention.py``);
+    on a CPU tensor each runs its kernels' plain versions. 'xla' runs the
+    plain v3 version, which computes the JAX package's einsum attention in
+    the same op order."""
     if impl not in ATTENTION_IMPLS:
         raise NotImplementedError(
             f"attention_impl {impl!r} is not ported yet (this package runs "
             f"{ATTENTION_IMPLS}); see ROADMAP.md for the queue")
-    mha = mha_v3 if impl == "pallas_v3" else mha_v3_reference
-    return linear(p["proj"], mha(linear(p["qkv"], x), num_heads))
+    if impl == "pallas_t":
+        return _attention_pallas_t(p, x, num_heads)
+    qkv = linear(p["qkv"], x)
+    if impl == "pallas":
+        n, l, d = x.shape
+        # JAX slices qkv[:, :, i]; unbind is the same views, and its
+        # backward stacks the three gradients in one copy.
+        q, k, v = qkv.reshape(n, l, 3, num_heads, d // num_heads).unbind(2)
+        return linear(p["proj"], mha(q, k, v).reshape(n, l, d))
+    attend = mha_v3 if impl == "pallas_v3" else mha_v3_reference
+    return linear(p["proj"], attend(qkv, num_heads))
 
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)

@@ -1,19 +1,27 @@
-"""Multi-head attention on the raw qkv projection layout.
+"""Multi-head attention kernels and their plain PyTorch versions.
 
-Counterpart of the v3 path of ``cross_scale_mae_tpu/ops/attention.py``:
-``mha_v3(qkv, num_heads)`` takes the qkv projection's own (N, L, 3D) output
-and returns (N, L, D), with head h's q, k and v in the columns
-[h*hd, (h+1)*hd) of each D-wide third. It is a ``torch.autograd.Function``
-that saves only qkv and recomputes the probabilities in its backward, as the
-JAX custom VJP ``pallas_mha_v3`` does.
+Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
 
-* On a CUDA tensor the forward launches the hand-written Hopper kernel
-  ``csrc/mha3_fwd.cu`` (the port of the Pallas ``_mha3_kernel``) and the
-  backward ``csrc/mha3_bwd.cu`` (the port of ``_mha3_bwd_kernel``), or
-  raise. ``mha_v3.launches`` and ``mha_v3.bwd_launches`` count the launches.
-* On a CPU tensor they run the plain PyTorch versions with the kernels' op
-  order: ``mha_v3_reference`` (fp32 logits, fp32 softmax, probabilities
-  rounded to the input dtype, fp32 PV sum) and ``mha3_bwd_reference``.
+* v3 (K1): ``mha_v3(qkv, num_heads)`` takes the qkv projection's own
+  (N, L, 3D) output and returns (N, L, D), with head h's q, k and v in the
+  columns [h*hd, (h+1)*hd) of each D-wide third. A ``torch.autograd.Function``
+  that saves only qkv and recomputes the probabilities in its backward, as
+  the JAX custom VJP ``pallas_mha_v3`` does. On a CUDA tensor the forward
+  launches ``csrc/mha3_fwd.cu`` (the port of ``_mha3_kernel``) and the
+  backward ``csrc/mha3_bwd.cu`` (``_mha3_bwd_kernel``), counted by
+  ``mha_v3.launches`` and ``mha_v3.bwd_launches``; on a CPU tensor the plain
+  versions ``mha_v3_reference`` (fp32 logits and softmax, P rounded to the
+  input dtype, fp32 PV sum) and ``mha3_bwd_reference``.
+* v1 (K2): ``mha(q, k, v)`` (also ``pallas_mha``) on (N, L, H, hd) folds the
+  heads into (N*H, L, hd) copies (``_fold``), runs ``_MhaFolded``, which
+  saves q, k and v as ``_mha_folded_fwd`` does, and unfolds the output. On a
+  CUDA tensor ``csrc/mha_fwd.cu`` (``_mha_kernel``) and ``csrc/mha_bwd.cu``
+  (``_mha_bwd_kernel``), counted by ``mha.launches`` and
+  ``mha.bwd_launches``; on a CPU tensor ``mha_folded_reference`` and
+  ``mha_folded_bwd_reference``, with every operand in fp32 and nothing
+  rounded before the output.
+
+A CUDA tensor goes to a kernel or raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 
 from cross_scale_mae_torch.ops.numerics import accum_dtype
 
-# Head widths the kernel is instantiated for (csrc/mha3_fwd.cu `dispatch`):
+# Head widths the kernels are instantiated for (csrc/mha_common.cuh `dispatch`):
 # those of every ViT size in configs.VIT_SIZES, encoder and decoder.
 KERNEL_HEAD_DIMS = (16, 32, 64, 80)
 # Dynamic shared memory one block may use on an H100 (sm_90).
@@ -73,9 +81,9 @@ def mha_v3_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def mha3_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one kernel block (csrc `smem_bytes`): k_h and
-    v_h in the input dtype, rows padded by 16 bytes, and one fp32 query row
-    and score row per warp."""
+    """Dynamic shared memory of one forward block, K1f's and K2f's
+    (csrc/mha_common.cuh `fwd_smem_bytes`): k and v in the input dtype,
+    rows padded by 16 bytes, and one fp32 query row and score row per warp."""
     item = torch.empty((), dtype=dtype).element_size()
     pitch = head_dim + 16 // item
     warps = _THREADS // 32
@@ -155,10 +163,10 @@ def mha3_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
 
 
 def mha3_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one backward block (csrc/mha3_bwd.cu
-    `smem_bytes`): two (L, hd) tiles in the input dtype, rows padded by 16
-    bytes; max, sum and row per query row; per warp two fp32 head rows and
-    two fp32 rows of length L."""
+    """Dynamic shared memory of one backward block, K1b's and K2b's
+    (csrc/mha_common.cuh `bwd_smem_bytes`): two (L, hd) tiles in the input
+    dtype, rows padded by 16 bytes; max, sum and row per query row; per warp
+    two fp32 head rows and two fp32 rows of length L."""
     item = torch.empty((), dtype=dtype).element_size()
     pitch = head_dim + 16 // item
     warps = _THREADS // 32
@@ -236,3 +244,178 @@ def mha_v3(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 mha_v3.launches = 0
 mha_v3.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v1 (K2): head-folded q, k, v, the layout of ``attention_impl='pallas'`` and
+# ``'pallas_t'``. Every operand is read as fp32 and only the outputs are
+# rounded, once, to the input dtype (attention.py:33-86).
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """(N, L, H, hd) -> (N*H, L, hd), a contiguous copy."""
+    n, l, h, hd = x.shape
+    return x.transpose(1, 2).reshape(n * h, l, hd)
+
+
+def _unfold(x: torch.Tensor, n: int, h: int) -> torch.Tensor:
+    """(N*H, L, hd) -> (N, L, H, hd), a view."""
+    _, l, hd = x.shape
+    return x.reshape(n, h, l, hd).transpose(1, 2)
+
+
+def _folded_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """fp32 softmax of the fp32 logits, scaled after the dot."""
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    return _softmax_fp32(logits)
+
+
+def mha_folded_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``_mha_kernel``: (BH, L, hd) q, k, v ->
+    (BH, L, hd); fp32 operands, logits, softmax and PV sum, P not rounded."""
+    p = _folded_probs(q.float(), k.float())
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def mha_folded_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             do: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of ``_mha_bwd_kernel``: q, k, v, dO (BH, L, hd)
+    -> (dq, dk, dv), in its op order with every operand in fp32: P
+    recomputed; dV = P^T dO; dP = dO V^T; row = sum(dP * P); dS = P (dP -
+    row) scale, not rounded; dQ = dS K; dK = dS^T Q."""
+    q32, k32, v32, g = q.float(), k.float(), v.float(), do.float()
+    p = _folded_probs(q32, k32)
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, v32.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * (q.shape[-1] ** -0.5)
+    dq = torch.matmul(ds, k32)
+    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check_folded(tensors: tuple[torch.Tensor, ...], smem_bytes) -> tuple[int, int, int]:
+    """Raise on what the K2 kernels do not take; returns (BH, L, hd)."""
+    first = tensors[0]
+    if first.dim() != 3:
+        raise ValueError(f"q, k and v must be (N*H, L, hd), got shape {tuple(first.shape)}")
+    for t in tensors:
+        if t.shape != first.shape or t.dtype != first.dtype or t.device != first.device:
+            raise ValueError(
+                f"q, k, v and dO must share shape, dtype and device, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device} beside {first.dtype} "
+                f"{tuple(first.shape)} on {first.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("mha kernels need contiguous, 16-byte aligned inputs")
+    bh, l, hd = first.shape
+    if first.dtype not in _DTYPE_CODES:
+        raise TypeError(f"mha kernel takes bfloat16 or float32, got {first.dtype}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"mha kernel is built for head_dim in {KERNEL_HEAD_DIMS}, got {hd}")
+    smem = smem_bytes(l, hd, first.dtype)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"sequence length {l} needs {smem} bytes of shared memory per "
+            f"block, above the {MAX_SMEM_BYTES} an H100 block may use")
+    if bh >= 2 ** 31:
+        raise ValueError(f"grid of {bh} blocks is too large")
+    return bh, l, hd
+
+
+def _mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K2f: ``csrc/mha_fwd.cu``, on the forward body it shares with K1f
+    (:func:`mha3_smem_bytes`)."""
+    bh, l, hd = _check_folded((q, k, v), mha3_smem_bytes)
+    from cross_scale_mae_torch.ops.cuda_build import load_library
+
+    fn = load_library("mha_fwd").csmae_mha_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                 ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    if bh == 0 or l == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, l, hd,
+                 _DTYPE_CODES[q.dtype], hd ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"mha_fwd kernel launch failed: cudaError_t {err}")
+    mha.launches += 1
+    return out
+
+
+def _mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """K2b: ``csrc/mha_bwd.cu``, on the backward body it shares with K1b
+    (:func:`mha3_bwd_smem_bytes`)."""
+    bh, l, hd = _check_folded((q, k, v, do), mha3_bwd_smem_bytes)
+    from cross_scale_mae_torch.ops.cuda_build import load_library
+
+    fn = load_library("mha_bwd").csmae_mha_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                 ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if bh == 0 or l == 0:
+        return dq, dk, dv
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), bh, l, hd, _DTYPE_CODES[q.dtype],
+                 hd ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"mha_bwd kernel launch failed: cudaError_t {err}")
+    mha.bwd_launches += 1
+    return dq, dk, dv
+
+
+def _mha_folded_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return mha_folded_reference(q, k, v)
+    return _mha_fwd_cuda(q, k, v)
+
+
+class _MhaFolded(torch.autograd.Function):
+    """K2f and K2b (CUDA) or their plain versions (CPU) behind one autograd
+    node that saves q, k and v (``_mha_folded_fwd``'s residuals)."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        return _mha_folded_fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return mha_folded_bwd_reference(q, k, v, do)
+        return _mha_bwd_cuda(q, k, v, do.contiguous())
+
+
+def mha_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(BH, L, hd) q, k, v -> (BH, L, hd), differentiable: the JAX package's
+    ``_mha_folded``. No autograd node when no gradient is needed."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mha runs on cuda or cpu tensors, got {q.device}")
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return _mha_folded_fwd(q, k, v)
+    if q.device.type == "cuda":
+        # Refuse before the forward what the backward kernel cannot take.
+        _check_folded((q, k, v), mha3_bwd_smem_bytes)
+    return _MhaFolded.apply(q, k, v)
+
+
+def pallas_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q, k, v (N, L, H, hd) -> (N, L, H, hd): softmax(QK^T/sqrt(hd))V per
+    head through the folded layout, differentiable. A CUDA tensor goes to
+    the Hopper kernels (``mha.launches`` and ``mha.bwd_launches`` count
+    their launches); a CPU tensor to the plain versions."""
+    n, _, h, _ = q.shape
+    return _unfold(mha_folded(_fold(q), _fold(k), _fold(v)), n, h)
+
+
+# The JAX package's ``mha`` picks interpret mode off the TPU; here the tensor's
+# device picks the kernel or the plain version, so the two names are one.
+mha = pallas_mha
+mha.launches = 0
+mha.bwd_launches = 0

@@ -1,10 +1,11 @@
 """Preprocessing on the device, uint8 batch -> model input (counterpart of
-``make_pretrain_augment`` and ``make_eval_preprocess`` in
-``cross_scale_mae_tpu/ops/augment.py``).
+``make_pretrain_augment``, ``make_finetune_augment`` and
+``make_eval_preprocess`` in ``cross_scale_mae_tpu/ops/augment.py``).
 
-The pretrain chain takes its random draws (flip flags, crop boxes) as
-arguments: ``train/pretrain.py::sample_pretrain_draws`` makes them, and a
-test can hand the JAX package's draws to both."""
+The train chains take their random draws (flip flags, crop boxes) as
+arguments: ``train/pretrain.py::sample_pretrain_draws`` and
+``train/classify.py::sample_finetune_draws`` make them, and a test can hand
+the JAX package's draws to both."""
 
 from __future__ import annotations
 
@@ -44,6 +45,42 @@ def make_pretrain_augment(
         x = normalize_images(batch_u8.to(tdtype) / 255.0, mean, std)
         x = random_flips(x, hflip, vflip)
         return random_resized_crop(x, boxes, input_size, "cubic")
+
+    return augment
+
+
+def make_finetune_augment(
+    mean: Sequence[float],
+    std: Sequence[float],
+    input_size: int,
+    *,
+    rot90: bool = False,
+    color_jitter: float | None = None,
+    aa: str | None = None,
+    reprob: float = 0.0,
+    dtype: str = "float32",
+) -> Callable[..., torch.Tensor]:
+    """Finetune train chain (augment.py:57-114) without its extras: uint8 ->
+    fp32, /255, per-sample horizontal and vertical flips, bicubic
+    RandomResizedCrop on the fast product path, then normalize (after the
+    crop, unlike the pretrain chain) and cast to ``dtype``. Returns
+    ``augment(batch_u8, hflip, vflip, boxes)``, boxes drawn on the batch's
+    canvas with ``PRETRAIN_CROP_SCALE``. RandAugment, color jitter,
+    random erasing and the NAIP rot90 are not ported yet and refuse."""
+    unported = {"rot90": rot90, "color_jitter": color_jitter, "aa": aa,
+                "reprob": reprob > 0}
+    for name, value in unported.items():
+        if value:
+            raise NotImplementedError(
+                f"finetune augmentation {name} is not ported yet; see ROADMAP.md "
+                "(queue 1 item 12)")
+    tdtype = getattr(torch, dtype)
+
+    def augment(batch_u8: torch.Tensor, hflip: torch.Tensor,
+                vflip: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        x = random_flips(batch_u8.to(torch.float32) / 255.0, hflip, vflip)
+        x = random_resized_crop(x, boxes, input_size, "cubic")
+        return normalize_images(x, mean, std).to(tdtype)
 
     return augment
 

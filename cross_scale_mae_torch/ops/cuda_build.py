@@ -3,8 +3,8 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, and loaded with ``ctypes``. Libraries go to
 ``build/cuda/`` beside the package (listed in ``.gitignore``), named by a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing is compiled when a module is imported: the
+of the source, the shared headers and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Nothing is compiled when a module is imported: the
 first kernel launch builds its library, or ``build_libraries`` builds them
 all up front, one ``nvcc`` process per source, all running together.
 """
@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# Every kernel of the package, by source name (csrc/<name>.cu).
+KERNELS = ("mha3_fwd", "mha3_bwd", "mha_fwd", "mha_bwd")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,8 +43,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the headers every
+    source may include (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

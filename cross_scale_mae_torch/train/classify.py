@@ -1,0 +1,158 @@
+"""The finetune step and the eval step of the downstream classifier
+(counterpart of ``cross_scale_mae_tpu/train/classify.py``; reference
+``engine_finetune.py:24-236``).
+
+The JAX step folds the step into one key and splits it into the augment,
+mixup and model (drop-path) draws. Here the draws are explicit: a
+:class:`FinetuneDraws` per microbatch, made by :func:`sample_finetune_draws`
+from a ``torch.Generator`` or, in a test, from the JAX package's keys.
+Gradient accumulation (``accum_iter``) is a Python loop over microbatches.
+Mixup and CutMix are not ported yet (ROADMAP.md, queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from cross_scale_mae_torch.configs import TrainConfig, ViTClassifierConfig
+from cross_scale_mae_torch.models.vit import drop_path_rates, vit_apply
+from cross_scale_mae_torch.ops.augment import PRETRAIN_CROP_SCALE
+from cross_scale_mae_torch.ops.image import sample_crop_boxes
+from cross_scale_mae_torch.train.mixup import smooth_one_hot, soft_cross_entropy
+from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_leaves
+
+
+@dataclasses.dataclass
+class FinetuneDraws:
+    """The random numbers of one (micro)batch of N samples."""
+
+    hflip: torch.Tensor                  # (N,) bool: augment's horizontal flips
+    vflip: torch.Tensor                  # (N,) bool: augment's vertical flips
+    crop_boxes: torch.Tensor             # (N, 4) RandomResizedCrop boxes on the canvas
+    drop_masks: Optional[torch.Tensor]   # (depth, N) bool drop-path keeps, or None
+
+
+def sample_finetune_draws(gen: torch.Generator, n: int, cfg: ViTClassifierConfig,
+                          canvas: int) -> FinetuneDraws:
+    """Draw what one step of ``n`` samples needs on ``gen``'s device, with
+    the JAX package's distributions: Bernoulli(0.5) flips, crop boxes from
+    four uniforms each on a ``canvas``-sized image, and Bernoulli(1 - rate)
+    drop-path keeps per block when ``drop_path_rate > 0``."""
+    dev = gen.device
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    hflip, vflip = uniform(n) < 0.5, uniform(n) < 0.5
+    boxes = sample_crop_boxes(uniform(4, n), canvas, canvas, PRETRAIN_CROP_SCALE)
+    masks = None
+    if cfg.drop_path_rate > 0:
+        keep = 1.0 - torch.from_numpy(drop_path_rates(cfg)).to(dev)
+        masks = uniform(cfg.depth, n) < keep[:, None]
+    return FinetuneDraws(hflip, vflip, boxes, masks)
+
+
+def make_classify_loss_fn(cfg: ViTClassifierConfig, tcfg: TrainConfig,
+                          augment: Callable | None = None):
+    """``loss_fn(params, model_state, imgs, labels, draws) -> (loss, (acc1,
+    new_model_state))``: augment, smoothed one-hot targets, the classifier
+    with drop-path, soft cross-entropy."""
+    if tcfg.mixup > 0 or tcfg.cutmix > 0 or tcfg.cutmix_minmax is not None:
+        raise NotImplementedError(
+            "mixup/cutmix is not ported yet; see ROADMAP.md (queue 1 item 12)")
+
+    def loss_fn(params, model_state, imgs, labels, draws: FinetuneDraws):
+        if augment is not None:
+            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes)
+        targets = smooth_one_hot(labels, cfg.num_classes, tcfg.label_smoothing)
+        logits, new_state = vit_apply(params, model_state, cfg, imgs, train=True,
+                                      drop_masks=draws.drop_masks)
+        acc1 = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
+        return soft_cross_entropy(logits, targets), (acc1.detach(), new_state)
+
+    return loss_fn
+
+
+def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
+                             schedule: Callable[[int], float],
+                             augment: Callable | None = None) -> Callable:
+    """Returns ``step(state, imgs, labels, draws) -> (state, metrics)``.
+
+    imgs: (B, H, W, C), raw uint8 when ``augment``
+    (``ops/augment.make_finetune_augment``) is given; B = accum_iter *
+    microbatch. draws: one :class:`FinetuneDraws` per microbatch (a single
+    one when accum_iter is 1). The params are updated in place. metrics
+    hold 0-d device tensors (``loss``, ``grad_norm``, ``acc1``) and the
+    step's ``lr``; nothing in the step waits on the device."""
+    loss_fn = make_classify_loss_fn(cfg, tcfg, augment)
+    accum = tcfg.accum_iter
+    if accum < 1:
+        raise ValueError(f"accum_iter must be >= 1, got {accum}")
+
+    def step(state: TrainState, imgs: torch.Tensor, labels: torch.Tensor,
+             draws: FinetuneDraws | Sequence[FinetuneDraws]):
+        draws = [draws] if isinstance(draws, FinetuneDraws) else list(draws)
+        if len(draws) != accum or imgs.shape[0] % accum:
+            raise ValueError(
+                f"batch of {imgs.shape[0]} with {len(draws)} draws does not split "
+                f"into accum_iter={accum} microbatches")
+        leaves = tree_leaves(state.params)
+        for p in leaves:
+            p.grad = None
+        micro = imgs.shape[0] // accum
+        model_state = state.model_state
+        loss, acc1 = 0.0, 0.0
+        for i, d in enumerate(draws):
+            part = slice(i * micro, (i + 1) * micro)
+            mb_loss, (mb_acc, model_state) = loss_fn(
+                state.params, model_state, imgs[part], labels[part], d)
+            mb_loss.backward()
+            loss, acc1 = loss + mb_loss.detach(), acc1 + mb_acc
+        # A parameter the objective does not reach gets a zero gradient, as in JAX.
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        if accum > 1:
+            torch._foreach_mul_(grads, 1.0 / accum)
+            loss, acc1 = loss / accum, acc1 / accum
+        metrics = dict(loss=loss, grad_norm=global_norm(grads), lr=schedule(state.step),
+                       acc1=acc1)
+        state.apply_gradients(grads, model_state)
+        for p in leaves:
+            p.grad = None
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(cfg: ViTClassifierConfig, preprocess: Callable | None = None) -> Callable:
+    """``step(params, model_state, imgs, labels, valid=None) -> dict``.
+
+    ``valid`` (B,) bool marks real samples of a batch padded to a fixed size.
+    Returns 0-d tensors ``loss``, ``acc1`` and ``acc5`` (means over the
+    valid rows, top-k with k = min(5, C)) and ``n`` (the valid count), the
+    (C, C) confusion matrix ``cm`` over valid rows (rows true, columns
+    predicted), and the fp32 ``logits``."""
+
+    @torch.no_grad()
+    def step(params, model_state, imgs, labels, valid=None):
+        if preprocess is not None:
+            imgs = preprocess(imgs)
+        logits, _ = vit_apply(params, model_state, cfg, imgs, train=False)
+        v = (torch.ones(labels.shape, device=logits.device) if valid is None
+             else valid.to(torch.float32))
+        n = torch.clamp(v.sum(), min=1.0)
+        per_loss = -torch.log_softmax(logits, dim=-1).gather(1, labels[:, None].long())[:, 0]
+        top1 = logits.argmax(dim=-1)
+        topk = logits.topk(min(5, cfg.num_classes), dim=-1).indices
+        correct1 = (top1 == labels).to(torch.float32)
+        correctk = (topk == labels[:, None]).any(dim=1).to(torch.float32)
+        oh_true = F.one_hot(labels.long(), cfg.num_classes).to(torch.float32)
+        oh_pred = F.one_hot(top1, cfg.num_classes).to(torch.float32)
+        cm = torch.einsum("bt,bp->tp", oh_true * v[:, None], oh_pred)
+        return dict(loss=(per_loss * v).sum() / n, acc1=(correct1 * v).sum() / n,
+                    acc5=(correctk * v).sum() / n, n=v.sum(), cm=cm, logits=logits)
+
+    return step

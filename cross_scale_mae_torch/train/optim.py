@@ -1,18 +1,21 @@
-"""AdamW with the JAX package's weight-decay mask (counterpart of
-``cross_scale_mae_tpu/train/optim.py``).
+"""AdamW with the JAX package's weight-decay mask and layer-wise lr decay
+(counterpart of ``cross_scale_mae_tpu/train/optim.py``).
 
-The update is optax's ``adamw`` (plus ``clip_by_global_norm`` when asked),
-step for step: with t the number of updates already applied,
+The update is optax's ``adamw`` (plus ``clip_by_global_norm`` when asked,
+and the layer-decay scale chained after it), step for step: with t the
+number of updates already applied and s the leaf's layer-decay scale (1
+without layer decay),
 
     m <- b1 m + (1 - b1) g,   v <- b2 v + (1 - b2) g^2
-    p <- p - lr(t) * (m / (1 - b1^(t+1)) / (sqrt(v / (1 - b2^(t+1))) + eps)
-                      + wd * mask * p)
+    p <- p - s * lr(t) * (m / (1 - b1^(t+1)) / (sqrt(v / (1 - b2^(t+1))) + eps)
+                          + wd * mask * p)
 
-so the first update uses ``schedule(0)``. It runs as PyTorch multi-tensor
+so the first update uses ``schedule(0)``, and layer decay scales the whole
+update, weight decay included. It runs as PyTorch multi-tensor
 (``torch._foreach_*``) ops over every parameter at once.
 
-Not ported yet (ROADMAP.md queue 1 item 12): LARS, SGD, layer-wise lr decay,
-frozen masks and the bf16 moment dtypes.
+Not ported yet (ROADMAP.md): LARS, SGD and frozen masks (queue 1 item 12),
+the bf16 moment dtypes (item 7).
 """
 
 from __future__ import annotations
@@ -27,14 +30,35 @@ from cross_scale_mae_torch.train.state import global_norm, tree_items, tree_leav
 Params = dict[str, Any]
 
 
-def wd_mask(params: Params) -> list[bool]:
+def wd_mask(params: Params, extra_no_decay: tuple[str, ...] = ()) -> list[bool]:
     """True = apply weight decay, per leaf in ``tree_leaves`` order, by name:
     linear ``kernel``s and the ``cls_token``, ``mask_token`` and
     ``pos_embed`` leaves decay; biases, norm scales and BatchNorm params do
-    not (the pretrain rule of the JAX ``wd_mask``; its finetune exclusions
-    come with ROADMAP.md queue 1 item 12)."""
-    return [path[-1] in ("kernel", "cls_token", "mask_token", "pos_embed")
+    not. A leaf with a name of ``extra_no_decay`` on its path never decays
+    (finetuning passes ``("pos_embed", "cls_token")``, timm's
+    ``no_weight_decay``)."""
+    return [not any(name in extra_no_decay for name in path)
+            and path[-1] in ("kernel", "cls_token", "mask_token", "pos_embed")
             for path, _ in tree_items(params)]
+
+
+def layer_decay_scales(params: Params, layer_decay: float, depth: int) -> list[float]:
+    """Per-leaf lr multipliers of BEiT layer-wise decay (util/lr_decay.py),
+    in ``tree_leaves`` order: ``layer_decay ** (depth + 1 - id)`` with layer
+    ids patch_embed, cls_token, pos_embed -> 0; ``blocks[i]`` -> i + 1;
+    everything else (norms, head) -> depth + 1. The port keeps blocks as a
+    list, so each block leaf has one scalar (the JAX package broadcasts a
+    per-layer vector over the stacked leaves)."""
+    num_layers = depth + 1
+
+    def layer_id(path) -> int:
+        if path[0] in ("patch_embed", "cls_token", "pos_embed"):
+            return 0
+        if path[0] == "blocks":
+            return path[1] + 1
+        return num_layers
+
+    return [layer_decay ** (num_layers - layer_id(path)) for path, _ in tree_items(params)]
 
 
 @dataclasses.dataclass
@@ -46,14 +70,16 @@ class AdamWState:
 
 class AdamW:
     """optax ``adamw`` (eps inside the square root's sum: 0) over a list of
-    fp32 leaves, updating them in place."""
+    fp32 leaves, updating them in place; ``scales`` (one per leaf) multiply
+    each leaf's whole update, as the JAX package's layer-decay
+    ``scale_by_tree`` chained after ``adamw`` does."""
 
     def __init__(self, schedule: Callable[[int], float], decay: list[bool], *,
                  b1: float, b2: float, eps: float, weight_decay: float,
-                 clip_grad: Optional[float]):
+                 clip_grad: Optional[float], scales: Optional[list[float]] = None):
         self.schedule, self.decay = schedule, decay
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
-        self.clip_grad = clip_grad
+        self.clip_grad, self.scales = clip_grad, scales
 
     def init(self, params: Params) -> AdamWState:
         leaves = tree_leaves(params)
@@ -84,7 +110,13 @@ class AdamW:
         if self.wd and decayed:
             torch._foreach_add_([upd[i] for i in decayed], [params[i] for i in decayed],
                                 alpha=self.wd)
-        torch._foreach_add_(params, upd, alpha=-lr)
+        if self.scales is None:
+            torch._foreach_add_(params, upd, alpha=-lr)
+        else:
+            # optax's order: -lr * u, then the layer scale, then p + u.
+            torch._foreach_mul_(upd, -lr)
+            torch._foreach_mul_(upd, self.scales)
+            torch._foreach_add_(params, upd)
         state.count = t
 
 
@@ -98,21 +130,26 @@ def build_optimizer(
     b2: float = 0.95,
     clip_grad: Optional[float] = None,
     layer_decay: Optional[float] = None,
+    depth: Optional[int] = None,
+    no_decay_names: tuple[str, ...] = (),
     mu_dtype: Optional[str] = None,
     nu_dtype: Optional[str] = None,
 ) -> AdamW:
-    """The pretrain update rule: AdamW (eps 1e-8) with :func:`wd_mask`,
-    after optional global-norm clipping."""
+    """AdamW (eps 1e-8) with :func:`wd_mask` (``no_decay_names`` excluded),
+    after optional global-norm clipping, and with :func:`layer_decay_scales`
+    when ``layer_decay`` is set and not 1 (it needs ``depth``)."""
     if optimizer != "adamw":
         raise NotImplementedError(
             f"optimizer {optimizer!r} is not ported yet (the port runs "
             "'adamw'); see ROADMAP.md (queue 1 item 12)")
+    scales = None
     if layer_decay is not None and layer_decay != 1.0:
-        raise NotImplementedError(
-            "layer-wise lr decay is not ported yet; see ROADMAP.md (queue 1 item 12)")
+        if depth is None:
+            raise ValueError("layer_decay needs the model's depth")
+        scales = layer_decay_scales(params, layer_decay, depth)
     if mu_dtype is not None or nu_dtype is not None:
         raise NotImplementedError(
             "Adam moment dtypes are not ported yet (the port keeps fp32 "
             "moments); see ROADMAP.md (queue 1 item 7)")
-    return AdamW(schedule, wd_mask(params), b1=b1, b2=b2, eps=1e-8,
-                 weight_decay=weight_decay, clip_grad=clip_grad)
+    return AdamW(schedule, wd_mask(params, no_decay_names), b1=b1, b2=b2, eps=1e-8,
+                 weight_decay=weight_decay, clip_grad=clip_grad, scales=scales)

@@ -9,6 +9,7 @@ by the step, where the JAX package returns a new one.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Iterator
 
 import torch
@@ -31,6 +32,15 @@ def tree_items(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, torch.Ten
 
 def tree_leaves(tree: Any) -> list[torch.Tensor]:
     return [leaf for _, leaf in tree_items(tree)]
+
+
+def finite_loss(loss: torch.Tensor) -> float:
+    """The loss as a float; raises FloatingPointError when it is not finite
+    (the NaN abort of engine_pretrain.py:57-59)."""
+    value = float(loss)
+    if not math.isfinite(value):
+        raise FloatingPointError(f"Loss is {value}, stopping training")
+    return value
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

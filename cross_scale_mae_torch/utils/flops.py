@@ -1,5 +1,6 @@
-"""Analytic FLOP count of the MAE train step, and MFU on an H100
-(a copy of ``cross_scale_mae_tpu/utils/flops.py`` with the GPU's peak).
+"""Analytic FLOP counts of the MAE and classifier train steps, and MFU on
+an H100 (a copy of ``cross_scale_mae_tpu/utils/flops.py`` with the GPU's
+peak, and the classifier's count built from the same block count).
 
 FLOPs = 2 x MACs; a training step = 3 x forward. Only matmul and attention
 FLOPs are counted (LayerNorm, GELU, softmax, gathers, the optimizer and the
@@ -59,3 +60,14 @@ def mae_train_flops_per_image(cfg) -> float:
 def mfu(imgs_per_sec: float, flops_per_image: float) -> float:
     """Model FLOPs utilization of one H100 against its dense bf16 peak."""
     return imgs_per_sec * flops_per_image / H100_PEAK_BF16_FLOPS
+
+
+def vit_train_flops_per_image(cfg) -> float:
+    """Per-image useful FLOPs of one classifier train step (3 x forward):
+    patch embed, ``depth`` blocks on the patches + cls token, the head."""
+    n_patch = cfg.num_patches
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.input_channels
+    forward = (2 * n_patch * patch_dim * cfg.embed_dim
+               + cfg.depth * _block_flops(n_patch + 1, cfg.embed_dim, cfg.mlp_ratio)
+               + 2 * cfg.embed_dim * cfg.num_classes)
+    return 3.0 * forward

@@ -8,7 +8,10 @@ leaves into a list of per-layer dicts. ``params_from_jax`` keeps only what
 the encoder runs (serving, as the JAX package's ``serving.py:94-97``) or,
 with ``full=True``, the whole tree the training step runs;
 ``state_from_jax`` carries the predictors' BatchNorm statistics;
-``params_to_jax`` is the way back.
+``vit_params_from_jax`` carries the downstream classifier's tree;
+``params_to_jax`` is the way back for every tree. ``mae_encoder_to_classifier``
+and ``merge_pretrained`` start a classifier from a pretrained encoder, as the
+JAX package's ``utils/torch_import.py:157-221`` do.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from cross_scale_mae_torch.configs import MAEConfig
+from cross_scale_mae_torch.configs import MAEConfig, ViTClassifierConfig
 
 
 def _linear_shapes(d_in: int, d_out: int, lead: tuple = ()) -> dict:
@@ -90,6 +93,20 @@ def mae_state_shapes(cfg: MAEConfig) -> dict:
     return spec
 
 
+def vit_param_shapes(cfg: ViTClassifierConfig) -> dict:
+    """Shapes of the JAX ``vit_init`` tree (blocks stacked)."""
+    d = cfg.embed_dim
+    shapes = {
+        "patch_embed": _linear_shapes(cfg.patch_size ** 2 * cfg.input_channels, d),
+        "cls_token": (1, 1, d),
+        "pos_embed": (1, cfg.num_patches + 1, d),
+        "blocks": _block_shapes(d, d * cfg.mlp_ratio, cfg.depth),
+        "head": _linear_shapes(d, cfg.num_classes),
+    }
+    shapes["fc_norm" if cfg.global_pool else "norm"] = _norm_shapes(d)
+    return shapes
+
+
 def _checked(node: Any, spec: Any, path: str) -> Any:
     if isinstance(spec, dict):
         if not isinstance(node, Mapping):
@@ -142,6 +159,25 @@ def params_from_jax(tree: Mapping[str, Any], cfg: MAEConfig,
             for k, v in checked.items()}
 
 
+def vit_params_from_jax(tree: Mapping[str, Any], cfg: ViTClassifierConfig,
+                        device: torch.device | str = "cpu") -> dict[str, Any]:
+    """Map a JAX classifier parameter tree (nested dict of numpy arrays) to
+    the port's: fp32 tensors on ``device``, ``blocks`` a list of per-layer
+    dicts. A missing or unexpected key or a wrong shape raises."""
+    spec = vit_param_shapes(cfg)
+    extra = sorted(set(tree) - set(spec))
+    if extra:
+        raise KeyError(f"unexpected parameter {extra[0]}")
+    out = {}
+    for key, sub in spec.items():
+        if key not in tree:
+            raise KeyError(f"parameter tree lacks {key}")
+        arr = _checked(tree[key], sub, key)
+        out[key] = ([_to_torch(arr, device, i) for i in range(cfg.depth)]
+                    if key == "blocks" else _to_torch(arr, device))
+    return out
+
+
 def state_from_jax(state: Mapping[str, Any], cfg: MAEConfig,
                    device: torch.device | str = "cpu") -> dict[str, Any]:
     """The JAX ``mae_init`` state (predictor BatchNorm statistics) as fp32
@@ -190,3 +226,50 @@ def random_mae_tree(cfg: MAEConfig, seed: int) -> dict[str, Any]:
         return draw(spec, name)
 
     return fill(mae_param_shapes(cfg))
+
+
+def mae_encoder_to_classifier(mae_params: Mapping[str, Any], cfg: ViTClassifierConfig
+                              ) -> tuple[dict[str, Any], list[str]]:
+    """The classifier subtrees a pretrained MAE encoder provides, and the
+    top-level keys it leaves fresh: pos_embed and head always, fc_norm with
+    the global-pool head (else ``norm`` comes from the encoder norm)."""
+    out = {"patch_embed": mae_params["patch_embed"],
+           "cls_token": mae_params["cls_token"],
+           "blocks": mae_params["encoder_blocks"]}
+    missing = ["pos_embed", "head"]
+    if cfg.global_pool:
+        missing.append("fc_norm")
+    else:
+        out["norm"] = mae_params["encoder_norm"]
+    return out, missing
+
+
+def merge_pretrained(template: Mapping[str, Any], pretrained: Mapping[str, Any],
+                     _path: str = "") -> dict[str, Any]:
+    """Overlay pretrained subtrees onto a fresh template (load_state_dict
+    with strict=False and shape checks). Keys the template lacks are
+    skipped; a shape or depth mismatch raises naming the parameter. Leaves
+    take the template's dtype and device."""
+    out = dict(template)
+    for k, v in pretrained.items():
+        if k not in template:
+            continue
+        key = f"{_path}/{k}" if _path else str(k)
+        t = template[k]
+        if isinstance(t, Mapping) and isinstance(v, Mapping):
+            out[k] = merge_pretrained(t, v, key)
+        elif isinstance(t, list) and isinstance(v, list):
+            if len(t) != len(v):
+                raise ValueError(_misfit(key, f"{len(v)} layers", f"{len(t)}"))
+            out[k] = [merge_pretrained(a, b, f"{key}/{i}") for i, (a, b) in enumerate(zip(t, v))]
+        else:
+            if tuple(t.shape) != tuple(v.shape):
+                raise ValueError(_misfit(key, f"shape {tuple(v.shape)}", f"{tuple(t.shape)}"))
+            out[k] = v.to(dtype=t.dtype, device=t.device)
+    return out
+
+
+def _misfit(key: str, got: str, want: str) -> str:
+    return (f"pretrained checkpoint does not fit this model: param '{key}' has {got} "
+            f"in the checkpoint but {want} in the model — check "
+            "--model/--embed_dim/--depth/--num_heads against the pretrained encoder's size")

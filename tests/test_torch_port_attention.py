@@ -136,7 +136,7 @@ def test_bwd_kernel_wrapper_validates_qkv_before_launch():
 
 def test_bwd_smem_layout_matches_kernel_source():
     # Two (L, hd+8) bf16 tiles, 3 fp32 row stats per query row, per warp
-    # 2*hd + 2*L fp32 (csrc/mha3_bwd.cu smem_bytes): 28*L + 16*hd bytes
+    # 2*hd + 2*L fp32 (csrc/mha_common.cuh bwd_smem_bytes): 28*L + 16*hd bytes
     # above the forward.
     assert port_attn.mha3_bwd_smem_bytes(65, 32, torch.bfloat16) == (
         2 * 65 * 40 * 2 + 3 * 65 * 4 + 4 * (2 * 32 + 2 * 65) * 4)
@@ -162,7 +162,7 @@ def test_bwd_kernel_fits_every_config_the_forward_runs():
 
 def test_smem_layout_matches_kernel_source():
     # 2 * L * (hd + 8) bf16 for k/v, 4 warps * hd fp32 query rows, 4 warps *
-    # L fp32 score rows (csrc/mha3_fwd.cu smem_bytes).
+    # L fp32 score rows (csrc/mha_common.cuh fwd_smem_bytes).
     assert port_attn.mha3_smem_bytes(65, 64, torch.bfloat16) == (
         2 * 65 * 72 * 2 + 4 * 64 * 4 + 4 * 65 * 4)
     # The L=257 serving limit needs the opt-in above 48 KB but fits a block.
@@ -176,3 +176,125 @@ def test_kernel_head_dims_cover_every_vit_size():
     dims = {v.dim_model // v.encoder_num_heads for v in VIT_SIZES.values()}
     dims |= {v.decoder_embed_dim // v.decoder_num_heads for v in VIT_SIZES.values()}
     assert sorted(dims) == list(port_attn.KERNEL_HEAD_DIMS)
+
+
+# ---------------------------------------------------------------- K2 (v1)
+#
+# The port's pallas_mha (its plain versions on the CPU) against the JAX
+# package's pallas_mha in interpret mode, which runs _mha_kernel and, through
+# its custom VJP, _mha_bwd_kernel. fp32: atol 1e-5, as tests/test_models.py
+# holds pallas_mha (sums in another order). bf16: one bf16 ulp at the
+# largest magnitude, 2**-7 * max(1, max|ref|): both sides compute in fp32
+# and round each output once, from fp32 sums taken in another order.
+
+K2_CASES = [((2, 16, 4, 8), "float32"), ((2, 65, 4, 64), "bfloat16"),
+            ((2, 65, 4, 64), "float32"), ((2, 17, 3, 16), "bfloat16")]
+
+
+def _qkv_do(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("shape,dtype", K2_CASES)
+def test_pallas_mha_matches_jax_pallas_mha(shape, dtype):
+    from cross_scale_mae_tpu.ops.attention import pallas_mha as jmha
+
+    q, k, v, _ = _qkv_do(shape, 11)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    ref = np.asarray(jmha(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                          interpret=True).astype(jnp.float32))
+    got = port_attn.pallas_mha(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)))
+    assert got.shape == shape and got.dtype == tdt
+    atol = 1e-5 if dtype == "float32" else _bf16_bound(ref)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("shape,dtype", K2_CASES)
+def test_pallas_mha_grad_matches_jax_vjp(shape, dtype):
+    """dq, dk, dv through autograd of the port's mha against jax.vjp of
+    pallas_mha (interpret mode, _mha_bwd_kernel)."""
+    import jax
+
+    from cross_scale_mae_tpu.ops.attention import pallas_mha as jmha
+
+    q, k, v, g = _qkv_do(shape, 12)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda a, b, c: jmha(a, b, c, interpret=True),
+                     *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    refs = [np.asarray(r.astype(jnp.float32)) for r in vjp(jnp.asarray(g, jdt))]
+    leaves = [torch.from_numpy(a).to(tdt).requires_grad_(True) for a in (q, k, v)]
+    port_attn.mha(*leaves).backward(torch.from_numpy(g).to(tdt))
+    for leaf, ref in zip(leaves, refs):
+        assert leaf.grad.dtype == tdt
+        atol = 1e-5 if dtype == "float32" else _bf16_bound(ref)
+        np.testing.assert_allclose(leaf.grad.float().numpy(), ref, rtol=0, atol=atol)
+
+
+def test_mha_folded_bwd_reference_keeps_ds_in_fp32():
+    """The K2 order leaves P and dS in fp32 (attention.py:41-62): in bf16 its
+    dq differs from the K1 order, which rounds dS to bf16 first."""
+    q, k, v, g = (torch.from_numpy(a).bfloat16() for a in _qkv_do((4, 33, 64), 13))
+    dq, _, _ = port_attn.mha_folded_bwd_reference(q, k, v, g)
+    qkv = torch.stack([q, k, v], dim=1).transpose(1, 2).reshape(4, 33, 3 * 64)
+    k1 = port_attn.mha3_bwd_reference(qkv, g, 1)[..., :64]
+    assert not torch.equal(dq, k1)
+
+
+def test_mha_saves_folded_q_k_v():
+    """The autograd node keeps the three folded inputs, as _mha_folded_fwd
+    returns (qf, kf, vf) as its residuals."""
+    q, k, v = (torch.randn(6, 5, 16, requires_grad=True) for _ in range(3))
+    saved = port_attn.mha_folded(q, k, v).grad_fn.saved_tensors
+    assert len(saved) == 3 and all(s is t for s, t in zip(saved, (q, k, v)))
+
+
+def test_fold_unfold_match_jax():
+    from cross_scale_mae_tpu.ops.attention import _fold as jfold
+    from cross_scale_mae_tpu.ops.attention import _unfold as junfold
+
+    x = np.random.default_rng(14).normal(size=(2, 5, 3, 4)).astype(np.float32)
+    folded = port_attn._fold(torch.from_numpy(x))
+    assert folded.is_contiguous()
+    np.testing.assert_array_equal(folded.numpy(), np.asarray(jfold(jnp.asarray(x))))
+    np.testing.assert_array_equal(port_attn._unfold(folded, 2, 3).numpy(),
+                                  np.asarray(junfold(jfold(jnp.asarray(x)), 2, 3)))
+
+
+def test_cpu_mha_never_counts_a_launch():
+    before = port_attn.mha.launches, port_attn.mha.bwd_launches
+    q = torch.zeros(1, 4, 2, 16, requires_grad=True)
+    port_attn.mha(q, q, q).sum().backward()
+    assert (port_attn.mha.launches, port_attn.mha.bwd_launches) == before
+    assert port_attn.pallas_mha is port_attn.mha
+
+
+@pytest.mark.parametrize("make,err,match", [
+    (lambda: [torch.zeros(2, 4, 16, dtype=torch.float16)] * 3, TypeError, "bfloat16 or float32"),
+    (lambda: [torch.zeros(2, 16, 4).transpose(1, 2)] * 3, ValueError, "contiguous"),
+    (lambda: [torch.zeros(2, 4, 24)] * 3, ValueError, "head_dim"),
+    (lambda: [torch.zeros(2, 4, 16), torch.zeros(2, 5, 16), torch.zeros(2, 4, 16)],
+     ValueError, "share shape"),
+    (lambda: [torch.zeros(2, 900, 64)] * 3, ValueError, "shared memory"),
+    (lambda: [torch.zeros(4, 16)] * 3, ValueError, "N\\*H, L, hd"),
+])
+def test_mha_kernel_wrappers_validate_before_launch(make, err, match):
+    with pytest.raises(err, match=match):
+        port_attn._mha_fwd_cuda(*make())
+    with pytest.raises(err, match=match):
+        port_attn._mha_bwd_cuda(*make(), make()[0])
+
+
+def test_mha_rejects_other_devices():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port_attn.mha_folded(*[torch.zeros(1, 4, 16, device="meta")] * 3)
+
+
+def test_mha_kernels_fit_every_shape_the_configs_give():
+    """K2 shares K1's shared-memory layouts: every head width of the ViT
+    sizes at up to 257 tokens fits an H100 block, forward and backward."""
+    for hd in port_attn.KERNEL_HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            assert port_attn.mha3_bwd_smem_bytes(257, hd, dt) <= port_attn.MAX_SMEM_BYTES
+            port_attn._check_folded((torch.zeros(2, 257, hd, dtype=dt),) * 4,
+                                    port_attn.mha3_bwd_smem_bytes)

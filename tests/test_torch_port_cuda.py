@@ -6,8 +6,8 @@ runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerance: fp32 1e-5; bf16 one bf16 ulp at the output's largest magnitude,
-2**-7 * max(1, max|ref|) (both sides round P, dS and the output to bf16 from
-fp32 sums taken in another order).
+2**-7 * max(1, max|ref|) (both sides round the output to bf16 from fp32 sums
+taken in another order), and for K2 each output's mean error as well.
 """
 
 import pytest
@@ -98,3 +98,88 @@ def test_cuda_attention_trains_through_both_kernels(cuda_device, dtype):
         scale = max(1.0, ref.abs().max().item())
         tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** -4 * scale
         assert (got - ref).abs().max().item() <= tol
+
+
+# K2 (the v1 head-folded kernels): the ViT-L finetune shape, the ViT-B shape
+# and the longest sequence, as (N, L, H, hd), folded to (N*H, L, hd).
+K2_SHAPES = [(512, 65, 16, 64), (64, 65, 12, 64), (8, 257, 16, 80)]
+
+
+# bf16 only: mean |kernel - plain| / mean |plain| of each K2 output, set
+# between the kernels' reading and that of K1's order on the same inputs
+# (P rounded before PV and dV, dS before dQ and dK), which flips the bf16
+# rounding of a large share of the outputs (chip_smoke.py K2_MEAN_TOL).
+K2_MEAN_TOL = 2.0 ** -15
+
+
+def _k1_order(q, k, v, do, h):
+    """K1's plain versions on the same folded inputs: out and (dq, dk, dv)."""
+    bh, l, hd = q.shape
+    n = bh // h
+    qkv = torch.stack([port_attn._unfold(t, n, h) for t in (q, k, v)], dim=2)
+    qkv = qkv.reshape(n, l, 3 * h * hd)
+    out = port_attn._fold(port_attn.mha_v3_reference(qkv, h).view(n, l, h, hd))
+    do_v3 = port_attn._unfold(do, n, h).reshape(n, l, h * hd)
+    dqkv = port_attn.mha3_bwd_reference(qkv, do_v3, h).view(n, l, 3, h, hd)
+    return (out, *(port_attn._fold(t) for t in dqkv.unbind(2)))
+
+
+def _rel_mean(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return (a.float() - ref).abs().mean().item() / ref.abs().mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l,h,hd", K2_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_mha_kernels_match_plain_versions(cuda_device, n, l, h, hd, dtype):
+    """K2f and K2b against mha_folded_reference and mha_folded_bwd_reference:
+    both compute in fp32 and round each output once, so they differ by the
+    order of fp32 sums (fp32: 1e-5 of the largest magnitude; bf16: one bf16
+    ulp there, and each output's mean error within K2_MEAN_TOL, which K1's
+    rounding order exceeds)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(n * h, l, hd, device=cuda_device, generator=gen).to(dtype)
+                   for _ in range(4))
+    fwd, bwd = port_attn.mha.launches, port_attn.mha.bwd_launches
+    got = port_attn._mha_fwd_cuda(q, k, v)
+    grads = port_attn._mha_bwd_cuda(q, k, v, do)
+    torch.cuda.synchronize()
+    assert (port_attn.mha.launches, port_attn.mha.bwd_launches) == (fwd + 1, bwd + 1)
+    refs = [port_attn.mha_folded_reference(q, k, v).float()]
+    refs += [r.float() for r in port_attn.mha_folded_bwd_reference(q, k, v, do)]
+    controls = _k1_order(q, k, v, do, h)
+    for name, a, r, c in zip(("out", "dq", "dk", "dv"), (got, *grads), refs, controls):
+        assert (a.float() - r).abs().max().item() <= _tol(r, dtype), name
+        if dtype == torch.bfloat16:
+            assert _rel_mean(a, r) <= K2_MEAN_TOL < _rel_mean(c, r), name
+    # No atomics: a second launch gives the same bits.
+    assert all(torch.equal(a, b) for a, b in zip(port_attn._mha_bwd_cuda(q, k, v, do), grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas", "pallas_t"])
+def test_cuda_k2_attention_trains_through_both_kernels(cuda_device, impl):
+    """One autograd step of layers.attention through K2f and K2b against
+    'xla' (the plain attention) at ViT-L's width, fp32: sums in another
+    order, 1e-5 of the largest value."""
+    from cross_scale_mae_torch.models import layers
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    n, l, d, h = 16, 65, 1024, 16
+    p = {"qkv": {"kernel": torch.randn(d, 3 * d, device=cuda_device, generator=gen) / d ** 0.5,
+                 "bias": torch.zeros(3 * d, device=cuda_device)},
+         "proj": {"kernel": torch.randn(d, d, device=cuda_device, generator=gen) / d ** 0.5,
+                  "bias": torch.zeros(d, device=cuda_device)}}
+    x = torch.randn(n, l, d, device=cuda_device, generator=gen)
+    grads = {}
+    for name in ("xla", impl):
+        leaf = x.clone().requires_grad_(True)
+        fwd, bwd = port_attn.mha.launches, port_attn.mha.bwd_launches
+        out = layers.attention(p, leaf, h, name)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        launched = (port_attn.mha.launches - fwd, port_attn.mha.bwd_launches - bwd)
+        assert launched == ((1, 1) if name == impl else (0, 0))
+        grads[name] = (out.detach(), leaf.grad)
+    for ref, got in zip(grads["xla"], grads[impl]):
+        assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())

@@ -43,7 +43,10 @@ TRAINING_MODULES = [
     "cross_scale_mae_torch/losses/ntxent.py", "cross_scale_mae_torch/train/schedule.py",
     "cross_scale_mae_torch/train/optim.py", "cross_scale_mae_torch/train/state.py",
     "cross_scale_mae_torch/train/pretrain.py", "cross_scale_mae_torch/utils/flops.py",
-    "cross_scale_mae_torch/cli/pretrain.py",
+    "cross_scale_mae_torch/cli/pretrain.py", "cross_scale_mae_torch/models/vit.py",
+    "cross_scale_mae_torch/train/mixup.py", "cross_scale_mae_torch/train/classify.py",
+    "cross_scale_mae_torch/utils/metrics.py", "cross_scale_mae_torch/data/datasets.py",
+    "cross_scale_mae_torch/cli/finetune.py",
 ]
 
 
@@ -53,7 +56,8 @@ def test_scan_covers_the_training_modules():
 
 
 def test_importing_the_training_path_loads_no_jax():
-    """Import every module of the training path in a fresh interpreter and
+    """Import every module of the pretrain and finetune paths in a fresh
+    interpreter and
     check that no JAX module was loaded along the way."""
     import subprocess
     import sys

@@ -558,7 +558,7 @@ def test_optimizer_refuses_unported_options():
     from cross_scale_mae_torch.train.optim import build_optimizer
 
     p = {"w": {"kernel": torch.zeros(2, 2)}}
-    for kw in ({"optimizer": "lars"}, {"layer_decay": 0.75}, {"nu_dtype": "bfloat16"}):
+    for kw in ({"optimizer": "lars"}, {"optimizer": "sgd"}, {"nu_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_optimizer(p, lambda s: 0.0, **kw)
 
@@ -619,7 +619,7 @@ def test_pretrain_cli_trains_and_writes_a_servable_npz(tmp_path):
 
 def test_pretrain_cli_synthetic_images_match_jax_dataset():
     from cross_scale_mae_tpu.data.datasets import SyntheticDataset
-    from cross_scale_mae_torch.cli.pretrain import synthetic_images
+    from cross_scale_mae_torch.data.datasets import synthetic_images
 
     got = synthetic_images(3, 16, 3, 7, torch.device("cpu")).numpy()
     ds = SyntheticDataset(3, 16, seed=7)
