@@ -8,14 +8,17 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
 1. device: the card's name and power limit (nvidia-smi).
 2. build: compile every CUDA kernel (``ops/cuda_build.KERNELS``: K1
    ``csrc/mha3_fwd.cu`` and ``csrc/mha3_bwd.cu``, K2 ``csrc/mha_fwd.cu`` and
-   ``csrc/mha_bwd.cu``), one nvcc each, all at once.
+   ``csrc/mha_bwd.cu``, K3 ``csrc/mha2_fwd.cu`` and ``csrc/mha2_bwd.cu``),
+   one nvcc each, all at once.
 3. kernel: each kernel against its plain PyTorch version on the card, in
-   bf16, at the shapes the serving, pretraining and finetuning paths give
-   it, with its time, the plain version's, one PyTorch library call's as a
-   yardstick (``scaled_dot_product_attention`` on (N, H, L, hd) head views,
-   forward or backward), and the least time the card could take
-   (``bound_ms``). K2's outputs are gated one by one, with K1's rounding
-   order on the same inputs as the control the gate must catch.
+   bf16, at the shapes the serving, pretraining, finetuning and linear
+   probing paths give it (K3, which no path dispatches, at ViT-B's, the decoder's and the
+   longest shape), with its time, the plain version's, one PyTorch library
+   call's as a yardstick (``scaled_dot_product_attention`` on (N, H, L, hd)
+   head views, forward or backward), and the least time the card could
+   take (``bound_ms``). K2's and K3's outputs are gated one by one, with
+   K1's rounding order on the same inputs as the control the gate must
+   catch.
 4. serving: a seeded random ``mae_vit_base_MsLdCeCd`` checkpoint (ViT-B
    width and depth, 128 px, bf16, ``attention_impl="pallas_v3"``) served by
    ``cli/serve.build_app`` over HTTP; concurrent ``/predict`` requests of 1,
@@ -47,7 +50,26 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    torch.profiler window, and every parameter's gradient through K2b
    against K2b's plain version with two controls (dS rounded to bf16, K1's
    rounding; head 0's dV zeroed) that the gates must catch.
-
+8. linprobe: ``cli/linprobe.main`` at the linprobe.sh settings (ViT-B/16 at
+   full width and depth, 128 px, the cls-token head behind the BN head,
+   batch 1024, LARS with blr 0.1, bf16, ``attention_impl`` resolved to
+   ``pallas_v3``) from the ``[train]`` phase's params.npz, over NAIP
+   ``.npy`` tiles written from a seed (4 batches of train tiles on the 128
+   canvas, 1.5 batches of eval tiles on the 146 canvas, each class's tiles
+   offset in brightness) through the loader and ``device_prefetch``: 2
+   epochs with an eval after each, then 12 steps on one repeated batch at
+   a constant lr. Every loss finite, the loss falling on the repeated
+   batch, every backbone leaf bit-identical, the head and the BN
+   statistics moved, K1f launches = 12 x (steps + eval batches) and no
+   backward launch, the confusion matrix summing to the eval count, peak
+   device memory under a forward-only estimate, one epoch through
+   ``device_prefetch`` equal to the host batches byte for byte on the
+   card; ms per step (the second epoch, from its loader's start to its
+   last step's end), images/s end to end and of the loader alone, MFU, a
+   torch.profiler window over one epoch (device time by kind, idle share),
+   and the eval logits and one train step from the same weights, batch and
+   draws through K1f and through the plain attention (logits, loss and
+   gradient norm within a bf16 budget).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -59,6 +81,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -82,18 +105,24 @@ ROUNDS = 4
 TRAIN_BATCH = 384
 TRAIN_STEPS = 16
 ATTN_PER_STEP = 20
-# The kernels' shapes: (N, L, H, hd). The JSON line reports the forward at
+# The kernels' shapes: (N, L, H, hd); "linprobe" is the ViT-B probe's batch
+# of 1024, train steps and padded eval batches alike. The JSON line reports the forward at
 # the serving shape and the backward at the decoder's training shape, the
 # one that costs the step most; each entry names its case and shape.
 SHAPES = {"serving": (64, 65, 12, 64), "train_enc": (768, 17, 12, 64),
-          "train_dec": (768, 65, 16, 32), "long_seq": (8, 257, 12, 64)}
+          "train_dec": (768, 65, 16, 32), "long_seq": (8, 257, 12, 64),
+          "linprobe": (1024, 65, 12, 64)}
 BWD_SHAPES = ("train_enc", "train_dec", "long_seq")
 # The K2 kernels' shapes, (N, L, H, hd) folded to (N*H, L, hd): the ViT-L
 # finetune step, ViT-B's 65 tokens, and ViT-H at 224 px, the longest.
 K2_SHAPES = {"finetune": (512, 65, 16, 64), "vit_b": (64, 65, 12, 64),
              "long_seq": (8, 257, 16, 80)}
+# The K3 kernels' shapes, (N, L, H, hd) on the (N, L, 3H, hd) layout: ViT-B,
+# the decoder, and ViT-H at 224 px, the longest. No path dispatches K3.
+K3_SHAPES = {"vit_b": (64, 65, 12, 64), "decoder": (768, 65, 16, 32),
+             "long_seq": (8, 257, 16, 80)}
 REPORTED = {"mha3_fwd": "serving", "mha3_bwd": "train_dec", "mha_fwd": "finetune",
-            "mha_bwd": "finetune"}
+            "mha_bwd": "finetune", "mha2_fwd": "vit_b", "mha2_bwd": "vit_b"}
 # The K2 kernels' gate on each output beside one bf16 ulp at its largest
 # magnitude: mean |kernel - plain| / mean |plain|, set between the kernels'
 # reading and that of K1's order on the same inputs, which rounds P (out,
@@ -124,6 +153,17 @@ FT_LR = 5e-4  # constant: no warmup, and a cosine far longer than the run
 # leaf, each between the sound reading and its control's (PERF.md, section 6).
 FT_DIRECT_TOL = 2.0 ** -17
 FT_LEAF_TOL = 2.0 ** -6
+# The linear probe (linprobe.sh): batch 1024 of 128 px NAIP tiles through
+# ViT-B/16's 12 blocks (65 tokens, 12 heads of 64). Four batches make an
+# epoch; the eval set is 1.5 batches on the 146 px canvas, so its second
+# batch is ragged.
+LP_BATCH = 1024
+LP_TRAIN = 4 * LP_BATCH
+LP_EVAL = LP_BATCH + LP_BATCH // 2
+LP_CLASSES = 10
+LP_STEPS = 8            # 2 epochs
+LP_REPEAT_STEPS = 12
+LP_ATTN = 12
 
 
 def log(phase: str, **fields) -> None:
@@ -215,8 +255,9 @@ def _buffers(gen, nbytes_each: int, make) -> list:
 
 
 def phase_kernel(card: str) -> dict:
-    """Each kernel against its plain version, bf16: mha3_fwd at four shapes,
-    mha3_bwd at the three training and long-sequence shapes."""
+    """Each kernel against its plain version, bf16: mha3_fwd at the five
+    shapes of SHAPES, mha3_bwd at the three training and long-sequence
+    shapes."""
     import torch.nn.functional as F
 
     from cross_scale_mae_torch.ops.attention import (
@@ -227,7 +268,7 @@ def phase_kernel(card: str) -> dict:
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {"mha3_fwd": {}, "mha3_bwd": {}, "mha_fwd": {}, "mha_bwd": {}}
+    rows = {name: {} for name in REPORTED}
 
     def heads(x, n, l, h, hd):
         r = x.view(n, l, 3, h, hd).permute(2, 0, 3, 1, 4)
@@ -298,6 +339,7 @@ def phase_kernel(card: str) -> dict:
         })
         del bufs, graphs, got, ref
     phase_kernel_k2(gen, report)
+    phase_kernel_k3(gen, report)
     return rows
 
 
@@ -405,6 +447,75 @@ def phase_kernel_k2(gen, report) -> None:
             "outputs": bwd,
             "kernel_ms": time_ms(lambda x: _mha_bwd_cuda(*x), bufs),
             "plain_ms": time_ms(lambda x: mha_folded_bwd_reference(*x), bufs),
+            "library_ms": time_ms(lambda g: torch.autograd.grad(
+                g[0], g[1], g[2], retain_graph=True), graphs),
+            "bound_ms": bound, "bound_by": bound_by,
+        })
+        del bufs, graphs
+
+
+def phase_kernel_k3(gen, report) -> None:
+    """K3f and K3b against their plain versions on (N, L, 3H, hd) qkv (and
+    (N, L, H, hd) dO), bf16, at every K3 shape, each output gated on its
+    own with K1's order on the same bytes, seen as (N, L, 3D), as the
+    control. The bound counts K1's bytes and flops: the same tensors."""
+    import torch.nn.functional as F
+
+    from cross_scale_mae_torch.ops.attention import (
+        _mha2_bwd_cuda,
+        _mha2_fwd_cuda,
+        mha3_bwd_reference,
+        mha_qkv_bwd_reference,
+        mha_qkv_reference,
+        mha_v3_reference,
+    )
+
+    for label, (n, l, h, hd) in K3_SHAPES.items():
+        d = h * hd
+        bufs = _buffers(gen, n * l * 4 * d * 2, lambda g: (
+            torch.randn(n, l, 3 * h, hd, device="cuda", generator=g).bfloat16(),
+            torch.randn(n, l, h, hd, device="cuda", generator=g).bfloat16()))
+        qkv, do = bufs[0]
+
+        def heads(qkv4):
+            # q, k and v as (N, H, L, hd) views, the layout SDPA takes.
+            return [t.transpose(1, 2) for t in qkv4.split(h, dim=2)]
+
+        got, dqkv = _mha2_fwd_cuda(qkv, h), _mha2_bwd_cuda(qkv, do, h)
+        torch.cuda.synchronize()
+        control = mha_v3_reference(qkv.view(n, l, 3 * d), h).view(n, l, h, hd)
+        control_grads = mha3_bwd_reference(qkv.view(n, l, 3 * d), do.view(n, l, d), h)
+        fwd = {"out": _output_errors(got, mha_qkv_reference(qkv, h), control)}
+        bwd = {name: _output_errors(a, r, c) for name, a, r, c in zip(
+            ("dq", "dk", "dv"), dqkv.split(h, dim=2),
+            mha_qkv_bwd_reference(qkv, do, h).split(h, dim=2),
+            control_grads.view(n, l, 3 * h, hd).split(h, dim=2))}
+        _gate_outputs("mha2_fwd", label, fwd)
+        _gate_outputs("mha2_bwd", label, bwd)
+        check(torch.equal(_mha2_bwd_cuda(qkv, do, h), dqkv),
+              f"mha2_bwd {label}: a second launch gave other bits")
+        del got, dqkv, control, control_grads
+
+        bound, bound_by = mha3_bound_ms(n, l, h, hd, 2)
+        report("mha2_fwd", label, {
+            "shape": [n, l, h, hd], "max_abs_err": fwd["out"]["max_abs_err"], "outputs": fwd,
+            "kernel_ms": time_ms(lambda x: _mha2_fwd_cuda(x[0], h), bufs),
+            "plain_ms": time_ms(lambda x: mha_qkv_reference(x[0], h), bufs),
+            "library_ms": time_ms(lambda x: F.scaled_dot_product_attention(*heads(x[0])), bufs),
+            "bound_ms": bound, "bound_by": bound_by,
+        })
+        # The library yardstick: scaled_dot_product_attention's backward
+        # through autograd, on graphs built before the timing.
+        graphs = []
+        for x, g in bufs:
+            leaf = x.detach().requires_grad_(True)
+            graphs.append((F.scaled_dot_product_attention(*heads(leaf)), leaf, g.transpose(1, 2)))
+        bound, bound_by = mha3_bwd_bound_ms(n, l, h, hd, 2)
+        report("mha2_bwd", label, {
+            "shape": [n, l, h, hd], "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+            "outputs": bwd,
+            "kernel_ms": time_ms(lambda x: _mha2_bwd_cuda(*x, h), bufs),
+            "plain_ms": time_ms(lambda x: mha_qkv_bwd_reference(*x, h), bufs),
             "library_ms": time_ms(lambda g: torch.autograd.grad(
                 g[0], g[1], g[2], retain_graph=True), graphs),
             "bound_ms": bound, "bound_by": bound_by,
@@ -536,6 +647,10 @@ K1_KINDS = (("mha3_fwd", ("mha3_fwd",)), ("mha3_bwd", ("mha3_bwd",)),
 # layout's fold/unfold transposes and the dtype casts.
 K2_KINDS = (("mha_fwd", ("mha_fwd_kernel",)), ("mha_bwd", ("mha_bwd_kernel",)),
             ("matmul", MATMUL_NAMES), ("copies", ("copy", "catarray")))
+# The linear probe's: the forward kernel, the matmuls, and the copies (dtype
+# casts, the augment's and the prefetch's device copies).
+LP_KINDS = (("mha3_fwd", ("mha3_fwd",)), ("matmul", MATMUL_NAMES),
+            ("copies", ("copy", "catarray")))
 
 
 def _kernel_ms_by_kind(prof, rules=K1_KINDS) -> dict:
@@ -652,9 +767,10 @@ def _dv_head0_zeroed(kernel_bwd):
     return bwd
 
 
-def phase_train(card: str) -> tuple[int, int]:
-    """Train the flagship step through ``cli/pretrain.main``; returns the
-    kernels' (forward, backward) launches during that run."""
+def phase_train(card: str, keep_npz: str) -> tuple[int, int]:
+    """Train the flagship step through ``cli/pretrain.main``, keeping its
+    params.npz at ``keep_npz``; returns the kernels' (forward, backward)
+    launches during that run."""
     from torch.profiler import ProfilerActivity, profile
 
     from cross_scale_mae_torch.cli.pretrain import build_run, get_args_parser
@@ -685,6 +801,7 @@ def phase_train(card: str) -> tuple[int, int]:
               f"kernel launches fwd {fwd}, bwd {bwd} != {ATTN_PER_STEP} x {steps} steps")
         check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
         check(os.path.getsize(result["npz"]) > 0, "no params.npz written")
+        shutil.copy(result["npz"], keep_npz)
         torch.cuda.empty_cache()
 
         # One step from the same weights and draws through the kernels and
@@ -1004,6 +1121,231 @@ def phase_finetune(card: str) -> tuple[int, int]:
     return fwd, bwd
 
 
+def _write_naip(root: str, name: str, n: int, canvas: int, seed: int) -> str:
+    """``n`` NAIP .npy tiles on a ``canvas`` square and their index CSV.
+    Tile i has class i % LP_CLASSES and uniform noise in [0, 128) plus 12
+    times its class in every channel, so the classes differ in brightness
+    and a probe has something to learn. Returns the CSV's path."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for start in range(0, n, 512):
+        m = min(512, n - start)
+        tiles = rng.integers(0, 128, (m, canvas, canvas, 3), np.uint8)
+        for j in range(m):
+            i = start + j
+            np.save(f"{root}/{name}_{i:05d}.npy", tiles[j] + np.uint8(12 * (i % LP_CLASSES)))
+            rows.append(f"{name}_{i:05d}.npy,{i % LP_CLASSES}")
+    path = f"{root}/{name}.csv"
+    with open(path, "w") as f:
+        f.write("path,label\n" + "\n".join(rows) + "\n")
+    return path
+
+
+def _lp_argv(npz: str, train: str, test: str, out: str, *extra: str):
+    from cross_scale_mae_torch.cli.linprobe import get_args_parser
+
+    return get_args_parser().parse_args([
+        "--model", "vit_base_patch16", "--input_size", "128", "--patch_size", "16",
+        "--finetune", npz, "--dataset_type", "naip", "--train_path", train,
+        "--test_path", test, "--nb_classes", str(LP_CLASSES), "--batch_size", str(LP_BATCH),
+        "--compute_dtype", "bfloat16", "--gelu", "tanh", "--seed", "0", "--log_interval", "4",
+        "--device", "cuda", "--output_dir", out,
+        *extra])
+
+
+def _backbone(params: dict) -> dict:
+    from cross_scale_mae_torch.train.state import tree_items
+
+    return {"/".join(map(str, path)): t for path, t in tree_items(params) if path[0] != "head"}
+
+
+def phase_linprobe(card: str, npz: str) -> int:
+    """Linear-probe ViT-B through ``cli/linprobe.main`` from the pretrain
+    phase's npz over seeded NAIP tiles; returns K1f's launches in those
+    runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cross_scale_mae_torch.cli.linprobe import build_run
+    from cross_scale_mae_torch.cli.linprobe import main as linprobe_main
+    from cross_scale_mae_torch.data.loader import device_prefetch
+    from cross_scale_mae_torch.ops.attention import mha, mha_qkv, mha_v3
+    from cross_scale_mae_torch.train.state import tree_leaves
+    from cross_scale_mae_torch.utils.flops import linprobe_train_flops_per_image, mfu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train = _write_naip(tmp, "train", LP_TRAIN, 128, 1)
+        test = _write_naip(tmp, "val", LP_EVAL, 146, 2)
+        repeat = f"{tmp}/repeat.csv"
+        with open(train) as f, open(repeat, "w") as g:
+            g.writelines(f.readlines()[:LP_BATCH + 1])
+        data_s = time.perf_counter() - t0
+        # The linprobe.sh schedule (50 epochs, 10 of warmup) cut to 2 epochs,
+        # then one repeated batch at a constant lr (no warmup, a cosine far
+        # longer than the run).
+        main_argv = _lp_argv(npz, train, test, f"{tmp}/lp", "--max_steps", str(LP_STEPS))
+        repeat_argv = _lp_argv(npz, repeat, test, f"{tmp}/lp", "--warmup_epochs", "0",
+                               "--epochs", "100000", "--eval_interval", "100000",
+                               "--ckpt_interval", "100000", "--max_steps",
+                               str(LP_REPEAT_STEPS))
+        init = build_run(main_argv).state.params
+        fresh, head0 = _backbone(init), init["head"]["kernel"]
+
+        counts = (mha_v3, mha, mha_qkv)
+        for c in counts:
+            c.launches = c.bwd_launches = 0
+        result = linprobe_main(main_argv)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        repeated = linprobe_main(repeat_argv)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        fwd, bwd = mha_v3.launches, mha_v3.bwd_launches
+        others = [c.launches + c.bwd_launches for c in counts[1:]]
+        run = result["run"]
+        check(run.cfg.attention_impl == "pallas_v3", f"attention {run.cfg.attention_impl}")
+        check(result["steps"] == LP_STEPS and repeated["steps"] == LP_REPEAT_STEPS,
+              f"steps {result['steps']}, {repeated['steps']}")
+        steps = result["steps"] + repeated["steps"]
+        eval_batches = result["eval_batches"] + repeated["eval_batches"]
+        check(result["eval_batches"] == 4 and repeated["eval_batches"] == 2,
+              f"eval batches {result['eval_batches']}, {repeated['eval_batches']}")
+        check(fwd == LP_ATTN * (steps + eval_batches) and bwd == 0 and others == [0, 0],
+              f"launches K1f {fwd}, K1b {bwd}, K2 and K3 {others}: expected {LP_ATTN} x "
+              f"({steps} steps + {eval_batches} eval batches), 0 and 0")
+        losses = result["losses"] + repeated["losses"]
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"non-finite loss in {losses}")
+        rep = repeated["losses"]
+        check(rep[-1] < rep[0], f"loss did not fall on the repeated batch: {rep}")
+        for r in (result, repeated):
+            stats = r["eval"]
+            check(stats["n"] == LP_EVAL == int(stats["cm"].sum()),
+                  f"confusion matrix sums to {stats['cm'].sum()}, eval count {LP_EVAL}")
+            check(all(math.isfinite(stats[k]) for k in ("loss", "acc1", "acc5", "macro_f1",
+                                                         "micro_f1", "miou")),
+                  f"non-finite eval stats {stats}")
+            after = _backbone(r["run"].state.params)
+            check(after.keys() == fresh.keys() and all(
+                torch.equal(after[k], fresh[k]) for k in fresh), "a backbone leaf moved")
+            check(not torch.equal(r["run"].state.params["head"]["kernel"], head0),
+                  "the head did not move")
+            bn = r["run"].state.model_state["head_bn"]
+            check(bool((bn["mean"] != 0).any()) and bool((bn["var"] != 1).any()),
+                  "the BN head's running statistics did not move")
+        torch.cuda.empty_cache()
+
+        # Forward-only memory: the frozen backbone must not keep a block's
+        # activations for a backward. A forward that built the graph would
+        # keep at least each block's qkv and MLP hidden state.
+        cfg = run.cfg
+        n_tok, d = cfg.num_patches + 1, cfg.embed_dim
+        act = LP_BATCH * n_tok * 4 * d * 2               # one (N, L, 4D) bf16 tensor
+        param_bytes = sum(p.numel() * 4 for p in tree_leaves(run.state.params))
+        estimate = param_bytes + 8 * act
+        graph = cfg.depth * (LP_BATCH * n_tok * 3 * d * 2 + 2 * act)
+        check(peak <= estimate, f"peak {peak} B above the forward-only estimate {estimate} B "
+              f"(a graph-building forward keeps {graph} B more)")
+
+        # One epoch through device_prefetch against the host batches, on the
+        # card, with work on the consumer's stream between batches.
+        loader = run.train_loader
+        host = list(loader.epoch(0))
+        sums = []
+        for imgs, labels in device_prefetch(loader.epoch(0), "cuda"):
+            sums.append((imgs, labels, imgs.sum(dtype=torch.int64)))
+        check(len(sums) == len(host) == LP_TRAIN // LP_BATCH, f"{len(sums)} batches")
+        for (imgs, labels, total), (h_imgs, h_labels) in zip(sums, host):
+            ref = torch.from_numpy(h_imgs).cuda()
+            check(torch.equal(imgs, ref) and int(total) == int(h_imgs.sum(dtype=np.int64))
+                  and torch.equal(labels, torch.from_numpy(h_labels).cuda()),
+                  "a prefetched batch differs from its host batch")
+        del host, sums, ref
+        # The loader alone: decode on the host, then with the prefetch's
+        # pinned copies to the card.
+        t0 = time.perf_counter()
+        for _ in loader.epoch(1):
+            pass
+        loader_host_imgs_per_s = LP_TRAIN / (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in device_prefetch(loader.epoch(1), "cuda"):
+            pass
+        torch.cuda.synchronize()
+        loader_imgs_per_s = LP_TRAIN / (time.perf_counter() - t0)
+
+        # One epoch of steps through the loader under the profiler: device
+        # time by kind against the window's wall time.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for imgs, labels in run.train_batches(2):
+                run.step_fn(run.state, imgs, labels, run.draws(run.state.step))
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        kinds = _kernel_ms_by_kind(prof, LP_KINDS)
+        busy = sum(kinds.values())
+        prof_steps = LP_TRAIN // LP_BATCH
+        # The idle share against the unprofiled steady step of the 2-epoch
+        # run (the profiler slows the host), and against the window itself.
+        ms = result["steady_ms_per_step"]
+        log("linprobe_profile", card=json.dumps(card), steps=prof_steps,
+            profiled_wall_ms_per_step=window_ms / prof_steps,
+            device_ms_per_step=json.dumps({k: v / prof_steps for k, v in kinds.items()}),
+            device_idle_share=(1 - busy / prof_steps / ms) if busy else "not measured",
+            device_idle_share_of_window=(1 - busy / window_ms) if busy else "not measured")
+
+        # The eval logits of one batch and one train step, from the same
+        # weights, batch and draws, through K1f and through the plain
+        # attention ('xla' runs mha_v3_reference).
+        runs = {impl: build_run(_lp_argv(npz, train, test, f"{tmp}/cmp", "--attention_impl",
+                                         impl)) for impl in ("pallas_v3", "xla")}
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(runs["pallas_v3"].state.params), tree_leaves(runs["xla"].state.params))),
+            "the two runs did not start from the same weights")
+        imgs, labels = (torch.from_numpy(a).cuda() for a in next(iter(loader.epoch(0))))
+        e_imgs, e_labels = (torch.from_numpy(a).cuda()
+                            for a in next(iter(run.eval_loader.epoch(0))))
+        draws = run.draws(0)
+        outs = {}
+        for impl, r in runs.items():
+            f0 = mha_v3.launches
+            logits = r.eval_fn(r.state.params, r.state.model_state, e_imgs,
+                               e_labels.long())["logits"].float()
+            m = r.step_fn(r.state, imgs, labels.long(), draws)[1]
+            outs[impl] = (logits, float(m["loss"]), float(m["grad_norm"]))
+            launched = mha_v3.launches - f0
+            check(launched == (2 * LP_ATTN if impl == "pallas_v3" else 0),
+                  f"{impl} eval batch and step launched K1f {launched} times")
+        (k_logits, kl, kg), (p_logits, pl, pg) = outs["pallas_v3"], outs["xla"]
+        # The bf16 budget of [finetune]: the two paths round attention at
+        # other places in 12 blocks; the logits' relative L2 gap on the
+        # loss's limit.
+        dlog = ((k_logits - p_logits).norm() / p_logits.norm()).item()
+        dl, dg = abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg)
+        check(math.isfinite(dlog) and dlog <= 2.0 ** -7 and dl <= 2.0 ** -7 and dg <= 2.0 ** -5,
+              f"kernel vs plain: logits rel gap {dlog}, loss {kl} vs {pl} (rel {dl}), "
+              f"grad norm {kg} vs {pg} (rel {dg})")
+        del runs, outs, k_logits, p_logits, imgs, labels, e_imgs, e_labels
+        del run, init, fresh, result["run"], repeated["run"]
+
+    imgs_per_s = LP_BATCH / (ms / 1e3)
+    flops = linprobe_train_flops_per_image(cfg)
+    log("linprobe", card=json.dumps(card), steps=steps, batch=LP_BATCH,
+        data_write_s=data_s, losses=json.dumps(result["losses"]),
+        repeated_batch_losses=json.dumps(rep),
+        eval=json.dumps({k: v for k, v in result["eval"].items() if k != "cm"}),
+        launches_fwd=fwd, launches_bwd=bwd, eval_batches=eval_batches, ms_per_step=ms,
+        imgs_per_s=imgs_per_s, loader_host_imgs_per_s=loader_host_imgs_per_s,
+        loader_imgs_per_s=loader_imgs_per_s,
+        train_flops_per_image=flops, mfu=mfu(imgs_per_s, flops),
+        peak_bytes=peak, forward_only_estimate_bytes=estimate, graph_bytes=graph,
+        kernel_vs_plain_logits_rel_gap=dlog, kernel_vs_plain_loss=json.dumps([kl, pl]),
+        kernel_vs_plain_grad_norm=json.dumps([kg, pg]))
+    return fwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1013,17 +1355,24 @@ def main() -> int:
     phase_build()
     rows = phase_kernel(card)
     # Each path is driven with the counts set to 0 just before it and read
-    # just after it: serving (forward only), pretraining, then finetuning.
+    # just after it: serving (forward only), pretraining, finetuning, then
+    # linear probing from the pretraining's weights.
     served = phase_serving(card)
-    train_fwd, train_bwd = phase_train(card)
-    ft_fwd, ft_bwd = phase_finetune(card)
-    by_path = {"mha3_fwd": {"serving": served, "train": train_fwd},
-               "mha3_bwd": {"serving": 0, "train": train_bwd},
-               "mha_fwd": {"finetune": ft_fwd}, "mha_bwd": {"finetune": ft_bwd}}
+    with tempfile.TemporaryDirectory() as work:
+        npz = os.path.join(work, "pretrain.npz")
+        train_fwd, train_bwd = phase_train(card, npz)
+        ft_fwd, ft_bwd = phase_finetune(card)
+        lp_fwd = phase_linprobe(card, npz)
+    by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "linprobe": lp_fwd},
+               "mha3_bwd": {"serving": 0, "train": train_bwd, "linprobe": 0},
+               "mha_fwd": {"finetune": ft_fwd}, "mha_bwd": {"finetune": ft_bwd},
+               "mha2_fwd": {}, "mha2_bwd": {}}
     replaces = {"mha3_fwd": "cross_scale_mae_tpu/ops/attention.py:326",
                 "mha3_bwd": "cross_scale_mae_tpu/ops/attention.py:355",
                 "mha_fwd": "cross_scale_mae_tpu/ops/attention.py:68",
-                "mha_bwd": "cross_scale_mae_tpu/ops/attention.py:33"}
+                "mha_bwd": "cross_scale_mae_tpu/ops/attention.py:33",
+                "mha2_fwd": "cross_scale_mae_tpu/ops/attention.py:192",
+                "mha2_bwd": "cross_scale_mae_tpu/ops/attention.py:210"}
     kernels = []
     for name, line in replaces.items():
         case = REPORTED[name]

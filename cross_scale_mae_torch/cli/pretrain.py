@@ -8,12 +8,14 @@ two-view forward, losses, backward, AdamW) on one device, with the
 attention in the hand-written CUDA kernels when ``--attention_impl
 pallas_v3`` (the default).
 
-Data: the synthetic dataset only (seeded uint8 images, made as the JAX
-package's ``SyntheticDataset`` makes them and held on the device). At the
-end the params are written as the JAX package's npz
-(``<output_dir>/params.npz``), which ``cli/serve.py`` serves. Real datasets,
-the loader, resume, DDP, TP/SP, wandb and the fault knobs are not ported
-yet and refuse with a pointer to ROADMAP.md.
+Data: ``--dataset_type synthetic`` (the default: seeded uint8 images, made
+as the JAX package's ``SyntheticDataset`` makes them and held on the
+device), or ``fmow_rgb``, ``coco`` or ``naip`` with ``--train_path``, read
+by ``data/loader.DataLoader`` and moved by ``device_prefetch`` (NAIP adds
+the rot90 augmentation). At the end the params are written as the JAX
+package's npz (``<output_dir>/params.npz``), which ``cli/serve.py`` serves.
+The TIFF and temporal datasets, resume, DDP, TP/SP, wandb and the fault
+knobs are not ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_base_MsLdCeCd \\
@@ -29,12 +31,21 @@ import argparse
 import dataclasses
 import os
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 
+from cross_scale_mae_torch.cli.common import (
+    UNPORTED_RUNTIME,
+    add_data_args,
+    add_runtime_args,
+    apply_reference_compat,
+    make_loader,
+    refuse_unported,
+)
 from cross_scale_mae_torch.configs import MAEConfig, TrainConfig, get_mae_config
-from cross_scale_mae_torch.data.datasets import DATASET_STATS, synthetic_images
+from cross_scale_mae_torch.data.datasets import DATASET_STATS, build_dataset, synthetic_images
+from cross_scale_mae_torch.data.loader import DataLoader, device_prefetch
 from cross_scale_mae_torch.losses.recon import RECON_LOSSES
 from cross_scale_mae_torch.models.mae import mae_init
 from cross_scale_mae_torch.ops.augment import make_pretrain_augment
@@ -53,10 +64,8 @@ from cross_scale_mae_torch.utils.params import params_to_jax
 # Flags of the JAX CLI that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item.
 UNPORTED_FLAGS = {
-    "resume": 9, "train_path": 10, "test_path": 10, "canvas_scale": 10,
-    "model_parallel": 11, "sequence_parallel": 11, "fsdp": 11, "zero1": 11,
-    "ddp_mode": 11, "use_wandb": 16, "use_tensorboard": 16, "profile_dir": 16,
-    "use_perceptual_loss": 14, "adam_mu_dtype": 7, "adam_nu_dtype": 7,
+    **UNPORTED_RUNTIME, "zero1": 11, "ddp_mode": 11, "use_perceptual_loss": 14,
+    "adam_mu_dtype": 7, "adam_nu_dtype": 7,
 }
 FAULT_ENV = ("CSM_FAULT_STEP", "CSM_FAULT_PROCESS", "CSM_FAULT_ATTEMPT")
 
@@ -80,42 +89,22 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", default=0.05, type=float)
     p.add_argument("--clip_grad", default=None, type=float)
     p.add_argument("--max_steps", default=None, type=int, help="hard step cap")
-    p.add_argument("--seed", default=0, type=int)
-    p.add_argument("--compute_dtype", default="bfloat16")
-    p.add_argument("--attention_impl", default="pallas_v3",
-                   help="pallas_v3 (the CUDA kernels on the GPU) or xla (plain)")
-    p.add_argument("--gelu", default="tanh", choices=["tanh", "exact", "exact_tanhbwd"])
-    p.add_argument("--dataset_type", default="synthetic",
-                   choices=["synthetic", "fmow_rgb", "coco", "euro_sat",
-                            "fmow_sentinel", "naip", "fmow_temporal"])
-    p.add_argument("--synthetic_len", default=4096, type=int)
-    p.add_argument("--log_interval", default=20, type=int)
-    p.add_argument("--output_dir", default="./output_dir")
-    p.add_argument("--device", default="cuda",
-                   help="torch device the step runs on (cuda, cuda:1, cpu)")
+    add_data_args(p, pretrain=True, default="synthetic")
+    add_runtime_args(p)
+    # The K1 kernels, as the flagship step runs them (bench.py).
+    p.set_defaults(attention_impl="pallas_v3")
     g = p.add_argument_group("not ported yet (ROADMAP.md)")
-    for flag in ("resume", "train_path", "test_path", "profile_dir", "adam_mu_dtype",
-                 "adam_nu_dtype", "ddp_mode"):
+    for flag in ("adam_mu_dtype", "adam_nu_dtype", "ddp_mode"):
         g.add_argument(f"--{flag}", default=None)
-    g.add_argument("--canvas_scale", default=None, type=float)
-    g.add_argument("--model_parallel", default=None, type=int)
-    for flag in ("sequence_parallel", "fsdp", "zero1", "use_wandb", "use_tensorboard",
-                 "use_perceptual_loss"):
+    for flag in ("zero1", "use_perceptual_loss"):
         g.add_argument(f"--{flag}", action="store_true")
     return p
 
 
-def refuse_unported(args) -> None:
+def check_args(args) -> None:
     """SystemExit for a flag, dataset or environment knob not ported yet."""
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(
-                f"--{flag} is not ported yet; see ROADMAP.md (queue 1 item {item})")
-    if args.dataset_type != "synthetic":
-        raise SystemExit(
-            f"--dataset_type {args.dataset_type}: the port trains on the synthetic "
-            "dataset only; real datasets and the loader are queued in ROADMAP.md "
-            "(queue 1 item 10)")
+    apply_reference_compat(args, "pretrain")
+    refuse_unported(args, UNPORTED_FLAGS)
     for name in FAULT_ENV:
         if os.environ.get(name):
             raise SystemExit(
@@ -131,21 +120,37 @@ class PretrainRun:
     tcfg: TrainConfig
     state: TrainState
     step_fn: Callable
-    images: torch.Tensor          # the synthetic dataset, uint8 on the device
+    images: Optional[torch.Tensor]   # the synthetic dataset, uint8 on the device
     steps_per_epoch: int
     device: torch.device
+    loader: Optional[DataLoader] = None   # a real dataset's
+    rot90: bool = False                   # the NAIP rotations
 
     def draws(self, step: int) -> list:
         """The draws of ``step``: one set per microbatch, on the device."""
         gen = _step_rng(self.tcfg, self.tcfg.seed + 1, step, self.device)
-        return [sample_pretrain_draws(gen, self.tcfg.batch_size, self.cfg, self.tcfg)
+        canvas = self.loader.dataset.canvas_size if self.loader else None
+        return [sample_pretrain_draws(gen, self.tcfg.batch_size, self.cfg, self.tcfg,
+                                      canvas, self.rot90)
                 for _ in range(self.tcfg.accum_iter)]
+
+    def batches(self, epoch: int) -> Iterator[torch.Tensor]:
+        """The epoch's uint8 step batches on the device."""
+        if self.loader is not None:
+            for imgs, _ in device_prefetch(self.loader.epoch(epoch), self.device):
+                yield imgs
+            return
+        batch = self.tcfg.batch_size * self.tcfg.accum_iter
+        order = torch.randperm(len(self.images), device=self.device,
+                               generator=torch.Generator(device=self.device)
+                               .manual_seed(self.tcfg.seed * 1_000_003 + epoch))
+        for it in range(self.steps_per_epoch):
+            yield self.images[order[it * batch:(it + 1) * batch]]
 
 
 def build_run(args) -> PretrainRun:
-    """Config, synthetic data, seeded init, AdamW and the step, on
-    ``args.device``."""
-    refuse_unported(args)
+    """Config, data, seeded init, AdamW and the step, on ``args.device``."""
+    check_args(args)
     dev = resolve_device(args.device)
     cfg = get_mae_config(
         args.model, input_size=args.input_size, patch_size=args.patch_size,
@@ -157,23 +162,32 @@ def build_run(args) -> PretrainRun:
         batch_size=args.batch_size, accum_iter=args.accum_iter, blr=args.blr,
         lr=args.lr, min_lr=args.min_lr, weight_decay=args.weight_decay,
         clip_grad=args.clip_grad, seed=args.seed, log_interval=args.log_interval)
-    images = synthetic_images(args.synthetic_len, args.input_size, cfg.input_channels,
-                              args.seed, dev)
     eff_batch = args.batch_size * args.accum_iter
-    steps_per_epoch = args.synthetic_len // eff_batch
+    images = loader = None
+    if args.dataset_type == "synthetic":
+        images = synthetic_images(args.synthetic_len, args.input_size, cfg.input_channels,
+                                  args.seed, dev)
+        n_train, steps_per_epoch = args.synthetic_len, args.synthetic_len // eff_batch
+    else:
+        dataset = build_dataset(args.dataset_type, True, train_path=args.train_path,
+                                input_size=args.input_size, canvas_scale=args.canvas_scale)
+        loader = make_loader(args, dataset, eff_batch, seed=args.seed)
+        n_train, steps_per_epoch = len(dataset), loader.steps_per_epoch()
     if steps_per_epoch < 1:
-        raise SystemExit(f"--synthetic_len {args.synthetic_len} is smaller than one "
-                         f"step's {eff_batch} images")
+        raise SystemExit(f"{n_train} train images are fewer than one step's {eff_batch}")
     schedule = warmup_half_cosine(tcfg.resolved_lr(eff_batch), args.min_lr,
                                   args.warmup_epochs, args.epochs, steps_per_epoch)
     params, mstate = mae_init(cfg, torch.Generator(device=dev).manual_seed(args.seed))
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay,
                          b1=tcfg.adam_b1, b2=tcfg.adam_b2, clip_grad=args.clip_grad)
     state = TrainState.create(params, mstate, tx)
-    mean, std = DATASET_STATS[args.dataset_type]
-    augment = make_pretrain_augment(mean, std, args.input_size, dtype=args.compute_dtype)
+    # The dataset's own statistics, as the JAX CLI normalizes with them.
+    mean, std = (loader.dataset.mean, loader.dataset.std) if loader else DATASET_STATS["synthetic"]
+    rot90 = args.dataset_type == "naip"
+    augment = make_pretrain_augment(mean, std, args.input_size, rot90=rot90,
+                                    dtype=args.compute_dtype)
     step_fn = make_pretrain_step(cfg, tcfg, schedule, augment=augment)
-    return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, dev)
+    return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, dev, loader, rot90)
 
 
 def main(args) -> dict[str, Any]:
@@ -184,18 +198,13 @@ def main(args) -> dict[str, Any]:
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
     print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
           f"{run.steps_per_epoch} steps/epoch", flush=True)
-    batch = args.batch_size * args.accum_iter
     losses: list[float] = []
     last_metrics: dict[str, float] = {}
     prev_loss = None
     t_first = None
     total = 0
     for epoch in range(args.epochs):
-        order = torch.randperm(len(run.images), device=run.device,
-                               generator=torch.Generator(device=run.device)
-                               .manual_seed(args.seed * 1_000_003 + epoch))
-        for it in range(run.steps_per_epoch):
-            imgs = run.images[order[it * batch:(it + 1) * batch]]
+        for imgs in run.batches(epoch):
             _, metrics = run.step_fn(run.state, imgs, run.draws(run.state.step))
             # NaN abort (engine_pretrain.py:57-59) one step behind, so the
             # host does not wait for the step it just enqueued.

@@ -1,11 +1,13 @@
-// The attention bodies shared by the package's four kernels, for Hopper
-// (sm_90a): mha3_fwd.cu and mha3_bwd.cu (K1, the raw qkv projection layout)
-// and mha_fwd.cu and mha_bwd.cu (K2, head-folded q, k, v). Each kernel is a
-// thin __global__ function that finds its (sample, head)'s base pointers and
-// row strides and calls one body below; the bodies differ between K1 and K2
-// only in `kRound`, the two roundings to the input type that K1's Pallas
-// kernels make and K2's do not (P before the PV and dV products, dS before
-// the dQ and dK products).
+// The attention bodies shared by the package's six kernels, for Hopper
+// (sm_90a): mha3_fwd.cu and mha3_bwd.cu (K1, the raw qkv projection
+// layout), mha_fwd.cu and mha_bwd.cu (K2, head-folded q, k, v) and
+// mha2_fwd.cu and mha2_bwd.cu (K3, the (N, L, 3H, hd) layout: K1's bytes with K2's
+// numerics). Each kernel is a thin __global__ function that finds its
+// (sample, head)'s base pointers and row strides and calls one body below;
+// the bodies differ between K1 and K2/K3 only in `kRound`, the two
+// roundings to the input type that K1's Pallas kernels make and the others
+// do not (P before the PV and dV products, dS before the dQ and dK
+// products).
 //
 // What bounds them: the whole (L, L) score matrix of one head is tiny (L is
 // 17 to 257), so the work is about L flops per byte moved in bf16, far below

@@ -19,6 +19,7 @@ JAX package's keys).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import numpy as np
@@ -102,11 +103,13 @@ def vit_apply(params: Params, state: Params, cfg: ViTClassifierConfig, imgs: tor
               bn_momentum: float = 0.1, freeze_backbone: bool = False
               ) -> tuple[torch.Tensor, Params]:
     """Returns (fp32 logits (N, num_classes), new_state).
-    ``freeze_backbone`` cuts the gradient at the features, so the backbone's
-    backward is not computed (the linear probe's requires_grad=False)."""
-    feat = vit_forward_features(params, cfg, imgs, train=train, drop_masks=drop_masks)
-    if freeze_backbone:
-        feat = feat.detach()
+    ``freeze_backbone`` runs the backbone without autograd (the linear
+    probe's requires_grad=False; JAX's ``stop_gradient`` at the features,
+    which lets XLA prune the backbone's backward): no block records a node
+    or saves an activation, and the attention takes its forward-only
+    kernel. The logits are the same bits either way."""
+    with torch.no_grad() if freeze_backbone else contextlib.nullcontext():
+        feat = vit_forward_features(params, cfg, imgs, train=train, drop_masks=drop_masks)
     new_state = dict(state)
     if cfg.use_bn_head:
         f32 = at_least_f32(feat)

@@ -20,6 +20,15 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   ``mha.bwd_launches``; on a CPU tensor ``mha_folded_reference`` and
   ``mha_folded_bwd_reference``, with every operand in fp32 and nothing
   rounded before the output.
+* v2 (K3): ``mha_qkv(qkv, num_heads)`` (also ``pallas_mha_qkv``) on the
+  (N, L, 3H, hd) layout, q heads at [0, H), k at [H, 2H), v at [2H, 3H),
+  returns (N, L, H, hd) with K2's numerics. ``_MhaQkv`` saves only qkv, as
+  ``_mha2_cvjp_fwd`` does, and its backward returns dqkv in the qkv layout.
+  On a CUDA tensor ``csrc/mha2_fwd.cu`` (``_mha2_kernel``) and
+  ``csrc/mha2_bwd.cu`` (``_mha2_bwd_kernel``), counted by
+  ``mha_qkv.launches`` and ``mha_qkv.bwd_launches``; on a CPU tensor
+  ``mha_qkv_reference`` and ``mha_qkv_bwd_reference``. No path of the
+  model dispatches it, as in the JAX package.
 
 A CUDA tensor goes to a kernel or raises; there is no fallback.
 """
@@ -90,19 +99,20 @@ def mha3_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
     return 2 * seq_len * pitch * item + warps * head_dim * 4 + warps * seq_len * 4
 
 
-def _check_kernel_input(qkv: torch.Tensor, num_heads: int, smem_bytes
-                        ) -> tuple[int, int, int, int]:
-    """Raise on what the kernels do not take; returns (N, L, D, hd)."""
+def _check_kernel_input(qkv: torch.Tensor, num_heads: int, smem_bytes,
+                        name: str = "mha_v3") -> tuple[int, int, int, int]:
+    """Raise on what the kernels on the (N, L, 3D) layout (K1, and K3 on its
+    view) do not take; returns (N, L, D, hd)."""
     n, l, d, hd = _split_dims(qkv, num_heads)
     if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"mha_v3 kernel takes bfloat16 or float32, got {qkv.dtype}")
+        raise TypeError(f"{name} kernel takes bfloat16 or float32, got {qkv.dtype}")
     if not qkv.is_contiguous():
-        raise ValueError("mha_v3 kernel needs a contiguous qkv tensor")
+        raise ValueError(f"{name} kernel needs a contiguous qkv tensor")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"mha_v3 kernel is built for head_dim in {KERNEL_HEAD_DIMS}, got {hd}")
+            f"{name} kernel is built for head_dim in {KERNEL_HEAD_DIMS}, got {hd}")
     if qkv.data_ptr() % 16:
-        raise ValueError("mha_v3 kernel needs a 16-byte aligned qkv tensor")
+        raise ValueError(f"{name} kernel needs a 16-byte aligned qkv tensor")
     smem = smem_bytes(l, hd, qkv.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
@@ -419,3 +429,146 @@ def pallas_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
 mha = pallas_mha
 mha.launches = 0
 mha.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v2 (K3): the (N, L, 3H, hd) layout of ``pallas_mha_qkv``. Its bytes are
+# K1's (N, L, 3D): q head g starts at column g*hd of a row 3D long, k head g
+# at D + g*hd. Its numerics are K2's: fp32 operands, P and dS never rounded,
+# each output rounded once (attention.py:192-238).
+
+# K3 runs the shared bodies on K1's row layout, so its blocks need K1's
+# shared memory (csrc/mha_common.cuh `fwd_smem_bytes`, `bwd_smem_bytes`).
+mha2_smem_bytes = mha3_smem_bytes
+mha2_bwd_smem_bytes = mha3_bwd_smem_bytes
+
+
+def _qkv_heads(qkv: torch.Tensor, num_heads: int) -> tuple[torch.Tensor, ...]:
+    """(N, L, 3H, hd) -> q, k, v as (N, H, L, hd) views."""
+    if qkv.dim() != 4 or qkv.shape[2] != 3 * num_heads:
+        raise ValueError(
+            f"qkv must be (N, L, 3H, hd) with 3H = {3 * num_heads}, got shape "
+            f"{tuple(qkv.shape)}")
+    return tuple(t.transpose(1, 2) for t in qkv.split(num_heads, dim=2))
+
+
+def mha_qkv_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of ``_mha2_kernel``: (N, L, 3H, hd) ->
+    (N, L, H, hd), every operand in fp32, P not rounded."""
+    return mha_folded_reference(*_qkv_heads(qkv, num_heads)).transpose(1, 2)
+
+
+def mha_qkv_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
+                          num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of ``_mha2_bwd_kernel``: qkv (N, L, 3H, hd) and
+    dO (N, L, H, hd) -> dqkv (N, L, 3H, hd), K2's op order per head
+    (:func:`mha_folded_bwd_reference`)."""
+    grads = mha_folded_bwd_reference(*_qkv_heads(qkv, num_heads), do.transpose(1, 2))
+    return torch.cat([g.transpose(1, 2) for g in grads], dim=2)
+
+
+def _check_qkv4(qkv: torch.Tensor, num_heads: int, smem_bytes) -> tuple[int, int, int, int]:
+    """Raise on what the K3 kernels do not take; returns (N, L, D, hd)."""
+    _qkv_heads(qkv, num_heads)
+    if not qkv.is_contiguous():
+        raise ValueError("mha_qkv kernel needs a contiguous qkv tensor")
+    n, l, three_h, hd = qkv.shape
+    return _check_kernel_input(qkv.view(n, l, three_h * hd), num_heads, smem_bytes,
+                               name="mha_qkv")
+
+
+def _mha2_fwd_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K3f: ``csrc/mha2_fwd.cu``, the forward body without K1's rounding."""
+    n, l, d, hd = _check_qkv4(qkv, num_heads, mha2_smem_bytes)
+    from cross_scale_mae_torch.ops.cuda_build import load_library
+
+    fn = load_library("mha2_fwd").csmae_mha2_fwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((n, l, num_heads, hd), dtype=qkv.dtype, device=qkv.device)
+    if n == 0 or l == 0:
+        return out
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(qkv.data_ptr(), out.data_ptr(), n, l, num_heads, hd,
+                 _DTYPE_CODES[qkv.dtype], hd ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"mha2_fwd kernel launch failed: cudaError_t {err}")
+    mha_qkv.launches += 1
+    return out
+
+
+def _mha2_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K3b: ``csrc/mha2_bwd.cu``, the backward body without K1's rounding,
+    dqkv written in the qkv layout."""
+    n, l, d, hd = _check_qkv4(qkv, num_heads, mha2_bwd_smem_bytes)
+    if do.shape != (n, l, num_heads, hd) or do.dtype != qkv.dtype or do.device != qkv.device:
+        raise ValueError(
+            f"dO must be a {qkv.dtype} tensor of shape {(n, l, num_heads, hd)} on "
+            f"{qkv.device}, got {do.dtype} {tuple(do.shape)} on {do.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("mha_qkv backward kernel needs a contiguous, 16-byte aligned dO")
+    from cross_scale_mae_torch.ops.cuda_build import load_library
+
+    fn = load_library("mha2_bwd").csmae_mha2_bwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                 ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(qkv)
+    if n == 0 or l == 0:
+        return out
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(qkv.data_ptr(), do.data_ptr(), out.data_ptr(), n, l, num_heads, hd,
+                 _DTYPE_CODES[qkv.dtype], hd ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"mha2_bwd kernel launch failed: cudaError_t {err}")
+    mha_qkv.bwd_launches += 1
+    return out
+
+
+def _mha2_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        return mha_qkv_reference(qkv, num_heads)
+    return _mha2_fwd_cuda(qkv, num_heads)
+
+
+class _MhaQkv(torch.autograd.Function):
+    """K3f and K3b (CUDA) or their plain versions (CPU) behind one autograd
+    node that saves only qkv (``_mha2_cvjp_fwd``'s residuals)."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return _mha2_fwd(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        if qkv.device.type == "cpu":
+            return mha_qkv_bwd_reference(qkv, do, ctx.num_heads), None
+        return _mha2_bwd_cuda(qkv, do.contiguous(), ctx.num_heads), None
+
+
+def pallas_mha_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(N, L, 3H, hd) -> (N, L, H, hd) attention with no layout change,
+    differentiable. A CUDA tensor goes to the Hopper kernels
+    (``mha_qkv.launches`` and ``mha_qkv.bwd_launches`` count their
+    launches); a CPU tensor to :func:`mha_qkv_reference` and
+    :func:`mha_qkv_bwd_reference`."""
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mha_qkv runs on cuda or cpu tensors, got {qkv.device}")
+    if not (qkv.requires_grad and torch.is_grad_enabled()):
+        return _mha2_fwd(qkv, num_heads)
+    if qkv.device.type == "cuda":
+        # Refuse before the forward what the backward kernel cannot take.
+        _check_qkv4(qkv, num_heads, mha2_bwd_smem_bytes)
+    return _MhaQkv.apply(qkv, num_heads)
+
+
+# As with ``mha``: the tensor's device picks the kernel or the plain version.
+mha_qkv = pallas_mha_qkv
+mha_qkv.launches = 0
+mha_qkv.bwd_launches = 0

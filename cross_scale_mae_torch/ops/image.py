@@ -11,7 +11,7 @@
   the GPU the operands are rounded to bf16 and the products accumulate in
   fp32, as the TPU's matrix unit does; on the CPU, where JAX's DEFAULT is
   fp32, it is the fp32 product.
-* Flips and crop boxes take their random draws as inputs
+* Flips, rotations and crop boxes take their random draws as inputs
   (``train/pretrain.py::sample_pretrain_draws`` makes them), so a test can
   hand both packages the same numbers.
 """
@@ -121,6 +121,16 @@ def random_flips(imgs: torch.Tensor, hflip: torch.Tensor,
     (N,) bool flags say so (JAX: ``random_flips``' Bernoulli(0.5) draws)."""
     imgs = torch.where(hflip[:, None, None, None], imgs.flip(2), imgs)
     return torch.where(vflip[:, None, None, None], imgs.flip(1), imgs)
+
+
+def random_rot90(imgs: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Per-sample rotation by k * 90 degrees of square NHWC images, with the
+    (N,) integer draws ``k`` in {0, 1, 2, 3} (JAX: ``random_rot90``'s
+    ``randint(0, 4)``; the NAIP flip/rotate augmentation)."""
+    out = imgs
+    for r in (1, 2, 3):
+        out = torch.where((k == r)[:, None, None, None], torch.rot90(imgs, r, dims=(1, 2)), out)
+    return out
 
 
 def sample_crop_boxes(u: torch.Tensor, height: int, width: int,

@@ -34,14 +34,16 @@ class FinetuneDraws:
     vflip: torch.Tensor                  # (N,) bool: augment's vertical flips
     crop_boxes: torch.Tensor             # (N, 4) RandomResizedCrop boxes on the canvas
     drop_masks: Optional[torch.Tensor]   # (depth, N) bool drop-path keeps, or None
+    rot_k: Optional[torch.Tensor] = None  # (N,) NAIP rotations in {0..3}, or None
 
 
 def sample_finetune_draws(gen: torch.Generator, n: int, cfg: ViTClassifierConfig,
-                          canvas: int) -> FinetuneDraws:
+                          canvas: int, rot90: bool = False) -> FinetuneDraws:
     """Draw what one step of ``n`` samples needs on ``gen``'s device, with
     the JAX package's distributions: Bernoulli(0.5) flips, crop boxes from
-    four uniforms each on a ``canvas``-sized image, and Bernoulli(1 - rate)
-    drop-path keeps per block when ``drop_path_rate > 0``."""
+    four uniforms each on a ``canvas``-sized image, Bernoulli(1 - rate)
+    drop-path keeps per block when ``drop_path_rate > 0``, and with
+    ``rot90`` uniform rotations in {0, 1, 2, 3}, drawn last."""
     dev = gen.device
 
     def uniform(*shape):
@@ -53,24 +55,27 @@ def sample_finetune_draws(gen: torch.Generator, n: int, cfg: ViTClassifierConfig
     if cfg.drop_path_rate > 0:
         keep = 1.0 - torch.from_numpy(drop_path_rates(cfg)).to(dev)
         masks = uniform(cfg.depth, n) < keep[:, None]
-    return FinetuneDraws(hflip, vflip, boxes, masks)
+    rot_k = torch.randint(0, 4, (n,), generator=gen, device=dev) if rot90 else None
+    return FinetuneDraws(hflip, vflip, boxes, masks, rot_k)
 
 
 def make_classify_loss_fn(cfg: ViTClassifierConfig, tcfg: TrainConfig,
-                          augment: Callable | None = None):
+                          augment: Callable | None = None, freeze_backbone: bool = False):
     """``loss_fn(params, model_state, imgs, labels, draws) -> (loss, (acc1,
     new_model_state))``: augment, smoothed one-hot targets, the classifier
-    with drop-path, soft cross-entropy."""
+    with drop-path (its backbone frozen with ``freeze_backbone``), soft
+    cross-entropy."""
     if tcfg.mixup > 0 or tcfg.cutmix > 0 or tcfg.cutmix_minmax is not None:
         raise NotImplementedError(
             "mixup/cutmix is not ported yet; see ROADMAP.md (queue 1 item 12)")
 
     def loss_fn(params, model_state, imgs, labels, draws: FinetuneDraws):
         if augment is not None:
-            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes)
+            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes, draws.rot_k)
         targets = smooth_one_hot(labels, cfg.num_classes, tcfg.label_smoothing)
         logits, new_state = vit_apply(params, model_state, cfg, imgs, train=True,
-                                      drop_masks=draws.drop_masks)
+                                      drop_masks=draws.drop_masks,
+                                      freeze_backbone=freeze_backbone)
         acc1 = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
         return soft_cross_entropy(logits, targets), (acc1.detach(), new_state)
 
@@ -79,16 +84,24 @@ def make_classify_loss_fn(cfg: ViTClassifierConfig, tcfg: TrainConfig,
 
 def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
                              schedule: Callable[[int], float],
-                             augment: Callable | None = None) -> Callable:
+                             augment: Callable | None = None,
+                             freeze_backbone: bool = False) -> Callable:
     """Returns ``step(state, imgs, labels, draws) -> (state, metrics)``.
 
     imgs: (B, H, W, C), raw uint8 when ``augment``
-    (``ops/augment.make_finetune_augment``) is given; B = accum_iter *
-    microbatch. draws: one :class:`FinetuneDraws` per microbatch (a single
-    one when accum_iter is 1). The params are updated in place. metrics
-    hold 0-d device tensors (``loss``, ``grad_norm``, ``acc1``) and the
-    step's ``lr``; nothing in the step waits on the device."""
-    loss_fn = make_classify_loss_fn(cfg, tcfg, augment)
+    (``ops/augment.make_finetune_augment``, or ``make_pretrain_augment``
+    for the linear probe) is given; B = accum_iter * microbatch. draws: one
+    :class:`FinetuneDraws` per microbatch (a single one when accum_iter is
+    1). The params are updated in place. metrics hold 0-d device tensors
+    (``loss``, ``grad_norm``, ``acc1``) and the step's ``lr``; nothing in
+    the step waits on the device.
+
+    ``freeze_backbone`` (the linear probe) runs the backbone without
+    autograd, so no backbone leaf gets a gradient buffer: their gradients
+    go to the optimizer as None, which its frozen mask must cover, and the
+    gradient norm is that of the head's, the JAX value (where the
+    backbone's gradients are zeros)."""
+    loss_fn = make_classify_loss_fn(cfg, tcfg, augment, freeze_backbone)
     accum = tcfg.accum_iter
     if accum < 1:
         raise ValueError(f"accum_iter must be >= 1, got {accum}")
@@ -112,12 +125,15 @@ def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
                 state.params, model_state, imgs[part], labels[part], d)
             mb_loss.backward()
             loss, acc1 = loss + mb_loss.detach(), acc1 + mb_acc
-        # A parameter the objective does not reach gets a zero gradient, as in JAX.
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        # A parameter the objective does not reach gets a zero gradient, as
+        # in JAX, but for a frozen backbone's, which stay None.
+        grads = [p.grad if p.grad is not None or freeze_backbone else torch.zeros_like(p)
+                 for p in leaves]
+        reached = [g for g in grads if g is not None]
         if accum > 1:
-            torch._foreach_mul_(grads, 1.0 / accum)
+            torch._foreach_mul_(reached, 1.0 / accum)
             loss, acc1 = loss / accum, acc1 / accum
-        metrics = dict(loss=loss, grad_norm=global_norm(grads), lr=schedule(state.step),
+        metrics = dict(loss=loss, grad_norm=global_norm(reached), lr=schedule(state.step),
                        acc1=acc1)
         state.apply_gradients(grads, model_state)
         for p in leaves:

@@ -1,5 +1,6 @@
-"""AdamW with the JAX package's weight-decay mask and layer-wise lr decay
-(counterpart of ``cross_scale_mae_tpu/train/optim.py``).
+"""AdamW with the JAX package's weight-decay mask and layer-wise lr decay,
+and LARS with a frozen mask for the linear probe (counterpart of
+``cross_scale_mae_tpu/train/optim.py``).
 
 The update is optax's ``adamw`` (plus ``clip_by_global_norm`` when asked,
 and the layer-decay scale chained after it), step for step: with t the
@@ -14,8 +15,13 @@ so the first update uses ``schedule(0)``, and layer decay scales the whole
 update, weight decay included. It runs as PyTorch multi-tensor
 (``torch._foreach_*``) ops over every parameter at once.
 
-Not ported yet (ROADMAP.md): LARS, SGD and frozen masks (queue 1 item 12),
-the bf16 moment dtypes (item 7).
+LARS (:class:`Lars`) has MoCo-v3 semantics (util/lars.py:27-57), as the
+JAX package's ``lars``; with ``frozen_mask`` only the trainable leaves
+have momentum buffers and are touched (optax ``masked`` with
+``set_to_zero`` on the complement).
+
+Not ported yet (ROADMAP.md): SGD, AdamW under a frozen mask (queue 1 item
+12), the bf16 moment dtypes (item 7).
 """
 
 from __future__ import annotations
@@ -120,6 +126,72 @@ class AdamW:
         state.count = t
 
 
+# MoCo-v3's LARS constants (util/lars.py:27-57), the JAX package's defaults.
+LARS_MOMENTUM = 0.9
+LARS_TRUST_COEFFICIENT = 0.001
+
+
+@dataclasses.dataclass
+class LarsState:
+    count: int
+    mu: list[torch.Tensor]   # one momentum buffer per trainable leaf
+
+
+class Lars:
+    """LARS with MoCo-v3 semantics over the leaves ``trainable`` marks
+    (JAX ``lars`` under ``optax.masked``), updating them in place; with t the
+    optimizer's own step count, per trainable leaf:
+
+        dp = g + wd p,  dp <- dp * tc ||p|| / ||dp||   (leaves of more than 1 dim;
+                                                       1 where a norm is 0)
+        dp = g                                           (1-D leaves)
+        mu <- momentum mu + dp,  p <- p - lr(t) mu
+
+    The norms are taken over each of the port's leaves (the JAX package
+    stacks the blocks, so its stacked leaves share one norm and count as
+    more than 1-D; a linear probe trains only the head, where the two
+    agree). Frozen leaves are never read or written, and their gradients
+    may be None."""
+
+    def __init__(self, schedule: Callable[[int], float], trainable: list[bool], *,
+                 weight_decay: float):
+        self.schedule, self.trainable, self.wd = schedule, trainable, weight_decay
+        self.momentum, self.tc = LARS_MOMENTUM, LARS_TRUST_COEFFICIENT
+
+    def init(self, params: Params) -> LarsState:
+        leaves = tree_leaves(params)
+        if len(leaves) != len(self.trainable):
+            raise ValueError(f"{len(leaves)} params but a frozen mask of {len(self.trainable)}")
+        return LarsState(0, [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                             for p, t in zip(leaves, self.trainable) if t])
+
+    @torch.no_grad()
+    def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
+               state: LarsState) -> None:
+        idx = [i for i, t in enumerate(self.trainable) if t]
+        ps = [params[i] for i in idx]
+        # A trainable leaf the objective did not reach has a zero gradient.
+        dps = [torch.zeros_like(params[i]) if grads[i] is None else grads[i] for i in idx]
+        wide = [j for j, p in enumerate(ps) if p.dim() > 1]
+        if wide:
+            pw = [ps[j] for j in wide]
+            dw = [dps[j] for j in wide]
+            if self.wd:
+                dw = torch._foreach_add(dw, pw, alpha=self.wd)
+            p_norm = torch._foreach_norm(pw)
+            u_norm = torch._foreach_norm(dw)
+            trust = [torch.where((pn > 0) & (un > 0), self.tc * pn / un, torch.ones_like(pn))
+                     for pn, un in zip(p_norm, u_norm)]
+            dw = torch._foreach_mul(dw, trust)
+            for j, d in zip(wide, dw):
+                dps[j] = d
+        lr = self.schedule(state.count)
+        torch._foreach_mul_(state.mu, self.momentum)
+        torch._foreach_add_(state.mu, dps)
+        torch._foreach_add_(ps, state.mu, alpha=-lr)
+        state.count += 1
+
+
 def build_optimizer(
     params: Params,
     schedule: Callable[[int], float],
@@ -132,16 +204,36 @@ def build_optimizer(
     layer_decay: Optional[float] = None,
     depth: Optional[int] = None,
     no_decay_names: tuple[str, ...] = (),
+    frozen_mask: Optional[Params] = None,
     mu_dtype: Optional[str] = None,
     nu_dtype: Optional[str] = None,
-) -> AdamW:
-    """AdamW (eps 1e-8) with :func:`wd_mask` (``no_decay_names`` excluded),
-    after optional global-norm clipping, and with :func:`layer_decay_scales`
-    when ``layer_decay`` is set and not 1 (it needs ``depth``)."""
+) -> AdamW | Lars:
+    """``optimizer="adamw"``: AdamW (eps 1e-8) with :func:`wd_mask`
+    (``no_decay_names`` excluded), after optional global-norm clipping, and
+    with :func:`layer_decay_scales` when ``layer_decay`` is set and not 1
+    (it needs ``depth``). ``optimizer="lars"``: :class:`Lars` over the
+    leaves ``frozen_mask`` (a tree of bools like ``params``, True =
+    trainable; every leaf without it) marks, the linear probe's
+    freeze-all-but-head (main_linprobe.py:521-525)."""
+    if optimizer == "lars":
+        unported = {"clip_grad": clip_grad, "layer_decay": layer_decay,
+                    "mu_dtype": mu_dtype, "nu_dtype": nu_dtype}
+        for name, value in unported.items():
+            if value is not None and not (name == "layer_decay" and value == 1.0):
+                raise NotImplementedError(
+                    f"LARS with {name} is not ported yet; see ROADMAP.md (queue 1 item 12)")
+        n = len(tree_leaves(params))
+        trainable = ([True] * n if frozen_mask is None
+                     else [bool(t) for t in tree_leaves(frozen_mask)])
+        return Lars(schedule, trainable, weight_decay=weight_decay)
     if optimizer != "adamw":
         raise NotImplementedError(
             f"optimizer {optimizer!r} is not ported yet (the port runs "
-            "'adamw'); see ROADMAP.md (queue 1 item 12)")
+            "'adamw' and 'lars'); see ROADMAP.md (queue 1 item 12)")
+    if frozen_mask is not None:
+        raise NotImplementedError(
+            "AdamW under a frozen mask is not ported yet (the linear probe runs "
+            "LARS); see ROADMAP.md (queue 1 item 12)")
     scales = None
     if layer_decay is not None and layer_decay != 1.0:
         if depth is None:

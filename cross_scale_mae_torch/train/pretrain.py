@@ -12,7 +12,7 @@ inject the JAX package's draws instead. Gradient accumulation
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -32,31 +32,37 @@ class PretrainDraws:
     crop_boxes: torch.Tensor  # (N, 4) augment's RandomResizedCrop boxes
     ms_boxes: torch.Tensor    # (N, 4) the low-GSD view's crop boxes
     noise: torch.Tensor       # (2N, L) mask noise of both views (N, L single-scale)
+    rot_k: Optional[torch.Tensor] = None  # (N,) NAIP rotations in {0..3}, or None
 
 
 def sample_pretrain_draws(gen: torch.Generator, n: int, cfg: MAEConfig,
-                          tcfg: TrainConfig) -> PretrainDraws:
+                          tcfg: TrainConfig, canvas: Optional[int] = None,
+                          rot90: bool = False) -> PretrainDraws:
     """Draw what one step of ``n`` samples needs, on ``gen``'s device, with
     the JAX package's distributions: Bernoulli(0.5) flips, crop boxes from
-    four uniforms each (``ops/image.sample_crop_boxes``) on input-sized
-    images, uniform mask noise. The consistent mask (``consistent_mask`` or
-    ``mask_seed``) repeats the original view's noise for the crop view;
-    ``ms_per_sample_crop=False`` shares one MsLd box across the batch."""
+    four uniforms each (``ops/image.sample_crop_boxes``) on the batch's
+    ``canvas`` (the input size by default), uniform mask noise, and with
+    ``rot90`` uniform rotations in {0, 1, 2, 3}, drawn last. The consistent
+    mask (``consistent_mask`` or ``mask_seed``) repeats the original view's
+    noise for the crop view; ``ms_per_sample_crop=False`` shares one MsLd
+    box across the batch."""
     dev = gen.device
     size = cfg.input_size
+    canvas = canvas or size
 
     def uniform(*shape):
         return torch.rand(shape, generator=gen, device=dev)
 
     hflip, vflip = uniform(n) < 0.5, uniform(n) < 0.5
-    crop_boxes = sample_crop_boxes(uniform(4, n), size, size, PRETRAIN_CROP_SCALE)
+    crop_boxes = sample_crop_boxes(uniform(4, n), canvas, canvas, PRETRAIN_CROP_SCALE)
     ms_boxes = sample_crop_boxes(uniform(4, n if cfg.ms_per_sample_crop else 1),
                                  size, size, cfg.ms_range, cfg.ms_aspect_ratio).expand(n, 4)
     noise = uniform(n, cfg.num_patches)
     if cfg.multi_scale:
         consistent = tcfg.consistent_mask or tcfg.mask_seed is not None
         noise = torch.cat([noise, noise if consistent else uniform(n, cfg.num_patches)])
-    return PretrainDraws(hflip, vflip, crop_boxes, ms_boxes, noise)
+    rot_k = torch.randint(0, 4, (n,), generator=gen, device=dev) if rot90 else None
+    return PretrainDraws(hflip, vflip, crop_boxes, ms_boxes, noise, rot_k)
 
 
 def _step_rng(tcfg: TrainConfig, seed: int, step: int,
@@ -79,7 +85,7 @@ def make_pretrain_loss_fn(cfg: MAEConfig, augment: Callable | None):
 
     def loss_fn(params, model_state, imgs: torch.Tensor, draws: PretrainDraws):
         if augment is not None:
-            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes)
+            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes, draws.rot_k)
         out = mae_loss_fn(params, model_state, cfg, imgs, noise=draws.noise,
                           ms_boxes=draws.ms_boxes, train=True)
         return out.loss, out

@@ -62,12 +62,23 @@ def mfu(imgs_per_sec: float, flops_per_image: float) -> float:
     return imgs_per_sec * flops_per_image / H100_PEAK_BF16_FLOPS
 
 
+def vit_backbone_flops_per_image(cfg) -> float:
+    """Per-image FLOPs of the classifier's backbone forward: patch embed and
+    ``depth`` blocks on the patches + cls token."""
+    n_patch = cfg.num_patches
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.input_channels
+    return float(2 * n_patch * patch_dim * cfg.embed_dim
+                 + cfg.depth * _block_flops(n_patch + 1, cfg.embed_dim, cfg.mlp_ratio))
+
+
 def vit_train_flops_per_image(cfg) -> float:
     """Per-image useful FLOPs of one classifier train step (3 x forward):
     patch embed, ``depth`` blocks on the patches + cls token, the head."""
-    n_patch = cfg.num_patches
-    patch_dim = cfg.patch_size * cfg.patch_size * cfg.input_channels
-    forward = (2 * n_patch * patch_dim * cfg.embed_dim
-               + cfg.depth * _block_flops(n_patch + 1, cfg.embed_dim, cfg.mlp_ratio)
-               + 2 * cfg.embed_dim * cfg.num_classes)
-    return 3.0 * forward
+    return 3.0 * (vit_backbone_flops_per_image(cfg) + 2 * cfg.embed_dim * cfg.num_classes)
+
+
+def linprobe_train_flops_per_image(cfg) -> float:
+    """Per-image useful FLOPs of one linear-probe step: the frozen
+    backbone's forward, and the head's forward and backward (3 x its
+    product; the backbone has no backward)."""
+    return vit_backbone_flops_per_image(cfg) + 3.0 * 2 * cfg.embed_dim * cfg.num_classes

@@ -298,3 +298,131 @@ def test_mha_kernels_fit_every_shape_the_configs_give():
             assert port_attn.mha3_bwd_smem_bytes(257, hd, dt) <= port_attn.MAX_SMEM_BYTES
             port_attn._check_folded((torch.zeros(2, 257, hd, dtype=dt),) * 4,
                                     port_attn.mha3_bwd_smem_bytes)
+
+
+# ---------------------------------------------------------------- K3 (v2)
+#
+# The port's mha_qkv (its plain versions on the CPU) against the JAX
+# package's pallas_mha_qkv in interpret mode, which runs _mha2_kernel and,
+# through its custom VJP, _mha2_bwd_kernel, at tests/test_models.py:352's
+# shape and the ViT shapes. fp32: atol 1e-5, as that test holds it. bf16:
+# one bf16 ulp at the largest magnitude: both sides compute in fp32 and
+# round each output once, from fp32 sums taken in another order.
+
+K3_CASES = [((2, 16, 4, 8), "float32"), ((2, 16, 4, 8), "bfloat16"),
+            ((2, 65, 4, 64), "float32"), ((2, 65, 4, 64), "bfloat16"),
+            ((2, 17, 3, 16), "bfloat16")]
+
+
+def _qkv4_do(shape, seed):
+    n, l, h, hd = shape
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, l, 3 * h, hd)).astype(np.float32),
+            rng.normal(size=shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape,dtype", K3_CASES)
+def test_mha_qkv_matches_jax_pallas_mha_qkv(shape, dtype):
+    from cross_scale_mae_tpu.ops.attention import pallas_mha_qkv as jqkv
+
+    x, _ = _qkv4_do(shape, 21)
+    h = shape[2]
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    ref = np.asarray(jqkv(jnp.asarray(x, jdt), h, True).astype(jnp.float32))
+    got = port_attn.mha_qkv(torch.from_numpy(x).to(tdt), h)
+    assert got.shape == shape and got.dtype == tdt
+    atol = 1e-5 if dtype == "float32" else _bf16_bound(ref)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("shape,dtype", K3_CASES)
+def test_mha_qkv_grad_matches_jax_vjp(shape, dtype):
+    """dqkv in the qkv layout, through mha_qkv_bwd_reference directly and
+    through autograd of mha_qkv, against jax.vjp of pallas_mha_qkv."""
+    import jax
+
+    from cross_scale_mae_tpu.ops.attention import pallas_mha_qkv as jqkv
+
+    x, g = _qkv4_do(shape, 22)
+    h = shape[2]
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda a: jqkv(a, h, True), jnp.asarray(x, jdt))
+    ref = np.asarray(vjp(jnp.asarray(g, jdt))[0].astype(jnp.float32))
+    atol = 1e-5 if dtype == "float32" else _bf16_bound(ref)
+    direct = port_attn.mha_qkv_bwd_reference(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt), h)
+    assert direct.shape == x.shape and direct.dtype == tdt
+    np.testing.assert_allclose(direct.float().numpy(), ref, rtol=0, atol=atol)
+    leaf = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    port_attn.mha_qkv(leaf, h).backward(torch.from_numpy(g).to(tdt))
+    np.testing.assert_allclose(leaf.grad.float().numpy(), ref, rtol=0, atol=atol)
+
+
+def test_mha_qkv_saves_only_qkv():
+    """The autograd node keeps qkv alone (``_mha2_cvjp_fwd``'s residuals)."""
+    qkv = torch.randn(2, 5, 3 * 2, 16, requires_grad=True)
+    saved = port_attn.mha_qkv(qkv, 2).grad_fn.saved_tensors
+    assert len(saved) == 1 and saved[0] is qkv
+    assert port_attn.pallas_mha_qkv is port_attn.mha_qkv
+
+
+def test_mha_qkv_keeps_p_and_ds_in_fp32():
+    """K3 has K2's numerics: in bf16 its output and dq differ from K1's
+    order on the same bytes, which rounds P and dS to bf16."""
+    x, g = (torch.from_numpy(a).bfloat16() for a in _qkv4_do((3, 33, 2, 64), 23))
+    out = port_attn.mha_qkv_reference(x, 2)
+    dq = port_attn.mha_qkv_bwd_reference(x, g, 2)[:, :, :2]
+    k1 = port_attn.mha_v3_reference(x.reshape(3, 33, 3 * 128), 2)
+    k1_dq = port_attn.mha3_bwd_reference(x.reshape(3, 33, 3 * 128), g.reshape(3, 33, 128), 2)
+    assert not torch.equal(out.reshape(3, 33, 128), k1)
+    assert not torch.equal(dq.reshape(3, 33, 128), k1_dq[..., :128])
+
+
+def test_cpu_mha_qkv_never_counts_a_launch():
+    before = port_attn.mha_qkv.launches, port_attn.mha_qkv.bwd_launches
+    qkv = torch.zeros(1, 4, 3 * 2, 16, requires_grad=True)
+    port_attn.mha_qkv(qkv, 2).sum().backward()
+    assert (port_attn.mha_qkv.launches, port_attn.mha_qkv.bwd_launches) == before
+
+
+def test_mha_qkv_rejects_other_devices():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port_attn.mha_qkv(torch.zeros(1, 4, 6, 16, device="meta"), 2)
+
+
+@pytest.mark.parametrize("make,err,match", [
+    (lambda: torch.zeros(1, 4, 6, 32, dtype=torch.float16), TypeError, "bfloat16 or float32"),
+    (lambda: torch.zeros(1, 6, 4, 32).transpose(1, 2), ValueError, "contiguous"),
+    (lambda: torch.zeros(1, 4, 6, 24), ValueError, "head_dim"),
+    (lambda: torch.zeros(1, 4, 5, 32), ValueError, "3H"),
+    (lambda: torch.zeros(4, 6, 32), ValueError, "3H"),
+    (lambda: torch.zeros(1, 900, 6, 64), ValueError, "shared memory"),
+])
+def test_mha_qkv_kernel_wrappers_validate_before_launch(make, err, match):
+    with pytest.raises(err, match=match):
+        port_attn._mha2_fwd_cuda(make(), 2)
+    with pytest.raises(err, match=match):
+        port_attn._mha2_bwd_cuda(make(), torch.zeros(1, 4, 2, 32), 2)
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: torch.zeros(1, 5, 2, 32), "shape"),
+    (lambda: torch.zeros(1, 4, 2, 32, dtype=torch.float64), "float32"),
+    (lambda: torch.zeros(1, 4, 32, 2).transpose(2, 3), "contiguous"),
+])
+def test_mha_qkv_bwd_wrapper_validates_do_before_launch(make, match):
+    with pytest.raises(ValueError, match=match):
+        port_attn._mha2_bwd_cuda(torch.zeros(1, 4, 6, 32), make(), 2)
+
+
+def test_mha_qkv_shared_memory_is_k1s():
+    """K3 runs the shared bodies on K1's rows, so its blocks need K1's
+    shared memory, and every head width fits at up to 257 tokens."""
+    for l, hd, dt in [(65, 64, torch.bfloat16), (257, 80, torch.float32)]:
+        assert port_attn.mha2_smem_bytes(l, hd, dt) == port_attn.mha3_smem_bytes(l, hd, dt)
+        assert (port_attn.mha2_bwd_smem_bytes(l, hd, dt)
+                == port_attn.mha3_bwd_smem_bytes(l, hd, dt))
+    for hd in port_attn.KERNEL_HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            port_attn._check_qkv4(torch.zeros(2, 257, 6, hd, dtype=dt), 2,
+                                  port_attn.mha2_bwd_smem_bytes)

@@ -183,3 +183,87 @@ def test_cuda_k2_attention_trains_through_both_kernels(cuda_device, impl):
         grads[name] = (out.detach(), leaf.grad)
     for ref, got in zip(grads["xla"], grads[impl]):
         assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+# K3 (the v2 (N, L, 3H, hd) kernels): ViT-B, the decoder and the longest
+# sequence, chip_smoke.py's [kernel] shapes.
+K3_SHAPES = [(64, 65, 12, 64), (768, 65, 16, 32), (8, 257, 16, 80)]
+
+
+def _k1_order_qkv(qkv, do, h):
+    """K1's plain versions on the same bytes, seen as (N, L, 3D): out and
+    (dq, dk, dv) in the (N, L, H, hd) layout."""
+    n, l, _, hd = qkv.shape
+    out = port_attn.mha_v3_reference(qkv.view(n, l, 3 * h * hd), h).view(n, l, h, hd)
+    dqkv = port_attn.mha3_bwd_reference(qkv.view(n, l, 3 * h * hd), do.reshape(n, l, h * hd), h)
+    return (out, *dqkv.view(n, l, 3 * h, hd).split(h, dim=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l,h,hd", K3_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_mha_qkv_kernels_match_plain_versions(cuda_device, n, l, h, hd, dtype):
+    """K3f and K3b against mha_qkv_reference and mha_qkv_bwd_reference: K2's
+    numerics on K1's bytes, so K2's tolerances (fp32: 1e-5 of the largest
+    magnitude; bf16: one bf16 ulp there, and each output's mean error
+    within K2_MEAN_TOL, which K1's rounding order exceeds)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn(n, l, 3 * h, hd, device=cuda_device, generator=gen).to(dtype)
+    do = torch.randn(n, l, h, hd, device=cuda_device, generator=gen).to(dtype)
+    fwd, bwd = port_attn.mha_qkv.launches, port_attn.mha_qkv.bwd_launches
+    got = port_attn._mha2_fwd_cuda(qkv, h)
+    dqkv = port_attn._mha2_bwd_cuda(qkv, do, h)
+    torch.cuda.synchronize()
+    assert (port_attn.mha_qkv.launches, port_attn.mha_qkv.bwd_launches) == (fwd + 1, bwd + 1)
+    assert got.shape == (n, l, h, hd) and dqkv.shape == qkv.shape
+    refs = [port_attn.mha_qkv_reference(qkv, h).float()]
+    refs += [r.float() for r in port_attn.mha_qkv_bwd_reference(qkv, do, h).split(h, dim=2)]
+    controls = _k1_order_qkv(qkv, do, h)
+    for name, a, r, c in zip(("out", "dq", "dk", "dv"), (got, *dqkv.split(h, dim=2)),
+                             refs, controls):
+        assert (a.float() - r).abs().max().item() <= _tol(r, dtype), name
+        if dtype == torch.bfloat16:
+            assert _rel_mean(a, r) <= K2_MEAN_TOL < _rel_mean(c, r), name
+    # No atomics: a second launch gives the same bits.
+    assert torch.equal(port_attn._mha2_bwd_cuda(qkv, do, h), dqkv)
+
+
+@pytest.mark.cuda
+def test_cuda_mha_qkv_trains_through_both_kernels(cuda_device):
+    """One autograd step of mha_qkv through K3f and K3b against autograd of
+    the plain version, fp32 at the decoder's shape: 1e-5 of the largest
+    value."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(64, 65, 3 * 16, 32, device=cuda_device, generator=gen)
+    grads = {}
+    for name, fn in (("plain", port_attn.mha_qkv_reference), ("kernel", port_attn.mha_qkv)):
+        leaf = x.clone().requires_grad_(True)
+        fwd, bwd = port_attn.mha_qkv.launches, port_attn.mha_qkv.bwd_launches
+        out = fn(leaf, 16)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        launched = (port_attn.mha_qkv.launches - fwd, port_attn.mha_qkv.bwd_launches - bwd)
+        assert launched == ((1, 1) if name == "kernel" else (0, 0))
+        grads[name] = (out.detach(), leaf.grad)
+    for ref, got in zip(grads["plain"], grads["kernel"]):
+        assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_device_prefetch_delivers_the_host_bytes(cuda_device):
+    """Batches through pinned memory and the side stream arrive unchanged,
+    each checked on the device after later batches were already in flight."""
+    import numpy as np
+
+    from cross_scale_mae_torch.data.loader import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 256, (64, 146, 146, 3), np.uint8),
+             rng.integers(0, 10, 64).astype(np.int32)) for _ in range(6)]
+    seen = []
+    for imgs, labels in device_prefetch(iter(host), cuda_device):
+        imgs.add_(0)  # work on the consumer's stream
+        seen.append((imgs, labels))
+    for (imgs, labels), (h_imgs, h_labels) in zip(seen, host, strict=True):
+        assert torch.equal(imgs, torch.from_numpy(h_imgs).to(cuda_device))
+        assert torch.equal(labels, torch.from_numpy(h_labels).to(cuda_device))

@@ -474,7 +474,7 @@ def test_finetune_augment_matches_jax_on_injected_draws(dtype):
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("kw", [{"rot90": True}, {"aa": "rand-m9-mstd0.5"},
+@pytest.mark.parametrize("kw", [{"rot90": True, "aa": "rand-m7-mstd0.5"}, {"aa": "rand-m9-mstd0.5"},
                                 {"color_jitter": 0.4}, {"reprob": 0.25}])
 def test_finetune_augment_refuses_unported_extras(kw):
     from cross_scale_mae_torch.ops.augment import make_finetune_augment
@@ -687,10 +687,10 @@ def test_finetune_cli_trains_from_a_pretrain_npz_and_evaluates(tmp_path, capsys)
 def test_finetune_cli_pads_the_ragged_eval_batch(tmp_path):
     """An eval set of 64 in batches of 24: two full batches and one of 16
     valid rows padded to 24; every image counted once."""
-    from cross_scale_mae_torch.cli.finetune import build_run, evaluate
+    from cross_scale_mae_torch.cli.finetune import build_run, evaluate_run
 
     run = build_run(_ft_args(tmp_path, "--batch_size", "24", "--synthetic_len", "24"))
-    stats, batches = evaluate(run, 24)
+    stats, batches = evaluate_run(run, 24)
     assert batches == 3 and stats["n"] == 64 == int(stats["cm"].sum())
     np.testing.assert_array_equal(stats["cm"].sum(axis=0).sum(), 64)
 
@@ -698,9 +698,9 @@ def test_finetune_cli_pads_the_ragged_eval_batch(tmp_path):
 @pytest.mark.parametrize("extra", [
     ("--resume", "ckpt"), ("--model_parallel", "2"), ("--fsdp",), ("--mixup", "0.8"),
     ("--cutmix", "1.0"), ("--aa", "rand-m9-mstd0.5"), ("--color_jitter", "0.4"),
-    ("--reprob", "0.25"), ("--dataset_type", "fmow_rgb"), ("--train_path", "x.csv"),
+    ("--reprob", "0.25"), ("--dataset_type", "euro_sat"), ("--dataset_type", "fmow_sentinel"),
     ("--adam_nu_dtype", "bfloat16"), ("--cutmix_minmax", "0.2", "0.8"),
-    ("--canvas_scale", "1.5"),
+    ("--use_tensorboard",),
 ])
 def test_finetune_cli_refuses_unported_flags(tmp_path, extra):
     from cross_scale_mae_torch.cli.finetune import build_run

@@ -46,7 +46,9 @@ TRAINING_MODULES = [
     "cross_scale_mae_torch/cli/pretrain.py", "cross_scale_mae_torch/models/vit.py",
     "cross_scale_mae_torch/train/mixup.py", "cross_scale_mae_torch/train/classify.py",
     "cross_scale_mae_torch/utils/metrics.py", "cross_scale_mae_torch/data/datasets.py",
-    "cross_scale_mae_torch/cli/finetune.py",
+    "cross_scale_mae_torch/cli/finetune.py", "cross_scale_mae_torch/data/loader.py",
+    "cross_scale_mae_torch/cli/common.py", "cross_scale_mae_torch/utils/logging.py",
+    "cross_scale_mae_torch/cli/linprobe.py",
 ]
 
 
@@ -56,9 +58,9 @@ def test_scan_covers_the_training_modules():
 
 
 def test_importing_the_training_path_loads_no_jax():
-    """Import every module of the pretrain and finetune paths in a fresh
-    interpreter and
-    check that no JAX module was loaded along the way."""
+    """Import every module of the pretrain, finetune and linear-probe paths
+    in a fresh interpreter and check that no JAX module was loaded along the
+    way."""
     import subprocess
     import sys
 

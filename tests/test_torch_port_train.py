@@ -558,7 +558,8 @@ def test_optimizer_refuses_unported_options():
     from cross_scale_mae_torch.train.optim import build_optimizer
 
     p = {"w": {"kernel": torch.zeros(2, 2)}}
-    for kw in ({"optimizer": "lars"}, {"optimizer": "sgd"}, {"nu_dtype": "bfloat16"}):
+    for kw in ({"optimizer": "lars", "clip_grad": 1.0}, {"optimizer": "sgd"},
+               {"nu_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_optimizer(p, lambda s: 0.0, **kw)
 
@@ -629,7 +630,7 @@ def test_pretrain_cli_synthetic_images_match_jax_dataset():
 
 @pytest.mark.parametrize("extra", [
     ("--resume", "ckpt"), ("--model_parallel", "2"), ("--fsdp",), ("--use_wandb",),
-    ("--dataset_type", "fmow_rgb"), ("--train_path", "x.csv"),
+    ("--dataset_type", "euro_sat"), ("--dataset_type", "fmow_temporal"),
     ("--use_perceptual_loss",),
 ])
 def test_pretrain_cli_refuses_unported_flags(tmp_path, extra):
