@@ -9,7 +9,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
 2. build: compile every CUDA kernel (``ops/cuda_build.KERNELS``: K1
    ``csrc/mha3_fwd.cu`` and ``csrc/mha3_bwd.cu``, K2 ``csrc/mha_fwd.cu`` and
    ``csrc/mha_bwd.cu``, K3 ``csrc/mha2_fwd.cu`` and ``csrc/mha2_bwd.cu``),
-   one nvcc each, all at once.
+   one nvcc each, all at once; the phase fails if ptxas reports a spill in
+   any bf16 K2f instantiation (the tensor-core body of
+   ``csrc/mha_tc.cuh``).
 3. kernel: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the serving, pretraining, finetuning and linear
    probing paths give it (K3, which no path dispatches, at ViT-B's, the decoder's and the
@@ -18,7 +20,7 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    head views, forward or backward), and the least time the card could
    take (``bound_ms``). K2's and K3's outputs are gated one by one, with
    K1's rounding order on the same inputs as the control the gate must
-   catch.
+   catch; the K2 rows name each bf16 body's design.
 4. serving: a seeded random ``mae_vit_base_MsLdCeCd`` checkpoint (ViT-B
    width and depth, 128 px, bf16, ``attention_impl="pallas_v3"``) served by
    ``cli/serve.build_app`` over HTTP; concurrent ``/predict`` requests of 1,
@@ -238,6 +240,37 @@ def phase_device() -> str:
     return card
 
 
+# The bf16 K2f instantiations (the csrc/mha_tc.cuh body): a spill there
+# fails the build phase.
+K2_TC_KERNELS = ("mha_fwd_tc_kernel",)
+
+
+def k2_design() -> str:
+    """The bf16 K2f body's design as the [kernel] rows name it, with the
+    split's term count read from csrc/mha_tc.cuh."""
+    import re
+
+    from cross_scale_mae_torch.ops.cuda_build import CSRC
+
+    terms = re.search(r"constexpr int kSplitTerms = (\d+);", (CSRC / "mha_tc.cuh").read_text())
+    return f"mma.sync split-bf16 x{terms.group(1)}"
+
+
+def ptxas_spills(text: str) -> dict:
+    """{kernel: (spill store bytes, spill load bytes)} from ``-Xptxas -v``
+    output: each "N bytes spill stores, N bytes spill loads" line belongs to
+    the function of the "Function properties for" line above it."""
+    spills, name = {}, None
+    for ln in text.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in ln and name is not None:
+            words = ln.replace(",", " ").split()
+            spills[name] = (int(words[words.index("spill") - 2]),
+                            int(words[words.index("loads") - 3]))
+    return spills
+
+
 def phase_build() -> None:
     from cross_scale_mae_torch.ops.cuda_build import KERNELS, build_libraries
 
@@ -245,7 +278,14 @@ def phase_build() -> None:
     logs = build_libraries(list(KERNELS))
     ptxas = [ln.strip() for text in logs.values() for ln in text.splitlines()
              if "registers" in ln or "spill" in ln]
-    log("build", seconds=round(time.perf_counter() - t0, 2), ptxas=json.dumps(ptxas))
+    spills = {name: s for text in logs.values() for name, s in ptxas_spills(text).items()
+              if any(k in name for k in K2_TC_KERNELS)}
+    log("build", seconds=round(time.perf_counter() - t0, 2), ptxas=json.dumps(ptxas),
+        k2_tc_spills=json.dumps(spills))
+    # 4 head widths, one sweep or several.
+    check(len(spills) == 4 * 2, f"expected 8 bf16 K2f instantiations in ptxas output: {spills}")
+    check(all(s == (0, 0) for s in spills.values()),
+          f"a bf16 K2f instantiation spills registers: {spills}")
 
 
 def _buffers(gen, nbytes_each: int, make) -> list:
@@ -403,6 +443,7 @@ def phase_kernel_k2(gen, report) -> None:
         mha_folded_reference,
     )
 
+    design = k2_design()
     for label, (n, l, h, hd) in K2_SHAPES.items():
         bh = n * h
         bufs = _buffers(gen, 4 * bh * l * hd * 2, lambda g: tuple(
@@ -428,7 +469,8 @@ def phase_kernel_k2(gen, report) -> None:
 
         bound, bound_by = mha_bound_ms(n, l, h, hd, 2)
         report("mha_fwd", label, {
-            "shape": [n, l, h, hd], "max_abs_err": fwd["out"]["max_abs_err"], "outputs": fwd,
+            "shape": [n, l, h, hd], "design": design, "max_abs_err": fwd["out"]["max_abs_err"],
+            "outputs": fwd,
             "kernel_ms": time_ms(lambda x: _mha_fwd_cuda(*x[:3]), bufs),
             "plain_ms": time_ms(lambda x: mha_folded_reference(*x[:3]), bufs),
             "library_ms": time_ms(lambda x: F.scaled_dot_product_attention(*heads(x[:3])), bufs),
@@ -443,7 +485,8 @@ def phase_kernel_k2(gen, report) -> None:
                            heads(x[3:])[0]))
         bound, bound_by = mha_bwd_bound_ms(n, l, h, hd, 2)
         report("mha_bwd", label, {
-            "shape": [n, l, h, hd], "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+            "shape": [n, l, h, hd], "design": "scalar fp32 FMA",
+            "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
             "outputs": bwd,
             "kernel_ms": time_ms(lambda x: _mha_bwd_cuda(*x), bufs),
             "plain_ms": time_ms(lambda x: mha_folded_bwd_reference(*x), bufs),
@@ -645,7 +688,8 @@ K1_KINDS = (("mha3_fwd", ("mha3_fwd",)), ("mha3_bwd", ("mha3_bwd",)),
             ("matmul", MATMUL_NAMES))
 # The finetune step's: copy kernels (strided copies and stacks) hold the K2
 # layout's fold/unfold transposes and the dtype casts.
-K2_KINDS = (("mha_fwd", ("mha_fwd_kernel",)), ("mha_bwd", ("mha_bwd_kernel",)),
+K2_KINDS = (("mha_fwd", ("mha_fwd_kernel", "mha_fwd_tc_kernel")),
+            ("mha_bwd", ("mha_bwd_kernel",)),
             ("matmul", MATMUL_NAMES), ("copies", ("copy", "catarray")))
 # The linear probe's: the forward kernel, the matmuls, and the copies (dtype
 # casts, the augment's and the prefetch's device copies).

@@ -17,9 +17,12 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   saves q, k and v as ``_mha_folded_fwd`` does, and unfolds the output. On a
   CUDA tensor ``csrc/mha_fwd.cu`` (``_mha_kernel``) and ``csrc/mha_bwd.cu``
   (``_mha_bwd_kernel``), counted by ``mha.launches`` and
-  ``mha.bwd_launches``; on a CPU tensor ``mha_folded_reference`` and
-  ``mha_folded_bwd_reference``, with every operand in fp32 and nothing
-  rounded before the output.
+  ``mha.bwd_launches``: the forward runs its tensor-core body for bf16
+  (``csrc/mha_tc.cuh``, P split into bf16 terms) and the scalar body of
+  ``csrc/mha_common.cuh`` for fp32, the backward the scalar body for
+  both; on a CPU tensor
+  ``mha_folded_reference`` and ``mha_folded_bwd_reference``, with every
+  operand in fp32 and nothing rounded before the output.
 * v2 (K3): ``mha_qkv(qkv, num_heads)`` (also ``pallas_mha_qkv``) on the
   (N, L, 3H, hd) layout, q heads at [0, H), k at [H, 2H), v at [2H, 3H),
   returns (N, L, H, hd) with K2's numerics. ``_MhaQkv`` saves only qkv, as
@@ -90,9 +93,10 @@ def mha_v3_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def mha3_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one forward block, K1f's and K2f's
-    (csrc/mha_common.cuh `fwd_smem_bytes`): k and v in the input dtype,
-    rows padded by 16 bytes, and one fp32 query row and score row per warp."""
+    """Dynamic shared memory of one forward block of the scalar body, K1f's
+    and K2f's in fp32 (csrc/mha_common.cuh `fwd_smem_bytes`): k and v in
+    the input dtype, rows padded by 16 bytes, and one fp32 query row and
+    score row per warp."""
     item = torch.empty((), dtype=dtype).element_size()
     pitch = head_dim + 16 // item
     warps = _THREADS // 32
@@ -173,10 +177,10 @@ def mha3_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
 
 
 def mha3_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one backward block, K1b's and K2b's
-    (csrc/mha_common.cuh `bwd_smem_bytes`): two (L, hd) tiles in the input
-    dtype, rows padded by 16 bytes; max, sum and row per query row; per warp
-    two fp32 head rows and two fp32 rows of length L."""
+    """Dynamic shared memory of one backward block of the scalar body, K1b's
+    and K2b's (csrc/mha_common.cuh `bwd_smem_bytes`): two (L, hd)
+    tiles in the input dtype, rows padded by 16 bytes; max, sum and row per
+    query row; per warp two fp32 head rows and two fp32 rows of length L."""
     item = torch.empty((), dtype=dtype).element_size()
     pitch = head_dim + 16 // item
     warps = _THREADS // 32
@@ -303,6 +307,17 @@ def mha_folded_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def mha_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K2f block. bf16: the tensor-core body
+    (csrc/mha_tc.cuh `tc_fwd_smem_bytes`), q, k and v as (L padded to 16,
+    hd + 8) bf16 tiles; fp32: the scalar body, K1f's layout
+    (:func:`mha3_smem_bytes`)."""
+    if dtype != torch.bfloat16:
+        return mha3_smem_bytes(seq_len, head_dim, dtype)
+    rows = -(-seq_len // 16) * 16
+    return 3 * rows * (head_dim + 8) * 2
+
+
 def _check_folded(tensors: tuple[torch.Tensor, ...], smem_bytes) -> tuple[int, int, int]:
     """Raise on what the K2 kernels do not take; returns (BH, L, hd)."""
     first = tensors[0]
@@ -332,9 +347,9 @@ def _check_folded(tensors: tuple[torch.Tensor, ...], smem_bytes) -> tuple[int, i
 
 
 def _mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K2f: ``csrc/mha_fwd.cu``, on the forward body it shares with K1f
-    (:func:`mha3_smem_bytes`)."""
-    bh, l, hd = _check_folded((q, k, v), mha3_smem_bytes)
+    """K2f: ``csrc/mha_fwd.cu``, the tensor-core body for bf16 and the
+    scalar body it shares with K1f for fp32 (:func:`mha_smem_bytes`)."""
+    bh, l, hd = _check_folded((q, k, v), mha_smem_bytes)
     from cross_scale_mae_torch.ops.cuda_build import load_library
 
     fn = load_library("mha_fwd").csmae_mha_fwd
@@ -356,8 +371,8 @@ def _mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
 
 def _mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """K2b: ``csrc/mha_bwd.cu``, on the backward body it shares with K1b
-    (:func:`mha3_bwd_smem_bytes`)."""
+    """K2b: ``csrc/mha_bwd.cu``, on the scalar backward body it shares with
+    K1b, for bf16 and fp32 (:func:`mha3_bwd_smem_bytes`)."""
     bh, l, hd = _check_folded((q, k, v, do), mha3_bwd_smem_bytes)
     from cross_scale_mae_torch.ops.cuda_build import load_library
 

@@ -55,26 +55,30 @@ def library_path(name: str) -> Path:
 def build_libraries(names: list[str]) -> dict[str, str]:
     """Compile every library of ``names`` that is not built yet, one nvcc
     process per source, all started together. Returns each name's compiler
-    output (register and shared-memory use from ``-Xptxas -v``); raises
-    with that output if a compile fails."""
+    output (register, shared-memory and spill use from ``-Xptxas -v``),
+    kept beside the library for one built earlier; raises with that output
+    if a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, logs = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            kept = out.with_suffix(".log")
+            logs[name] = kept.read_text() if kept.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
-    logs, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"

@@ -17,6 +17,9 @@ Tolerances:
   so a value sitting on a rounding boundary may land one bf16 ulp apart.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -291,13 +294,85 @@ def test_mha_rejects_other_devices():
 
 
 def test_mha_kernels_fit_every_shape_the_configs_give():
-    """K2 shares K1's shared-memory layouts: every head width of the ViT
-    sizes at up to 257 tokens fits an H100 block, forward and backward."""
+    """K2's shared-memory layouts (the forward's tensor-core body in bf16,
+    K1's scalar bodies otherwise): every head width of the ViT sizes at up
+    to 257 tokens fits an H100 block, forward and backward."""
     for hd in port_attn.KERNEL_HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
-            assert port_attn.mha3_bwd_smem_bytes(257, hd, dt) <= port_attn.MAX_SMEM_BYTES
-            port_attn._check_folded((torch.zeros(2, 257, hd, dtype=dt),) * 4,
-                                    port_attn.mha3_bwd_smem_bytes)
+            for smem in (port_attn.mha_smem_bytes, port_attn.mha3_bwd_smem_bytes):
+                assert smem(257, hd, dt) <= port_attn.MAX_SMEM_BYTES
+                port_attn._check_folded((torch.zeros(2, 257, hd, dtype=dt),) * 4, smem)
+
+
+TC_HEADER = (Path(port_attn.__file__).resolve().parent.parent / "csrc" / "mha_tc.cuh").read_text()
+
+
+def test_mha_smem_layout_matches_tc_kernel_source():
+    """K2f in bf16 (csrc/mha_tc.cuh tc_fwd_smem_bytes): q, k and v as tiles
+    of L rounded up to 16 rows of hd + 8 bf16; in fp32 the scalar body's
+    K1f layout."""
+    assert "kPitch = HD + 8" in TC_HEADER
+    assert ("return 3 * size_t(padded_rows(L)) * TcGeometry<HD>::kPitch * sizeof(bf16);"
+            in TC_HEADER)
+    assert port_attn.mha_smem_bytes(65, 64, torch.bfloat16) == 3 * 80 * 72 * 2
+    assert port_attn.mha_smem_bytes(17, 16, torch.bfloat16) == 3 * 32 * 24 * 2
+    assert port_attn.mha_smem_bytes(257, 80, torch.bfloat16) == 3 * 272 * 88 * 2
+    for l, hd in [(65, 64), (257, 80)]:
+        assert (port_attn.mha_smem_bytes(l, hd, torch.float32)
+                == port_attn.mha3_smem_bytes(l, hd, torch.float32))
+
+
+# The tensor-core K2f (csrc/mha_tc.cuh) splits each fp32 P value into
+# kSplitTerms bf16 terms before its P V product; the same split of P and dS
+# was the design held for K2b (PERF.md section 6). An fp32 emulation of
+# that arithmetic against the plain versions: mean |emulated - plain| /
+# mean |plain| of each bf16 output. The chosen count must read at most
+# K2_MEAN_TOL / 8; one term (K1's rounding, the control of chip_smoke.py's
+# gate) must read above K2_MEAN_TOL.
+K2_MEAN_TOL = 2.0 ** -15
+SPLIT_TERMS = int(re.search(r"constexpr int kSplitTerms = (\d+);", TC_HEADER).group(1))
+
+
+def _split_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """The sum of x's first `terms` bf16 terms: bf16(x), bf16 of the rest,
+    ... (exact in fp32)."""
+    total, rest = torch.zeros_like(x), x
+    for _ in range(terms):
+        term = rest.bfloat16().float()
+        total, rest = total + term, rest - term
+    return total
+
+
+def _split_emulation(q, k, v, do, terms):
+    """out, dq, dk, dv in K2's op order with P and dS replaced by the sum of
+    their bf16 terms before the products (bf16 operands are exact in fp32,
+    the sums are fp32)."""
+    q32, k32, v32, g = q.float(), k.float(), v.float(), do.float()
+    p = port_attn._folded_probs(q32, k32)
+    ps = _split_terms(p, terms)
+    dp = torch.matmul(g, v32.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * (q.shape[-1] ** -0.5)
+    dss = _split_terms(ds, terms)
+    outs = (torch.matmul(ps, v32), torch.matmul(dss, k32),
+            torch.matmul(dss.transpose(-1, -2), q32), torch.matmul(ps.transpose(-1, -2), g))
+    return [t.to(q.dtype) for t in outs]
+
+
+@pytest.mark.parametrize("shape", [(4, 65, 64), (4, 17, 16), (2, 257, 80)])
+@pytest.mark.parametrize("terms", [1, SPLIT_TERMS])
+def test_split_bf16_arithmetic_against_plain_versions(shape, terms):
+    assert SPLIT_TERMS in (2, 3)
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _qkv_do(shape, 15))
+    refs = [port_attn.mha_folded_reference(q, k, v),
+            *port_attn.mha_folded_bwd_reference(q, k, v, do)]
+    emulated = _split_emulation(q, k, v, do, terms)
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), emulated, refs):
+        ref = ref.float()
+        rel = ((got.float() - ref).abs().mean() / ref.abs().mean()).item()
+        if terms == 1:
+            assert rel > K2_MEAN_TOL, name
+        else:
+            assert rel <= K2_MEAN_TOL / 8, name
 
 
 # ---------------------------------------------------------------- K3 (v2)
@@ -426,3 +501,25 @@ def test_mha_qkv_shared_memory_is_k1s():
         for dt in (torch.float32, torch.bfloat16):
             port_attn._check_qkv4(torch.zeros(2, 257, 6, hd, dtype=dt), 2,
                                   port_attn.mha2_bwd_smem_bytes)
+
+
+def test_chip_smoke_reads_spills_from_ptxas_output():
+    """chip_smoke.py's [build] gate: each spill line belongs to the function
+    named above it, and the bf16 K2 rows name the header's term count."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    text = "\n".join([
+        "ptxas info    : Compiling entry function '_Z17mha_fwd_tc_kernelILi64ELb1EE' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z17mha_fwd_tc_kernelILi64ELb1EE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Function properties for _Z17mha_fwd_tc_kernelILi80ELb1EE",
+        "    24 bytes stack frame, 32 bytes spill stores, 36 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 24 bytes cumulative stack size",
+    ])
+    assert chip_smoke.ptxas_spills(text) == {"_Z17mha_fwd_tc_kernelILi64ELb1EE": (0, 0),
+                                             "_Z17mha_fwd_tc_kernelILi80ELb1EE": (32, 36)}
+    assert chip_smoke.k2_design() == f"mma.sync split-bf16 x{SPLIT_TERMS}"

@@ -157,6 +157,30 @@ def test_cuda_mha_kernels_match_plain_versions(cuda_device, n, l, h, hd, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 16, 33, 65, 257])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80])
+def test_cuda_mha_bf16_kernels_at_ragged_edges(cuda_device, l, hd):
+    """The bf16 tensor-core K2 bodies where their 16-row tiles are ragged:
+    L from one token to one past a tile (33, 65, 257) and exactly a tile
+    (16), every head width, an odd head count (37). Each output within one
+    bf16 ulp of its plain version and its mean error within K2_MEAN_TOL of
+    mean |plain| (at L = 1, dq and dk are exactly 0)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do = (torch.randn(37, l, hd, device=cuda_device, generator=gen).bfloat16()
+                   for _ in range(4))
+    got = port_attn._mha_fwd_cuda(q, k, v)
+    grads = port_attn._mha_bwd_cuda(q, k, v, do)
+    torch.cuda.synchronize()
+    refs = [port_attn.mha_folded_reference(q, k, v).float()]
+    refs += [r.float() for r in port_attn.mha_folded_bwd_reference(q, k, v, do)]
+    for name, a, r in zip(("out", "dq", "dk", "dv"), (got, *grads), refs):
+        err = (a.float() - r).abs()
+        assert err.max().item() <= _tol(r, torch.bfloat16), name
+        assert err.mean().item() <= K2_MEAN_TOL * r.abs().mean().item(), name
+    assert all(torch.equal(a, b) for a, b in zip(port_attn._mha_bwd_cuda(q, k, v, do), grads))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["pallas", "pallas_t"])
 def test_cuda_k2_attention_trains_through_both_kernels(cuda_device, impl):
     """One autograd step of layers.attention through K2f and K2b against
