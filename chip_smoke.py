@@ -9,9 +9,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
 2. build: compile every CUDA kernel (``ops/cuda_build.KERNELS``: K1
    ``csrc/mha3_fwd.cu`` and ``csrc/mha3_bwd.cu``, K2 ``csrc/mha_fwd.cu`` and
    ``csrc/mha_bwd.cu``, K3 ``csrc/mha2_fwd.cu`` and ``csrc/mha2_bwd.cu``),
-   one nvcc each, all at once; the phase fails if ptxas reports a spill in
-   any bf16 K2f instantiation (the tensor-core body of
-   ``csrc/mha_tc.cuh``).
+   one nvcc each, all at once; the phase fails unless ptxas reports every
+   tensor-core instantiation (the bodies of ``csrc/mha_tc.cuh``,
+   ``TC_KERNELS``) and none of them spills.
 3. kernel: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the serving, pretraining, finetuning and linear
    probing paths give it (K3, which no path dispatches, at ViT-B's, the decoder's and the
@@ -20,7 +20,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    head views, forward or backward), and the least time the card could
    take (``bound_ms``). K2's and K3's outputs are gated one by one, with
    K1's rounding order on the same inputs as the control the gate must
-   catch; the K2 rows name each bf16 body's design.
+   catch; K1f's and K2's rows name each bf16 body's design; K1f and K2b
+   must give the same bits on a second launch, and K2b's bf16 outputs
+   must be its fp32 outputs rounded.
 4. serving: a seeded random ``mae_vit_base_MsLdCeCd`` checkpoint (ViT-B
    width and depth, 128 px, bf16, ``attention_impl="pallas_v3"``) served by
    ``cli/serve.build_app`` over HTTP; concurrent ``/predict`` requests of 1,
@@ -52,7 +54,18 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    torch.profiler window, and every parameter's gradient through K2b
    against K2b's plain version with two controls (dS rounded to bf16, K1's
    rounding; head 0's dV zeroed) that the gates must catch.
-8. linprobe: ``cli/linprobe.main`` at the linprobe.sh settings (ViT-B/16 at
+8. finetune_grads_fp64: the same weights and draws; the last block's K2b
+   inputs (q, k, v, dO) and that block's qkv-projection input X captured in
+   one step. The direct leaf, g = X^T (dq | dk | dv), in float64 from
+   fp32 gradients left unrounded: the kernel's (its fp32-output entry), the
+   plain version's arithmetic in fp32, K1's order (P and dS rounded to
+   bf16) and dS alone rounded, each against the same arithmetic in float64
+   (``fp64_gaps``), on the whole leaf and on its q, k and v columns. Gate:
+   the kernel within ``FP64_LEAF_TOL`` everywhere, K1's order above it on
+   the whole leaf. On the same inputs, the bf16 kernel against its plain
+   version (the ``[kernel]`` gate, K1's order as the control) and its bf16
+   outputs equal to its fp32 outputs rounded.
+9. linprobe: ``cli/linprobe.main`` at the linprobe.sh settings (ViT-B/16 at
    full width and depth, 128 px, the cls-token head behind the BN head,
    batch 1024, LARS with blr 0.1, bf16, ``attention_impl`` resolved to
    ``pallas_v3``) from the ``[train]`` phase's params.npz, over NAIP
@@ -155,6 +168,12 @@ FT_LR = 5e-4  # constant: no warmup, and a cosine far longer than the run
 # leaf, each between the sound reading and its control's (PERF.md, section 6).
 FT_DIRECT_TOL = 2.0 ** -17
 FT_LEAF_TOL = 2.0 ** -6
+# The [finetune_grads_fp64] gate: ||g - g64|| / ||g64|| of the last block's
+# qkv kernel gradient from K2b's unrounded fp32 outputs, against the same
+# arithmetic in float64, on the whole leaf and on each of its q, k and v
+# columns. FT_DIRECT_TOL's number, held against the exact function rather
+# than one fp32 summation order; K1's rounding order must read above it.
+FP64_LEAF_TOL = 2.0 ** -17
 # The linear probe (linprobe.sh): batch 1024 of 128 px NAIP tiles through
 # ViT-B/16's 12 blocks (65 tokens, 12 heads of 64). Four batches make an
 # epoch; the eval set is 1.5 batches on the 146 px canvas, so its second
@@ -240,20 +259,33 @@ def phase_device() -> str:
     return card
 
 
-# The bf16 K2f instantiations (the csrc/mha_tc.cuh body): a spill there
-# fails the build phase.
-K2_TC_KERNELS = ("mha_fwd_tc_kernel",)
+# The tensor-core instantiations (the csrc/mha_tc.cuh bodies) by kernel
+# name, each over 4 head widths and one sweep or several: the build phase
+# fails unless ptxas reports each of them, none spilling.
+TC_KERNELS = {"mha3_fwd_tc_kernel": 8, "mha_fwd_tc_kernel": 8}
+# The header constant that gives each bf16 tensor-core kernel's bf16 terms
+# of P (and dS).
+TC_TERMS = {"mha3_fwd": "kK1SplitTerms", "mha_fwd": "kSplitTerms"}
 
 
-def k2_design() -> str:
-    """The bf16 K2f body's design as the [kernel] rows name it, with the
-    split's term count read from csrc/mha_tc.cuh."""
+def tc_design(name: str) -> str:
+    """A bf16 tensor-core kernel's design as the [kernel] rows name it, with
+    its split's term count read from csrc/mha_tc.cuh."""
     import re
 
     from cross_scale_mae_torch.ops.cuda_build import CSRC
 
-    terms = re.search(r"constexpr int kSplitTerms = (\d+);", (CSRC / "mha_tc.cuh").read_text())
+    terms = re.search(rf"constexpr int {TC_TERMS[name]} = (\d+);",
+                      (CSRC / "mha_tc.cuh").read_text())
     return f"mma.sync split-bf16 x{terms.group(1)}"
+
+
+def tc_instance(symbol: str) -> str | None:
+    """The TC_KERNELS name of a mangled kernel symbol, or None."""
+    import re
+
+    found = re.search(r"\d(mha\w*?_tc_kernel)I", symbol)
+    return found.group(1) if found and found.group(1) in TC_KERNELS else None
 
 
 def ptxas_spills(text: str) -> dict:
@@ -279,13 +311,14 @@ def phase_build() -> None:
     ptxas = [ln.strip() for text in logs.values() for ln in text.splitlines()
              if "registers" in ln or "spill" in ln]
     spills = {name: s for text in logs.values() for name, s in ptxas_spills(text).items()
-              if any(k in name for k in K2_TC_KERNELS)}
+              if tc_instance(name)}
     log("build", seconds=round(time.perf_counter() - t0, 2), ptxas=json.dumps(ptxas),
-        k2_tc_spills=json.dumps(spills))
-    # 4 head widths, one sweep or several.
-    check(len(spills) == 4 * 2, f"expected 8 bf16 K2f instantiations in ptxas output: {spills}")
+        tc_spills=json.dumps(spills))
+    found = {k: sum(tc_instance(name) == k for name in spills) for k in TC_KERNELS}
+    check(found == TC_KERNELS, f"tensor-core instantiations in ptxas output {found}, "
+          f"expected {TC_KERNELS}")
     check(all(s == (0, 0) for s in spills.values()),
-          f"a bf16 K2f instantiation spills registers: {spills}")
+          f"a tensor-core instantiation spills registers: {spills}")
 
 
 def _buffers(gen, nbytes_each: int, make) -> list:
@@ -332,9 +365,12 @@ def phase_kernel(card: str) -> dict:
         tol = 2.0 ** -7 * max(1.0, ref.abs().max().item())
         check(math.isfinite(err) and err <= tol,
               f"mha3_fwd {label}: max abs err {err} above {tol}")
+        check(torch.equal(_mha3_fwd_cuda(bufs[0], h), got),
+              f"mha3_fwd {label}: a second launch gave other bits")
         bound, bound_by = mha3_bound_ms(n, l, h, hd, 2)
         report("mha3_fwd", label, {
-            "shape": [n, l, h, hd], "max_abs_err": err, "tol": tol,
+            "shape": [n, l, h, hd], "design": tc_design("mha3_fwd"), "max_abs_err": err,
+            "tol": tol,
             "kernel_ms": time_ms(lambda x: _mha3_fwd_cuda(x, h), bufs),
             "plain_ms": time_ms(lambda x: mha_v3_reference(x, h), bufs),
             "library_ms": time_ms(
@@ -430,6 +466,14 @@ def _gate_outputs(name: str, label: str, readings: dict) -> None:
               f"{K2_MEAN_TOL}")
 
 
+def check_rounded_tie(bf16_grads, f32_grads, where: str) -> None:
+    """K2b's bf16 outputs must be its fp32 outputs rounded to bf16, bit for
+    bit: what lets a gate on the fp32 outputs speak for the bf16 kernel."""
+    for name, a, b in zip(("dq", "dk", "dv"), bf16_grads, f32_grads):
+        check(b.dtype == torch.float32 and torch.equal(a, b.to(a.dtype)),
+              f"{where} {name}: the bf16 output is not the fp32 output rounded")
+
+
 def phase_kernel_k2(gen, report) -> None:
     """K2f and K2b against their plain versions on folded (N*H, L, hd)
     q, k, v (and dO), bf16, at every K2 shape, each output gated on its own
@@ -443,7 +487,6 @@ def phase_kernel_k2(gen, report) -> None:
         mha_folded_reference,
     )
 
-    design = k2_design()
     for label, (n, l, h, hd) in K2_SHAPES.items():
         bh = n * h
         bufs = _buffers(gen, 4 * bh * l * hd * 2, lambda g: tuple(
@@ -465,11 +508,14 @@ def phase_kernel_k2(gen, report) -> None:
         _gate_outputs("mha_bwd", label, bwd)
         check(all(torch.equal(a, b) for a, b in zip(_mha_bwd_cuda(q, k, v, do), grads)),
               f"mha_bwd {label}: a second launch gave other bits")
+        check_rounded_tie(grads, _mha_bwd_cuda(q, k, v, do, out_dtype=torch.float32),
+                          f"mha_bwd {label}")
         del got, grads, control, control_grads
 
         bound, bound_by = mha_bound_ms(n, l, h, hd, 2)
         report("mha_fwd", label, {
-            "shape": [n, l, h, hd], "design": design, "max_abs_err": fwd["out"]["max_abs_err"],
+            "shape": [n, l, h, hd], "design": tc_design("mha_fwd"),
+            "max_abs_err": fwd["out"]["max_abs_err"],
             "outputs": fwd,
             "kernel_ms": time_ms(lambda x: _mha_fwd_cuda(*x[:3]), bufs),
             "plain_ms": time_ms(lambda x: mha_folded_reference(*x[:3]), bufs),
@@ -977,20 +1023,145 @@ def _ft_leaf_grads(run, draws, bwd=None) -> tuple[float, dict]:
     return float(loss.detach()), grads
 
 
-def _k2_bwd_ds_rounded(q, k, v, do):
-    """The control of the direct-leaf gate: ``mha_folded_bwd_reference``
-    with dS rounded to the input dtype before dQ and dK, K1's rounding,
+def k2_bwd_math(q, k, v, do, dtype=torch.float32, round_p=False, round_ds=False):
+    """``mha_folded_bwd_reference``'s arithmetic in ``dtype``, its outputs
+    (dq, dk, dv) left unrounded. ``round_p`` rounds P to the input dtype
+    before dV and ``round_ds`` dS before dQ and dK: K1's two roundings,
     which K2 must not have."""
     from cross_scale_mae_torch.ops.attention import _folded_probs
 
-    q32, k32, v32, g = q.float(), k.float(), v.float(), do.float()
-    p = _folded_probs(q32, k32)
-    dv = torch.matmul(p.transpose(-1, -2), g)
-    dp = torch.matmul(g, v32.transpose(-1, -2))
-    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * (q.shape[-1] ** -0.5))
-    ds = ds.to(q.dtype).float()
-    return (torch.matmul(ds, k32).to(q.dtype), torch.matmul(ds.transpose(-1, -2), q32).to(q.dtype),
-            dv.to(q.dtype))
+    qa, ka, va, g = (t.to(dtype) for t in (q, k, v, do))
+    p = _folded_probs(qa, ka)
+    dv = torch.matmul((p.to(q.dtype).to(dtype) if round_p else p).transpose(-1, -2), g)
+    dp = torch.matmul(g, va.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * (q.shape[-1] ** -0.5)
+    if round_ds:
+        ds = ds.to(q.dtype).to(dtype)
+    return torch.matmul(ds, ka), torch.matmul(ds.transpose(-1, -2), qa), dv
+
+
+def _k2_bwd_ds_rounded(q, k, v, do):
+    """The control of the direct-leaf gate: ``mha_folded_bwd_reference``
+    with dS rounded to the input dtype before dQ and dK, K1's rounding."""
+    return tuple(t.to(q.dtype) for t in k2_bwd_math(q, k, v, do, round_ds=True))
+
+
+# The versions [finetune_grads_fp64] holds against float64, besides the
+# kernel: fp32 outputs, unrounded.
+FP64_VERSIONS = {
+    "plain": k2_bwd_math,
+    "control_k1_order": lambda *t: k2_bwd_math(*t, round_p=True, round_ds=True),
+    "control_ds_bf16": lambda *t: k2_bwd_math(*t, round_ds=True),
+}
+
+
+def k2b_step_inputs(run, draws, bwd_name: str = "_mha_bwd_cuda"):
+    """The last block's K2b inputs in one finetune step (``_ft_leaf_grads``
+    from ``run``'s weights with ``draws``): X, the input of that block's qkv
+    projection, and the folded q, k, v and dO of its attention backward,
+    caught by wrapping ``layers.attention`` and ``ops.attention.<bwd_name>``
+    (the kernel's wrapper on the card, ``mha_folded_bwd_reference`` on the
+    CPU). The backward runs the last block first."""
+    from cross_scale_mae_torch.models import layers
+    from cross_scale_mae_torch.ops import attention
+
+    last = run.state.params["blocks"][-1]["attn"]
+    attend, bwd = layers.attention, getattr(attention, bwd_name)
+    seen = {}
+
+    def attention_spy(p, x, *args, **kwargs):
+        if p is last:
+            seen["x"] = x.detach()
+        return attend(p, x, *args, **kwargs)
+
+    def bwd_spy(q, k, v, do):
+        seen.setdefault("inputs", tuple(t.detach() for t in (q, k, v, do)))
+        return bwd(q, k, v, do)
+
+    layers.attention = attention_spy
+    setattr(attention, bwd_name, bwd_spy)
+    try:
+        _ft_leaf_grads(run, draws)
+    finally:
+        layers.attention = attend
+        setattr(attention, bwd_name, bwd)
+    x, inputs = seen["x"], seen["inputs"]
+    # X and q belong to one block: q is X's projection, folded.
+    n, l, d = x.shape
+    h = run.cfg.num_heads
+    with torch.no_grad():
+        q = layers.linear(last["qkv"], x).reshape(n, l, 3, h, d // h)[:, :, 0]
+    q = q.transpose(1, 2).reshape(n * h, l, d // h).float()
+    check(q.shape == inputs[0].shape and bool(
+        (q - inputs[0].float()).abs().max() <= 2.0 ** -7 * q.abs().max()),
+        "the captured X and q are not of one block")
+    return x, inputs
+
+
+def direct_leaf(x, grads, num_heads: int) -> torch.Tensor:
+    """The last block's qkv kernel gradient, g = X^T (dq | dk | dv), in
+    float64: X (N, L, D_in), each gradient folded (N*H, L, hd) and unfolded
+    into its D columns of the qkv layout. Shape (D_in, 3D)."""
+    n, l, d_in = x.shape
+    cols = [t.reshape(n, num_heads, l, -1).transpose(1, 2).reshape(n * l, -1) for t in grads]
+    return x.reshape(n * l, d_in).double().T @ torch.cat(cols, dim=1).double()
+
+
+def fp64_gaps(x, inputs, num_heads: int, versions: dict) -> dict:
+    """For each version (inputs -> unrounded (dq, dk, dv)): ||g - g64|| /
+    ||g64|| of the direct leaf on the whole and on its q, k and v columns,
+    and each output's relative L2 gap, against ``k2_bwd_math`` in float64."""
+    def rel(a, b):
+        return (torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b)).item()
+
+    ref = k2_bwd_math(*inputs, dtype=torch.float64)
+    g64 = direct_leaf(x, ref, num_heads)
+    d = g64.shape[1] // 3
+    readings = {}
+    for name, fn in versions.items():
+        grads = fn(*inputs)
+        g = direct_leaf(x, grads, num_heads)
+        readings[name] = {"leaf": rel(g, g64),
+                          **{c: rel(g[:, i * d:(i + 1) * d], g64[:, i * d:(i + 1) * d])
+                             for i, c in enumerate("qkv")},
+                          **{o: rel(t, r) for o, t, r in zip(("dq", "dk", "dv"), grads, ref)}}
+    return readings
+
+
+def phase_finetune_grads_fp64(card: str) -> None:
+    """K2b's direct-leaf accuracy against float64 on the finetune step's own
+    inputs ([finetune_grads]' weights and draws), with K1's rounding order
+    as the control the gate must catch; then, on the same inputs, the bf16
+    kernel against its plain version and its bf16 outputs against its fp32
+    outputs rounded."""
+    from cross_scale_mae_torch.cli.finetune import build_run
+    from cross_scale_mae_torch.ops.attention import _mha_bwd_cuda, mha_folded_bwd_reference
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = build_run(_ft_argv(tmp, "pallas", FT_BATCH, 1))
+        x, inputs = k2b_step_inputs(run, run.draws(0)[0])
+        h = run.cfg.num_heads
+        del run
+    torch.cuda.empty_cache()
+    versions = {"kernel": lambda *t: _mha_bwd_cuda(*t, out_dtype=torch.float32),
+                **FP64_VERSIONS}
+    readings = fp64_gaps(x, inputs, h, versions)
+    grads = _mha_bwd_cuda(*inputs)
+    check_rounded_tie(grads, versions["kernel"](*inputs), "mha_bwd step inputs")
+    control = tuple(t.to(inputs[0].dtype) for t in FP64_VERSIONS["control_k1_order"](*inputs))
+    step = {name: _output_errors(a, r, c) for name, a, r, c in zip(
+        ("dq", "dk", "dv"), grads, mha_folded_bwd_reference(*inputs), control)}
+    log("finetune_grads_fp64", card=json.dumps(card), shape=json.dumps(list(inputs[0].shape)),
+        x_shape=json.dumps(list(x.shape)), tol=FP64_LEAF_TOL,
+        **{name: json.dumps(r) for name, r in readings.items()},
+        step_inputs_vs_plain=json.dumps(step))
+    sound = readings["kernel"]
+    check(all(sound[c] <= FP64_LEAF_TOL for c in ("leaf", "q", "k", "v")),
+          f"K2b's direct leaf against float64: {sound}, limit {FP64_LEAF_TOL}")
+    check(readings["control_k1_order"]["leaf"] > FP64_LEAF_TOL,
+          f"K1's order stays within {FP64_LEAF_TOL} of float64: "
+          f"{readings['control_k1_order']}")
+    _gate_outputs("mha_bwd", "step_inputs", step)
 
 
 def _k2_dv_head0_zeroed(kernel_bwd, num_heads: int):
@@ -1406,6 +1577,7 @@ def main() -> int:
         npz = os.path.join(work, "pretrain.npz")
         train_fwd, train_bwd = phase_train(card, npz)
         ft_fwd, ft_bwd = phase_finetune(card)
+        phase_finetune_grads_fp64(card)
         lp_fwd = phase_linprobe(card, npz)
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "linprobe": lp_fwd},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "linprobe": 0},

@@ -23,20 +23,39 @@
 // threads per (sample, head), two passes, no atomics; here with rows HD
 // apart in every tensor.
 
+#include <type_traits>
+
 #include "mha_common.cuh"
 
 namespace {
 
 using namespace csmae;
 
-template <typename T, int HD>
+template <typename T, int HD, typename TO>
 __global__ void __launch_bounds__(kThreads)
 mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
-               T* __restrict__ dv, int L, float scale) {
+               const T* __restrict__ dout, TO* __restrict__ dq, TO* __restrict__ dk,
+               TO* __restrict__ dv, int L, float scale) {
   const size_t head = size_t(blockIdx.x) * L * HD;
-  attend_bwd<T, HD, /*kRound=*/false>(q + head, k + head, v + head, HD, dout + head, HD,
-                                      dq + head, dk + head, dv + head, HD, L, scale);
+  attend_bwd<T, HD, /*kRound=*/false, TO>(q + head, k + head, v + head, HD, dout + head, HD,
+                                          dq + head, dk + head, dv + head, HD, L, scale);
+}
+
+// Outputs of the input type (kF32Out false) or fp32.
+template <bool kF32Out>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
+               void* dk, void* dv, int bh, int L, int hd, int dtype, float scale,
+               void* stream) {
+  return dispatch(dtype, hd, [&](auto type, auto head_dim) {
+    using T = typename decltype(type)::type;
+    using TO = std::conditional_t<kF32Out, float, T>;
+    constexpr int HD = decltype(head_dim)::value;
+    return launch(mha_bwd_kernel<T, HD, TO>, bwd_smem_bytes<T, HD>(L), bh,
+                  static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<TO*>(dq), static_cast<TO*>(dk),
+                  static_cast<TO*>(dv), L, scale);
+  });
 }
 
 }  // namespace
@@ -45,13 +64,13 @@ mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 extern "C" int csmae_mha_bwd(const void* q, const void* k, const void* v, const void* dout,
                              void* dq, void* dk, void* dv, int bh, int L, int hd, int dtype,
                              float scale, void* stream) {
-  return dispatch(dtype, hd, [&](auto type, auto head_dim) {
-    using T = typename decltype(type)::type;
-    constexpr int HD = decltype(head_dim)::value;
-    return launch(mha_bwd_kernel<T, HD>, bwd_smem_bytes<T, HD>(L), bh,
-                  static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
-                  static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
-                  static_cast<T*>(dv), L, scale);
-  });
+  return launch_bwd<false>(q, k, v, dout, dq, dk, dv, bh, L, hd, dtype, scale, stream);
+}
+
+// The same sums written as fp32, before their rounding to the input type:
+// the accuracy checks' entry (chip_smoke.py, tests/test_torch_port_cuda.py).
+extern "C" int csmae_mha_bwd_f32(const void* q, const void* k, const void* v,
+                                 const void* dout, void* dq, void* dk, void* dv, int bh, int L,
+                                 int hd, int dtype, float scale, void* stream) {
+  return launch_bwd<true>(q, k, v, dout, dq, dk, dv, bh, L, hd, dtype, scale, stream);
 }

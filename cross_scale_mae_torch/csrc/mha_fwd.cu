@@ -45,7 +45,8 @@ mha_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int L,
                   float scale) {
   const size_t head = size_t(blockIdx.x) * L * HD;
-  tc::attend_fwd_tc<HD, kSingle>(q + head, k + head, v + head, out + head, L, scale);
+  tc::attend_fwd_tc<HD, kSingle, tc::kSplitTerms, /*kFfma=*/false, /*kRn=*/false>(
+      q + head, k + head, v + head, HD, out + head, HD, L, scale);
 }
 
 }  // namespace

@@ -1,47 +1,51 @@
-// The tensor-core body of K2's forward in bfloat16, for Hopper (sm_90a):
-// mha_fwd.cu runs it for bf16 inputs and keeps the scalar body of
-// mha_common.cuh (attend_fwd) for fp32 inputs. K2's backward (mha_bwd.cu)
-// keeps the scalar body for both types: PERF.md section 6 says why.
+// The tensor-core body of the bf16 attention forwards, for Hopper
+// (sm_90a): K1's (mha3_fwd.cu) and K2's (mha_fwd.cu). fp32 inputs keep the
+// scalar bodies of mha_common.cuh (attend_fwd, attend_bwd), as do the
+// backward kernels and K3.
 //
-// Replaces, for bf16, the Pallas kernel `_mha_kernel` of
-// cross_scale_mae_tpu/ops/attention.py: every operand read as fp32, the
-// logits fp32 sums scaled after the dot, an fp32 softmax, P kept in fp32
-// and the output rounded once to bf16.
+// Replaces, for bf16, the Pallas kernels `_mha3_kernel` and `_mha_kernel`
+// of cross_scale_mae_tpu/ops/attention.py: the logits
+// fp32 sums scaled after the dot, an fp32 softmax; K2 keeps P (and in the
+// backward dS) in fp32, K1 rounds P to bf16 before P V.
 //
-// What bounds it: one head's whole (L, L) score matrix is small (L is 17
+// What bounds them: one head's whole (L, L) score matrix is small (L is 17
 // to 257), so the work is about L flops per byte moved, under the H100's
-// ~295 flops per byte in bf16: bound by memory. The scalar body did not
+// ~295 flops per byte in bf16: bound by memory. The scalar bodies did not
 // get near that bound, because each fp32 FMA read an operand from shared
 // memory; here the products run on the tensor cores.
 //
 // Numerics on the tensor cores. mma.sync m16n8k16 takes bf16 operands and
 // sums in fp32. A product of two bf16 numbers is exact in fp32, so the
-// logits (q k^T) are the Pallas kernel's fp32 sums of fp32 operands, in
-// another order (and with the tensor cores' own truncating adds). P is an
-// fp32 matrix, which a bf16 operand would round (K1's order, the control
-// chip_smoke.py must catch); it is split into kSplitTerms bf16 terms,
-// p_hi = bf16(p), p_mid = bf16(p - p_hi), p_lo = bf16(p - p_hi - p_mid),
-// and P V taken term by term into one fp32 accumulator. Three terms of 8
-// bits carry all 24 of an fp32 value; two carry 16, and in an fp32
-// emulation of the split (tests/test_torch_port_attention.py) two terms
-// moved the mean error of the rounded outputs to as much as 2**-17 of
-// their mean, where three left them equal to the plain version's.
+// logits (q k^T) are the Pallas kernels' fp32 sums of the same operands,
+// in another order (and with the tensor cores' own truncating adds). P is
+// an fp32 matrix, which a bf16 operand would round; it is split into
+// kTerms bf16 terms, x_hi = bf16(x), x_mid = bf16(x - x_hi), x_lo = bf16(x
+// - x_hi - x_mid), and its product taken term by term. Three terms of 8
+// bits carry all 24 of an fp32 value (K2, kSplitTerms); one term is bf16(x)
+// itself, K1's `.astype(bf16)` of P (kK1SplitTerms). In an fp32 emulation of
+// the split (tests/test_torch_port_attention.py) two terms moved the mean
+// error of K2's rounded outputs to as much as 2**-17 of their mean, where
+// three left them equal to the plain version's. K1f takes its logits on
+// the CUDA cores in the plain version's fp32 order (`products` with
+// kFfma) and adds each 16-key slice of P V with round-to-nearest (kRn):
+// mha3_fwd.cu says why.
 //
-// Design. One block per (sample, head), one warp per 16-row query tile (5
-// warps at L = 65, 2 at L = 17; at most kTcMaxWarps, each taking tiles in
-// turn). The block copies the head's q, k and v to shared memory once, by
-// 16-byte cp.async copies, rows padded by 16 bytes so that ldmatrix's
-// eight row reads fall in distinct banks, rows L to the next multiple of 16
-// zero-filled; keys beyond L are masked to -inf in the logits. q and k
-// reach the logits' products by ldmatrix, v the P V product by ldmatrix
-// transposed; the warp turns its fp32 logits (the C layout) into P V's A
-// operand in registers, so P never leaves them. The logits of up to kKT
-// key tiles are held at a time: when all keys fit (L <= 80, kSingle) one
-// sweep keeps them, else a first sweep takes the row max and sum (online,
-// fp32) and a second recomputes the logits; then P = e / sum, split, and
-// O += P v. Shared memory is three (L, HD + 8) bf16 tiles: linear in L,
-// 141 KB at L = 257, HD = 80. With kSingle the kernel is held to 128
-// registers, for 3 blocks of 5 warps on an SM at L = 65.
+// Forward design. One block per (sample, head), one warp per 16-row query
+// tile (5 warps at L = 65, 2 at L = 17; at most kTcMaxWarps, each taking
+// tiles in turn). The block copies the head's q, k and v to shared memory
+// once, by 16-byte cp.async copies (rows in_stride apart in global memory:
+// HD for K2's folded heads, 3D for K1's qkv projection), rows padded by 16
+// bytes so that ldmatrix's eight row reads fall in distinct banks, rows L
+// to the next multiple of 16 zero-filled; keys beyond L are masked to -inf
+// in the logits. q and k reach the logits' products by ldmatrix, v the P V
+// product by ldmatrix transposed; the warp turns its fp32 logits (the C
+// layout) into P V's A operand in registers, so P never leaves them. The
+// logits of up to kKT key tiles are held at a time: when all keys fit (L
+// <= 80, kSingle) one sweep keeps them, else a first sweep takes the row
+// max and sum (online, fp32) and a second recomputes the logits; then P =
+// e / sum, split, and O += P v. Shared memory is three (L, HD + 8) bf16
+// tiles: linear in L, 141 KB at L = 257, HD = 80. With kSingle the kernel
+// is held to 128 registers, for 3 blocks of 5 warps on an SM at L = 65.
 
 #pragma once
 
@@ -57,8 +61,10 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTcMaxWarps = 8;
 constexpr int kTcMaxThreads = 32 * kTcMaxWarps;
-// bf16 terms of each fp32 P value in the P V product.
+// bf16 terms of each fp32 P (and dS) value in K2's products.
 constexpr int kSplitTerms = 3;
+// K1's forward: P rounded once to bf16, the Pallas kernel's own rounding.
+constexpr int kK1SplitTerms = 1;
 // Key tiles of 16 a query tile holds in registers in one sweep: 80 keys,
 // so L <= 80 (every ViT at 64 px or 128 px) needs one sweep.
 constexpr int kKT = 5;
@@ -74,7 +80,7 @@ struct TcGeometry {
 
 __host__ __device__ inline int padded_rows(int L) { return (L + 15) & ~15; }
 
-// Dynamic shared memory of one block: the q, k and v tiles.
+// Dynamic shared memory of one forward block: the q, k and v tiles.
 template <int HD>
 size_t tc_fwd_smem_bytes(int L) {
   return 3 * size_t(padded_rows(L)) * TcGeometry<HD>::kPitch * sizeof(bf16);
@@ -87,10 +93,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Rows [0, L) of a head at `src` (rows HD apart) into a padded shared tile
-// by cp.async; rows [L, padded_rows(L)) zero-filled. The caller waits.
+// Rows [0, L) of a head at `src` (rows `stride` elements apart) into a
+// padded shared tile by cp.async; rows [L, padded_rows(L)) zero-filled.
+// The caller waits.
 template <int HD>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int L) {
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int L,
+                                                size_t stride) {
   using G = TcGeometry<HD>;
   const int rows = padded_rows(L);
   for (int idx = threadIdx.x; idx < rows * G::kChunks; idx += blockDim.x) {
@@ -99,7 +107,7 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int 
     bf16* d = dst + r * G::kPitch + c * 8;
     if (r < L) {
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(d)),
-                   "l"(src + size_t(r) * HD + c * 8));
+                   "l"(src + size_t(r) * stride + c * 8));
     } else {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -119,6 +127,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = A B, from a zero accumulator.
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+}
+
+// acc += d, on the CUDA cores with round-to-nearest.
+__device__ __forceinline__ void add_rn(float (&acc)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], d[e]);
 }
 
 // B operands of two n-tiles from a shared tile whose rows are the n index
@@ -157,42 +181,88 @@ __device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* tile, int r
                : "r"(smem_addr(tile + row * TcGeometry<HD>::kPitch + col)));
 }
 
+// The column index of acc[kt][h][e] within its sweep (see `products`).
+__device__ __forceinline__ int col_of(int t0, int kt, int h, int e, int lane) {
+  return (t0 + kt) * 16 + 8 * h + 2 * (lane & 3) + (e & 1);
+}
+
+// Eight bf16 values of a shared row (16 bytes) as fp32.
+__device__ __forceinline__ void load8(float (&x)[8], const bf16* src) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
 // acc = A B^T for the rows r0..r0+15 of the shared tile `rows` against KT
 // tiles of 16 rows of the shared tile `tile` from tile t0, over the head
 // width; tiles at or beyond `ntiles` are left 0. The C layout:
 // acc[kt][h][e] is row r0 + lane/4 + 8 (e/2), column
-// (t0 + kt) 16 + 8 h + 2 (lane % 4) + e % 2.
-template <int HD, int KT>
+// (t0 + kt) 16 + 8 h + 2 (lane % 4) + e % 2. On the tensor cores; or, with
+// kFfma, on the CUDA cores in the plain version's fp32 order, each element
+// one fmaf chain over the head width from 0 up (the scalar body's
+// `dot_row`, whose logits equal mha_v3_reference's on the card).
+template <int HD, int KT, bool kFfma = false>
 __device__ __forceinline__ void products(float (&acc)[KT][2][4], const bf16* rows, int r0,
                                          const bf16* tile, int t0, int ntiles, int lane) {
+  using G = TcGeometry<HD>;
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[kt][h][e] = 0.f;
+  if constexpr (kFfma) {
+    const bf16* ra = rows + (r0 + (lane >> 2)) * G::kPitch;
+#pragma unroll 1
+    for (int c = 0; c < G::kChunks; ++c) {
+      float qa[8], qb[8];
+      load8(qa, ra + c * 8);
+      load8(qb, ra + 8 * G::kPitch + c * 8);
 #pragma unroll
-  for (int kc = 0; kc < TcGeometry<HD>::kKc; ++kc) {
-    uint32_t a[4];
-    ldsm_a<HD>(a, rows, r0, kc * 16, lane);
+      for (int kt = 0; kt < KT; ++kt) {
+        if (t0 + kt < ntiles) {
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      if (t0 + kt < ntiles) {
-        uint32_t b[4];
-        ldsm_b_rows_n<HD>(b, tile, (t0 + kt) * 16, kc * 16, lane);
-        mma_bf16(acc[kt][0], a, b[0], b[1]);
-        mma_bf16(acc[kt][1], a, b[2], b[3]);
+          for (int h = 0; h < 2; ++h) {
+            const bf16* kr = tile + (col_of(t0, kt, h, 0, lane)) * G::kPitch + c * 8;
+            float ka[8], kb[8];
+            load8(ka, kr);
+            load8(kb, kr + G::kPitch);
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+              acc[kt][h][0] = fmaf(qa[t], ka[t], acc[kt][h][0]);
+              acc[kt][h][1] = fmaf(qa[t], kb[t], acc[kt][h][1]);
+              acc[kt][h][2] = fmaf(qb[t], ka[t], acc[kt][h][2]);
+              acc[kt][h][3] = fmaf(qb[t], kb[t], acc[kt][h][3]);
+            }
+          }
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kc = 0; kc < G::kKc; ++kc) {
+      uint32_t a[4];
+      ldsm_a<HD>(a, rows, r0, kc * 16, lane);
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        if (t0 + kt < ntiles) {
+          uint32_t b[4];
+          ldsm_b_rows_n<HD>(b, tile, (t0 + kt) * 16, kc * 16, lane);
+          mma_bf16(acc[kt][0], a, b[0], b[1]);
+          mma_bf16(acc[kt][1], a, b[2], b[3]);
+        }
       }
     }
   }
 }
 
-// The column index of acc[kt][h][e] within its sweep (see `products`).
-__device__ __forceinline__ int col_of(int t0, int kt, int h, int e, int lane) {
-  return (t0 + kt) * 16 + 8 * h + 2 * (lane & 3) + (e & 1);
-}
-
-// Logits: scaled after the dot; columns at or beyond L masked to -inf.
+// Logits: scaled after the dot, by a product never fused into a later add;
+// columns at or beyond L masked to -inf.
 template <int KT>
 __device__ __forceinline__ void scale_mask(float (&s)[KT][2][4], int t0, int L, float scale,
                                            int lane) {
@@ -202,7 +272,8 @@ __device__ __forceinline__ void scale_mask(float (&s)[KT][2][4], int t0, int L, 
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[kt][h][e] = col_of(t0, kt, h, e, lane) < L ? s[kt][h][e] * scale : -INFINITY;
+        s[kt][h][e] =
+            col_of(t0, kt, h, e, lane) < L ? __fmul_rn(s[kt][h][e], scale) : -INFINITY;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -246,11 +317,13 @@ __device__ __forceinline__ void row_stats(float (&s)[KT][2][4], float (&m)[2], f
       }
 }
 
-// The bf16 terms of the pair (x, y), packed as one A-operand register each.
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t (&out)[kSplitTerms][4],
+// The kTerms bf16 terms of the pair (x, y), packed as one A-operand
+// register each.
+template <int kTerms>
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t (&out)[kTerms][4],
                                            int slot) {
 #pragma unroll
-  for (int t = 0; t < kSplitTerms; ++t) {
+  for (int t = 0; t < kTerms; ++t) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
     out[t][slot] = *reinterpret_cast<const uint32_t*>(&h);
     const float2 f = __bfloat1622float2(h);
@@ -261,27 +334,42 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t (&out)[kSp
 
 // acc += X B for the fp32 X of one sweep (the C layout of `products`:
 // rows r0.., columns the k index) against the shared tile's rows t0 16..
-// (the k index) over the head width, X split into kSplitTerms bf16 terms.
-template <int HD, int KT>
+// (the k index) over the head width, X split into kTerms bf16 terms. With
+// kRn each 16-row slice's product, its terms from the smallest and from a
+// zero accumulator, is added to acc on the CUDA cores with
+// round-to-nearest; else the tensor cores add every term into acc
+// themselves, truncating.
+template <int HD, int KT, int kTerms, bool kRn = false>
 __device__ __forceinline__ void accumulate_split(float (&acc)[TcGeometry<HD>::kN][4],
                                                  const float (&x)[KT][2][4], const bf16* tile,
                                                  int t0, int ntiles, int lane) {
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt) {
     if (t0 + kt < ntiles) {
-      uint32_t a[kSplitTerms][4];
-      split_pair(x[kt][0][0], x[kt][0][1], a, 0);
-      split_pair(x[kt][0][2], x[kt][0][3], a, 1);
-      split_pair(x[kt][1][0], x[kt][1][1], a, 2);
-      split_pair(x[kt][1][2], x[kt][1][3], a, 3);
+      uint32_t a[kTerms][4];
+      split_pair<kTerms>(x[kt][0][0], x[kt][0][1], a, 0);
+      split_pair<kTerms>(x[kt][0][2], x[kt][0][3], a, 1);
+      split_pair<kTerms>(x[kt][1][0], x[kt][1][1], a, 2);
+      split_pair<kTerms>(x[kt][1][2], x[kt][1][3], a, 3);
 #pragma unroll
       for (int np = 0; np < TcGeometry<HD>::kN / 2; ++np) {
         uint32_t b[4];
         ldsm_b_rows_k<HD>(b, tile, (t0 + kt) * 16, np * 16, lane);
+        if constexpr (kRn) {
 #pragma unroll
-        for (int t = 0; t < kSplitTerms; ++t) {
-          mma_bf16(acc[2 * np], a[t], b[0], b[1]);
-          mma_bf16(acc[2 * np + 1], a[t], b[2], b[3]);
+          for (int half = 0; half < 2; ++half) {
+            float d[4];
+            mma_bf16_zero(d, a[kTerms - 1], b[2 * half], b[2 * half + 1]);
+#pragma unroll
+            for (int t = kTerms - 2; t >= 0; --t) mma_bf16(d, a[t], b[2 * half], b[2 * half + 1]);
+            add_rn(acc[2 * np + half], d);
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < kTerms; ++t) {
+            mma_bf16(acc[2 * np], a[t], b[0], b[1]);
+            mma_bf16(acc[2 * np + 1], a[t], b[2], b[3]);
+          }
         }
       }
     }
@@ -296,20 +384,28 @@ __device__ __forceinline__ void zero(float (&acc)[TcGeometry<HD>::kN][4]) {
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 }
 
-// Rows r0..r0+15 of an (L, HD) output from an accumulator, rounded once to
-// bf16; rows at or beyond L are not written.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[TcGeometry<HD>::kN][4],
-                                           int L, int r0, int lane) {
+__device__ __forceinline__ void store_pair(bf16* dst, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void store_pair(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+
+// Rows r0..r0+15 of an (L, HD) output (rows `stride` elements apart) from
+// an accumulator, rounded once to the output type; rows at or beyond L
+// are not written.
+template <int HD, typename TO>
+__device__ __forceinline__ void store_rows(TO* dst, const float (&acc)[TcGeometry<HD>::kN][4],
+                                           int L, int r0, int lane, size_t stride) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + (lane >> 2) + 8 * half;
     if (r < L) {
 #pragma unroll
-      for (int n = 0; n < TcGeometry<HD>::kN; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + size_t(r) * HD + n * 8 + 2 * (lane & 3)) =
-            __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
-      }
+      for (int n = 0; n < TcGeometry<HD>::kN; ++n)
+        store_pair(dst + size_t(r) * stride + n * 8 + 2 * (lane & 3), acc[n][2 * half],
+                   acc[n][2 * half + 1]);
     }
   }
 }
@@ -325,14 +421,14 @@ __device__ __forceinline__ int sweep_end(int ntiles) {
 // Row stats of one query tile (rows r0.. of the shared q tile `qs`, keys
 // of `ks`): with kSingle, P = softmax(q k^T scale) in `s`; else only the
 // row max m and the total l.
-template <int HD, bool kSingle>
+template <int HD, bool kSingle, bool kFfma = false>
 __device__ __forceinline__ void query_stats(float (&s)[kKT][2][4], float (&m)[2], float (&l)[2],
                                             const bf16* qs, const bf16* ks, int L, int r0,
                                             int ntiles, float scale, int lane) {
   m[0] = m[1] = -INFINITY;
   l[0] = l[1] = 0.f;
   for (int t0 = 0; t0 < sweep_end<kSingle>(ntiles); t0 += kKT) {
-    products<HD, kKT>(s, qs, r0, ks, t0, ntiles, lane);
+    products<HD, kKT, kFfma>(s, qs, r0, ks, t0, ntiles, lane);
     scale_mask<kKT>(s, t0, L, scale, lane);
     row_stats<kKT>(s, m, l, kSingle);
   }
@@ -349,11 +445,11 @@ __device__ __forceinline__ void query_stats(float (&s)[kKT][2][4], float (&m)[2]
 }
 
 // P of one sweep from its logits and the row's m and l.
-template <int HD>
+template <int HD, bool kFfma = false>
 __device__ __forceinline__ void probs(float (&s)[kKT][2][4], const float (&m)[2],
                                       const float (&l)[2], const bf16* qs, const bf16* ks, int L,
                                       int r0, int t0, int ntiles, float scale, int lane) {
-  products<HD, kKT>(s, qs, r0, ks, t0, ntiles, lane);
+  products<HD, kKT, kFfma>(s, qs, r0, ks, t0, ntiles, lane);
   scale_mask<kKT>(s, t0, L, scale, lane);
 #pragma unroll
   for (int kt = 0; kt < kKT; ++kt)
@@ -363,21 +459,25 @@ __device__ __forceinline__ void probs(float (&s)[kKT][2][4], const float (&m)[2]
       for (int e = 0; e < 4; ++e) s[kt][h][e] = expf(s[kt][h][e] - m[e >> 1]) / l[e >> 1];
 }
 
-// One (sample, head) of the forward: q, k, v, out (L, HD), rows HD apart.
-template <int HD, bool kSingle>
+// One (sample, head) of the forward: q, k, v (L, HD) rows `in_stride`
+// apart, out rows `out_stride` apart; the logits on the tensor cores or
+// (kFfma) in the plain fp32 order, P split into kTerms bf16 terms, P V
+// summed by the tensor cores or (kRn) with rounded adds.
+template <int HD, bool kSingle, int kTerms, bool kFfma, bool kRn>
 __device__ __forceinline__ void attend_fwd_tc(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
-                                              const bf16* __restrict__ v, bf16* __restrict__ out,
-                                              int L, float scale) {
+                                              const bf16* __restrict__ v, size_t in_stride,
+                                              bf16* __restrict__ out, size_t out_stride, int L,
+                                              float scale) {
   using G = TcGeometry<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = padded_rows(L);
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + rows * G::kPitch;
   bf16* vs = ks + rows * G::kPitch;
-  load_tile_async<HD>(qs, q, L);
-  load_tile_async<HD>(ks, k, L);
-  load_tile_async<HD>(vs, v, L);
+  load_tile_async<HD>(qs, q, L, in_stride);
+  load_tile_async<HD>(ks, k, L, in_stride);
+  load_tile_async<HD>(vs, v, L, in_stride);
   wait_tiles();
 
   const int lane = threadIdx.x & 31;
@@ -385,14 +485,14 @@ __device__ __forceinline__ void attend_fwd_tc(const bf16* __restrict__ q,
   for (int qt = threadIdx.x >> 5; qt < ntiles; qt += blockDim.x >> 5) {
     const int r0 = qt * 16;
     float s[kKT][2][4], m[2], l[2];
-    query_stats<HD, kSingle>(s, m, l, qs, ks, L, r0, ntiles, scale, lane);
+    query_stats<HD, kSingle, kFfma>(s, m, l, qs, ks, L, r0, ntiles, scale, lane);
     float o[G::kN][4];
     zero<HD>(o);
     for (int t0 = 0; t0 < sweep_end<kSingle>(ntiles); t0 += kKT) {
-      if (!kSingle) probs<HD>(s, m, l, qs, ks, L, r0, t0, ntiles, scale, lane);
-      accumulate_split<HD, kKT>(o, s, vs, t0, ntiles, lane);
+      if (!kSingle) probs<HD, kFfma>(s, m, l, qs, ks, L, r0, t0, ntiles, scale, lane);
+      accumulate_split<HD, kKT, kTerms, kRn>(o, s, vs, t0, ntiles, lane);
     }
-    store_rows<HD>(out, o, L, r0, lane);
+    store_rows<HD>(out, o, L, r0, lane, out_stride);
   }
 }
 

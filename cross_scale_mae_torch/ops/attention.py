@@ -7,7 +7,8 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   columns [h*hd, (h+1)*hd) of each D-wide third. A ``torch.autograd.Function``
   that saves only qkv and recomputes the probabilities in its backward, as
   the JAX custom VJP ``pallas_mha_v3`` does. On a CUDA tensor the forward
-  launches ``csrc/mha3_fwd.cu`` (the port of ``_mha3_kernel``) and the
+  launches ``csrc/mha3_fwd.cu`` (the port of ``_mha3_kernel``; for bf16 the
+  tensor-core body of ``csrc/mha_tc.cuh``, P rounded once to bf16) and the
   backward ``csrc/mha3_bwd.cu`` (``_mha3_bwd_kernel``), counted by
   ``mha_v3.launches`` and ``mha_v3.bwd_launches``; on a CPU tensor the plain
   versions ``mha_v3_reference`` (fp32 logits and softmax, P rounded to the
@@ -94,9 +95,9 @@ def mha_v3_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def mha3_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one forward block of the scalar body, K1f's
-    and K2f's in fp32 (csrc/mha_common.cuh `fwd_smem_bytes`): k and v in
-    the input dtype, rows padded by 16 bytes, and one fp32 query row and
-    score row per warp."""
+    and K2f's in fp32 and K3f's (csrc/mha_common.cuh `fwd_smem_bytes`): k
+    and v in the input dtype, rows padded by 16 bytes, and one fp32 query
+    row and score row per warp."""
     item = torch.empty((), dtype=dtype).element_size()
     pitch = head_dim + 16 // item
     warps = _THREADS // 32
@@ -128,7 +129,9 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int, smem_bytes,
 
 
 def _mha3_fwd_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    n, l, d, hd = _check_kernel_input(qkv, num_heads, mha3_smem_bytes)
+    """K1f: ``csrc/mha3_fwd.cu``, the tensor-core body for bf16 and the
+    scalar body for fp32 (:func:`mha_smem_bytes`)."""
+    n, l, d, hd = _check_kernel_input(qkv, num_heads, mha_smem_bytes)
     from cross_scale_mae_torch.ops.cuda_build import load_library
 
     lib = load_library("mha3_fwd")
@@ -308,9 +311,9 @@ def mha_folded_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mha_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K2f block. bf16: the tensor-core body
-    (csrc/mha_tc.cuh `tc_fwd_smem_bytes`), q, k and v as (L padded to 16,
-    hd + 8) bf16 tiles; fp32: the scalar body, K1f's layout
+    """Dynamic shared memory of one K1f or K2f block. bf16: the
+    tensor-core body (csrc/mha_tc.cuh `tc_fwd_smem_bytes`), q, k and v as
+    (L padded to 16, hd + 8) bf16 tiles; fp32: the scalar body
     (:func:`mha3_smem_bytes`)."""
     if dtype != torch.bfloat16:
         return mha3_smem_bytes(seq_len, head_dim, dtype)
@@ -369,18 +372,24 @@ def _mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     return out
 
 
-def _mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  do: torch.Tensor) -> tuple[torch.Tensor, ...]:
+def _mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                  out_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, ...]:
     """K2b: ``csrc/mha_bwd.cu``, on the scalar backward body it shares with
-    K1b, for bf16 and fp32 (:func:`mha3_bwd_smem_bytes`)."""
+    K1b, for bf16 and fp32 (:func:`mha3_bwd_smem_bytes`). ``out_dtype=
+    torch.float32`` writes the kernel's fp32 sums before their rounding to
+    the input dtype (``csmae_mha_bwd_f32``), for accuracy checks."""
     bh, l, hd = _check_folded((q, k, v, do), mha3_bwd_smem_bytes)
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"mha backward kernel writes {q.dtype} or float32, not {out_dtype}")
     from cross_scale_mae_torch.ops.cuda_build import load_library
 
-    fn = load_library("mha_bwd").csmae_mha_bwd
+    lib = load_library("mha_bwd")
+    fn = lib.csmae_mha_bwd if out_dtype == q.dtype else lib.csmae_mha_bwd_f32
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = (torch.empty_like(q, dtype=out_dtype) for _ in range(3))
     if bh == 0 or l == 0:
         return dq, dk, dv
     with torch.cuda.device(q.device):

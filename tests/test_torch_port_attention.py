@@ -331,6 +331,7 @@ def test_mha_smem_layout_matches_tc_kernel_source():
 # gate) must read above K2_MEAN_TOL.
 K2_MEAN_TOL = 2.0 ** -15
 SPLIT_TERMS = int(re.search(r"constexpr int kSplitTerms = (\d+);", TC_HEADER).group(1))
+K1_SPLIT_TERMS = int(re.search(r"constexpr int kK1SplitTerms = (\d+);", TC_HEADER).group(1))
 
 
 def _split_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
@@ -373,6 +374,45 @@ def test_split_bf16_arithmetic_against_plain_versions(shape, terms):
             assert rel > K2_MEAN_TOL, name
         else:
             assert rel <= K2_MEAN_TOL / 8, name
+
+
+def _k1f_split_emulation(qkv: torch.Tensor, num_heads: int, terms: int) -> torch.Tensor:
+    """mha_v3_reference with P's rounding to the input dtype replaced by the
+    sum of its first `terms` bf16 terms: the tensor-core K1f's arithmetic
+    (csrc/mha3_fwd.cu on csrc/mha_tc.cuh, kK1SplitTerms) in fp32."""
+    n, l, d, hd = port_attn._split_dims(qkv, num_heads)
+    r = qkv.reshape(n, l, 3, num_heads, hd).permute(2, 0, 3, 1, 4).float()
+    p = port_attn._softmax_fp32(torch.matmul(r[0], r[1].transpose(-1, -2)) * hd ** -0.5)
+    out = torch.matmul(_split_terms(p, terms), r[2]).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(n, l, d)
+
+
+@pytest.mark.parametrize("shape", [(3, 65, 4, 64), (4, 17, 6, 16), (2, 257, 2, 80)])
+def test_k1f_split_term_count_reproduces_its_plain_version(shape):
+    """One bf16 term of P is K1's own `.astype(bf16)`: the emulated
+    tensor-core K1f equals mha_v3_reference bit for bit, which K2's three
+    terms (P kept whole) do not."""
+    assert K1_SPLIT_TERMS == 1
+    n, l, h, hd = shape
+    qkv = torch.from_numpy(np.random.default_rng(21).normal(
+        size=(n, l, 3 * h * hd)).astype(np.float32)).bfloat16()
+    ref = port_attn.mha_v3_reference(qkv, h)
+    assert torch.equal(_k1f_split_emulation(qkv, h, K1_SPLIT_TERMS), ref)
+    assert not torch.equal(_k1f_split_emulation(qkv, h, SPLIT_TERMS), ref)
+
+
+def test_k1f_smem_layout_is_the_tc_body_for_bf16():
+    """K1f runs mha_tc.cuh's forward body for bf16 (three (L padded to 16,
+    hd + 8) tiles) and the scalar body for fp32; its wrapper checks each
+    against the block's limit before launch."""
+    k1f = (Path(port_attn.__file__).resolve().parent.parent / "csrc" / "mha3_fwd.cu").read_text()
+    assert "tc::tc_fwd_smem_bytes<HD>(L)" in k1f and "tc::kK1SplitTerms" in k1f
+    for l, hd in [(17, 64), (65, 32), (257, 80)]:
+        rows = -(-l // 16) * 16
+        assert port_attn.mha_smem_bytes(l, hd, torch.bfloat16) == 3 * rows * (hd + 8) * 2
+        for dt in (torch.bfloat16, torch.float32):
+            port_attn._check_kernel_input(torch.zeros(2, l, 3 * 2 * hd, dtype=dt), 2,
+                                          port_attn.mha_smem_bytes)
 
 
 # ---------------------------------------------------------------- K3 (v2)
@@ -503,13 +543,20 @@ def test_mha_qkv_shared_memory_is_k1s():
                                   port_attn.mha2_bwd_smem_bytes)
 
 
-def test_chip_smoke_reads_spills_from_ptxas_output():
-    """chip_smoke.py's [build] gate: each spill line belongs to the function
-    named above it, and the bf16 K2 rows name the header's term count."""
+def _chip_smoke():
     import sys
 
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
+
+    return chip_smoke
+
+
+def test_chip_smoke_reads_spills_from_ptxas_output():
+    """chip_smoke.py's [build] gate: each spill line belongs to the function
+    named above it, each tensor-core kernel is told apart by its mangled
+    name, and the bf16 rows name the header's term count for each kernel."""
+    chip_smoke = _chip_smoke()
 
     text = "\n".join([
         "ptxas info    : Compiling entry function '_Z17mha_fwd_tc_kernelILi64ELb1EE' for 'sm_90a'",
@@ -522,4 +569,45 @@ def test_chip_smoke_reads_spills_from_ptxas_output():
     ])
     assert chip_smoke.ptxas_spills(text) == {"_Z17mha_fwd_tc_kernelILi64ELb1EE": (0, 0),
                                              "_Z17mha_fwd_tc_kernelILi80ELb1EE": (32, 36)}
-    assert chip_smoke.k2_design() == f"mma.sync split-bf16 x{SPLIT_TERMS}"
+    assert chip_smoke.tc_design("mha_fwd") == f"mma.sync split-bf16 x{SPLIT_TERMS}"
+    assert chip_smoke.tc_design("mha3_fwd") == f"mma.sync split-bf16 x{K1_SPLIT_TERMS}"
+    for symbol, name in [
+            ("_ZN12_GLOBAL__N_117mha_fwd_tc_kernelILi64ELb1EEEvPK13__nv_bfloat16S3_S3_PS1_if",
+             "mha_fwd_tc_kernel"),
+            ("_ZN12_GLOBAL__N_118mha3_fwd_tc_kernelILi32ELb0EEEvPK13__nv_bfloat16PS1_iif",
+             "mha3_fwd_tc_kernel"),
+            ("_ZN12_GLOBAL__N_115mha3_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iif", None)]:
+        assert chip_smoke.tc_instance(symbol) == name
+
+
+def test_chip_smoke_fp64_direct_leaf_separates_plain_from_k1_order(tmp_path):
+    """chip_smoke.py's [finetune_grads_fp64] yardstick on the CPU, through the
+    port's plain versions: a tiny ViT finetune step (bf16, 'pallas', drop
+    path) gives the last block's K2b inputs and its qkv-projection input X;
+    the direct leaf X^T (dq | dk | dv) from the plain arithmetic in fp32
+    stays within the gate's limit of the same arithmetic in float64, on the
+    whole and on each column block, and K1's rounding order (P and dS in
+    bf16) reads above it on the whole leaf."""
+    from cross_scale_mae_torch.cli.finetune import build_run, get_args_parser
+
+    chip_smoke = _chip_smoke()
+    run = build_run(get_args_parser().parse_args([
+        "--model", "vit_base_patch16", "--embed_dim", "64", "--depth", "2",
+        "--num_heads", "4", "--input_size", "32", "--patch_size", "8",
+        "--batch_size", "8", "--synthetic_len", "8", "--nb_classes", "5",
+        "--compute_dtype", "bfloat16", "--attention_impl", "pallas",
+        "--drop_path", "0.1", "--seed", "0", "--device", "cpu",
+        "--output_dir", str(tmp_path)]))
+    x, inputs = chip_smoke.k2b_step_inputs(run, run.draws(0)[0],
+                                           bwd_name="mha_folded_bwd_reference")
+    assert x.shape == (8, 17, 64) and inputs[0].shape == (8 * 4, 17, 16)
+    assert all(t.dtype == torch.bfloat16 for t in (x, *inputs))
+    assert port_attn.mha_folded_bwd_reference.__name__ == "mha_folded_bwd_reference"
+    readings = chip_smoke.fp64_gaps(x, inputs, 4, chip_smoke.FP64_VERSIONS)
+    tol = chip_smoke.FP64_LEAF_TOL
+    assert tol == 2.0 ** -17
+    assert all(readings["plain"][c] <= tol for c in ("leaf", "q", "k", "v")), readings["plain"]
+    assert readings["control_k1_order"]["leaf"] > tol, readings["control_k1_order"]
+    # dS alone rounded moves only the q and k columns.
+    assert readings["control_ds_bf16"]["v"] == readings["plain"]["v"]
+    assert readings["control_ds_bf16"]["q"] > tol

@@ -39,6 +39,29 @@ def test_cuda_kernel_matches_plain_version(cuda_device, n, l, h, hd, dtype):
     assert (got.float() - ref).abs().max().item() <= atol
 
 
+# Where the tensor-core bodies' 16-row tiles and 80-key sweep are ragged:
+# the encoder's 17 tokens, ViT-B's 65, exactly one sweep (80), one past it
+# (81), and the longest sequence (257); every head width the kernels take.
+RAGGED_L = [17, 65, 80, 81, 257]
+HEAD_DIMS = [16, 32, 64, 80]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", RAGGED_L)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_k1f_tc_kernel_at_ragged_edges(cuda_device, l, hd):
+    """The bf16 K1f (csrc/mha_tc.cuh, P rounded once to bf16) on the qkv
+    layout with an odd head count, against mha_v3_reference: one bf16 ulp
+    at the largest output, and a second launch gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    qkv = torch.randn(5, l, 3 * 3 * hd, device=cuda_device, generator=gen).bfloat16()
+    got = port_attn._mha3_fwd_cuda(qkv, 3)
+    torch.cuda.synchronize()
+    ref = port_attn.mha_v3_reference(qkv, 3).float()
+    assert (got.float() - ref).abs().max().item() <= _tol(ref, torch.bfloat16)
+    assert torch.equal(port_attn._mha3_fwd_cuda(qkv, 3), got)
+
+
 SHAPES = [(768, 17, 12, 64), (768, 65, 16, 32), (8, 257, 12, 64)]
 
 
@@ -178,6 +201,51 @@ def test_cuda_mha_bf16_kernels_at_ragged_edges(cuda_device, l, hd):
         assert err.max().item() <= _tol(r, torch.bfloat16), name
         assert err.mean().item() <= K2_MEAN_TOL * r.abs().mean().item(), name
     assert all(torch.equal(a, b) for a, b in zip(port_attn._mha_bwd_cuda(q, k, v, do), grads))
+
+
+# The [finetune_grads_fp64] limit (chip_smoke.py FP64_LEAF_TOL), here on
+# each fp32 output of K2b: relative L2 gap to the same arithmetic in
+# float64.
+FP64_TOL = 2.0 ** -17
+
+
+def _bwd64(q, k, v, do):
+    """mha_folded_bwd_reference's arithmetic in float64, unrounded."""
+    q, k, v, g = (t.double() for t in (q, k, v, do))
+    p = port_attn._folded_probs(q, k)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * (q.shape[-1] ** -0.5)
+    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), torch.matmul(
+        p.transpose(-1, -2), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", RAGGED_L)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_k2b_bf16_kernel_at_ragged_edges(cuda_device, l, hd):
+    """The bf16 K2b against mha_folded_bwd_reference at ragged L and every
+    head width (37 heads): one bf16 ulp and K2_MEAN_TOL per output, with
+    K1's order above K2_MEAN_TOL; its fp32 outputs within FP64_TOL of
+    float64; its bf16 outputs those fp32 outputs rounded, bit for bit; and
+    a second launch gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, do = (torch.randn(37, l, hd, device=cuda_device, generator=gen).bfloat16()
+                   for _ in range(4))
+    grads = port_attn._mha_bwd_cuda(q, k, v, do)
+    f32 = port_attn._mha_bwd_cuda(q, k, v, do, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    refs = [r.float() for r in port_attn.mha_folded_bwd_reference(q, k, v, do)]
+    controls = _k1_order(q, k, v, do, 37)[1:]
+    for name, a, r, c, f, e in zip(("dq", "dk", "dv"), grads, refs, controls, f32,
+                                   _bwd64(q, k, v, do)):
+        assert (a.float() - r).abs().max().item() <= _tol(r, torch.bfloat16), name
+        assert _rel_mean(a, r) <= K2_MEAN_TOL < _rel_mean(c, r), name
+        assert f.dtype == torch.float32 and torch.equal(a, f.bfloat16()), name
+        gap = (torch.linalg.vector_norm(f.double() - e) / torch.linalg.vector_norm(e)).item()
+        assert gap <= FP64_TOL, (name, gap)
+    assert all(torch.equal(a, b) for a, b in zip(port_attn._mha_bwd_cuda(q, k, v, do), grads))
+    assert all(torch.equal(a, b) for a, b in zip(
+        port_attn._mha_bwd_cuda(q, k, v, do, out_dtype=torch.float32), f32))
 
 
 @pytest.mark.cuda
