@@ -52,8 +52,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    same weights and draws through the kernels and the plain attention
    (timed in turns; loss and gradient norm within the bf16 budget), a
    torch.profiler window, and every parameter's gradient through K2b
-   against K2b's plain version with two controls (dS rounded to bf16, K1's
-   rounding; head 0's dV zeroed) that the gates must catch.
+   against K2b's plain version, every leaf gated with head 0's dV zeroed as
+   the control the gate must catch; the last block's qkv kernel (the
+   direct leaf, one K2b launch) printed beside ``FT_DIRECT_TOL`` and a
+   dS-rounded control, no longer gating (phase 8 holds it).
 8. finetune_grads_fp64: the same weights and draws; the last block's K2b
    inputs (q, k, v, dO) and that block's qkv-projection input X captured in
    one step. The direct leaf, g = X^T (dq | dk | dv), in float64 from
@@ -163,9 +165,10 @@ FT_REPEAT_STEPS = 12
 FT_ATTN = 24
 FT_SYNTHETIC = 5 * FT_BATCH
 FT_LR = 5e-4  # constant: no warmup, and a cosine far longer than the run
-# Limits of the finetune step's leaf-wise gradient gate, K2b against its
-# plain version: the last block's qkv kernel (one K2b launch) and every
-# leaf, each between the sound reading and its control's (PERF.md, section 6).
+# Limits of the finetune step's leaf-wise gradient readings, K2b against its
+# plain version: the last block's qkv kernel (one K2b launch; printed, no
+# longer a gate, see FP64_LEAF_TOL) and every leaf (a gate), each set
+# between the sound reading and its control's (PERF.md, section 6).
 FT_DIRECT_TOL = 2.0 ** -17
 FT_LEAF_TOL = 2.0 ** -6
 # The [finetune_grads_fp64] gate: ||g - g64|| / ||g64|| of the last block's
@@ -262,10 +265,12 @@ def phase_device() -> str:
 # The tensor-core instantiations (the csrc/mha_tc.cuh bodies) by kernel
 # name, each over 4 head widths and one sweep or several: the build phase
 # fails unless ptxas reports each of them, none spilling.
-TC_KERNELS = {"mha3_fwd_tc_kernel": 8, "mha_fwd_tc_kernel": 8}
+TC_KERNELS = {"mha3_fwd_tc_kernel": 8, "mha_fwd_tc_kernel": 8,
+              # bf16 and fp32 outputs
+              "mha_bwd_tc_kernel": 16}
 # The header constant that gives each bf16 tensor-core kernel's bf16 terms
 # of P (and dS).
-TC_TERMS = {"mha3_fwd": "kK1SplitTerms", "mha_fwd": "kSplitTerms"}
+TC_TERMS = {"mha3_fwd": "kK1SplitTerms", "mha_fwd": "kSplitTerms", "mha_bwd": "kSplitTerms"}
 
 
 def tc_design(name: str) -> str:
@@ -531,7 +536,7 @@ def phase_kernel_k2(gen, report) -> None:
                            heads(x[3:])[0]))
         bound, bound_by = mha_bwd_bound_ms(n, l, h, hd, 2)
         report("mha_bwd", label, {
-            "shape": [n, l, h, hd], "design": "scalar fp32 FMA",
+            "shape": [n, l, h, hd], "design": tc_design("mha_bwd"),
             "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
             "outputs": bwd,
             "kernel_ms": time_ms(lambda x: _mha_bwd_cuda(*x), bufs),
@@ -735,7 +740,7 @@ K1_KINDS = (("mha3_fwd", ("mha3_fwd",)), ("mha3_bwd", ("mha3_bwd",)),
 # The finetune step's: copy kernels (strided copies and stacks) hold the K2
 # layout's fold/unfold transposes and the dtype casts.
 K2_KINDS = (("mha_fwd", ("mha_fwd_kernel", "mha_fwd_tc_kernel")),
-            ("mha_bwd", ("mha_bwd_kernel",)),
+            ("mha_bwd", ("mha_bwd_kernel", "mha_bwd_tc_kernel")),
             ("matmul", MATMUL_NAMES), ("copies", ("copy", "catarray")))
 # The linear probe's: the forward kernel, the matmuls, and the copies (dtype
 # casts, the augment's and the prefetch's device copies).
@@ -1325,12 +1330,13 @@ def phase_finetune(card: str) -> tuple[int, int]:
         kernel_vs_plain_loss=json.dumps([kl, pl]), kernel_vs_plain_grad_norm=json.dumps([kg, pg]),
         kernel_step_ms=json.dumps([k1, k2]), plain_step_ms=json.dumps([p1, p2]))
     sound = readings["kernel"]
-    check(sound["direct"] <= FT_DIRECT_TOL and sound["worst"][0] <= FT_LEAF_TOL,
-          f"K2b vs its plain version in the step: {sound}, limits {FT_DIRECT_TOL} "
-          f"({direct}) and {FT_LEAF_TOL} (every leaf)")
-    # Each control must trip its gate, or the gate could not see that fault.
-    check(readings["control_ds_bf16"]["direct"] > FT_DIRECT_TOL,
-          f"dS rounded to bf16 stays within {FT_DIRECT_TOL} at {direct}")
+    # The direct leaf against the plain version (FT_DIRECT_TOL, its dS-rounded
+    # control) is printed and no longer gates: it holds K2b to the plain
+    # version's fp32 summation order, which the tensor-core K2b does not
+    # keep. [finetune_grads_fp64] holds that leaf against float64 instead.
+    check(sound["worst"][0] <= FT_LEAF_TOL,
+          f"K2b vs its plain version in the step: {sound}, limit {FT_LEAF_TOL} (every leaf)")
+    # The control must trip the gate, or the gate could not see that fault.
     check(readings["control_dv_head0_zeroed"]["least_qkv"][0] > FT_LEAF_TOL,
           f"head 0's dV zeroed leaves a block's qkv kernel within {FT_LEAF_TOL}")
     return fwd, bwd
@@ -1366,6 +1372,19 @@ def _lp_argv(npz: str, train: str, test: str, out: str, *extra: str):
         "--compute_dtype", "bfloat16", "--gelu", "tanh", "--seed", "0", "--log_interval", "4",
         "--device", "cuda", "--output_dir", out,
         *extra])
+
+
+def _mha_v3_fp64(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``mha_v3_reference``'s arithmetic in float64 (P still rounded to the
+    input dtype before P V, the output rounded once): the exact function
+    beside which [linprobe] prints both paths' logits."""
+    from cross_scale_mae_torch.ops.attention import _softmax_fp32, _split_dims
+
+    n, l, d, hd = _split_dims(qkv, num_heads)
+    r = qkv.reshape(n, l, 3, num_heads, hd).permute(2, 0, 3, 1, 4).double()
+    p = _softmax_fp32(torch.matmul(r[0], r[1].transpose(-1, -2)) * hd ** -0.5)
+    out = torch.matmul(p.to(qkv.dtype).double(), r[2]).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(n, l, d)
 
 
 def _backbone(params: dict) -> dict:
@@ -1523,6 +1542,18 @@ def phase_linprobe(card: str, npz: str) -> int:
         e_imgs, e_labels = (torch.from_numpy(a).cuda()
                             for a in next(iter(run.eval_loader.epoch(0))))
         draws = run.draws(0)
+        # The same eval batch through the exact function, mha_v3_reference's
+        # arithmetic in float64, before a step moves the head: how far each
+        # path's logits sit from it.
+        from cross_scale_mae_torch.models import layers
+
+        plain_attn, layers.mha_v3_reference = layers.mha_v3_reference, _mha_v3_fp64
+        try:
+            r = runs["xla"]
+            x_logits = r.eval_fn(r.state.params, r.state.model_state, e_imgs,
+                                 e_labels.long())["logits"].float()
+        finally:
+            layers.mha_v3_reference = plain_attn
         outs = {}
         for impl, r in runs.items():
             f0 = mha_v3.launches
@@ -1534,6 +1565,8 @@ def phase_linprobe(card: str, npz: str) -> int:
             check(launched == (2 * LP_ATTN if impl == "pallas_v3" else 0),
                   f"{impl} eval batch and step launched K1f {launched} times")
         (k_logits, kl, kg), (p_logits, pl, pg) = outs["pallas_v3"], outs["xla"]
+        fp64_gaps = {name: ((t - x_logits).norm() / x_logits.norm()).item()
+                     for name, t in (("kernel", k_logits), ("plain", p_logits))}
         # The bf16 budget of [finetune]: the two paths round attention at
         # other places in 12 blocks; the logits' relative L2 gap on the
         # loss's limit.
@@ -1542,7 +1575,7 @@ def phase_linprobe(card: str, npz: str) -> int:
         check(math.isfinite(dlog) and dlog <= 2.0 ** -7 and dl <= 2.0 ** -7 and dg <= 2.0 ** -5,
               f"kernel vs plain: logits rel gap {dlog}, loss {kl} vs {pl} (rel {dl}), "
               f"grad norm {kg} vs {pg} (rel {dg})")
-        del runs, outs, k_logits, p_logits, imgs, labels, e_imgs, e_labels
+        del runs, outs, k_logits, p_logits, x_logits, imgs, labels, e_imgs, e_labels
         del run, init, fresh, result["run"], repeated["run"]
 
     imgs_per_s = LP_BATCH / (ms / 1e3)
@@ -1556,7 +1589,8 @@ def phase_linprobe(card: str, npz: str) -> int:
         loader_imgs_per_s=loader_imgs_per_s,
         train_flops_per_image=flops, mfu=mfu(imgs_per_s, flops),
         peak_bytes=peak, forward_only_estimate_bytes=estimate, graph_bytes=graph,
-        kernel_vs_plain_logits_rel_gap=dlog, kernel_vs_plain_loss=json.dumps([kl, pl]),
+        kernel_vs_plain_logits_rel_gap=dlog, logits_rel_gap_to_fp64=json.dumps(fp64_gaps),
+        kernel_vs_plain_loss=json.dumps([kl, pl]),
         kernel_vs_plain_grad_norm=json.dumps([kg, pg]))
     return fwd
 

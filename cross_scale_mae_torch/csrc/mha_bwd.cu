@@ -19,13 +19,17 @@
 // Bound by memory: the Pallas CostEstimate counts 7*BH*L*HD elements moved
 // (q, k, v and dO read, dq, dk and dv written) against 10*BH*L*L*HD flops;
 // in bf16 about 0.14 ms at the ViT-L finetune shape (BH = 512*16, L = 65,
-// HD = 64) at 3.35 TB/s. The design is in mha_common.cuh: one block of 128
-// threads per (sample, head), two passes, no atomics; here with rows HD
-// apart in every tensor.
+// HD = 64) at 3.35 TB/s. bf16 inputs run the tensor-core body of mha_tc.cuh
+// (attend_bwd_tc: mma.sync products, P and dS split into three bf16 terms,
+// each 16-row slice added with round-to-nearest; a warp per 16 query rows,
+// then per 16 key rows); fp32 inputs the scalar body of mha_common.cuh (128
+// threads, two passes). Both take one block per (sample, head), with rows
+// HD apart in every tensor, and no atomics.
 
 #include <type_traits>
 
 #include "mha_common.cuh"
+#include "mha_tc.cuh"
 
 namespace {
 
@@ -41,20 +45,41 @@ mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                                           dq + head, dk + head, dv + head, HD, L, scale);
 }
 
+// kSingle: every key in one sweep (L <= 80).
+template <int HD, bool kSingle, typename TO>
+__global__ void __launch_bounds__(tc::kTcMaxThreads)
+mha_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                  TO* __restrict__ dq, TO* __restrict__ dk, TO* __restrict__ dv, int L,
+                  float scale) {
+  const size_t head = size_t(blockIdx.x) * L * HD;
+  tc::attend_bwd_tc<HD, kSingle, TO>(q + head, k + head, v + head, dout + head, dq + head,
+                                     dk + head, dv + head, L, scale);
+}
+
 // Outputs of the input type (kF32Out false) or fp32.
 template <bool kF32Out>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
                void* dk, void* dv, int bh, int L, int hd, int dtype, float scale,
                void* stream) {
-  return dispatch(dtype, hd, [&](auto type, auto head_dim) {
+  return dispatch(dtype, hd, [&](auto type, auto head_dim) -> cudaError_t {
     using T = typename decltype(type)::type;
     using TO = std::conditional_t<kF32Out, float, T>;
     constexpr int HD = decltype(head_dim)::value;
-    return launch(mha_bwd_kernel<T, HD, TO>, bwd_smem_bytes<T, HD>(L), bh,
-                  static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
-                  static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), static_cast<TO*>(dq), static_cast<TO*>(dk),
-                  static_cast<TO*>(dv), L, scale);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return tc::launch_tc(tc::one_sweep(L) ? mha_bwd_tc_kernel<HD, true, TO>
+                                            : mha_bwd_tc_kernel<HD, false, TO>,
+                           tc::tc_bwd_smem_bytes<HD>(L), bh, L, s, static_cast<const T*>(q),
+                           static_cast<const T*>(k), static_cast<const T*>(v),
+                           static_cast<const T*>(dout), static_cast<TO*>(dq),
+                           static_cast<TO*>(dk), static_cast<TO*>(dv), L, scale);
+    } else {
+      return launch(mha_bwd_kernel<T, HD, TO>, bwd_smem_bytes<T, HD>(L), bh, s,
+                    static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), static_cast<const T*>(dout),
+                    static_cast<TO*>(dq), static_cast<TO*>(dk), static_cast<TO*>(dv), L, scale);
+    }
   });
 }
 

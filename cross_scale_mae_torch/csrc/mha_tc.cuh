@@ -1,10 +1,10 @@
-// The tensor-core body of the bf16 attention forwards, for Hopper
-// (sm_90a): K1's (mha3_fwd.cu) and K2's (mha_fwd.cu). fp32 inputs keep the
-// scalar bodies of mha_common.cuh (attend_fwd, attend_bwd), as do the
-// backward kernels and K3.
+// The tensor-core bodies of the bf16 attention kernels, for Hopper
+// (sm_90a): the forward of K1 (mha3_fwd.cu) and of K2 (mha_fwd.cu), and
+// K2's backward (mha_bwd.cu). fp32 inputs keep the scalar bodies of
+// mha_common.cuh (attend_fwd, attend_bwd), as do K1's backward and K3.
 //
-// Replaces, for bf16, the Pallas kernels `_mha3_kernel` and `_mha_kernel`
-// of cross_scale_mae_tpu/ops/attention.py: the logits
+// Replaces, for bf16, the Pallas kernels `_mha3_kernel`, `_mha_kernel` and
+// `_mha_bwd_kernel` of cross_scale_mae_tpu/ops/attention.py: the logits
 // fp32 sums scaled after the dot, an fp32 softmax; K2 keeps P (and in the
 // backward dS) in fp32, K1 rounds P to bf16 before P V.
 //
@@ -16,19 +16,20 @@
 //
 // Numerics on the tensor cores. mma.sync m16n8k16 takes bf16 operands and
 // sums in fp32. A product of two bf16 numbers is exact in fp32, so the
-// logits (q k^T) are the Pallas kernels' fp32 sums of the same operands,
-// in another order (and with the tensor cores' own truncating adds). P is
-// an fp32 matrix, which a bf16 operand would round; it is split into
-// kTerms bf16 terms, x_hi = bf16(x), x_mid = bf16(x - x_hi), x_lo = bf16(x
-// - x_hi - x_mid), and its product taken term by term. Three terms of 8
-// bits carry all 24 of an fp32 value (K2, kSplitTerms); one term is bf16(x)
-// itself, K1's `.astype(bf16)` of P (kK1SplitTerms). In an fp32 emulation of
-// the split (tests/test_torch_port_attention.py) two terms moved the mean
-// error of K2's rounded outputs to as much as 2**-17 of their mean, where
-// three left them equal to the plain version's. K1f takes its logits on
-// the CUDA cores in the plain version's fp32 order (`products` with
-// kFfma) and adds each 16-key slice of P V with round-to-nearest (kRn):
-// mha3_fwd.cu says why.
+// logits (q k^T) and dP (dO v^T) are the Pallas kernels' fp32 sums of the
+// same operands, in another order (and with the tensor cores' own
+// truncating adds). P and dS are fp32 matrices, which a bf16 operand would
+// round; each is split into kTerms bf16 terms, x_hi = bf16(x), x_mid =
+// bf16(x - x_hi), x_lo = bf16(x - x_hi - x_mid), and its product taken
+// term by term. Three terms of 8 bits carry all 24 of an fp32 value (K2,
+// kSplitTerms); one term is bf16(x) itself, K1's `.astype(bf16)` of P
+// (kK1SplitTerms). In an fp32 emulation of the split
+// (tests/test_torch_port_attention.py) two terms moved the mean error of
+// K2's rounded outputs to as much as 2**-17 of their mean, where three left
+// them equal to the plain version's. K1f takes its logits on the CUDA
+// cores in the plain version's fp32 order (`products` with kFfma) and adds
+// each 16-key slice of P V with round-to-nearest (kRn): mha3_fwd.cu says
+// why.
 //
 // Forward design. One block per (sample, head), one warp per 16-row query
 // tile (5 warps at L = 65, 2 at L = 17; at most kTcMaxWarps, each taking
@@ -46,6 +47,24 @@
 // e / sum, split, and O += P v. Shared memory is three (L, HD + 8) bf16
 // tiles: linear in L, 141 KB at L = 257, HD = 80. With kSingle the kernel
 // is held to 128 registers, for 3 blocks of 5 warps on an SM at L = 65.
+//
+// Backward design (attend_bwd_tc). One block per (sample, head), so that
+// dK and dV, sums over query rows, are reduced inside one block with no
+// atomics: a second launch gives the same bits. q, k, v and dO go to four
+// padded shared tiles once. Pass A, a warp per 16 query rows: the
+// forward's row stats (and P, with kSingle), row = sum_j dP P with dP = dO
+// v^T one key tile at a time, then dS = P (dP - row) scale and dQ += dS K,
+// dS split in three terms; the row max, sum and `row` go to shared memory.
+// Pass B, a warp per 16 key rows, one query tile at a time: S^T = k q^T and
+// dP^T = v dO^T, P^T from pass A's stats with the same arithmetic, dS^T,
+// then dV += P^T dO and dK += dS^T Q, each split in three terms, each
+// 16-row slice's product added with round-to-nearest. Only the
+// two accumulators of a pass and one tile of P and dP live in registers.
+// Shared memory: four (L, HD + 8) bf16 tiles and three fp32 rows, 190 KB
+// at L = 257, HD = 80. The output type is a parameter: bf16 for the
+// training path, fp32 for the accuracy checks of chip_smoke.py, which hold
+// the unrounded sums against an fp64 computation; the bf16 outputs are
+// those fp32 values rounded once.
 
 #pragma once
 
@@ -84,6 +103,14 @@ __host__ __device__ inline int padded_rows(int L) { return (L + 15) & ~15; }
 template <int HD>
 size_t tc_fwd_smem_bytes(int L) {
   return 3 * size_t(padded_rows(L)) * TcGeometry<HD>::kPitch * sizeof(bf16);
+}
+
+// Of one backward block: the q, k, v and dO tiles, and the row max, sum
+// and sum_j dP P of every query row.
+template <int HD>
+size_t tc_bwd_smem_bytes(int L) {
+  return 4 * size_t(padded_rows(L)) * TcGeometry<HD>::kPitch * sizeof(bf16)
+         + 3 * size_t(padded_rows(L)) * sizeof(float);
 }
 
 // Whether every key of a row fits one sweep: the kernel's kSingle.
@@ -208,7 +235,7 @@ __device__ __forceinline__ void load8(float (&x)[8], const bf16* src) {
 // `dot_row`, whose logits equal mha_v3_reference's on the card).
 template <int HD, int KT, bool kFfma = false>
 __device__ __forceinline__ void products(float (&acc)[KT][2][4], const bf16* rows, int r0,
-                                         const bf16* tile, int t0, int ntiles, int lane) {
+                                         const bf16* tile, int t0, int ntiles, int L, int lane) {
   using G = TcGeometry<HD>;
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt)
@@ -217,7 +244,11 @@ __device__ __forceinline__ void products(float (&acc)[KT][2][4], const bf16* row
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[kt][h][e] = 0.f;
   if constexpr (kFfma) {
+    // Rows and columns past L are skipped where a whole half tile lies
+    // there (a choice the same for every lane): their logits are masked or
+    // never stored.
     const bf16* ra = rows + (r0 + (lane >> 2)) * G::kPitch;
+    const bool second_half = r0 + 8 < L;  // rows r0 + 8.. hold queries
 #pragma unroll 1
     for (int c = 0; c < G::kChunks; ++c) {
       float qa[8], qb[8];
@@ -225,10 +256,10 @@ __device__ __forceinline__ void products(float (&acc)[KT][2][4], const bf16* row
       load8(qb, ra + 8 * G::kPitch + c * 8);
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
-        if (t0 + kt < ntiles) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const bf16* kr = tile + (col_of(t0, kt, h, 0, lane)) * G::kPitch + c * 8;
+        for (int h = 0; h < 2; ++h) {
+          if ((t0 + kt) * 16 + 8 * h < L) {
+            const bf16* kr = tile + col_of(t0, kt, h, 0, lane) * G::kPitch + c * 8;
             float ka[8], kb[8];
             load8(ka, kr);
             load8(kb, kr + G::kPitch);
@@ -236,8 +267,13 @@ __device__ __forceinline__ void products(float (&acc)[KT][2][4], const bf16* row
             for (int t = 0; t < 8; ++t) {
               acc[kt][h][0] = fmaf(qa[t], ka[t], acc[kt][h][0]);
               acc[kt][h][1] = fmaf(qa[t], kb[t], acc[kt][h][1]);
-              acc[kt][h][2] = fmaf(qb[t], ka[t], acc[kt][h][2]);
-              acc[kt][h][3] = fmaf(qb[t], kb[t], acc[kt][h][3]);
+            }
+            if (second_half) {
+#pragma unroll
+              for (int t = 0; t < 8; ++t) {
+                acc[kt][h][2] = fmaf(qb[t], ka[t], acc[kt][h][2]);
+                acc[kt][h][3] = fmaf(qb[t], kb[t], acc[kt][h][3]);
+              }
             }
           }
         }
@@ -428,7 +464,7 @@ __device__ __forceinline__ void query_stats(float (&s)[kKT][2][4], float (&m)[2]
   m[0] = m[1] = -INFINITY;
   l[0] = l[1] = 0.f;
   for (int t0 = 0; t0 < sweep_end<kSingle>(ntiles); t0 += kKT) {
-    products<HD, kKT, kFfma>(s, qs, r0, ks, t0, ntiles, lane);
+    products<HD, kKT, kFfma>(s, qs, r0, ks, t0, ntiles, L, lane);
     scale_mask<kKT>(s, t0, L, scale, lane);
     row_stats<kKT>(s, m, l, kSingle);
   }
@@ -449,7 +485,7 @@ template <int HD, bool kFfma = false>
 __device__ __forceinline__ void probs(float (&s)[kKT][2][4], const float (&m)[2],
                                       const float (&l)[2], const bf16* qs, const bf16* ks, int L,
                                       int r0, int t0, int ntiles, float scale, int lane) {
-  products<HD, kKT, kFfma>(s, qs, r0, ks, t0, ntiles, lane);
+  products<HD, kKT, kFfma>(s, qs, r0, ks, t0, ntiles, L, lane);
   scale_mask<kKT>(s, t0, L, scale, lane);
 #pragma unroll
   for (int kt = 0; kt < kKT; ++kt)
@@ -493,6 +529,127 @@ __device__ __forceinline__ void attend_fwd_tc(const bf16* __restrict__ q,
       accumulate_split<HD, kKT, kTerms, kRn>(o, s, vs, t0, ntiles, lane);
     }
     store_rows<HD>(out, o, L, r0, lane, out_stride);
+  }
+}
+
+// One (sample, head) of the backward: q, k, v, dO, dq, dk, dv (L, HD),
+// rows HD apart. With P = softmax(q k^T scale) (fp32 logits scaled after
+// the dot, fp32 softmax), in the Pallas kernel's algebra:
+//   dV = P^T dO,  dP = dO V^T,  row = sum_j dP P,  dS = P (dP - row) scale,
+//   dQ = dS K,  dK = dS^T Q,
+// P and dS split into kSplitTerms bf16 terms, each 16-row slice of their
+// products added with round-to-nearest (the tensor cores' own truncating
+// adds leave a bias that the sum over a step's tokens keeps; PERF.md
+// section 6), each output rounded once to TO.
+template <int HD, bool kSingle, typename TO>
+__device__ __forceinline__ void attend_bwd_tc(const bf16* __restrict__ q,
+                                              const bf16* __restrict__ k,
+                                              const bf16* __restrict__ v,
+                                              const bf16* __restrict__ dout, TO* __restrict__ dq,
+                                              TO* __restrict__ dk, TO* __restrict__ dv, int L,
+                                              float scale) {
+  using G = TcGeometry<HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = padded_rows(L);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + rows * G::kPitch;
+  bf16* vs = ks + rows * G::kPitch;
+  bf16* dos = vs + rows * G::kPitch;
+  float* row_max = reinterpret_cast<float*>(dos + rows * G::kPitch);
+  float* row_sum = row_max + rows;
+  float* row_dot = row_sum + rows;  // sum_j dP_ij P_ij
+  load_tile_async<HD>(qs, q, L, HD);
+  load_tile_async<HD>(ks, k, L, HD);
+  load_tile_async<HD>(vs, v, L, HD);
+  load_tile_async<HD>(dos, dout, L, HD);
+  wait_tiles();
+
+  const int lane = threadIdx.x & 31;
+  const int ntiles = rows >> 4;
+  const int warps = blockDim.x >> 5;
+
+  // ---- pass A: a warp per 16 query rows.
+  for (int qt = threadIdx.x >> 5; qt < ntiles; qt += warps) {
+    const int r0 = qt * 16;
+    float s[kKT][2][4], m[2], l[2];
+    query_stats<HD, kSingle>(s, m, l, qs, ks, L, r0, ntiles, scale, lane);
+    float rd[2] = {0.f, 0.f};
+    for (int t0 = 0; t0 < sweep_end<kSingle>(ntiles); t0 += kKT) {
+      if (!kSingle) probs<HD>(s, m, l, qs, ks, L, r0, t0, ntiles, scale, lane);
+#pragma unroll
+      for (int kt = 0; kt < kKT; ++kt) {
+        if (t0 + kt < ntiles) {
+          float dp[1][2][4];
+          products<HD, 1>(dp, dos, r0, vs, t0 + kt, ntiles, L, lane);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) rd[e >> 1] = fmaf(dp[0][h][e], s[kt][h][e], rd[e >> 1]);
+        }
+      }
+    }
+    rd[0] = quad_sum(rd[0]);
+    rd[1] = quad_sum(rd[1]);
+    float acc[G::kN][4];
+    zero<HD>(acc);
+    for (int t0 = 0; t0 < sweep_end<kSingle>(ntiles); t0 += kKT) {
+      if (!kSingle) probs<HD>(s, m, l, qs, ks, L, r0, t0, ntiles, scale, lane);
+#pragma unroll
+      for (int kt = 0; kt < kKT; ++kt) {
+        if (t0 + kt < ntiles) {
+          float ds[1][2][4];
+          products<HD, 1>(ds, dos, r0, vs, t0 + kt, ntiles, L, lane);  // dP, as above
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ds[0][h][e] = s[kt][h][e] * (ds[0][h][e] - rd[e >> 1]) * scale;
+          accumulate_split<HD, 1, kSplitTerms, /*kRn=*/true>(acc, ds, ks, t0 + kt, ntiles, lane);
+        }
+      }
+    }
+    store_rows<HD>(dq, acc, L, r0, lane, HD);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + (lane >> 2) + 8 * half;
+        row_max[r] = m[half];
+        row_sum[r] = l[half];
+        row_dot[r] = rd[half];
+      }
+    }
+  }
+  __syncthreads();  // every query row's stats are in
+
+  // ---- pass B: a warp per 16 key rows, one query tile at a time.
+  for (int jt = threadIdx.x >> 5; jt < ntiles; jt += warps) {
+    const int j0 = jt * 16;
+    float gk[G::kN][4], gv[G::kN][4];
+    zero<HD>(gk);
+    zero<HD>(gv);
+    for (int t = 0; t < ntiles; ++t) {
+      float p[1][2][4], ds[1][2][4];
+      products<HD, 1>(p, ks, j0, qs, t, ntiles, L, lane);    // (q k^T)^T
+      products<HD, 1>(ds, vs, j0, dos, t, ntiles, L, lane);  // dP^T
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = col_of(t, 0, h, e, lane);
+          if (i < L) {
+            // Pass A's P_ij and dS_ij, with the same arithmetic.
+            const float pe = expf(__fmul_rn(p[0][h][e], scale) - row_max[i]) / row_sum[i];
+            p[0][h][e] = pe;
+            ds[0][h][e] = pe * (ds[0][h][e] - row_dot[i]) * scale;
+          } else {
+            p[0][h][e] = ds[0][h][e] = 0.f;
+          }
+        }
+      accumulate_split<HD, 1, kSplitTerms, /*kRn=*/true>(gv, p, dos, t, ntiles, lane);
+      accumulate_split<HD, 1, kSplitTerms, /*kRn=*/true>(gk, ds, qs, t, ntiles, lane);
+    }
+    store_rows<HD>(dk, gk, L, j0, lane, HD);
+    store_rows<HD>(dv, gv, L, j0, lane, HD);
   }
 }
 

@@ -18,10 +18,9 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   saves q, k and v as ``_mha_folded_fwd`` does, and unfolds the output. On a
   CUDA tensor ``csrc/mha_fwd.cu`` (``_mha_kernel``) and ``csrc/mha_bwd.cu``
   (``_mha_bwd_kernel``), counted by ``mha.launches`` and
-  ``mha.bwd_launches``: the forward runs its tensor-core body for bf16
-  (``csrc/mha_tc.cuh``, P split into bf16 terms) and the scalar body of
-  ``csrc/mha_common.cuh`` for fp32, the backward the scalar body for
-  both; on a CPU tensor
+  ``mha.bwd_launches``: each runs its tensor-core body for bf16
+  (``csrc/mha_tc.cuh``, P and dS split into bf16 terms) and the scalar
+  body of ``csrc/mha_common.cuh`` for fp32; on a CPU tensor
   ``mha_folded_reference`` and ``mha_folded_bwd_reference``, with every
   operand in fp32 and nothing rounded before the output.
 * v2 (K3): ``mha_qkv(qkv, num_heads)`` (also ``pallas_mha_qkv``) on the
@@ -372,13 +371,25 @@ def _mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     return out
 
 
+def mha_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K2b block. bf16: the tensor-core body
+    (csrc/mha_tc.cuh `tc_bwd_smem_bytes`), q, k, v and dO as (L padded to
+    16, hd + 8) bf16 tiles and three fp32 rows of the padded length; fp32:
+    the scalar body (:func:`mha3_bwd_smem_bytes`)."""
+    if dtype != torch.bfloat16:
+        return mha3_bwd_smem_bytes(seq_len, head_dim, dtype)
+    rows = -(-seq_len // 16) * 16
+    return 4 * rows * (head_dim + 8) * 2 + 3 * rows * 4
+
+
 def _mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                   out_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, ...]:
-    """K2b: ``csrc/mha_bwd.cu``, on the scalar backward body it shares with
-    K1b, for bf16 and fp32 (:func:`mha3_bwd_smem_bytes`). ``out_dtype=
-    torch.float32`` writes the kernel's fp32 sums before their rounding to
-    the input dtype (``csmae_mha_bwd_f32``), for accuracy checks."""
-    bh, l, hd = _check_folded((q, k, v, do), mha3_bwd_smem_bytes)
+    """K2b: ``csrc/mha_bwd.cu``, the tensor-core body for bf16 and the
+    scalar body it shares with K1b for fp32 (:func:`mha_bwd_smem_bytes`).
+    ``out_dtype=torch.float32`` writes the kernel's fp32 sums before their
+    rounding to the input dtype (``csmae_mha_bwd_f32``), for accuracy
+    checks."""
+    bh, l, hd = _check_folded((q, k, v, do), mha_bwd_smem_bytes)
     out_dtype = out_dtype or q.dtype
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"mha backward kernel writes {q.dtype} or float32, not {out_dtype}")
@@ -435,7 +446,7 @@ def mha_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
         return _mha_folded_fwd(q, k, v)
     if q.device.type == "cuda":
         # Refuse before the forward what the backward kernel cannot take.
-        _check_folded((q, k, v), mha3_bwd_smem_bytes)
+        _check_folded((q, k, v), mha_bwd_smem_bytes)
     return _MhaFolded.apply(q, k, v)
 
 

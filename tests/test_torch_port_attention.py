@@ -294,12 +294,12 @@ def test_mha_rejects_other_devices():
 
 
 def test_mha_kernels_fit_every_shape_the_configs_give():
-    """K2's shared-memory layouts (the forward's tensor-core body in bf16,
-    K1's scalar bodies otherwise): every head width of the ViT sizes at up
-    to 257 tokens fits an H100 block, forward and backward."""
+    """K2's shared-memory layouts (the tensor-core bodies in bf16, K1's
+    scalar bodies otherwise): every head width of the ViT sizes at up to 257
+    tokens fits an H100 block, forward and backward."""
     for hd in port_attn.KERNEL_HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
-            for smem in (port_attn.mha_smem_bytes, port_attn.mha3_bwd_smem_bytes):
+            for smem in (port_attn.mha_smem_bytes, port_attn.mha_bwd_smem_bytes):
                 assert smem(257, hd, dt) <= port_attn.MAX_SMEM_BYTES
                 port_attn._check_folded((torch.zeros(2, 257, hd, dtype=dt),) * 4, smem)
 
@@ -399,6 +399,24 @@ def test_k1f_split_term_count_reproduces_its_plain_version(shape):
     ref = port_attn.mha_v3_reference(qkv, h)
     assert torch.equal(_k1f_split_emulation(qkv, h, K1_SPLIT_TERMS), ref)
     assert not torch.equal(_k1f_split_emulation(qkv, h, SPLIT_TERMS), ref)
+
+
+def test_k2b_smem_layout_matches_tc_kernel_source():
+    """K2b in bf16 (csrc/mha_tc.cuh tc_bwd_smem_bytes, launched by
+    csrc/mha_bwd.cu): q, k, v and dO as tiles of L rounded up to 16 rows of
+    hd + 8 bf16, and the row max, sum and sum_j dP P as three fp32 rows of
+    that length; in fp32 the scalar body's layout. Every head width fits an
+    H100 block at the longest sequence, 257 tokens."""
+    assert ("return 4 * size_t(padded_rows(L)) * TcGeometry<HD>::kPitch * sizeof(bf16)\n"
+            "         + 3 * size_t(padded_rows(L)) * sizeof(float);") in TC_HEADER
+    k2b = (Path(port_attn.__file__).resolve().parent.parent / "csrc" / "mha_bwd.cu").read_text()
+    assert "tc::tc_bwd_smem_bytes<HD>(L)" in k2b
+    assert port_attn.mha_bwd_smem_bytes(65, 64, torch.bfloat16) == 4 * 80 * 72 * 2 + 3 * 80 * 4
+    assert port_attn.mha_bwd_smem_bytes(17, 16, torch.bfloat16) == 4 * 32 * 24 * 2 + 3 * 32 * 4
+    for hd in port_attn.KERNEL_HEAD_DIMS:
+        assert port_attn.mha_bwd_smem_bytes(257, hd, torch.bfloat16) <= port_attn.MAX_SMEM_BYTES
+        assert (port_attn.mha_bwd_smem_bytes(257, hd, torch.float32)
+                == port_attn.mha3_bwd_smem_bytes(257, hd, torch.float32))
 
 
 def test_k1f_smem_layout_is_the_tc_body_for_bf16():
