@@ -268,9 +268,11 @@ def phase_device() -> str:
 TC_KERNELS = {"mha3_fwd_tc_kernel": 8, "mha_fwd_tc_kernel": 8,
               # bf16 and fp32 outputs
               "mha_bwd_tc_kernel": 16}
-# The header constant that gives each bf16 tensor-core kernel's bf16 terms
-# of P (and dS).
-TC_TERMS = {"mha3_fwd": "kK1SplitTerms", "mha_fwd": "kSplitTerms", "mha_bwd": "kSplitTerms"}
+# Each bf16 tensor-core kernel's design, with the header constant that gives
+# its bf16 terms of P (and dS).
+TC_DESIGNS = {"mha3_fwd": ("kK1SplitTerms", "plain-order fp32 FMA logits, mma.sync P V x{}"),
+              "mha_fwd": ("kSplitTerms", "mma.sync split-bf16 x{}"),
+              "mha_bwd": ("kSplitTerms", "mma.sync split-bf16 x{}, rounded slice adds")}
 
 
 def tc_design(name: str) -> str:
@@ -280,9 +282,9 @@ def tc_design(name: str) -> str:
 
     from cross_scale_mae_torch.ops.cuda_build import CSRC
 
-    terms = re.search(rf"constexpr int {TC_TERMS[name]} = (\d+);",
-                      (CSRC / "mha_tc.cuh").read_text())
-    return f"mma.sync split-bf16 x{terms.group(1)}"
+    constant, design = TC_DESIGNS[name]
+    terms = re.search(rf"constexpr int {constant} = (\d+);", (CSRC / "mha_tc.cuh").read_text())
+    return design.format(terms.group(1))
 
 
 def tc_instance(symbol: str) -> str | None:

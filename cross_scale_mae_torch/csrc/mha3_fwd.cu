@@ -52,7 +52,7 @@ mha3_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restr
   const int h = blockIdx.x - n * H;
   const size_t D = size_t(H) * HD;
   const __nv_bfloat16* q = qkv + size_t(n) * L * 3 * D + size_t(h) * HD;
-  tc::attend_fwd_tc<HD, kSingle, tc::kK1SplitTerms, /*kFfma=*/true, /*kRn=*/true>(
+  tc::attend_fwd_tc<HD, kSingle, /*kK1=*/true>(
       q, q + D, q + 2 * D, 3 * D, out + size_t(n) * L * D + size_t(h) * HD, D, L, scale);
 }
 

@@ -35,14 +35,14 @@ namespace {
 
 using namespace csmae;
 
-template <typename T, int HD, typename TO>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, TO* __restrict__ dq, TO* __restrict__ dk,
-               TO* __restrict__ dv, int L, float scale) {
+               const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
+               T* __restrict__ dv, int L, float scale) {
   const size_t head = size_t(blockIdx.x) * L * HD;
-  attend_bwd<T, HD, /*kRound=*/false, TO>(q + head, k + head, v + head, HD, dout + head, HD,
-                                          dq + head, dk + head, dv + head, HD, L, scale);
+  attend_bwd<T, HD, /*kRound=*/false>(q + head, k + head, v + head, HD, dout + head, HD,
+                                      dq + head, dk + head, dv + head, HD, L, scale);
 }
 
 // kSingle: every key in one sweep (L <= 80).
@@ -64,21 +64,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
                void* stream) {
   return dispatch(dtype, hd, [&](auto type, auto head_dim) -> cudaError_t {
     using T = typename decltype(type)::type;
-    using TO = std::conditional_t<kF32Out, float, T>;
     constexpr int HD = decltype(head_dim)::value;
     const auto s = static_cast<cudaStream_t>(stream);
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      using TO = std::conditional_t<kF32Out, float, T>;
       return tc::launch_tc(tc::one_sweep(L) ? mha_bwd_tc_kernel<HD, true, TO>
                                             : mha_bwd_tc_kernel<HD, false, TO>,
                            tc::tc_bwd_smem_bytes<HD>(L), bh, L, s, static_cast<const T*>(q),
                            static_cast<const T*>(k), static_cast<const T*>(v),
                            static_cast<const T*>(dout), static_cast<TO*>(dq),
                            static_cast<TO*>(dk), static_cast<TO*>(dv), L, scale);
-    } else {
-      return launch(mha_bwd_kernel<T, HD, TO>, bwd_smem_bytes<T, HD>(L), bh, s,
+    } else {  // fp32 inputs: fp32 outputs either way
+      return launch(mha_bwd_kernel<T, HD>, bwd_smem_bytes<T, HD>(L), bh, s,
                     static_cast<const T*>(q), static_cast<const T*>(k),
                     static_cast<const T*>(v), static_cast<const T*>(dout),
-                    static_cast<TO*>(dq), static_cast<TO*>(dk), static_cast<TO*>(dv), L, scale);
+                    static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), L, scale);
     }
   });
 }

@@ -45,7 +45,7 @@ mha_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int L,
                   float scale) {
   const size_t head = size_t(blockIdx.x) * L * HD;
-  tc::attend_fwd_tc<HD, kSingle, tc::kSplitTerms, /*kFfma=*/false, /*kRn=*/false>(
+  tc::attend_fwd_tc<HD, kSingle, /*kK1=*/false>(
       q + head, k + head, v + head, HD, out + head, HD, L, scale);
 }
 

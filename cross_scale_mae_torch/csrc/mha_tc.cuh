@@ -28,8 +28,8 @@
 // K2's rounded outputs to as much as 2**-17 of their mean, where three left
 // them equal to the plain version's. K1f takes its logits on the CUDA
 // cores in the plain version's fp32 order (`products` with kFfma) and adds
-// each 16-key slice of P V with round-to-nearest (kRn): mha3_fwd.cu says
-// why.
+// each 16-key slice of P V with round-to-nearest (`accumulate_split` with
+// kRn): mha3_fwd.cu says why.
 //
 // Forward design. One block per (sample, head), one warp per 16-row query
 // tile (5 warps at L = 65, 2 at L = 17; at most kTcMaxWarps, each taking
@@ -375,7 +375,7 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t (&out)[kTe
 // zero accumulator, is added to acc on the CUDA cores with
 // round-to-nearest; else the tensor cores add every term into acc
 // themselves, truncating.
-template <int HD, int KT, int kTerms, bool kRn = false>
+template <int HD, int KT, int kTerms, bool kRn>
 __device__ __forceinline__ void accumulate_split(float (&acc)[TcGeometry<HD>::kN][4],
                                                  const float (&x)[KT][2][4], const bf16* tile,
                                                  int t0, int ntiles, int lane) {
@@ -496,10 +496,11 @@ __device__ __forceinline__ void probs(float (&s)[kKT][2][4], const float (&m)[2]
 }
 
 // One (sample, head) of the forward: q, k, v (L, HD) rows `in_stride`
-// apart, out rows `out_stride` apart; the logits on the tensor cores or
-// (kFfma) in the plain fp32 order, P split into kTerms bf16 terms, P V
-// summed by the tensor cores or (kRn) with rounded adds.
-template <int HD, bool kSingle, int kTerms, bool kFfma, bool kRn>
+// apart, out rows `out_stride` apart. kK1: K1's numerics, the logits in the
+// plain fp32 order, P rounded once to bf16 and each 16-key slice of P V
+// added with round-to-nearest; else K2's, P split into kSplitTerms terms
+// and every product summed by the tensor cores.
+template <int HD, bool kSingle, bool kK1>
 __device__ __forceinline__ void attend_fwd_tc(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
                                               const bf16* __restrict__ v, size_t in_stride,
@@ -521,12 +522,13 @@ __device__ __forceinline__ void attend_fwd_tc(const bf16* __restrict__ q,
   for (int qt = threadIdx.x >> 5; qt < ntiles; qt += blockDim.x >> 5) {
     const int r0 = qt * 16;
     float s[kKT][2][4], m[2], l[2];
-    query_stats<HD, kSingle, kFfma>(s, m, l, qs, ks, L, r0, ntiles, scale, lane);
+    query_stats<HD, kSingle, kK1>(s, m, l, qs, ks, L, r0, ntiles, scale, lane);
     float o[G::kN][4];
     zero<HD>(o);
     for (int t0 = 0; t0 < sweep_end<kSingle>(ntiles); t0 += kKT) {
-      if (!kSingle) probs<HD, kFfma>(s, m, l, qs, ks, L, r0, t0, ntiles, scale, lane);
-      accumulate_split<HD, kKT, kTerms, kRn>(o, s, vs, t0, ntiles, lane);
+      if (!kSingle) probs<HD, kK1>(s, m, l, qs, ks, L, r0, t0, ntiles, scale, lane);
+      accumulate_split<HD, kKT, kK1 ? kK1SplitTerms : kSplitTerms, kK1>(o, s, vs, t0, ntiles,
+                                                                      lane);
     }
     store_rows<HD>(out, o, L, r0, lane, out_stride);
   }

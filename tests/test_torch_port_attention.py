@@ -424,7 +424,7 @@ def test_k1f_smem_layout_is_the_tc_body_for_bf16():
     hd + 8) tiles) and the scalar body for fp32; its wrapper checks each
     against the block's limit before launch."""
     k1f = (Path(port_attn.__file__).resolve().parent.parent / "csrc" / "mha3_fwd.cu").read_text()
-    assert "tc::tc_fwd_smem_bytes<HD>(L)" in k1f and "tc::kK1SplitTerms" in k1f
+    assert "tc::tc_fwd_smem_bytes<HD>(L)" in k1f and "attend_fwd_tc<HD, kSingle, /*kK1=*/true>" in k1f
     for l, hd in [(17, 64), (65, 32), (257, 80)]:
         rows = -(-l // 16) * 16
         assert port_attn.mha_smem_bytes(l, hd, torch.bfloat16) == 3 * rows * (hd + 8) * 2
@@ -588,7 +588,10 @@ def test_chip_smoke_reads_spills_from_ptxas_output():
     assert chip_smoke.ptxas_spills(text) == {"_Z17mha_fwd_tc_kernelILi64ELb1EE": (0, 0),
                                              "_Z17mha_fwd_tc_kernelILi80ELb1EE": (32, 36)}
     assert chip_smoke.tc_design("mha_fwd") == f"mma.sync split-bf16 x{SPLIT_TERMS}"
-    assert chip_smoke.tc_design("mha3_fwd") == f"mma.sync split-bf16 x{K1_SPLIT_TERMS}"
+    assert chip_smoke.tc_design("mha3_fwd") == (
+        f"plain-order fp32 FMA logits, mma.sync P V x{K1_SPLIT_TERMS}")
+    assert chip_smoke.tc_design("mha_bwd") == (
+        f"mma.sync split-bf16 x{SPLIT_TERMS}, rounded slice adds")
     for symbol, name in [
             ("_ZN12_GLOBAL__N_117mha_fwd_tc_kernelILi64ELb1EEEvPK13__nv_bfloat16S3_S3_PS1_if",
              "mha_fwd_tc_kernel"),
