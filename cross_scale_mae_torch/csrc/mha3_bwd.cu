@@ -22,25 +22,41 @@
 // (sample, head), two passes, no atomics; here with rows 3D apart in qkv and
 // dqkv and D apart in dO.
 
+#include <type_traits>
+
 #include "mha_common.cuh"
 
 namespace {
 
 using namespace csmae;
 
-template <typename T, int HD>
+template <typename T, int HD, typename TO>
 __global__ void __launch_bounds__(kThreads)
 mha3_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                T* __restrict__ dqkv, int L, int H, float scale) {
+                TO* __restrict__ dqkv, int L, int H, float scale) {
   const int n = blockIdx.x / H;
   const int h = blockIdx.x - n * H;
   const size_t D = size_t(H) * HD;
   const size_t head = size_t(n) * L * 3 * D + size_t(h) * HD;
   const T* q = qkv + head;
-  T* dq = dqkv + head;
-  attend_bwd<T, HD, /*kRound=*/true>(q, q + D, q + 2 * D, 3 * D,
-                                     dout + size_t(n) * L * D + size_t(h) * HD, D,
-                                     dq, dq + D, dq + 2 * D, 3 * D, L, scale);
+  TO* dq = dqkv + head;
+  attend_bwd<T, HD, /*kRound=*/true, TO>(q, q + D, q + 2 * D, 3 * D,
+                                         dout + size_t(n) * L * D + size_t(h) * HD, D,
+                                         dq, dq + D, dq + 2 * D, 3 * D, L, scale);
+}
+
+// Outputs of the input type (kF32Out false) or fp32.
+template <bool kF32Out>
+int launch_bwd(const void* qkv, const void* dout, void* dqkv, int n, int L, int H, int hd,
+               int dtype, float scale, void* stream) {
+  return dispatch(dtype, hd, [&](auto type, auto head_dim) {
+    using T = typename decltype(type)::type;
+    using TO = std::conditional_t<kF32Out, float, T>;
+    constexpr int HD = decltype(head_dim)::value;
+    return launch(mha3_bwd_kernel<T, HD, TO>, bwd_smem_bytes<T, HD>(L), n * H,
+                  static_cast<cudaStream_t>(stream), static_cast<const T*>(qkv),
+                  static_cast<const T*>(dout), static_cast<TO*>(dqkv), L, H, scale);
+  });
 }
 
 }  // namespace
@@ -48,11 +64,12 @@ mha3_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
 // dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
 extern "C" int csmae_mha3_bwd(const void* qkv, const void* dout, void* dqkv, int n, int L,
                               int H, int hd, int dtype, float scale, void* stream) {
-  return dispatch(dtype, hd, [&](auto type, auto head_dim) {
-    using T = typename decltype(type)::type;
-    constexpr int HD = decltype(head_dim)::value;
-    return launch(mha3_bwd_kernel<T, HD>, bwd_smem_bytes<T, HD>(L), n * H,
-                  static_cast<cudaStream_t>(stream), static_cast<const T*>(qkv),
-                  static_cast<const T*>(dout), static_cast<T*>(dqkv), L, H, scale);
-  });
+  return launch_bwd<false>(qkv, dout, dqkv, n, L, H, hd, dtype, scale, stream);
+}
+
+// The same sums written as fp32, before their rounding to the input type:
+// the accuracy checks' entry (chip_smoke.py [train_grads_fp64]).
+extern "C" int csmae_mha3_bwd_f32(const void* qkv, const void* dout, void* dqkv, int n, int L,
+                                  int H, int hd, int dtype, float scale, void* stream) {
+  return launch_bwd<true>(qkv, dout, dqkv, n, L, H, hd, dtype, scale, stream);
 }

@@ -190,7 +190,11 @@ def mha3_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
             + warps * (2 * head_dim + 2 * seq_len) * 4)
 
 
-def _mha3_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch.Tensor:
+def _mha3_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """K1b: ``csrc/mha3_bwd.cu``. ``out_dtype=torch.float32`` writes the
+    kernel's fp32 sums before their rounding to the input dtype
+    (``csmae_mha3_bwd_f32``), for accuracy checks."""
     n, l, d, hd = _check_kernel_input(qkv, num_heads, mha3_bwd_smem_bytes)
     if do.shape != (n, l, d) or do.dtype != qkv.dtype or do.device != qkv.device:
         raise ValueError(
@@ -198,14 +202,18 @@ def _mha3_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch
             f"{qkv.device}, got {do.dtype} {tuple(do.shape)} on {do.device}")
     if not do.is_contiguous() or do.data_ptr() % 16:
         raise ValueError("mha_v3 backward kernel needs a contiguous, 16-byte aligned dO")
+    out_dtype = out_dtype or qkv.dtype
+    if out_dtype not in (qkv.dtype, torch.float32):
+        raise TypeError(f"mha_v3 backward kernel writes {qkv.dtype} or float32, not {out_dtype}")
     from cross_scale_mae_torch.ops.cuda_build import load_library
 
-    fn = load_library("mha3_bwd").csmae_mha3_bwd
+    lib = load_library("mha3_bwd")
+    fn = lib.csmae_mha3_bwd if out_dtype == qkv.dtype else lib.csmae_mha3_bwd_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty_like(qkv)
+    out = torch.empty_like(qkv, dtype=out_dtype)
     if n == 0 or l == 0:
         return out
     with torch.cuda.device(qkv.device):

@@ -632,3 +632,62 @@ def test_chip_smoke_fp64_direct_leaf_separates_plain_from_k1_order(tmp_path):
     # dS alone rounded moves only the q and k columns.
     assert readings["control_ds_bf16"]["v"] == readings["plain"]["v"]
     assert readings["control_ds_bf16"]["q"] > tol
+
+
+def _tiny_pretrain_run(tmp_path):
+    """A tiny flagship-style pretrain run on the CPU (bf16, 'pallas_v3'):
+    the decoder's 65 tokens in 8 heads of 32, batch 8 (16 rows)."""
+    from cross_scale_mae_torch.cli.pretrain import build_run, get_args_parser
+
+    return build_run(get_args_parser().parse_args([
+        "--model", "mae_vit_tiny_MsLdCeCd", "--input_size", "64", "--patch_size", "8",
+        "--batch_size", "8", "--synthetic_len", "8", "--compute_dtype", "bfloat16",
+        "--attention_impl", "pallas_v3", "--seed", "0", "--device", "cpu",
+        "--output_dir", str(tmp_path)]))
+
+
+def test_chip_smoke_k1_fp64_direct_leaf_separates_plain_from_controls(tmp_path):
+    """chip_smoke.py's [train_grads_fp64] yardstick on the CPU, through the
+    port's plain versions: a tiny pretrain step gives the last decoder
+    block's K1b inputs (qkv, dO) and its qkv-projection input X; the direct
+    leaf X^T dqkv of each version is held against K1's arithmetic in
+    float64. Here the plain version stands in the kernel's place, so the
+    gate passes on its sound side, and each control reads above
+    K1_C_CONTROL x plain on the columns it breaks and equals plain on the
+    others; the gate refuses a control put in the kernel's place."""
+    chip_smoke = _chip_smoke()
+    run = _tiny_pretrain_run(tmp_path)
+    x, inputs = chip_smoke.k1b_step_inputs(run, run.draws(0)[0], bwd_name="mha3_bwd_reference")
+    assert x.shape == (16, 65, 256)
+    assert inputs[0].shape == (16, 65, 768) and inputs[1].shape == (16, 65, 256)
+    assert all(t.dtype == torch.bfloat16 for t in (x, *inputs))
+    assert port_attn.mha3_bwd_reference.__name__ == "mha3_bwd_reference"
+    versions = chip_smoke.K1_FP64_VERSIONS
+    readings = chip_smoke.k1_fp64_gaps(x, inputs, 8, {"kernel": versions["plain"], **versions})
+    assert (chip_smoke.K1_C_SOUND, chip_smoke.K1_C_CONTROL) == (4.0, 16.0)
+    chip_smoke.k1_fp64_gate(readings)
+    plain = readings["plain"]
+    assert readings["kernel"] == plain
+    for name, cols, others in (("control_ds_fp32", "qk", "v"), ("control_p_fp32", "v", "qk")):
+        assert all(readings[name][c] > chip_smoke.K1_C_CONTROL * plain[c] for c in cols), name
+        assert all(readings[name][c] == plain[c] for c in others), name
+        with pytest.raises(AssertionError, match="K1b's direct leaf"):
+            chip_smoke.k1_fp64_gate({**readings, "kernel": readings[name]})
+
+
+@pytest.mark.parametrize("shape", [(3, 65, 4, 32), (4, 17, 6, 64), (2, 257, 2, 80)])
+def test_chip_smoke_k1_bwd_math_rounded_is_its_plain_version(shape):
+    """chip_smoke.py's k1_bwd_math in fp32 with K1's two roundings, its dqkv
+    rounded to bf16, is mha3_bwd_reference bit for bit; with neither
+    rounding it is K3's plain backward (K2's order) on the same bytes."""
+    chip_smoke = _chip_smoke()
+    n, l, h, hd = shape
+    rng = np.random.default_rng(31)
+    qkv = torch.from_numpy(rng.normal(size=(n, l, 3 * h * hd)).astype(np.float32)).bfloat16()
+    do = torch.from_numpy(rng.normal(size=(n, l, h * hd)).astype(np.float32)).bfloat16()
+    got = chip_smoke.k1_bwd_math(qkv, do, h)
+    assert got.dtype == torch.float32 and got.shape == qkv.shape
+    assert torch.equal(got.bfloat16(), port_attn.mha3_bwd_reference(qkv, do, h))
+    k2 = chip_smoke.k1_bwd_math(qkv, do, h, round_p=False, round_ds=False).bfloat16()
+    k3 = port_attn.mha_qkv_bwd_reference(qkv.view(n, l, 3 * h, hd), do.view(n, l, h, hd), h)
+    assert torch.equal(k2, k3.reshape(n, l, 3 * h * hd))
