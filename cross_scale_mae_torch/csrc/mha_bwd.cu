@@ -53,8 +53,9 @@ mha_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                   TO* __restrict__ dq, TO* __restrict__ dk, TO* __restrict__ dv, int L,
                   float scale) {
   const size_t head = size_t(blockIdx.x) * L * HD;
-  tc::attend_bwd_tc<HD, kSingle, TO>(q + head, k + head, v + head, dout + head, dq + head,
-                                     dk + head, dv + head, L, scale);
+  tc::attend_bwd_tc<HD, kSingle, /*kK1=*/false, TO>(q + head, k + head, v + head, HD,
+                                                    dout + head, HD, dq + head, dk + head,
+                                                    dv + head, HD, L, scale);
 }
 
 // Outputs of the input type (kF32Out false) or fp32.

@@ -1,8 +1,10 @@
-// The attention bodies shared by the package's six kernels, for Hopper
-// (sm_90a): mha3_fwd.cu and mha3_bwd.cu (K1, the raw qkv projection
+// The scalar attention bodies shared by the package's six kernels, for
+// Hopper (sm_90a): mha3_fwd.cu and mha3_bwd.cu (K1, the raw qkv projection
 // layout), mha_fwd.cu and mha_bwd.cu (K2, head-folded q, k, v) and
 // mha2_fwd.cu and mha2_bwd.cu (K3, the (N, L, 3H, hd) layout: K1's bytes with K2's
-// numerics). Each kernel is a thin __global__ function that finds its
+// numerics). They run every kernel's fp32 inputs and K3b's bf16 inputs;
+// the other bf16 inputs run the tensor-core bodies of mha_tc.cuh. Each
+// kernel is a thin __global__ function that finds its
 // (sample, head)'s base pointers and row strides and calls one body below;
 // the bodies differ between K1 and K2/K3 only in `kRound`, the two
 // roundings to the input type that K1's Pallas kernels make and the others
@@ -224,13 +226,12 @@ __device__ __forceinline__ void attend_fwd(const T* __restrict__ q, const T* __r
 //   row = sum_j dP * P            with the fp32 P
 //   dS  = P * (dP - row) * scale
 //   dQ  = dS_r K,  dK = dS_r^T Q  fp32 sums
-// and each output rounded once to TO (the input type, or fp32 for the
-// accuracy checks' entry of mha3_bwd.cu).
-template <typename T, int HD, bool kRound, typename TO = T>
+// and each output rounded once to the input type.
+template <typename T, int HD, bool kRound>
 __device__ __forceinline__ void attend_bwd(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    size_t in_stride, const T* __restrict__ dout, size_t do_stride, TO* __restrict__ dq,
-    TO* __restrict__ dk, TO* __restrict__ dv, size_t out_stride, int L, float scale) {
+    size_t in_stride, const T* __restrict__ dout, size_t do_stride, T* __restrict__ dq,
+    T* __restrict__ dk, T* __restrict__ dv, size_t out_stride, int L, float scale) {
   using G = Geometry<T, HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile0 = reinterpret_cast<T*>(smem);               // k, then q
@@ -298,11 +299,11 @@ __device__ __forceinline__ void attend_bwd(
         if (HD % 32 == 0 || d < HD) acc[c] = fmaf(ds, to_f(kr[d]), acc[c]);
       }
     }
-    TO* dqr = dq + i * out_stride;
+    T* dqr = dq + i * out_stride;
 #pragma unroll
     for (int c = 0; c < G::kCols; ++c) {
       const int d = lane + 32 * c;
-      if (HD % 32 == 0 || d < HD) dqr[d] = from_f<TO>(acc[c]);
+      if (HD % 32 == 0 || d < HD) dqr[d] = from_f<T>(acc[c]);
     }
     if (lane == 0) {
       row_max[i] = m;
@@ -351,14 +352,14 @@ __device__ __forceinline__ void attend_bwd(
         }
       }
     }
-    TO* dkr = dk + j * out_stride;
-    TO* dvr = dv + j * out_stride;
+    T* dkr = dk + j * out_stride;
+    T* dvr = dv + j * out_stride;
 #pragma unroll
     for (int c = 0; c < G::kCols; ++c) {
       const int d = lane + 32 * c;
       if (HD % 32 == 0 || d < HD) {
-        dkr[d] = from_f<TO>(gk[c]);
-        dvr[d] = from_f<TO>(gv[c]);
+        dkr[d] = from_f<T>(gk[c]);
+        dvr[d] = from_f<T>(gv[c]);
       }
     }
     __syncwarp();

@@ -1,12 +1,15 @@
 // The tensor-core bodies of the bf16 attention kernels, for Hopper
-// (sm_90a): the forward of K1 (mha3_fwd.cu) and of K2 (mha_fwd.cu), and
-// K2's backward (mha_bwd.cu). fp32 inputs keep the scalar bodies of
-// mha_common.cuh (attend_fwd, attend_bwd), as do K1's backward and K3.
+// (sm_90a): the forward of K1 (mha3_fwd.cu), K2 (mha_fwd.cu) and K3
+// (mha2_fwd.cu), and the backward of K1 (mha3_bwd.cu) and K2 (mha_bwd.cu).
+// fp32 inputs keep the scalar bodies of mha_common.cuh (attend_fwd,
+// attend_bwd), as does K3's backward.
 //
-// Replaces, for bf16, the Pallas kernels `_mha3_kernel`, `_mha_kernel` and
-// `_mha_bwd_kernel` of cross_scale_mae_tpu/ops/attention.py: the logits
-// fp32 sums scaled after the dot, an fp32 softmax; K2 keeps P (and in the
-// backward dS) in fp32, K1 rounds P to bf16 before P V.
+// Replaces, for bf16, the Pallas kernels `_mha3_kernel`, `_mha3_bwd_kernel`,
+// `_mha_kernel`, `_mha_bwd_kernel` and `_mha2_kernel` of
+// cross_scale_mae_tpu/ops/attention.py: the logits fp32 sums scaled after
+// the dot, an fp32 softmax; K2 and K3 keep P (and in the backward dS) in
+// fp32, K1 rounds P to bf16 before P V (and in the backward before dV, and
+// dS before dQ and dK).
 //
 // What bounds them: one head's whole (L, L) score matrix is small (L is 17
 // to 257), so the work is about L flops per byte moved, under the H100's
@@ -22,8 +25,8 @@
 // round; each is split into kTerms bf16 terms, x_hi = bf16(x), x_mid =
 // bf16(x - x_hi), x_lo = bf16(x - x_hi - x_mid), and its product taken
 // term by term. Three terms of 8 bits carry all 24 of an fp32 value (K2,
-// kSplitTerms); one term is bf16(x) itself, K1's `.astype(bf16)` of P
-// (kK1SplitTerms). In an fp32 emulation of the split
+// kSplitTerms); one term is bf16(x) itself, K1's `.astype(bf16)` of P and
+// dS (kK1SplitTerms). In an fp32 emulation of the split
 // (tests/test_torch_port_attention.py) two terms moved the mean error of
 // K2's rounded outputs to as much as 2**-17 of their mean, where three left
 // them equal to the plain version's. K1f takes its logits on the CUDA
@@ -51,15 +54,18 @@
 // Backward design (attend_bwd_tc). One block per (sample, head), so that
 // dK and dV, sums over query rows, are reduced inside one block with no
 // atomics: a second launch gives the same bits. q, k, v and dO go to four
-// padded shared tiles once. Pass A, a warp per 16 query rows: the
+// padded shared tiles once (rows in_stride and do_stride apart in global
+// memory, as in the forward). Pass A, a warp per 16 query rows: the
 // forward's row stats (and P, with kSingle), row = sum_j dP P with dP = dO
 // v^T one key tile at a time, then dS = P (dP - row) scale and dQ += dS K,
-// dS split in three terms; the row max, sum and `row` go to shared memory.
-// Pass B, a warp per 16 key rows, one query tile at a time: S^T = k q^T and
-// dP^T = v dO^T, P^T from pass A's stats with the same arithmetic, dS^T,
-// then dV += P^T dO and dK += dS^T Q, each split in three terms, each
-// 16-row slice's product added with round-to-nearest. Only the
-// two accumulators of a pass and one tile of P and dP live in registers.
+// dS split in three terms (K2) or rounded once (K1); the row max, sum and
+// `row` go to shared memory. Pass B, a warp per 16 key rows, one query tile
+// at a time: S^T = k q^T and dP^T = v dO^T, P^T from pass A's stats with
+// the same arithmetic, dS^T, then dV += P^T dO and dK += dS^T Q, P and dS
+// split or rounded as in pass A, each 16-row slice's product added with
+// round-to-nearest (K1b's one-sweep kernel at HD >= 64: dV and dK in a
+// loop each, kOneAcc). Only the accumulators of a pass and one tile of P
+// and dP live in registers.
 // Shared memory: four (L, HD + 8) bf16 tiles and three fp32 rows, 190 KB
 // at L = 257, HD = 80. The output type is a parameter: bf16 for the
 // training path, fp32 for the accuracy checks of chip_smoke.py, which hold
@@ -534,23 +540,66 @@ __device__ __forceinline__ void attend_fwd_tc(const bf16* __restrict__ q,
   }
 }
 
-// One (sample, head) of the backward: q, k, v, dO, dq, dk, dv (L, HD),
-// rows HD apart. With P = softmax(q k^T scale) (fp32 logits scaled after
-// the dot, fp32 softmax), in the Pallas kernel's algebra:
+// Pass B's tile of the backward: P^T of the key rows j0..j0+15 (rows of
+// the shared k tile) against query tile t, from pass A's row max and sum
+// with pass A's arithmetic, and with kDs dS^T from dP^T = v dO^T and pass
+// A's row = sum_j dP P; 0 past L.
+template <int HD, bool kDs>
+__device__ __forceinline__ void key_tile(float (&p)[1][2][4], float (&ds)[1][2][4],
+                                         const bf16* qs, const bf16* ks, const bf16* vs,
+                                         const bf16* dos, const float* row_max,
+                                         const float* row_sum, const float* row_dot, int j0,
+                                         int t, int ntiles, int L, float scale, int lane) {
+  products<HD, 1>(p, ks, j0, qs, t, ntiles, L, lane);  // (q k^T)^T
+  if (kDs) products<HD, 1>(ds, vs, j0, dos, t, ntiles, L, lane);  // dP^T
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = col_of(t, 0, h, e, lane);
+      if (i < L) {
+        const float pe = expf(__fmul_rn(p[0][h][e], scale) - row_max[i]) / row_sum[i];
+        p[0][h][e] = pe;
+        if (kDs) ds[0][h][e] = pe * (ds[0][h][e] - row_dot[i]) * scale;
+      } else {
+        p[0][h][e] = 0.f;
+        if (kDs) ds[0][h][e] = 0.f;
+      }
+    }
+}
+
+// One (sample, head) of the backward: q, k, v (L, HD) rows `in_stride`
+// apart (HD for K2's folded heads, 3D for K1's qkv projection), dO rows
+// `do_stride` apart (HD or D), dq, dk, dv rows `out_stride` apart (HD or
+// 3D). With P = softmax(q k^T scale) (fp32 logits scaled after the dot,
+// fp32 softmax), in the Pallas kernels' algebra:
 //   dV = P^T dO,  dP = dO V^T,  row = sum_j dP P,  dS = P (dP - row) scale,
 //   dQ = dS K,  dK = dS^T Q,
-// P and dS split into kSplitTerms bf16 terms, each 16-row slice of their
-// products added with round-to-nearest (the tensor cores' own truncating
+// row and dS taken from the fp32 P. kK1: K1's numerics, P rounded once to
+// bf16 as dV's operand and dS once as dQ's and dK's (one split term,
+// kK1SplitTerms, the Pallas kernel's `.astype(bf16)`); else K2's, P and dS
+// split into kSplitTerms bf16 terms. Either way each 16-row slice of their
+// products is added with round-to-nearest (the tensor cores' own truncating
 // adds leave a bias that the sum over a step's tokens keeps; PERF.md
-// section 6), each output rounded once to TO.
-template <int HD, bool kSingle, typename TO>
+// section 6), and each output is rounded once to TO.
+//
+// Pass B's logits are k q^T, pass A's q k^T: the same bf16 products taken
+// in the same k-step order, but the order of the adds inside one mma.sync
+// is the hardware's, so the two passes are not guaranteed to agree bit for
+// bit. Where a logit differs in its last fp32 bit, pass B's P (and dS) may
+// round to another bf16 value than pass A's: dK and dV then use a P one
+// bf16 ulp from dQ's. chip_smoke.py's [train_grads_fp64] holds the result
+// against float64, which absorbs that.
+template <int HD, bool kSingle, bool kK1, typename TO>
 __device__ __forceinline__ void attend_bwd_tc(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
-                                              const bf16* __restrict__ v,
-                                              const bf16* __restrict__ dout, TO* __restrict__ dq,
-                                              TO* __restrict__ dk, TO* __restrict__ dv, int L,
+                                              const bf16* __restrict__ v, size_t in_stride,
+                                              const bf16* __restrict__ dout, size_t do_stride,
+                                              TO* __restrict__ dq, TO* __restrict__ dk,
+                                              TO* __restrict__ dv, size_t out_stride, int L,
                                               float scale) {
   using G = TcGeometry<HD>;
+  constexpr int kTerms = kK1 ? kK1SplitTerms : kSplitTerms;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = padded_rows(L);
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -560,10 +609,10 @@ __device__ __forceinline__ void attend_bwd_tc(const bf16* __restrict__ q,
   float* row_max = reinterpret_cast<float*>(dos + rows * G::kPitch);
   float* row_sum = row_max + rows;
   float* row_dot = row_sum + rows;  // sum_j dP_ij P_ij
-  load_tile_async<HD>(qs, q, L, HD);
-  load_tile_async<HD>(ks, k, L, HD);
-  load_tile_async<HD>(vs, v, L, HD);
-  load_tile_async<HD>(dos, dout, L, HD);
+  load_tile_async<HD>(qs, q, L, in_stride);
+  load_tile_async<HD>(ks, k, L, in_stride);
+  load_tile_async<HD>(vs, v, L, in_stride);
+  load_tile_async<HD>(dos, dout, L, do_stride);
   wait_tiles();
 
   const int lane = threadIdx.x & 31;
@@ -606,11 +655,11 @@ __device__ __forceinline__ void attend_bwd_tc(const bf16* __restrict__ q,
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               ds[0][h][e] = s[kt][h][e] * (ds[0][h][e] - rd[e >> 1]) * scale;
-          accumulate_split<HD, 1, kSplitTerms, /*kRn=*/true>(acc, ds, ks, t0 + kt, ntiles, lane);
+          accumulate_split<HD, 1, kTerms, /*kRn=*/true>(acc, ds, ks, t0 + kt, ntiles, lane);
         }
       }
     }
-    store_rows<HD>(dq, acc, L, r0, lane, HD);
+    store_rows<HD>(dq, acc, L, r0, lane, out_stride);
     if ((lane & 3) == 0) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -623,35 +672,48 @@ __device__ __forceinline__ void attend_bwd_tc(const bf16* __restrict__ q,
   }
   __syncthreads();  // every query row's stats are in
 
-  // ---- pass B: a warp per 16 key rows, one query tile at a time.
+  // ---- pass B: a warp per 16 key rows, one query tile at a time. K1b's
+  // one-sweep kernel is held to 128 registers (mha3_bwd.cu); at HD >= 64
+  // its two accumulators do not fit them beside a tile's products (pass B
+  // alone then needs more, and spilled under the cap), so there dV and dK
+  // take a loop each, the second recomputing P^T with the same arithmetic:
+  // the same bits, no spill at HD = 64, a few percent more time at the
+  // encoder's shape (PERF.md section 6).
+  constexpr bool kOneAcc = kK1 && kSingle && HD >= 64;
   for (int jt = threadIdx.x >> 5; jt < ntiles; jt += warps) {
     const int j0 = jt * 16;
-    float gk[G::kN][4], gv[G::kN][4];
-    zero<HD>(gk);
-    zero<HD>(gv);
-    for (int t = 0; t < ntiles; ++t) {
-      float p[1][2][4], ds[1][2][4];
-      products<HD, 1>(p, ks, j0, qs, t, ntiles, L, lane);    // (q k^T)^T
-      products<HD, 1>(ds, vs, j0, dos, t, ntiles, L, lane);  // dP^T
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = col_of(t, 0, h, e, lane);
-          if (i < L) {
-            // Pass A's P_ij and dS_ij, with the same arithmetic.
-            const float pe = expf(__fmul_rn(p[0][h][e], scale) - row_max[i]) / row_sum[i];
-            p[0][h][e] = pe;
-            ds[0][h][e] = pe * (ds[0][h][e] - row_dot[i]) * scale;
-          } else {
-            p[0][h][e] = ds[0][h][e] = 0.f;
-          }
-        }
-      accumulate_split<HD, 1, kSplitTerms, /*kRn=*/true>(gv, p, dos, t, ntiles, lane);
-      accumulate_split<HD, 1, kSplitTerms, /*kRn=*/true>(gk, ds, qs, t, ntiles, lane);
+    if constexpr (kOneAcc) {
+      float acc[G::kN][4];
+      zero<HD>(acc);
+      for (int t = 0; t < ntiles; ++t) {
+        float p[1][2][4], unused[1][2][4];
+        key_tile<HD, false>(p, unused, qs, ks, vs, dos, row_max, row_sum, row_dot, j0, t,
+                            ntiles, L, scale, lane);
+        accumulate_split<HD, 1, kTerms, /*kRn=*/true>(acc, p, dos, t, ntiles, lane);
+      }
+      store_rows<HD>(dv, acc, L, j0, lane, out_stride);
+      zero<HD>(acc);
+      for (int t = 0; t < ntiles; ++t) {
+        float p[1][2][4], ds[1][2][4];
+        key_tile<HD, true>(p, ds, qs, ks, vs, dos, row_max, row_sum, row_dot, j0, t, ntiles,
+                           L, scale, lane);
+        accumulate_split<HD, 1, kTerms, /*kRn=*/true>(acc, ds, qs, t, ntiles, lane);
+      }
+      store_rows<HD>(dk, acc, L, j0, lane, out_stride);
+    } else {
+      float gk[G::kN][4], gv[G::kN][4];
+      zero<HD>(gk);
+      zero<HD>(gv);
+      for (int t = 0; t < ntiles; ++t) {
+        float p[1][2][4], ds[1][2][4];
+        key_tile<HD, true>(p, ds, qs, ks, vs, dos, row_max, row_sum, row_dot, j0, t, ntiles,
+                           L, scale, lane);
+        accumulate_split<HD, 1, kTerms, /*kRn=*/true>(gv, p, dos, t, ntiles, lane);
+        accumulate_split<HD, 1, kTerms, /*kRn=*/true>(gk, ds, qs, t, ntiles, lane);
+      }
+      store_rows<HD>(dk, gk, L, j0, lane, out_stride);
+      store_rows<HD>(dv, gv, L, j0, lane, out_stride);
     }
-    store_rows<HD>(dk, gk, L, j0, lane, HD);
-    store_rows<HD>(dv, gv, L, j0, lane, HD);
   }
 }
 

@@ -7,10 +7,11 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   columns [h*hd, (h+1)*hd) of each D-wide third. A ``torch.autograd.Function``
   that saves only qkv and recomputes the probabilities in its backward, as
   the JAX custom VJP ``pallas_mha_v3`` does. On a CUDA tensor the forward
-  launches ``csrc/mha3_fwd.cu`` (the port of ``_mha3_kernel``; for bf16 the
-  tensor-core body of ``csrc/mha_tc.cuh``, P rounded once to bf16) and the
-  backward ``csrc/mha3_bwd.cu`` (``_mha3_bwd_kernel``), counted by
-  ``mha_v3.launches`` and ``mha_v3.bwd_launches``; on a CPU tensor the plain
+  launches ``csrc/mha3_fwd.cu`` (the port of ``_mha3_kernel``) and the
+  backward ``csrc/mha3_bwd.cu`` (``_mha3_bwd_kernel``), for bf16 each on a
+  tensor-core body of ``csrc/mha_tc.cuh`` with P (and dS) rounded once to
+  bf16, counted by ``mha_v3.launches`` and ``mha_v3.bwd_launches``; on a
+  CPU tensor the plain
   versions ``mha_v3_reference`` (fp32 logits and softmax, P rounded to the
   input dtype, fp32 PV sum) and ``mha3_bwd_reference``.
 * v1 (K2): ``mha(q, k, v)`` (also ``pallas_mha``) on (N, L, H, hd) folds the
@@ -27,8 +28,9 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   (N, L, 3H, hd) layout, q heads at [0, H), k at [H, 2H), v at [2H, 3H),
   returns (N, L, H, hd) with K2's numerics. ``_MhaQkv`` saves only qkv, as
   ``_mha2_cvjp_fwd`` does, and its backward returns dqkv in the qkv layout.
-  On a CUDA tensor ``csrc/mha2_fwd.cu`` (``_mha2_kernel``) and
-  ``csrc/mha2_bwd.cu`` (``_mha2_bwd_kernel``), counted by
+  On a CUDA tensor ``csrc/mha2_fwd.cu`` (``_mha2_kernel``; for bf16 K2f's
+  tensor-core body) and ``csrc/mha2_bwd.cu`` (``_mha2_bwd_kernel``, the
+  scalar body), counted by
   ``mha_qkv.launches`` and ``mha_qkv.bwd_launches``; on a CPU tensor
   ``mha_qkv_reference`` and ``mha_qkv_bwd_reference``. No path of the
   model dispatches it, as in the JAX package.
@@ -93,8 +95,8 @@ def mha_v3_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def mha3_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one forward block of the scalar body, K1f's
-    and K2f's in fp32 and K3f's (csrc/mha_common.cuh `fwd_smem_bytes`): k
+    """Dynamic shared memory of one forward block of the scalar body, K1f's,
+    K2f's and K3f's in fp32 (csrc/mha_common.cuh `fwd_smem_bytes`): k
     and v in the input dtype, rows padded by 16 bytes, and one fp32 query
     row and score row per warp."""
     item = torch.empty((), dtype=dtype).element_size()
@@ -180,7 +182,7 @@ def mha3_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
 
 def mha3_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one backward block of the scalar body, K1b's
-    and K2b's (csrc/mha_common.cuh `bwd_smem_bytes`): two (L, hd)
+    and K2b's in fp32 and K3b's (csrc/mha_common.cuh `bwd_smem_bytes`): two (L, hd)
     tiles in the input dtype, rows padded by 16 bytes; max, sum and row per
     query row; per warp two fp32 head rows and two fp32 rows of length L."""
     item = torch.empty((), dtype=dtype).element_size()
@@ -192,10 +194,12 @@ def mha3_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
 
 def _mha3_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """K1b: ``csrc/mha3_bwd.cu``. ``out_dtype=torch.float32`` writes the
-    kernel's fp32 sums before their rounding to the input dtype
-    (``csmae_mha3_bwd_f32``), for accuracy checks."""
-    n, l, d, hd = _check_kernel_input(qkv, num_heads, mha3_bwd_smem_bytes)
+    """K1b: ``csrc/mha3_bwd.cu``, the tensor-core body for bf16 and the
+    scalar body for fp32 (:func:`mha_bwd_smem_bytes`).
+    ``out_dtype=torch.float32`` writes the kernel's fp32 sums before their
+    rounding to the input dtype (``csmae_mha3_bwd_f32``), for accuracy
+    checks."""
+    n, l, d, hd = _check_kernel_input(qkv, num_heads, mha_bwd_smem_bytes)
     if do.shape != (n, l, d) or do.dtype != qkv.dtype or do.device != qkv.device:
         raise ValueError(
             f"dO must be a {qkv.dtype} tensor of shape {(n, l, d)} on "
@@ -262,7 +266,7 @@ def mha_v3(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         return _mha3_fwd(qkv, num_heads)  # no autograd node when serving
     if qkv.device.type == "cuda":
         # Refuse before the forward what the backward kernel cannot take.
-        _check_kernel_input(qkv, num_heads, mha3_bwd_smem_bytes)
+        _check_kernel_input(qkv, num_heads, mha_bwd_smem_bytes)
     return _MhaV3.apply(qkv, num_heads)
 
 
@@ -318,7 +322,7 @@ def mha_folded_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mha_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K1f or K2f block. bf16: the
+    """Dynamic shared memory of one K1f, K2f or K3f block. bf16: the
     tensor-core body (csrc/mha_tc.cuh `tc_fwd_smem_bytes`), q, k and v as
     (L padded to 16, hd + 8) bf16 tiles; fp32: the scalar body
     (:func:`mha3_smem_bytes`)."""
@@ -380,7 +384,7 @@ def _mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
 
 
 def mha_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K2b block. bf16: the tensor-core body
+    """Dynamic shared memory of one K1b or K2b block. bf16: the tensor-core body
     (csrc/mha_tc.cuh `tc_bwd_smem_bytes`), q, k, v and dO as (L padded to
     16, hd + 8) bf16 tiles and three fp32 rows of the padded length; fp32:
     the scalar body (:func:`mha3_bwd_smem_bytes`)."""
@@ -392,8 +396,8 @@ def mha_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
 
 def _mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                   out_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, ...]:
-    """K2b: ``csrc/mha_bwd.cu``, the tensor-core body for bf16 and the
-    scalar body it shares with K1b for fp32 (:func:`mha_bwd_smem_bytes`).
+    """K2b: ``csrc/mha_bwd.cu``, the tensor-core body it shares with K1b
+    for bf16 and the scalar body for fp32 (:func:`mha_bwd_smem_bytes`).
     ``out_dtype=torch.float32`` writes the kernel's fp32 sums before their
     rounding to the input dtype (``csmae_mha_bwd_f32``), for accuracy
     checks."""
@@ -480,9 +484,9 @@ mha.bwd_launches = 0
 # at D + g*hd. Its numerics are K2's: fp32 operands, P and dS never rounded,
 # each output rounded once (attention.py:192-238).
 
-# K3 runs the shared bodies on K1's row layout, so its blocks need K1's
-# shared memory (csrc/mha_common.cuh `fwd_smem_bytes`, `bwd_smem_bytes`).
-mha2_smem_bytes = mha3_smem_bytes
+# K3f runs K1f's and K2f's forward bodies (the tensor-core one for bf16),
+# K3b the scalar backward body for every dtype.
+mha2_smem_bytes = mha_smem_bytes
 mha2_bwd_smem_bytes = mha3_bwd_smem_bytes
 
 
@@ -521,7 +525,8 @@ def _check_qkv4(qkv: torch.Tensor, num_heads: int, smem_bytes) -> tuple[int, int
 
 
 def _mha2_fwd_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """K3f: ``csrc/mha2_fwd.cu``, the forward body without K1's rounding."""
+    """K3f: ``csrc/mha2_fwd.cu``, K2f's tensor-core body for bf16 and the
+    scalar forward body for fp32, without K1's rounding of P."""
     n, l, d, hd = _check_qkv4(qkv, num_heads, mha2_smem_bytes)
     from cross_scale_mae_torch.ops.cuda_build import load_library
 

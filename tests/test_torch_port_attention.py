@@ -151,8 +151,9 @@ def test_bwd_smem_layout_matches_kernel_source():
 
 def test_bwd_kernel_fits_every_config_the_forward_runs():
     """Every ViT size of the configs, at inputs up to 256 px with patch 16
-    (up to 257 tokens), in fp32 and bf16: the backward block fits an H100
-    block wherever the training forward runs."""
+    (up to 257 tokens), in fp32 and bf16: the backward block (the scalar
+    layout, and the tensor-core layout K1b's wrapper checks for bf16) fits
+    an H100 block wherever the training forward runs."""
     from cross_scale_mae_torch.configs import VIT_SIZES
 
     for size in VIT_SIZES.values():
@@ -160,7 +161,8 @@ def test_bwd_kernel_fits_every_config_the_forward_runs():
                      (size.decoder_embed_dim, size.decoder_num_heads)):
             for l in (17, 65, 257):
                 for dt in (torch.float32, torch.bfloat16):
-                    assert port_attn.mha3_bwd_smem_bytes(l, d // h, dt) <= port_attn.MAX_SMEM_BYTES
+                    for smem in (port_attn.mha3_bwd_smem_bytes, port_attn.mha_bwd_smem_bytes):
+                        assert smem(l, d // h, dt) <= port_attn.MAX_SMEM_BYTES
 
 
 def test_smem_layout_matches_kernel_source():
@@ -433,6 +435,54 @@ def test_k1f_smem_layout_is_the_tc_body_for_bf16():
                                           port_attn.mha_smem_bytes)
 
 
+CSRC = Path(port_attn.__file__).resolve().parent.parent / "csrc"
+
+
+def test_k1b_runs_the_tc_backward_body_with_k1s_roundings_for_bf16():
+    """K1b launches mha_tc.cuh's backward body for bf16 with K1's numerics
+    (kK1: one bf16 term of P and dS) on rows 3D apart in qkv and dqkv and D
+    apart in dO, sized by tc_bwd_smem_bytes, with an fp32-output entry; K2b
+    the same body with K2's. Both wrappers, and mha_v3's refusal before the
+    forward, check that layout for bf16 and the scalar one for fp32."""
+    import inspect
+
+    k1b = (CSRC / "mha3_bwd.cu").read_text()
+    assert "tc::tc_bwd_smem_bytes<HD>(L)" in k1b
+    assert "attend_bwd_tc<HD, kSingle, /*kK1=*/true, TO>" in k1b
+    assert "3 * D, dout + size_t(n) * L * D + size_t(h) * HD, D, dq" in k1b
+    assert 'extern "C" int csmae_mha3_bwd_f32(' in k1b
+    assert "attend_bwd_tc<HD, kSingle, /*kK1=*/false, TO>" in (CSRC / "mha_bwd.cu").read_text()
+    assert "constexpr int kTerms = kK1 ? kK1SplitTerms : kSplitTerms;" in TC_HEADER
+    for fn in (port_attn._mha3_bwd_cuda, port_attn.mha_v3):
+        assert "_check_kernel_input(qkv, num_heads, mha_bwd_smem_bytes)" in inspect.getsource(fn)
+    rows = -(-65 // 16) * 16
+    assert port_attn.mha_bwd_smem_bytes(65, 32, torch.bfloat16) == 4 * rows * 40 * 2 + 3 * rows * 4
+    # 400 tokens of width 80: the scalar bf16 layout would fit a block, the
+    # tensor-core one does not, and the wrapper refuses before launch.
+    assert port_attn.mha3_bwd_smem_bytes(400, 80, torch.bfloat16) <= port_attn.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        port_attn._mha3_bwd_cuda(torch.zeros(1, 400, 3 * 2 * 80, dtype=torch.bfloat16),
+                                 torch.zeros(1, 400, 2 * 80, dtype=torch.bfloat16), 2)
+    port_attn._check_kernel_input(torch.zeros(1, 257, 3 * 2 * 80, dtype=torch.bfloat16), 2,
+                                  port_attn.mha_bwd_smem_bytes)
+
+
+def test_k3f_runs_k2fs_tc_body_on_k1s_rows_for_bf16():
+    """K3f launches K2f's tensor-core forward body (no kK1) for bf16, with
+    q, k and v rows 3D apart and output rows D apart, sized by
+    tc_fwd_smem_bytes; its wrapper checks that layout for bf16."""
+    k3f = (CSRC / "mha2_fwd.cu").read_text()
+    assert "tc::tc_fwd_smem_bytes<HD>(L)" in k3f
+    assert ("attend_fwd_tc<HD, kSingle, /*kK1=*/false>(\n"
+            "      q, q + D, q + 2 * D, 3 * D, out + size_t(n) * L * D + size_t(h) * HD, D, L,"
+            in k3f)
+    # 500 tokens of width 80: the scalar bf16 layout would fit, the
+    # tensor-core one does not.
+    assert port_attn.mha3_smem_bytes(500, 80, torch.bfloat16) <= port_attn.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        port_attn._mha2_fwd_cuda(torch.zeros(1, 500, 6, 80, dtype=torch.bfloat16), 2)
+
+
 # ---------------------------------------------------------------- K3 (v2)
 #
 # The port's mha_qkv (its plain versions on the CPU) against the JAX
@@ -549,12 +599,17 @@ def test_mha_qkv_bwd_wrapper_validates_do_before_launch(make, match):
 
 
 def test_mha_qkv_shared_memory_is_k1s():
-    """K3 runs the shared bodies on K1's rows, so its blocks need K1's
-    shared memory, and every head width fits at up to 257 tokens."""
-    for l, hd, dt in [(65, 64, torch.bfloat16), (257, 80, torch.float32)]:
-        assert port_attn.mha2_smem_bytes(l, hd, dt) == port_attn.mha3_smem_bytes(l, hd, dt)
+    """K3 runs K1's forward bodies on K1's rows (the tensor-core one for
+    bf16, the scalar one for fp32), so K3f's blocks need K1f's shared
+    memory; K3b runs the scalar backward body for every dtype. Every head
+    width fits at up to 257 tokens."""
+    for l, hd, dt in [(65, 64, torch.bfloat16), (257, 80, torch.float32),
+                      (17, 16, torch.bfloat16), (65, 32, torch.float32)]:
+        assert port_attn.mha2_smem_bytes(l, hd, dt) == port_attn.mha_smem_bytes(l, hd, dt)
         assert (port_attn.mha2_bwd_smem_bytes(l, hd, dt)
                 == port_attn.mha3_bwd_smem_bytes(l, hd, dt))
+    rows = -(-65 // 16) * 16
+    assert port_attn.mha2_smem_bytes(65, 64, torch.bfloat16) == 3 * rows * 72 * 2
     for hd in port_attn.KERNEL_HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             port_attn._check_qkv4(torch.zeros(2, 257, 6, hd, dtype=dt), 2,
@@ -585,20 +640,39 @@ def test_chip_smoke_reads_spills_from_ptxas_output():
         "    24 bytes stack frame, 32 bytes spill stores, 36 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers, 24 bytes cumulative stack size",
     ])
-    assert chip_smoke.ptxas_spills(text) == {"_Z17mha_fwd_tc_kernelILi64ELb1EE": (0, 0),
-                                             "_Z17mha_fwd_tc_kernelILi80ELb1EE": (32, 36)}
+    assert chip_smoke.ptxas_spills(text) == {"_Z17mha_fwd_tc_kernelILi64ELb1EE": (0, 0, 128),
+                                             "_Z17mha_fwd_tc_kernelILi80ELb1EE": (32, 36, 128)}
     assert chip_smoke.tc_design("mha_fwd") == f"mma.sync split-bf16 x{SPLIT_TERMS}"
     assert chip_smoke.tc_design("mha3_fwd") == (
         f"plain-order fp32 FMA logits, mma.sync P V x{K1_SPLIT_TERMS}")
     assert chip_smoke.tc_design("mha_bwd") == (
         f"mma.sync split-bf16 x{SPLIT_TERMS}, rounded slice adds")
+    assert chip_smoke.tc_design("mha3_bwd") == (
+        f"mma.sync, P and dS in bf16 x{K1_SPLIT_TERMS}, rounded slice adds")
+    assert chip_smoke.tc_design("mha2_fwd") == f"mma.sync split-bf16 x{SPLIT_TERMS}"
+    # 4 head widths x one sweep or several, x bf16 or fp32 outputs for the
+    # two backward kernels: 3 x 8 + 2 x 16 = 56 instantiations.
+    assert sum(chip_smoke.TC_KERNELS.values()) == 56
     for symbol, name in [
             ("_ZN12_GLOBAL__N_117mha_fwd_tc_kernelILi64ELb1EEEvPK13__nv_bfloat16S3_S3_PS1_if",
              "mha_fwd_tc_kernel"),
             ("_ZN12_GLOBAL__N_118mha3_fwd_tc_kernelILi32ELb0EEEvPK13__nv_bfloat16PS1_iif",
              "mha3_fwd_tc_kernel"),
+            ("_ZN44_GLOBAL__N__5cc1bdea_11_mha3_bwd_cu_b8b0eda518mha3_bwd_tc_kernelILi32ELb1E"
+             "13__nv_bfloat16EEvPKS1_S3_PT1_iif", "mha3_bwd_tc_kernel"),
+            ("_ZN44_GLOBAL__N__5cc1bdea_11_mha2_fwd_cu_b8b0eda518mha2_fwd_tc_kernelILi64ELb0EEEv"
+             "PK13__nv_bfloat16PS1_iif", "mha2_fwd_tc_kernel"),
+            ("_ZN12_GLOBAL__N_115mha2_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iif", None),
             ("_ZN12_GLOBAL__N_115mha3_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iif", None)]:
         assert chip_smoke.tc_instance(symbol) == name
+    assert chip_smoke.tc_label(
+        "_ZN44_GLOBAL__N__5cc1bdea_11_mha3_bwd_cu_b8b0eda518mha3_bwd_tc_kernelILi32ELb1E"
+        "13__nv_bfloat16EEvPKS1_S3_PT1_iif") == "mha3_bwd_tc_kernel<32,1,bf16>"
+    assert chip_smoke.tc_label(
+        "_ZN43_GLOBAL__N__5a6d6646_10_mha_bwd_cu_880686c317mha_bwd_tc_kernelILi80ELb0EfEEvPK13"
+        "__nv_bfloat16S3_S3_S3_PT1_S5_S5_if") == "mha_bwd_tc_kernel<80,0,f32>"
+    assert chip_smoke.tc_label("_ZN12_GLOBAL__N_117mha_fwd_tc_kernelILi64ELb1EEEvPK13__nv_bfloat16"
+                               "S3_S3_PS1_if") == "mha_fwd_tc_kernel<64,1>"
 
 
 def test_chip_smoke_fp64_direct_leaf_separates_plain_from_k1_order(tmp_path):

@@ -320,6 +320,61 @@ def test_cuda_mha_qkv_kernels_match_plain_versions(cuda_device, n, l, h, hd, dty
     assert torch.equal(port_attn._mha2_bwd_cuda(qkv, do, h), dqkv)
 
 
+def _k2_order_k1_bytes(qkv, do, h):
+    """K2's order (P and dS left in fp32) on K1's (N, L, 3D) bytes: K3's
+    plain backward, dqkv (N, L, 3D)."""
+    n, l, three_d = qkv.shape
+    hd = three_d // (3 * h)
+    return port_attn.mha_qkv_bwd_reference(
+        qkv.view(n, l, 3 * h, hd), do.view(n, l, h, hd), h).reshape(n, l, three_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", RAGGED_L)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_k1b_bf16_kernel_at_ragged_edges(cuda_device, l, hd):
+    """The bf16 K1b (csrc/mha_tc.cuh attend_bwd_tc with K1's roundings) on
+    the qkv layout, 5 samples of 7 heads, against mha3_bwd_reference: each
+    of dq, dk and dv within one bf16 ulp and within K2_MEAN_TOL in mean,
+    with K2's order above K2_MEAN_TOL; its bf16 outputs its fp32 outputs
+    rounded, bit for bit; and a second launch gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    h = 7
+    qkv = torch.randn(5, l, 3 * h * hd, device=cuda_device, generator=gen).bfloat16()
+    do = torch.randn(5, l, h * hd, device=cuda_device, generator=gen).bfloat16()
+    got = port_attn._mha3_bwd_cuda(qkv, do, h)
+    f32 = port_attn._mha3_bwd_cuda(qkv, do, h, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert f32.dtype == torch.float32 and torch.equal(got, f32.bfloat16())
+    ref = port_attn.mha3_bwd_reference(qkv, do, h).float()
+    control = _k2_order_k1_bytes(qkv, do, h)
+    for name, a, r, c in zip(("dq", "dk", "dv"), got.chunk(3, dim=-1), ref.chunk(3, dim=-1),
+                             control.chunk(3, dim=-1)):
+        assert (a.float() - r).abs().max().item() <= _tol(r, torch.bfloat16), name
+        assert _rel_mean(a, r) <= K2_MEAN_TOL < _rel_mean(c, r), name
+    assert torch.equal(port_attn._mha3_bwd_cuda(qkv, do, h), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", RAGGED_L)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_k3f_bf16_kernel_at_ragged_edges(cuda_device, l, hd):
+    """The bf16 K3f (K2f's tensor-core body on rows 3D apart in, D apart
+    out), 5 samples of 7 heads, against mha_qkv_reference: one bf16 ulp and
+    K2_MEAN_TOL in mean, with K1's order above it; a second launch gives
+    the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    h = 7
+    qkv = torch.randn(5, l, 3 * h, hd, device=cuda_device, generator=gen).bfloat16()
+    got = port_attn._mha2_fwd_cuda(qkv, h)
+    torch.cuda.synchronize()
+    ref = port_attn.mha_qkv_reference(qkv, h).float()
+    control = port_attn.mha_v3_reference(qkv.view(5, l, 3 * h * hd), h).view(5, l, h, hd)
+    assert (got.float() - ref).abs().max().item() <= _tol(ref, torch.bfloat16)
+    assert _rel_mean(got, ref) <= K2_MEAN_TOL < _rel_mean(control, ref)
+    assert torch.equal(port_attn._mha2_fwd_cuda(qkv, h), got)
+
+
 @pytest.mark.cuda
 def test_cuda_mha_qkv_trains_through_both_kernels(cuda_device):
     """One autograd step of mha_qkv through K3f and K3b against autograd of
