@@ -439,20 +439,13 @@ def phase_kernel(card: str) -> dict:
         qkv, do = bufs[0]
         got = _mha3_bwd_cuda(qkv, do, h)
         torch.cuda.synchronize()
-        # Each output within one bf16 ulp at its largest magnitude (both
-        # round P, dS and dqkv to bf16 from fp32 values taken in another
-        # order) and within K2_MEAN_TOL in mean, which K2's order (P and dS
-        # left in fp32) must exceed.
-        control = k1_bwd_math(qkv, do, h, round_p=False, round_ds=False).to(got.dtype)
-        bwd = {name: _output_errors(a, r, c) for name, a, r, c in zip(
-            ("dq", "dk", "dv"), got.chunk(3, dim=-1),
-            mha3_bwd_reference(qkv, do, h).chunk(3, dim=-1), control.chunk(3, dim=-1))}
+        bwd = k1b_output_errors(got, qkv, do, h)
         _gate_outputs("mha3_bwd", label, bwd)
         check(torch.equal(_mha3_bwd_cuda(qkv, do, h), got),
               f"mha3_bwd {label}: a second launch gave other bits")
         check_rounded_tie(got.chunk(3, dim=-1), _mha3_bwd_cuda(
             qkv, do, h, out_dtype=torch.float32).chunk(3, dim=-1), f"mha3_bwd {label}")
-        del qkv, do, control
+        del qkv, do
 
         # The library yardstick: scaled_dot_product_attention's backward
         # through autograd, on graphs built before the timing.
@@ -524,6 +517,21 @@ def _gate_outputs(name: str, label: str, readings: dict) -> None:
         check(r["control_rel_mean_err"] > K2_MEAN_TOL,
               f"{where}: the control {r['control_rel_mean_err']} stays within "
               f"{K2_MEAN_TOL}")
+
+
+def k1b_output_errors(got, qkv, do, num_heads: int) -> dict:
+    """K1b's bf16 dqkv against ``mha3_bwd_reference``, output by output (dq,
+    dk, dv: ``_output_errors``), with K2's order on the same inputs (P and
+    dS left in fp32, ``k1_bwd_math``) as the control: each output within
+    one bf16 ulp at its largest magnitude (both round P, dS and dqkv to bf16
+    from fp32 values taken in another order) and within K2_MEAN_TOL in
+    mean, which the control must exceed."""
+    from cross_scale_mae_torch.ops.attention import mha3_bwd_reference
+
+    control = k1_bwd_math(qkv, do, num_heads, round_p=False, round_ds=False).to(got.dtype)
+    return {name: _output_errors(a, r, c) for name, a, r, c in zip(
+        ("dq", "dk", "dv"), *(t.chunk(3, dim=-1) for t in (
+            got, mha3_bwd_reference(qkv, do, num_heads), control)))}
 
 
 def check_rounded_tie(bf16_grads, f32_grads, where: str) -> None:
@@ -1026,7 +1034,7 @@ def phase_train_grads_fp64(card: str) -> None:
     kernel against its plain version (the [kernel] gate, K2's order as the
     control) and its bf16 outputs against its fp32 outputs rounded."""
     from cross_scale_mae_torch.cli.pretrain import build_run
-    from cross_scale_mae_torch.ops.attention import _mha3_bwd_cuda, mha3_bwd_reference
+    from cross_scale_mae_torch.ops.attention import _mha3_bwd_cuda
 
     # The plain version and the controls in full fp32: no TF32 in the matmuls.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1042,10 +1050,7 @@ def phase_train_grads_fp64(card: str) -> None:
     dqkv = _mha3_bwd_cuda(*inputs, h)
     check_rounded_tie(dqkv.chunk(3, dim=-1), versions["kernel"](*inputs, h).chunk(3, dim=-1),
                       "mha3_bwd step inputs")
-    control = k1_bwd_math(*inputs, h, round_p=False, round_ds=False).to(dqkv.dtype)
-    step = {name: _output_errors(a, r, c) for name, a, r, c in zip(
-        ("dq", "dk", "dv"), dqkv.chunk(3, dim=-1), mha3_bwd_reference(*inputs, h).chunk(3, dim=-1),
-        control.chunk(3, dim=-1))}
+    step = k1b_output_errors(dqkv, *inputs, h)
     log("train_grads_fp64", card=json.dumps(card), shape=json.dumps(list(inputs[0].shape)),
         x_shape=json.dumps(list(x.shape)), c_sound=K1_C_SOUND, c_control=K1_C_CONTROL,
         tf32=torch.backends.cuda.matmul.allow_tf32,
