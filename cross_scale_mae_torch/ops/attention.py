@@ -11,9 +11,9 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   backward ``csrc/mha3_bwd.cu`` (``_mha3_bwd_kernel``), for bf16 each on a
   tensor-core body of ``csrc/mha_tc.cuh`` with P (and dS) rounded once to
   bf16, counted by ``mha_v3.launches`` and ``mha_v3.bwd_launches``; on a
-  CPU tensor the plain
-  versions ``mha_v3_reference`` (fp32 logits and softmax, P rounded to the
-  input dtype, fp32 PV sum) and ``mha3_bwd_reference``.
+  CPU tensor the plain versions ``mha_v3_reference`` (fp32 logits and
+  softmax, P rounded to the input dtype, fp32 PV sum) and
+  ``mha3_bwd_reference``.
 * v1 (K2): ``mha(q, k, v)`` (also ``pallas_mha``) on (N, L, H, hd) folds the
   heads into (N*H, L, hd) copies (``_fold``), runs ``_MhaFolded``, which
   saves q, k and v as ``_mha_folded_fwd`` does, and unfolds the output. On a
@@ -30,10 +30,10 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   ``_mha2_cvjp_fwd`` does, and its backward returns dqkv in the qkv layout.
   On a CUDA tensor ``csrc/mha2_fwd.cu`` (``_mha2_kernel``; for bf16 K2f's
   tensor-core body) and ``csrc/mha2_bwd.cu`` (``_mha2_bwd_kernel``, the
-  scalar body), counted by
-  ``mha_qkv.launches`` and ``mha_qkv.bwd_launches``; on a CPU tensor
-  ``mha_qkv_reference`` and ``mha_qkv_bwd_reference``. No path of the
-  model dispatches it, as in the JAX package.
+  scalar body), counted by ``mha_qkv.launches`` and
+  ``mha_qkv.bwd_launches``; on a CPU tensor ``mha_qkv_reference`` and
+  ``mha_qkv_bwd_reference``. No path of the model dispatches it, as in the
+  JAX package.
 
 A CUDA tensor goes to a kernel or raises; there is no fallback.
 """
@@ -182,9 +182,10 @@ def mha3_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
 
 def mha3_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one backward block of the scalar body, K1b's
-    and K2b's in fp32 and K3b's (csrc/mha_common.cuh `bwd_smem_bytes`): two (L, hd)
-    tiles in the input dtype, rows padded by 16 bytes; max, sum and row per
-    query row; per warp two fp32 head rows and two fp32 rows of length L."""
+    and K2b's in fp32 and K3b's (csrc/mha_common.cuh `bwd_smem_bytes`): two
+    (L, hd) tiles in the input dtype, rows padded by 16 bytes; max, sum and
+    row per query row; per warp two fp32 head rows and two fp32 rows of
+    length L."""
     item = torch.empty((), dtype=dtype).element_size()
     pitch = head_dim + 16 // item
     warps = _THREADS // 32
