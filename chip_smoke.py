@@ -175,12 +175,13 @@ LEAF_TOL = 2.0 ** -6
 # The [train_grads_fp64] gate: ||g - g64|| / ||g64|| of the last decoder
 # block's qkv kernel gradient from K1b's unrounded fp32 outputs, against
 # K1's arithmetic in float64 (P and dS rounded to bf16 from their float64
-# values), on the whole leaf and on its q, k and v columns. Even the plain
-# version in fp32 misses 2**-17 there, since another fp32 order flips some
-# of the bf16 roundings of P and dS; so the limit is relative: the kernel
-# within K1_C_SOUND x the plain version's reading, and each control (dS or
-# P left in fp32) above K1_C_CONTROL x it on the columns it breaks (PERF.md
-# section 6).
+# values), on the whole leaf and on its q, k and v columns. Any fp32 order
+# flips some of those bf16 roundings, so what a sound version reads there
+# depends on the inputs, and a fixed limit does not sit between it and the
+# controls (on the step's own inputs dS left in fp32 reads under 2**-17 on
+# the q columns); so the limit is relative: the kernel within K1_C_SOUND x
+# the plain version's reading, and each control (dS or P left in fp32)
+# above K1_C_CONTROL x it on the columns it breaks (PERF.md section 6).
 K1_C_SOUND = 4.0
 K1_C_CONTROL = 16.0
 # The ViT-L finetune step (cli/finetune.py defaults, finetune.py:54-56):
