@@ -21,10 +21,13 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    take (``bound_ms``). The outputs of K1b, K2 and K3 are gated one by
    one, with the other family's rounding order on the same inputs (K2's
    for K1b, K1's for K2 and K3) as the control the gate must catch; the
-   rows of each tensor-core kernel (K1f, K1b, K2f, K2b, K3f) name its
+   rows of each tensor-core kernel (K1f, K1b, K2f, K2b, K3f, K3b) name its
    design; K1f, K1b, K2b, K3f and K3b must give the same bits on a second
-   launch, and K1b's and K2b's bf16 outputs must be their fp32 outputs
-   rounded.
+   launch, and K1b's, K2b's and K3b's bf16 outputs must be their fp32
+   outputs rounded. K3b's fp32 outputs are read against K2's arithmetic
+   in float64 on the same bytes (``k3b_fp64_gaps``), output by output,
+   beside the plain version in fp32 and K1's order: the kernel within
+   ``FP64_LEAF_TOL``, K1's order above it (``k3b_fp64_gate``).
 4. serving: a seeded random ``mae_vit_base_MsLdCeCd`` checkpoint (ViT-B
    width and depth, 128 px, bf16, ``attention_impl="pallas_v3"``) served by
    ``cli/serve.build_app`` over HTTP; concurrent ``/predict`` requests of 1,
@@ -296,14 +299,15 @@ def phase_device() -> str:
 # fails unless ptxas reports each of them, none spilling.
 TC_KERNELS = {"mha3_fwd_tc_kernel": 8, "mha_fwd_tc_kernel": 8, "mha2_fwd_tc_kernel": 8,
               # bf16 and fp32 outputs
-              "mha3_bwd_tc_kernel": 16, "mha_bwd_tc_kernel": 16}
+              "mha3_bwd_tc_kernel": 16, "mha_bwd_tc_kernel": 16, "mha2_bwd_tc_kernel": 16}
 # Each bf16 tensor-core kernel's design, with the header constant that gives
 # its bf16 terms of P (and dS).
 TC_DESIGNS = {"mha3_fwd": ("kK1SplitTerms", "plain-order fp32 FMA logits, mma.sync P V x{}"),
               "mha3_bwd": ("kK1SplitTerms", "mma.sync, P and dS in bf16 x{}, rounded slice adds"),
               "mha_fwd": ("kSplitTerms", "mma.sync split-bf16 x{}"),
               "mha_bwd": ("kSplitTerms", "mma.sync split-bf16 x{}, rounded slice adds"),
-              "mha2_fwd": ("kSplitTerms", "mma.sync split-bf16 x{}")}
+              "mha2_fwd": ("kSplitTerms", "mma.sync split-bf16 x{}"),
+              "mha2_bwd": ("kSplitTerms", "mma.sync split-bf16 x{}, rounded slice adds")}
 
 
 def tc_design(name: str) -> str:
@@ -617,12 +621,15 @@ def phase_kernel_k3(gen, report) -> None:
     """K3f and K3b against their plain versions on (N, L, 3H, hd) qkv (and
     (N, L, H, hd) dO), bf16, at every K3 shape, each output gated on its
     own with K1's order on the same bytes, seen as (N, L, 3D), as the
-    control. The bound counts K1's bytes and flops: the same tensors."""
+    control; K3b's bf16 outputs its fp32 outputs rounded, and those fp32
+    outputs against float64 (``k3b_fp64_gate``). The bound counts K1's
+    bytes and flops: the same tensors."""
     import torch.nn.functional as F
 
     from cross_scale_mae_torch.ops.attention import (
         _mha2_bwd_cuda,
         _mha2_fwd_cuda,
+        _qkv_heads,
         mha3_bwd_reference,
         mha_qkv_bwd_reference,
         mha_qkv_reference,
@@ -655,6 +662,11 @@ def phase_kernel_k3(gen, report) -> None:
               f"mha2_fwd {label}: a second launch gave other bits")
         check(torch.equal(_mha2_bwd_cuda(qkv, do, h), dqkv),
               f"mha2_bwd {label}: a second launch gave other bits")
+        check_rounded_tie(dqkv.split(h, dim=2), _mha2_bwd_cuda(
+            qkv, do, h, out_dtype=torch.float32).split(h, dim=2), f"mha2_bwd {label}")
+        fp64 = k3b_fp64_gaps(qkv, do, h, {"kernel": lambda *t: _qkv_heads(
+            _mha2_bwd_cuda(*t, out_dtype=torch.float32), h), **K3_FP64_VERSIONS})
+        k3b_fp64_gate(label, fp64)
         del got, dqkv, control, control_grads
 
         bound, bound_by = mha3_bound_ms(n, l, h, hd, 2)
@@ -674,8 +686,9 @@ def phase_kernel_k3(gen, report) -> None:
             graphs.append((F.scaled_dot_product_attention(*heads(leaf)), leaf, g.transpose(1, 2)))
         bound, bound_by = mha3_bwd_bound_ms(n, l, h, hd, 2)
         report("mha2_bwd", label, {
-            "shape": [n, l, h, hd], "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
-            "outputs": bwd,
+            "shape": [n, l, h, hd], "design": tc_design("mha2_bwd"),
+            "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+            "outputs": bwd, "fp64": fp64, "fp64_tol": FP64_LEAF_TOL,
             "kernel_ms": time_ms(lambda x: _mha2_bwd_cuda(*x, h), bufs),
             "plain_ms": time_ms(lambda x: mha_qkv_bwd_reference(*x, h), bufs),
             "library_ms": time_ms(lambda g: torch.autograd.grad(
@@ -1322,14 +1335,16 @@ def _gap_readings(g, g64, grads, ref) -> dict:
     """||g - g64|| / ||g64|| of a direct leaf (D_in, 3D) on the whole and on
     its q, k and v column thirds, and each output's (dq, dk, dv) relative L2
     gap to its float64 counterpart."""
-    def rel(a, b):
-        return (torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b)).item()
-
     d = g64.shape[1] // 3
-    return {"leaf": rel(g, g64),
-            **{c: rel(g[:, i * d:(i + 1) * d], g64[:, i * d:(i + 1) * d])
+    return {"leaf": _rel_l2(g, g64),
+            **{c: _rel_l2(g[:, i * d:(i + 1) * d], g64[:, i * d:(i + 1) * d])
                for i, c in enumerate("qkv")},
-            **{o: rel(t, r) for o, t, r in zip(("dq", "dk", "dv"), grads, ref)}}
+            **{o: _rel_l2(t, r) for o, t, r in zip(("dq", "dk", "dv"), grads, ref)}}
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b||, with b in float64."""
+    return (torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b)).item()
 
 
 def fp64_gaps(x, inputs, num_heads: int, versions: dict) -> dict:
@@ -1343,6 +1358,48 @@ def fp64_gaps(x, inputs, num_heads: int, versions: dict) -> dict:
         grads = fn(*inputs)
         readings[name] = _gap_readings(direct_leaf(x, grads, num_heads), g64, grads, ref)
     return readings
+
+
+def _k3_heads(qkv, do, num_heads: int) -> tuple:
+    """K3's (N, L, 3H, hd) qkv and (N, L, H, hd) dO as q, k, v and dO
+    (N, H, L, hd) views, the operands of ``k2_bwd_math``."""
+    from cross_scale_mae_torch.ops.attention import _qkv_heads
+
+    return (*_qkv_heads(qkv, num_heads), do.transpose(1, 2))
+
+
+# The versions the K3b [kernel] rows hold against float64, besides the
+# kernel: (qkv, dO, num_heads) -> (dq, dk, dv) as (N, H, L, hd), in fp32
+# and unrounded.
+K3_FP64_VERSIONS = {
+    "plain": lambda qkv, do, h: k2_bwd_math(*_k3_heads(qkv, do, h)),
+    "control_k1_order": lambda qkv, do, h: k2_bwd_math(*_k3_heads(qkv, do, h),
+                                                       round_p=True, round_ds=True),
+}
+
+
+def k3b_fp64_gaps(qkv, do, num_heads: int, versions: dict) -> dict:
+    """For each version: ||x - x64|| / ||x64|| of each output (dq, dk, dv)
+    against ``k2_bwd_math`` in float64 on the same bytes, K3b's own
+    arithmetic with nothing rounded before the outputs."""
+    ref = k2_bwd_math(*_k3_heads(qkv, do, num_heads), dtype=torch.float64)
+    return {name: {o: _rel_l2(t, r) for o, t, r in zip(("dq", "dk", "dv"),
+                                                       fn(qkv, do, num_heads), ref)}
+            for name, fn in versions.items()}
+
+
+def k3b_fp64_gate(label: str, readings: dict) -> None:
+    """The K3b [kernel] rows' float64 gate on ``k3b_fp64_gaps``' readings:
+    each of the kernel's fp32 outputs within FP64_LEAF_TOL, the limit
+    [finetune_grads_fp64] holds K2b's gradient to, and K1's rounding order
+    above it on each output, or the gate could not see that fault."""
+    for o in ("dq", "dk", "dv"):
+        check(readings["kernel"][o] <= FP64_LEAF_TOL,
+              f"mha2_bwd {label} {o} against float64: {readings['kernel'][o]}, "
+              f"limit {FP64_LEAF_TOL}")
+        check(readings["control_k1_order"][o] > FP64_LEAF_TOL,
+              f"mha2_bwd {label} {o}: K1's order stays within {FP64_LEAF_TOL} of "
+              f"float64: {readings['control_k1_order'][o]}")
 
 
 def phase_finetune_grads_fp64(card: str) -> None:
@@ -1845,6 +1902,7 @@ def main() -> int:
             "source": f"cross_scale_mae_torch/csrc/{name}.cu", "replaces": line,
             "case": case, "shape": row["shape"],
             "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+            "design": row["design"],
             "max_abs_err": row["max_abs_err"],
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -2,8 +2,8 @@
 // Hopper (sm_90a): mha3_fwd.cu and mha3_bwd.cu (K1, the raw qkv projection
 // layout), mha_fwd.cu and mha_bwd.cu (K2, head-folded q, k, v) and
 // mha2_fwd.cu and mha2_bwd.cu (K3, the (N, L, 3H, hd) layout: K1's bytes with K2's
-// numerics). They run every kernel's fp32 inputs and K3b's bf16 inputs;
-// the other bf16 inputs run the tensor-core bodies of mha_tc.cuh. Each
+// numerics). They run every kernel's fp32 inputs; the bf16 inputs run the
+// tensor-core bodies of mha_tc.cuh. Each
 // kernel is a thin __global__ function that finds its
 // (sample, head)'s base pointers and row strides and calls one body below;
 // the bodies differ between K1 and K2/K3 only in `kRound`, the two

@@ -1,11 +1,11 @@
 // The tensor-core bodies of the bf16 attention kernels, for Hopper
 // (sm_90a): the forward of K1 (mha3_fwd.cu), K2 (mha_fwd.cu) and K3
-// (mha2_fwd.cu), and the backward of K1 (mha3_bwd.cu) and K2 (mha_bwd.cu).
-// fp32 inputs keep the scalar bodies of mha_common.cuh (attend_fwd,
-// attend_bwd), as does K3's backward.
+// (mha2_fwd.cu), and the backward of K1 (mha3_bwd.cu), K2 (mha_bwd.cu) and
+// K3 (mha2_bwd.cu). fp32 inputs keep the scalar bodies of mha_common.cuh
+// (attend_fwd, attend_bwd).
 //
 // Replaces, for bf16, the Pallas kernels `_mha3_kernel`, `_mha3_bwd_kernel`,
-// `_mha_kernel`, `_mha_bwd_kernel` and `_mha2_kernel` of
+// `_mha_kernel`, `_mha_bwd_kernel`, `_mha2_kernel` and `_mha2_bwd_kernel` of
 // cross_scale_mae_tpu/ops/attention.py: the logits fp32 sums scaled after
 // the dot, an fp32 softmax; K2 and K3 keep P (and in the backward dS) in
 // fp32, K1 rounds P to bf16 before P V (and in the backward before dV, and
@@ -63,9 +63,9 @@
 // at a time: S^T = k q^T and dP^T = v dO^T, P^T from pass A's stats with
 // the same arithmetic, dS^T, then dV += P^T dO and dK += dS^T Q, P and dS
 // split or rounded as in pass A, each 16-row slice's product added with
-// round-to-nearest (K1b's one-sweep kernel at HD >= 64: dV and dK in a
-// loop each, kOneAcc). Only the accumulators of a pass and one tile of P
-// and dP live in registers.
+// round-to-nearest (K1b's and K3b's one-sweep kernels at HD >= 64: dV
+// and dK in a loop each, kOneAcc). Only the accumulators of a pass and
+// one tile of P and dP live in registers.
 // Shared memory: four (L, HD + 8) bf16 tiles and three fp32 rows, 190 KB
 // at L = 257, HD = 80. The output type is a parameter: bf16 for the
 // training path, fp32 for the accuracy checks of chip_smoke.py, which hold
@@ -590,7 +590,14 @@ __device__ __forceinline__ void key_tile(float (&p)[1][2][4], float (&ds)[1][2][
 // round to another bf16 value than pass A's: dK and dV then use a P one
 // bf16 ulp from dQ's. chip_smoke.py's [train_grads_fp64] holds the result
 // against float64, which absorbs that.
-template <int HD, bool kSingle, bool kK1, typename TO>
+//
+// kOneAcc: pass B takes dV and dK in a loop each, the second recomputing
+// P^T with the same arithmetic, so that one accumulator lives at a time:
+// the same bits with fewer registers. K1b's and K2b's kernels take the
+// default; K3b's set it for their one-sweep kernel at HD >= 64
+// (mha2_bwd.cu says why).
+template <int HD, bool kSingle, bool kK1, typename TO,
+          bool kOneAcc = kK1 && kSingle && HD >= 64>
 __device__ __forceinline__ void attend_bwd_tc(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
                                               const bf16* __restrict__ v, size_t in_stride,
@@ -676,10 +683,8 @@ __device__ __forceinline__ void attend_bwd_tc(const bf16* __restrict__ q,
   // one-sweep kernel is held to 128 registers (mha3_bwd.cu); at HD >= 64
   // its two accumulators do not fit them beside a tile's products (pass B
   // alone then needs more, and spilled under the cap), so there dV and dK
-  // take a loop each, the second recomputing P^T with the same arithmetic:
-  // the same bits, no spill at HD = 64, a few percent more time at the
-  // encoder's shape (PERF.md section 6).
-  constexpr bool kOneAcc = kK1 && kSingle && HD >= 64;
+  // take a loop each (kOneAcc): the same bits, no spill at HD = 64, a few
+  // percent more time at the encoder's shape (PERF.md section 6).
   for (int jt = threadIdx.x >> 5; jt < ntiles; jt += warps) {
     const int j0 = jt * 16;
     if constexpr (kOneAcc) {

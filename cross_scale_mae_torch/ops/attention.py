@@ -28,10 +28,10 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   (N, L, 3H, hd) layout, q heads at [0, H), k at [H, 2H), v at [2H, 3H),
   returns (N, L, H, hd) with K2's numerics. ``_MhaQkv`` saves only qkv, as
   ``_mha2_cvjp_fwd`` does, and its backward returns dqkv in the qkv layout.
-  On a CUDA tensor ``csrc/mha2_fwd.cu`` (``_mha2_kernel``; for bf16 K2f's
-  tensor-core body) and ``csrc/mha2_bwd.cu`` (``_mha2_bwd_kernel``, the
-  scalar body), counted by ``mha_qkv.launches`` and
-  ``mha_qkv.bwd_launches``; on a CPU tensor ``mha_qkv_reference`` and
+  On a CUDA tensor ``csrc/mha2_fwd.cu`` (``_mha2_kernel``) and
+  ``csrc/mha2_bwd.cu`` (``_mha2_bwd_kernel``), for bf16 each on K2's
+  tensor-core body (``csrc/mha_tc.cuh``) on K1's rows, counted by
+  ``mha_qkv.launches`` and ``mha_qkv.bwd_launches``; on a CPU tensor ``mha_qkv_reference`` and
   ``mha_qkv_bwd_reference``. No path of the model dispatches it, as in the
   JAX package.
 
@@ -181,8 +181,8 @@ def mha3_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
 
 
 def mha3_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one backward block of the scalar body, K1b's
-    and K2b's in fp32 and K3b's (csrc/mha_common.cuh `bwd_smem_bytes`): two
+    """Dynamic shared memory of one backward block of the scalar body, K1b's,
+    K2b's and K3b's in fp32 (csrc/mha_common.cuh `bwd_smem_bytes`): two
     (L, hd) tiles in the input dtype, rows padded by 16 bytes; max, sum and
     row per query row; per warp two fp32 head rows and two fp32 rows of
     length L."""
@@ -385,7 +385,7 @@ def _mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
 
 
 def mha_bwd_smem_bytes(seq_len: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K1b or K2b block. bf16: the tensor-core body
+    """Dynamic shared memory of one K1b, K2b or K3b block. bf16: the tensor-core body
     (csrc/mha_tc.cuh `tc_bwd_smem_bytes`), q, k, v and dO as (L padded to
     16, hd + 8) bf16 tiles and three fp32 rows of the padded length; fp32:
     the scalar body (:func:`mha3_bwd_smem_bytes`)."""
@@ -485,10 +485,10 @@ mha.bwd_launches = 0
 # at D + g*hd. Its numerics are K2's: fp32 operands, P and dS never rounded,
 # each output rounded once (attention.py:192-238).
 
-# K3f runs K1f's and K2f's forward bodies (the tensor-core one for bf16),
-# K3b the scalar backward body for every dtype.
+# K3f runs K1f's and K2f's forward bodies, K3b K1b's and K2b's backward
+# bodies: the tensor-core ones for bf16, the scalar ones for fp32.
 mha2_smem_bytes = mha_smem_bytes
-mha2_bwd_smem_bytes = mha3_bwd_smem_bytes
+mha2_bwd_smem_bytes = mha_bwd_smem_bytes
 
 
 def _qkv_heads(qkv: torch.Tensor, num_heads: int) -> tuple[torch.Tensor, ...]:
@@ -548,9 +548,14 @@ def _mha2_fwd_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
-def _mha2_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """K3b: ``csrc/mha2_bwd.cu``, the backward body without K1's rounding,
-    dqkv written in the qkv layout."""
+def _mha2_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """K3b: ``csrc/mha2_bwd.cu``, K2b's tensor-core body on K1's rows for
+    bf16 and the scalar body without K1's rounding for fp32
+    (:func:`mha_bwd_smem_bytes`), dqkv written in the qkv layout.
+    ``out_dtype=torch.float32`` writes the kernel's fp32 sums before their
+    rounding to the input dtype (``csmae_mha2_bwd_f32``), for accuracy
+    checks."""
     n, l, d, hd = _check_qkv4(qkv, num_heads, mha2_bwd_smem_bytes)
     if do.shape != (n, l, num_heads, hd) or do.dtype != qkv.dtype or do.device != qkv.device:
         raise ValueError(
@@ -558,13 +563,17 @@ def _mha2_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch
             f"{qkv.device}, got {do.dtype} {tuple(do.shape)} on {do.device}")
     if not do.is_contiguous() or do.data_ptr() % 16:
         raise ValueError("mha_qkv backward kernel needs a contiguous, 16-byte aligned dO")
+    out_dtype = out_dtype or qkv.dtype
+    if out_dtype not in (qkv.dtype, torch.float32):
+        raise TypeError(f"mha_qkv backward kernel writes {qkv.dtype} or float32, not {out_dtype}")
     from cross_scale_mae_torch.ops.cuda_build import load_library
 
-    fn = load_library("mha2_bwd").csmae_mha2_bwd
+    lib = load_library("mha2_bwd")
+    fn = lib.csmae_mha2_bwd if out_dtype == qkv.dtype else lib.csmae_mha2_bwd_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty_like(qkv)
+    out = torch.empty_like(qkv, dtype=out_dtype)
     if n == 0 or l == 0:
         return out
     with torch.cuda.device(qkv.device):

@@ -483,6 +483,37 @@ def test_k3f_runs_k2fs_tc_body_on_k1s_rows_for_bf16():
         port_attn._mha2_fwd_cuda(torch.zeros(1, 500, 6, 80, dtype=torch.bfloat16), 2)
 
 
+def test_k3b_runs_the_tc_backward_body_on_k1s_rows_for_bf16():
+    """K3b launches mha_tc.cuh's backward body for bf16 with K2's numerics
+    (no kK1: three bf16 terms of P and dS) on K1's rows, 3D apart in qkv
+    and dqkv and D apart in dO, sized by tc_bwd_smem_bytes, with an
+    fp32-output entry; fp32 keeps the scalar body. Its wrapper, and
+    mha_qkv's refusal before the forward, check the tensor-core layout for
+    bf16 and the scalar one for fp32."""
+    import inspect
+
+    k3b = (CSRC / "mha2_bwd.cu").read_text()
+    assert "tc::tc_bwd_smem_bytes<HD>(L)" in k3b
+    assert ("attend_bwd_tc<HD, kSingle, /*kK1=*/false, TO, /*kOneAcc=*/" in k3b
+            and "q, q + D, q + 2 * D, 3 * D, dout + size_t(n) * L * D + size_t(h) * HD, D, "
+                "dq, dq + D,\n      dq + 2 * D, 3 * D, L, scale);" in k3b)
+    assert 'extern "C" int csmae_mha2_bwd_f32(' in k3b
+    assert "launch(mha2_bwd_kernel<T, HD>, bwd_smem_bytes<T, HD>(L)" in k3b
+    for fn in (port_attn._mha2_bwd_cuda, port_attn.pallas_mha_qkv):
+        assert "_check_qkv4(qkv, num_heads, mha2_bwd_smem_bytes)" in inspect.getsource(fn)
+    assert port_attn.mha2_bwd_smem_bytes is port_attn.mha_bwd_smem_bytes
+    # 400 tokens of width 80: the scalar bf16 layout would fit a block, the
+    # tensor-core one does not, and the wrapper refuses before launch.
+    assert port_attn.mha3_bwd_smem_bytes(400, 80, torch.bfloat16) <= port_attn.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        port_attn._mha2_bwd_cuda(torch.zeros(1, 400, 6, 80, dtype=torch.bfloat16),
+                                 torch.zeros(1, 400, 2, 80, dtype=torch.bfloat16), 2)
+    with pytest.raises(TypeError, match="float32, not torch.float16"):
+        port_attn._mha2_bwd_cuda(torch.zeros(1, 4, 6, 32, dtype=torch.bfloat16),
+                                 torch.zeros(1, 4, 2, 32, dtype=torch.bfloat16), 2,
+                                 out_dtype=torch.float16)
+
+
 # ---------------------------------------------------------------- K3 (v2)
 #
 # The port's mha_qkv (its plain versions on the CPU) against the JAX
@@ -599,17 +630,22 @@ def test_mha_qkv_bwd_wrapper_validates_do_before_launch(make, match):
 
 
 def test_mha_qkv_shared_memory_is_k1s():
-    """K3 runs K1's forward bodies on K1's rows (the tensor-core one for
-    bf16, the scalar one for fp32), so K3f's blocks need K1f's shared
-    memory; K3b runs the scalar backward body for every dtype. Every head
-    width fits at up to 257 tokens."""
+    """K3 runs K1's bodies on K1's rows (the tensor-core ones for bf16,
+    the scalar ones for fp32), so K3f's blocks need K1f's shared memory and
+    K3b's K1b's and K2b's: the tensor-core layout for bf16, the scalar one
+    for fp32. Every head width fits at up to 257 tokens."""
     for l, hd, dt in [(65, 64, torch.bfloat16), (257, 80, torch.float32),
                       (17, 16, torch.bfloat16), (65, 32, torch.float32)]:
         assert port_attn.mha2_smem_bytes(l, hd, dt) == port_attn.mha_smem_bytes(l, hd, dt)
         assert (port_attn.mha2_bwd_smem_bytes(l, hd, dt)
-                == port_attn.mha3_bwd_smem_bytes(l, hd, dt))
+                == port_attn.mha_bwd_smem_bytes(l, hd, dt))
+        if dt == torch.float32:
+            assert (port_attn.mha2_bwd_smem_bytes(l, hd, dt)
+                    == port_attn.mha3_bwd_smem_bytes(l, hd, dt))
     rows = -(-65 // 16) * 16
     assert port_attn.mha2_smem_bytes(65, 64, torch.bfloat16) == 3 * rows * 72 * 2
+    assert (port_attn.mha2_bwd_smem_bytes(65, 64, torch.bfloat16)
+            == 4 * rows * 72 * 2 + 3 * rows * 4)
     for hd in port_attn.KERNEL_HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             port_attn._check_qkv4(torch.zeros(2, 257, 6, hd, dtype=dt), 2,
@@ -650,9 +686,11 @@ def test_chip_smoke_reads_spills_from_ptxas_output():
     assert chip_smoke.tc_design("mha3_bwd") == (
         f"mma.sync, P and dS in bf16 x{K1_SPLIT_TERMS}, rounded slice adds")
     assert chip_smoke.tc_design("mha2_fwd") == f"mma.sync split-bf16 x{SPLIT_TERMS}"
+    assert chip_smoke.tc_design("mha2_bwd") == (
+        f"mma.sync split-bf16 x{SPLIT_TERMS}, rounded slice adds")
     # 4 head widths x one sweep or several, x bf16 or fp32 outputs for the
-    # two backward kernels: 3 x 8 + 2 x 16 = 56 instantiations.
-    assert sum(chip_smoke.TC_KERNELS.values()) == 56
+    # three backward kernels: 3 x 8 + 3 x 16 = 72 instantiations.
+    assert sum(chip_smoke.TC_KERNELS.values()) == 72
     for symbol, name in [
             ("_ZN12_GLOBAL__N_117mha_fwd_tc_kernelILi64ELb1EEEvPK13__nv_bfloat16S3_S3_PS1_if",
              "mha_fwd_tc_kernel"),
@@ -662,6 +700,9 @@ def test_chip_smoke_reads_spills_from_ptxas_output():
              "13__nv_bfloat16EEvPKS1_S3_PT1_iif", "mha3_bwd_tc_kernel"),
             ("_ZN44_GLOBAL__N__5cc1bdea_11_mha2_fwd_cu_b8b0eda518mha2_fwd_tc_kernelILi64ELb0EEEv"
              "PK13__nv_bfloat16PS1_iif", "mha2_fwd_tc_kernel"),
+            ("_ZN44_GLOBAL__N__7d2e1f3a_11_mha2_bwd_cu_0c1d2e3f18mha2_bwd_tc_kernelILi80ELb1EfEEv"
+             "PK13__nv_bfloat16S3_PT1_iif", "mha2_bwd_tc_kernel"),
+            ("_ZN12_GLOBAL__N_115mha2_bwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_PS2_iif", None),
             ("_ZN12_GLOBAL__N_115mha2_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iif", None),
             ("_ZN12_GLOBAL__N_115mha3_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iif", None)]:
         assert chip_smoke.tc_instance(symbol) == name
@@ -673,6 +714,9 @@ def test_chip_smoke_reads_spills_from_ptxas_output():
         "__nv_bfloat16S3_S3_S3_PT1_S5_S5_if") == "mha_bwd_tc_kernel<80,0,f32>"
     assert chip_smoke.tc_label("_ZN12_GLOBAL__N_117mha_fwd_tc_kernelILi64ELb1EEEvPK13__nv_bfloat16"
                                "S3_S3_PS1_if") == "mha_fwd_tc_kernel<64,1>"
+    assert chip_smoke.tc_label(
+        "_ZN44_GLOBAL__N__7d2e1f3a_11_mha2_bwd_cu_0c1d2e3f18mha2_bwd_tc_kernelILi80ELb1EfEEv"
+        "PK13__nv_bfloat16S3_PT1_iif") == "mha2_bwd_tc_kernel<80,1,f32>"
 
 
 def test_chip_smoke_fp64_direct_leaf_separates_plain_from_k1_order(tmp_path):
@@ -765,3 +809,32 @@ def test_chip_smoke_k1_bwd_math_rounded_is_its_plain_version(shape):
     k2 = chip_smoke.k1_bwd_math(qkv, do, h, round_p=False, round_ds=False).bfloat16()
     k3 = port_attn.mha_qkv_bwd_reference(qkv.view(n, l, 3 * h, hd), do.view(n, l, h, hd), h)
     assert torch.equal(k2, k3.reshape(n, l, 3 * h * hd))
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 3, 16), (2, 65, 4, 32)])
+def test_chip_smoke_k3b_fp64_reading_separates_plain_from_k1_order(shape):
+    """chip_smoke.py's float64 reading of K3b's outputs on the CPU, at small
+    K3 shapes: dq, dk and dv of K2's arithmetic in fp32 (the plain version,
+    here in the kernel's place) each within FP64_LEAF_TOL of the same
+    arithmetic in float64 on the same bytes, K1's rounding order above it
+    on each; the gate passes on the sound side and refuses K1's order put
+    in the kernel's place. The fp32 plain version rounded is
+    mha_qkv_bwd_reference bit for bit."""
+    chip_smoke = _chip_smoke()
+    n, l, h, hd = shape
+    rng = np.random.default_rng(37)
+    qkv = torch.from_numpy(rng.normal(size=(n, l, 3 * h, hd)).astype(np.float32)).bfloat16()
+    do = torch.from_numpy(rng.normal(size=(n, l, h, hd)).astype(np.float32)).bfloat16()
+    versions = chip_smoke.K3_FP64_VERSIONS
+    plain = versions["plain"](qkv, do, h)
+    assert all(t.dtype == torch.float32 and t.shape == (n, h, l, hd) for t in plain)
+    assert torch.equal(torch.cat([t.transpose(1, 2).bfloat16() for t in plain], dim=2),
+                       port_attn.mha_qkv_bwd_reference(qkv, do, h))
+    readings = chip_smoke.k3b_fp64_gaps(qkv, do, h, {"kernel": versions["plain"], **versions})
+    tol = chip_smoke.FP64_LEAF_TOL
+    assert tol == 2.0 ** -17
+    chip_smoke.k3b_fp64_gate("cpu", readings)
+    for o in ("dq", "dk", "dv"):
+        assert readings["plain"][o] <= tol < readings["control_k1_order"][o], (o, readings)
+    with pytest.raises(AssertionError, match="against float64"):
+        chip_smoke.k3b_fp64_gate("cpu", {**readings, "kernel": readings["control_k1_order"]})

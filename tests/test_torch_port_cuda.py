@@ -376,6 +376,34 @@ def test_cuda_k3f_bf16_kernel_at_ragged_edges(cuda_device, l, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l", RAGGED_L)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_k3b_bf16_kernel_at_ragged_edges(cuda_device, l, hd):
+    """The bf16 K3b (K2b's tensor-core backward body on rows 3D apart in
+    qkv and dqkv, D apart in dO), 5 samples of 7 heads, against
+    mha_qkv_bwd_reference: each of dq, dk and dv within one bf16 ulp and
+    within K2_MEAN_TOL in mean, with K1's order above K2_MEAN_TOL; its bf16
+    outputs its fp32 outputs rounded, bit for bit; and a second launch
+    gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    h = 7
+    qkv = torch.randn(5, l, 3 * h, hd, device=cuda_device, generator=gen).bfloat16()
+    do = torch.randn(5, l, h, hd, device=cuda_device, generator=gen).bfloat16()
+    got = port_attn._mha2_bwd_cuda(qkv, do, h)
+    f32 = port_attn._mha2_bwd_cuda(qkv, do, h, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert f32.dtype == torch.float32 and torch.equal(got, f32.bfloat16())
+    ref = port_attn.mha_qkv_bwd_reference(qkv, do, h).float()
+    control = port_attn.mha3_bwd_reference(qkv.view(5, l, 3 * h * hd), do.view(5, l, h * hd),
+                                           h).view(5, l, 3 * h, hd)
+    for name, a, r, c in zip(("dq", "dk", "dv"), got.split(h, dim=2), ref.split(h, dim=2),
+                             control.split(h, dim=2)):
+        assert (a.float() - r).abs().max().item() <= _tol(r, torch.bfloat16), name
+        assert _rel_mean(a, r) <= K2_MEAN_TOL < _rel_mean(c, r), name
+    assert torch.equal(port_attn._mha2_bwd_cuda(qkv, do, h), got)
+
+
+@pytest.mark.cuda
 def test_cuda_mha_qkv_trains_through_both_kernels(cuda_device):
     """One autograd step of mha_qkv through K3f and K3b against autograd of
     the plain version, fp32 at the decoder's shape: 1e-5 of the largest
