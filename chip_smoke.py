@@ -629,8 +629,6 @@ def phase_kernel_k3(gen, report) -> None:
     from cross_scale_mae_torch.ops.attention import (
         _mha2_bwd_cuda,
         _mha2_fwd_cuda,
-        _qkv_heads,
-        mha3_bwd_reference,
         mha_qkv_bwd_reference,
         mha_qkv_reference,
         mha_v3_reference,
@@ -647,27 +645,15 @@ def phase_kernel_k3(gen, report) -> None:
             # q, k and v as (N, H, L, hd) views, the layout SDPA takes.
             return [t.transpose(1, 2) for t in qkv4.split(h, dim=2)]
 
-        got, dqkv = _mha2_fwd_cuda(qkv, h), _mha2_bwd_cuda(qkv, do, h)
+        got = _mha2_fwd_cuda(qkv, h)
         torch.cuda.synchronize()
         control = mha_v3_reference(qkv.view(n, l, 3 * d), h).view(n, l, h, hd)
-        control_grads = mha3_bwd_reference(qkv.view(n, l, 3 * d), do.view(n, l, d), h)
         fwd = {"out": _output_errors(got, mha_qkv_reference(qkv, h), control)}
-        bwd = {name: _output_errors(a, r, c) for name, a, r, c in zip(
-            ("dq", "dk", "dv"), dqkv.split(h, dim=2),
-            mha_qkv_bwd_reference(qkv, do, h).split(h, dim=2),
-            control_grads.view(n, l, 3 * h, hd).split(h, dim=2))}
         _gate_outputs("mha2_fwd", label, fwd)
-        _gate_outputs("mha2_bwd", label, bwd)
         check(torch.equal(_mha2_fwd_cuda(qkv, h), got),
               f"mha2_fwd {label}: a second launch gave other bits")
-        check(torch.equal(_mha2_bwd_cuda(qkv, do, h), dqkv),
-              f"mha2_bwd {label}: a second launch gave other bits")
-        check_rounded_tie(dqkv.split(h, dim=2), _mha2_bwd_cuda(
-            qkv, do, h, out_dtype=torch.float32).split(h, dim=2), f"mha2_bwd {label}")
-        fp64 = k3b_fp64_gaps(qkv, do, h, {"kernel": lambda *t: _qkv_heads(
-            _mha2_bwd_cuda(*t, out_dtype=torch.float32), h), **K3_FP64_VERSIONS})
-        k3b_fp64_gate(label, fp64)
-        del got, dqkv, control, control_grads
+        _, bwd, fp64 = k3b_gates(label, qkv, do, h)
+        del got, control
 
         bound, bound_by = mha3_bound_ms(n, l, h, hd, 2)
         report("mha2_fwd", label, {
@@ -696,6 +682,40 @@ def phase_kernel_k3(gen, report) -> None:
             "bound_ms": bound, "bound_by": bound_by,
         })
         del bufs, graphs
+
+
+def k3b_gates(label: str, qkv, do, num_heads: int) -> tuple:
+    """K3b's [kernel] gates on bf16 qkv (N, L, 3H, hd) and dO (N, L, H,
+    hd): each output against ``mha_qkv_bwd_reference`` (``_gate_outputs``,
+    K1's order on the same bytes, seen as (N, L, 3D), the control), a
+    second launch's bits, the bf16 outputs the fp32 outputs rounded, and
+    the fp32 outputs against float64 (``k3b_fp64_gate``). Returns dqkv and
+    the per-output and float64 readings."""
+    from cross_scale_mae_torch.ops.attention import (
+        _mha2_bwd_cuda,
+        _qkv_heads,
+        mha3_bwd_reference,
+        mha_qkv_bwd_reference,
+    )
+
+    n, l, three_h, hd = qkv.shape
+    h = num_heads
+    dqkv = _mha2_bwd_cuda(qkv, do, h)
+    torch.cuda.synchronize()
+    control = mha3_bwd_reference(qkv.view(n, l, three_h * hd), do.view(n, l, h * hd), h)
+    bwd = {name: _output_errors(a, r, c) for name, a, r, c in zip(
+        ("dq", "dk", "dv"), dqkv.split(h, dim=2),
+        mha_qkv_bwd_reference(qkv, do, h).split(h, dim=2),
+        control.view(qkv.shape).split(h, dim=2))}
+    _gate_outputs("mha2_bwd", label, bwd)
+    check(torch.equal(_mha2_bwd_cuda(qkv, do, h), dqkv),
+          f"mha2_bwd {label}: a second launch gave other bits")
+    check_rounded_tie(dqkv.split(h, dim=2), _mha2_bwd_cuda(
+        qkv, do, h, out_dtype=torch.float32).split(h, dim=2), f"mha2_bwd {label}")
+    fp64 = k3b_fp64_gaps(qkv, do, h, {"kernel": lambda *t: _qkv_heads(
+        _mha2_bwd_cuda(*t, out_dtype=torch.float32), h), **K3_FP64_VERSIONS})
+    k3b_fp64_gate(label, fp64)
+    return dqkv, bwd, fp64
 
 
 def _post_npy(url: str, arr: np.ndarray) -> np.ndarray:

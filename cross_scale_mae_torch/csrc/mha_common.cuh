@@ -3,9 +3,9 @@
 // layout), mha_fwd.cu and mha_bwd.cu (K2, head-folded q, k, v) and
 // mha2_fwd.cu and mha2_bwd.cu (K3, the (N, L, 3H, hd) layout: K1's bytes with K2's
 // numerics). They run every kernel's fp32 inputs; the bf16 inputs run the
-// tensor-core bodies of mha_tc.cuh. Each
-// kernel is a thin __global__ function that finds its
-// (sample, head)'s base pointers and row strides and calls one body below;
+// tensor-core bodies of mha_tc.cuh. Each kernel is a thin __global__
+// function that finds its (sample, head)'s base pointers and row strides
+// and calls one body below;
 // the bodies differ between K1 and K2/K3 only in `kRound`, the two
 // roundings to the input type that K1's Pallas kernels make and the others
 // do not (P before the PV and dV products, dS before the dQ and dK

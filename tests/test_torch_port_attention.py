@@ -838,3 +838,36 @@ def test_chip_smoke_k3b_fp64_reading_separates_plain_from_k1_order(shape):
         assert readings["plain"][o] <= tol < readings["control_k1_order"][o], (o, readings)
     with pytest.raises(AssertionError, match="against float64"):
         chip_smoke.k3b_fp64_gate("cpu", {**readings, "kernel": readings["control_k1_order"]})
+
+
+def _k3b_stand_in(math):
+    """A CPU stand-in for ``_mha2_bwd_cuda`` from one of chip_smoke's K3b
+    versions: its fp32 (dq, dk, dv) written in the qkv layout, rounded to
+    the input dtype unless ``out_dtype`` asks for fp32."""
+    def bwd(qkv, do, num_heads, out_dtype=None):
+        grads = math(qkv, do, num_heads)
+        return torch.cat([g.transpose(1, 2) for g in grads], dim=2).to(out_dtype or qkv.dtype)
+    return bwd
+
+
+def test_chip_smoke_k3b_gates_pass_plain_and_refuse_k1_order(monkeypatch):
+    """chip_smoke.py's K3b [kernel] gates (k3b_gates) rehearsed on the CPU,
+    with the card's wrapper replaced by a stand-in: K2's arithmetic in fp32,
+    its bf16 outputs rounded from its fp32 ones, passes every gate (one
+    ulp, mean, second launch, rounded tie, float64); K1's order in its
+    place is refused."""
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(41)
+    qkv = torch.from_numpy(rng.normal(size=(2, 17, 9, 16)).astype(np.float32)).bfloat16()
+    do = torch.from_numpy(rng.normal(size=(2, 17, 3, 16)).astype(np.float32)).bfloat16()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    versions = chip_smoke.K3_FP64_VERSIONS
+    monkeypatch.setattr(port_attn, "_mha2_bwd_cuda", _k3b_stand_in(versions["plain"]))
+    dqkv, outputs, fp64 = chip_smoke.k3b_gates("cpu", qkv, do, 3)
+    assert torch.equal(dqkv, port_attn.mha_qkv_bwd_reference(qkv, do, 3))
+    assert all(r["rel_mean_err"] == 0.0 for r in outputs.values())
+    assert set(fp64) == {"kernel", *versions}
+    monkeypatch.setattr(port_attn, "_mha2_bwd_cuda",
+                        _k3b_stand_in(versions["control_k1_order"]))
+    with pytest.raises(AssertionError, match="mean abs err"):
+        chip_smoke.k3b_gates("cpu", qkv, do, 3)

@@ -81,24 +81,6 @@ def build(root: Path) -> dict:
     return libs
 
 
-def gates(label: str, qkv, do, h: int) -> dict:
-    """chip_smoke.py's K3b gates on the loaded library; returns the readings."""
-    n, l, three_h, hd = qkv.shape
-    got = A._mha2_bwd_cuda(qkv, do, h)
-    control = A.mha3_bwd_reference(qkv.view(n, l, three_h * hd), do.view(n, l, h * hd), h)
-    bwd = {o: cs._output_errors(a, r, c) for o, a, r, c in zip(
-        ("dq", "dk", "dv"), got.split(h, dim=2), A.mha_qkv_bwd_reference(qkv, do, h).split(
-            h, dim=2), control.view(qkv.shape).split(h, dim=2))}
-    cs._gate_outputs("mha2_bwd", label, bwd)
-    cs.check(torch.equal(A._mha2_bwd_cuda(qkv, do, h), got), f"{label}: second launch")
-    cs.check_rounded_tie(got.split(h, dim=2), A._mha2_bwd_cuda(
-        qkv, do, h, out_dtype=torch.float32).split(h, dim=2), label)
-    fp64 = cs.k3b_fp64_gaps(qkv, do, h, {"kernel": lambda *t: A._qkv_heads(
-        A._mha2_bwd_cuda(*t, out_dtype=torch.float32), h), **cs.K3_FP64_VERSIONS})
-    cs.k3b_fp64_gate(label, fp64)
-    return {"got": got, "outputs": bwd, "fp64": fp64["kernel"]}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("k3b_register_variants: no CUDA device", file=sys.stderr)
@@ -113,13 +95,13 @@ def main() -> int:
         first = None
         for name, lib in libs.items():
             cuda_build._loaded["mha2_bwd"] = lib
-            r = gates(label, *bufs[0], h)
-            first = r["got"] if first is None else first
+            got, outputs, fp64 = cs.k3b_gates(label, *bufs[0], h)
+            first = got if first is None else first
             print("row", json.dumps({
                 "variant": name, "case": label, "shape": [n, l, h, hd], "card": card,
-                "bits_equal_committed": torch.equal(first, r["got"]),
+                "bits_equal_committed": torch.equal(first, got),
                 "ms": [cs.time_ms(lambda x: A._mha2_bwd_cuda(*x, h), bufs) for _ in range(2)],
-                "outputs": r["outputs"], "fp64": r["fp64"]}), flush=True)
+                "outputs": outputs, "fp64": fp64["kernel"]}), flush=True)
         del bufs, first
     cuda_build._loaded.pop("mha2_bwd")
     return 0
