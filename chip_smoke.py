@@ -61,7 +61,18 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    the bf16 kernel against its plain version (the ``[kernel]`` gate, K2's
    order as the control) and its bf16 outputs equal to its fp32 outputs
    rounded.
-8. finetune: ``cli/finetune.main`` finetunes ViT-L (``vit_large_patch16``,
+8. ddp: the data-parallel path (``parallel/``) at world size 1: a
+   one-rank NCCL group joined through ``parallel/dist.py``, then
+   ``cli/pretrain.main`` trains the flagship step in ``--ddp_mode gspmd``
+   and in ``shard_map`` (every loss finite and falling, 20 forward and 20
+   backward K1 launches per step); one step from the same weights and
+   draws through each mode and twice through the single-process step, the
+   DP params held to the single step's (no farther from it than its own
+   repeat: bit-equal when the step is deterministic, since at world size 1
+   every collective is an identity); the steps timed in turns (the gspmd
+   step within 2% of the single one, medians of ``DDP_ROUNDS`` rounds), and
+   the NCCL kernels' device ms from a torch.profiler window.
+9. finetune: ``cli/finetune.main`` finetunes ViT-L (``vit_large_patch16``,
    64 px, patch 8, 62 classes, batch 512, bf16, ``attention_impl="pallas"``,
    tanh GELU, drop_path 0.1, smoothing 0.1, layer decay 0.75) for 10 steps
    over five synthetic batches and evaluates (the last eval batch ragged),
@@ -75,8 +86,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    against K2b's plain version, every leaf gated with head 0's dV zeroed as
    the control the gate must catch; the last block's qkv kernel (the
    direct leaf, one K2b launch) printed beside ``FT_DIRECT_TOL`` and a
-   dS-rounded control, no longer gating (phase 9 holds it).
-9. finetune_grads_fp64: the same weights and draws; the last block's K2b
+   dS-rounded control, no longer gating (phase 10 holds it).
+10. finetune_grads_fp64: the same weights and draws; the last block's K2b
    inputs (q, k, v, dO) and that block's qkv-projection input X captured in
    one step. The direct leaf, g = X^T (dq | dk | dv), in float64 from
    fp32 gradients left unrounded: the kernel's (its fp32-output entry), the
@@ -87,7 +98,7 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    the whole leaf. On the same inputs, the bf16 kernel against its plain
    version (the ``[kernel]`` gate, K1's order as the control) and its bf16
    outputs equal to its fp32 outputs rounded.
-10. linprobe: ``cli/linprobe.main`` at the linprobe.sh settings (ViT-B/16 at
+11. linprobe: ``cli/linprobe.main`` at the linprobe.sh settings (ViT-B/16 at
    full width and depth, 128 px, the cls-token head behind the BN head,
    batch 1024, LARS with blr 0.1, bf16, ``attention_impl`` resolved to
    ``pallas_v3``) from the ``[train]`` phase's params.npz, over NAIP
@@ -142,6 +153,10 @@ ROUNDS = 4
 TRAIN_BATCH = 384
 TRAIN_STEPS = 16
 ATTN_PER_STEP = 20
+# The [ddp] phase: steps of each cli/pretrain.main run at world size 1, and
+# rounds of the step timing in turns.
+DDP_STEPS = 8
+DDP_ROUNDS = 4
 # The kernels' shapes: (N, L, H, hd); "linprobe" is the ViT-B probe's batch
 # of 1024, train steps and padded eval batches alike. The JSON line reports the forward at
 # the serving shape and the backward at the decoder's training shape, the
@@ -1094,7 +1109,7 @@ def phase_train_grads_fp64(card: str) -> None:
     _gate_outputs("mha3_bwd", "step_inputs", step)
 
 
-def _train_argv(tmp: str, impl: str):
+def _train_argv(tmp: str, impl: str, *extra: str):
     from cross_scale_mae_torch.cli.pretrain import get_args_parser
 
     return get_args_parser().parse_args([
@@ -1105,7 +1120,7 @@ def _train_argv(tmp: str, impl: str):
         "--warmup_epochs", "0", "--epochs", "100000",
         "--compute_dtype", "bfloat16", "--attention_impl", impl, "--gelu", "tanh",
         "--max_steps", str(TRAIN_STEPS), "--log_interval", "5", "--seed", "0",
-        "--device", "cuda", "--output_dir", tmp])
+        "--device", "cuda", "--output_dir", tmp, *extra])
 
 
 def phase_train(card: str, keep_npz: str) -> tuple[int, int]:
@@ -1225,6 +1240,125 @@ def phase_train(card: str, keep_npz: str) -> tuple[int, int]:
         device_ms_per_step=json.dumps({k: v / reps for k, v in kinds.items()}),
         device_idle_share=(1 - busy / reps / ((k1 + k2) / 2)) if busy else "not measured")
     return fwd, bwd
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _param_gap(a, b) -> float:
+    """The largest |a - b| over every parameter of two runs' states."""
+    from cross_scale_mae_torch.train.state import tree_leaves
+
+    with torch.no_grad():
+        return max(float((x - y).abs().max()) for x, y in zip(
+            tree_leaves(a.state.params), tree_leaves(b.state.params)))
+
+
+def phase_ddp(card: str) -> tuple[int, int]:
+    """The flagship pretrain step through the data-parallel path at world
+    size 1 over NCCL; returns the K1 kernels' (forward, backward) launches
+    of its two ``cli/pretrain.main`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cross_scale_mae_torch.cli.pretrain import build_run
+    from cross_scale_mae_torch.cli.pretrain import main as pretrain_main
+    from cross_scale_mae_torch.ops.attention import mha_v3
+    from cross_scale_mae_torch.parallel import dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # The single-process runs first: no flags, no group.
+        singles = [build_run(_train_argv(tmp, "pallas_v3")) for _ in range(2)]
+        address = f"localhost:{_free_port()}"
+        group = ("--coordinator_address", address, "--num_processes", "1", "--process_id", "0")
+        rt = dist.initialize_distributed(address, 1, 0, "cuda")
+        backend = torch.distributed.get_backend()
+        check(rt.distributed and rt.world_size == 1 and rt.device == torch.device("cuda", 0)
+              and backend == "nccl", f"runtime {rt}, backend {backend}")
+        runs, launches = {}, {}
+        try:
+            for mode in ("gspmd", "shard_map"):
+                argv = _train_argv(tmp, "pallas_v3", "--ddp_mode", mode, *group,
+                                   "--max_steps", str(DDP_STEPS))
+                mha_v3.launches = mha_v3.bwd_launches = 0
+                result = pretrain_main(argv)
+                launches[mode] = (mha_v3.launches, mha_v3.bwd_launches)
+                losses = result["losses"]
+                check(result["steps"] == DDP_STEPS and result["world_size"] == 1,
+                      f"{mode}: {result['steps']} steps at world size {result['world_size']}")
+                check(all(math.isfinite(v) for v in losses), f"{mode}: non-finite loss {losses}")
+                check(losses[-1] < losses[0], f"{mode}: loss did not fall: {losses}")
+                check(launches[mode] == (ATTN_PER_STEP * DDP_STEPS,) * 2,
+                      f"{mode}: K1 launches {launches[mode]} != {ATTN_PER_STEP} x {DDP_STEPS}")
+                log("ddp_run", card=json.dumps(card), ddp_mode=mode, steps=DDP_STEPS,
+                    loss_first=losses[0], loss_last=losses[-1],
+                    launches_fwd=launches[mode][0], launches_bwd=launches[mode][1],
+                    ms_per_step=result["steady_ms_per_step"], imgs_per_s=result["imgs_per_s"])
+                torch.cuda.empty_cache()
+                runs[mode] = build_run(_train_argv(tmp, "pallas_v3", "--ddp_mode", mode, *group))
+                check(runs[mode].ddp_mode == mode, f"{mode} run has ddp_mode {runs[mode].ddp_mode}")
+
+            # One step from the same weights and draws: the single-process
+            # step twice (its run-to-run spread), and each DP mode. At world
+            # size 1 every collective is an identity, so the DP step is the
+            # single step's arithmetic: its params must be as close to the
+            # single step's as the single step's repeat is (bit-equal when
+            # the step is deterministic).
+            everyone = [*singles, *runs.values()]
+            check(all(_param_gap(r, singles[0]) == 0.0 for r in everyone),
+                  "the runs did not start from the same weights")
+            draws = singles[0].draws(0)
+            for r in everyone:
+                r.step_fn(r.state, r.images, draws)
+            spread = _param_gap(singles[1], singles[0])
+            gaps = {mode: _param_gap(r, singles[0]) for mode, r in runs.items()}
+            check(all(g <= spread for g in gaps.values()),
+                  f"DP params vs the single step: {gaps}, the single step's repeat {spread}")
+
+            def step_ms(run, reps=3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    run.step_fn(run.state, run.images, run.draws(run.state.step))
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / reps * 1e3
+
+            # In turns: single, gspmd, shard_map, shard_map, gspmd, single,
+            # DDP_ROUNDS times; the medians compared.
+            times = {"single": [], "gspmd": [], "shard_map": []}
+            order = [("single", singles[0]), ("gspmd", runs["gspmd"]),
+                     ("shard_map", runs["shard_map"])]
+            for _ in range(DDP_ROUNDS):
+                for name, run in order + order[::-1]:
+                    times[name].append(step_ms(run))
+            med = {k: float(np.median(v)) for k, v in times.items()}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step_ms(runs["gspmd"], reps=1)
+            nccl = {}
+            busy = 0.0
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    busy += e.self_device_time_total / 1e3 / 3
+                    if "nccl" in e.key.lower():
+                        nccl[e.key] = e.self_device_time_total / 1e3 / 3
+        finally:
+            dist.shutdown()
+        del singles, runs, everyone
+        torch.cuda.empty_cache()
+    ratio = med["gspmd"] / med["single"]
+    log("ddp", card=json.dumps(card), world_size=1, backend=backend,
+        params_gap_to_single=json.dumps(gaps), single_repeat_gap=spread,
+        bit_equal=json.dumps({m: g == 0.0 for m, g in gaps.items()}),
+        step_ms_median=json.dumps(med), step_ms=json.dumps(times),
+        gspmd_over_single=ratio, shard_map_over_single=med["shard_map"] / med["single"],
+        nccl_device_ms_per_step=json.dumps(nccl), device_busy_ms_per_step=busy)
+    check(ratio <= 1.02, f"the DP step {med['gspmd']} ms against the single {med['single']} ms")
+    return tuple(sum(v[i] for v in launches.values()) for i in (0, 1))
 
 
 def _ft_argv(tmp: str, impl: str, images: int, steps: int):
@@ -1900,11 +2034,14 @@ def main() -> int:
         npz = os.path.join(work, "pretrain.npz")
         train_fwd, train_bwd = phase_train(card, npz)
         phase_train_grads_fp64(card)
+        ddp_fwd, ddp_bwd = phase_ddp(card)
         ft_fwd, ft_bwd = phase_finetune(card)
         phase_finetune_grads_fp64(card)
         lp_fwd = phase_linprobe(card, npz)
-    by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "linprobe": lp_fwd},
-               "mha3_bwd": {"serving": 0, "train": train_bwd, "linprobe": 0},
+    by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "train_ddp": ddp_fwd,
+                            "linprobe": lp_fwd},
+               "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
+                            "linprobe": 0},
                "mha_fwd": {"finetune": ft_fwd}, "mha_bwd": {"finetune": ft_bwd},
                "mha2_fwd": {}, "mha2_bwd": {}}
     replaces = {"mha3_fwd": "cross_scale_mae_tpu/ops/attention.py:326",

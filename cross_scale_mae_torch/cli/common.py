@@ -1,7 +1,8 @@
 """What the port's CLIs share (counterpart of
 ``cross_scale_mae_tpu/cli/common.py``): the data and runtime flags, the
-reference-compat flags and their resolution, the attention choice, the
-loader factory, run names, and the refusal of flags not ported yet."""
+reference-compat flags and their resolution, the process runtime (one
+process per GPU, ``parallel/dist.py``), the attention choice, the loader
+factory, run names, and the refusal of flags not ported yet."""
 
 from __future__ import annotations
 
@@ -9,19 +10,25 @@ import argparse
 import os
 from typing import Any
 
+import numpy as np
 import torch
 
 from cross_scale_mae_torch.data.datasets import UNPORTED_DATASETS, Dataset
 from cross_scale_mae_torch.data.loader import DataLoader
+from cross_scale_mae_torch.parallel.dist import Runtime, initialize_distributed
+from cross_scale_mae_torch.utils.logging import rank0_print
 
 # Runtime flags of the JAX CLIs that the port parses but does not run yet:
-# flag -> ROADMAP.md queue 1 item (9 checkpoints and resume, 11 DDP/TP/SP,
-# 16 logging and profiling).
+# flag -> ROADMAP.md queue 1 item (9 checkpoints and resume, 11 the mesh
+# beyond its data axis: TP, SP, FSDP and multi-slice layouts, 16 logging,
+# profiling and JAX's own platform pin, whose port counterpart is --device).
 UNPORTED_RUNTIME = {
     "resume": 9, "model_parallel": 11, "sequence_parallel": 11, "fsdp": 11,
-    "coordinator_address": 11, "num_processes": 11, "process_id": 11,
-    "use_tensorboard": 16, "use_wandb": 16, "profile_dir": 16,
+    "num_slices": 11, "use_tensorboard": 16, "use_wandb": 16, "wandb_project": 16,
+    "wandb_entity": 16, "profile_dir": 16, "jax_platforms": 16,
 }
+# A flag's value that means "off" where it is not None or False.
+_OFF = {"num_slices": 1}
 
 
 def add_runtime_args(p: argparse.ArgumentParser) -> None:
@@ -42,12 +49,25 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--gelu", default="tanh", choices=["tanh", "exact", "exact_tanhbwd"])
     g.add_argument("--compute_dtype", default="bfloat16")
     g.add_argument("--device", default="cuda",
-                   help="torch device the run uses (cuda, cuda:1, cpu)")
+                   help="torch device the run uses (cuda, cuda:1, cpu); with a process "
+                        "group a bare cuda is this rank's card, cuda:LOCAL_RANK")
+    g.add_argument("--remat", action="store_true",
+                   help="a layout knob of the JAX package (jax.checkpoint); the port "
+                        "runs the same loop for every setting")
+    d = p.add_argument_group("data parallel: one process per GPU (parallel/dist.py); "
+                             "or launch with torchrun")
+    d.add_argument("--coordinator_address", default=None,
+                   help="host:port of rank 0's rendezvous (tcp://)")
+    d.add_argument("--num_processes", default=None, type=int, help="the world size")
+    d.add_argument("--process_id", default=None, type=int, help="this process's rank")
+    n = p.add_argument_group("runtime, JAX-only and accepted as not applicable")
+    n.add_argument("--log_dir", default=None)
+    n.add_argument("--device_batch_dtype", default=None)
     u = p.add_argument_group("runtime, not ported yet (ROADMAP.md)")
-    for flag in ("resume", "coordinator_address", "profile_dir"):
+    for flag in ("resume", "profile_dir", "jax_platforms", "wandb_project", "wandb_entity"):
         u.add_argument(f"--{flag}", default=None)
-    for flag in ("model_parallel", "num_processes", "process_id"):
-        u.add_argument(f"--{flag}", default=None, type=int)
+    u.add_argument("--model_parallel", default=None, type=int)
+    u.add_argument("--num_slices", default=1, type=int)
     for flag in ("sequence_parallel", "fsdp", "use_tensorboard", "use_wandb"):
         u.add_argument(f"--{flag}", action="store_true")
 
@@ -77,10 +97,11 @@ def add_data_args(p: argparse.ArgumentParser, pretrain: bool,
 
 
 def add_reference_compat_args(p: argparse.ArgumentParser, role: str) -> None:
-    """The reference launcher flags of the classifier CLIs that the JAX
-    package accepts (docs/MIGRATION.md): --output_dir_base and the linear
-    probe's --loss carry meaning; the rest are accepted and reported as not
-    applicable. (--device is a runtime flag of the port.)"""
+    """The reference launcher flags that the JAX package accepts
+    (docs/MIGRATION.md): --output_dir_base, --start_epoch, pretraining's
+    --attn_name and --ffn_name and the linear probe's --loss carry meaning;
+    the rest are accepted and reported as not applicable, as the JAX
+    package reports them. (--device is a runtime flag of the port.)"""
     g = p.add_argument_group("reference compat")
     g.add_argument("--output_dir_base", default=None,
                    help="prepended to --output_dir (main_pretrain.py:467)")
@@ -88,19 +109,26 @@ def add_reference_compat_args(p: argparse.ArgumentParser, role: str) -> None:
     g.add_argument("--wandb_id", default=None)
     g.add_argument("--pin_mem", action="store_true", dest="_compat_pin_mem")
     g.add_argument("--no_pin_mem", action="store_true", dest="_compat_no_pin_mem")
-    g.add_argument("--world_size", default=None, type=int)
+    g.add_argument("--world_size", default=None, type=int,
+                   help="not applicable: use --num_processes or torchrun")
     g.add_argument("--local_rank", default=None, type=int)
     g.add_argument("--dist_url", default=None)
     g.add_argument("--dist_on_itp", action="store_true")
-    g.add_argument("--model_type", default=None)
-    g.add_argument("--transform_checkpoint_keys", action="store_true")
-    g.add_argument("--dist_eval", action="store_true")
-    g.add_argument("--use_psa", action="store_true")
+    if role == "pretrain":
+        g.add_argument("--attn_name", default=None, help="alias of --attention (train.sh:41)")
+        g.add_argument("--ffn_name", default="MLP",
+                       help="only MLP is supported (MAE_ViT_Baseline.py:69)")
+    else:
+        g.add_argument("--model_type", default=None)
+        g.add_argument("--transform_checkpoint_keys", action="store_true")
+        g.add_argument("--dist_eval", action="store_true")
+        g.add_argument("--use_psa", action="store_true")
     if role == "linprobe":
         g.add_argument("--loss", default="classification_cross",
                        help="must be classification_cross (main_linprobe.py:562-565)")
-        g.add_argument("--use_xformers", action="store_true")
         g.add_argument("--norm_pix_loss", action="store_true")
+    if role in ("pretrain", "linprobe"):
+        g.add_argument("--use_xformers", action="store_true")
         g.add_argument("--print_level", default=None, type=int)
         g.add_argument("--spatial_mask", action="store_true")
 
@@ -108,19 +136,30 @@ def add_reference_compat_args(p: argparse.ArgumentParser, role: str) -> None:
 def apply_reference_compat(args, role: str) -> None:
     """Resolve the compat flags in place (cli/common.py:293-362 of the JAX
     package): --output_dir_base, the short dataset names, the loaderless
-    dataset types, and the linear probe's --loss."""
+    dataset types, pretraining's --attn_name and --ffn_name, and the linear
+    probe's --loss; report the flags that do not apply."""
     if getattr(args, "output_dir_base", None):
         args.output_dir = os.path.join(args.output_dir_base, args.output_dir)
     aliases = {"rgb": "fmow_rgb", "sentinel": "fmow_sentinel"}
     if args.dataset_type in aliases:
-        print(f"--dataset_type {args.dataset_type}: reference classifier-CLI short name, "
-              f"resolved to {aliases[args.dataset_type]}", flush=True)
+        rank0_print(f"--dataset_type {args.dataset_type}: reference classifier-CLI short "
+                    f"name, resolved to {aliases[args.dataset_type]}")
         args.dataset_type = aliases[args.dataset_type]
     elif args.dataset_type in ("smart", "spacenetv1", "resisc45"):
         raise ValueError(
             f"--dataset_type {args.dataset_type} is declared by the reference's "
             "classifier parsers but has no loader there either (build_fmow_dataset "
             "raises 'Invalid dataset type'); no data format to be compatible with")
+    attn_name = getattr(args, "attn_name", None)
+    if attn_name is not None:
+        if attn_name != "scaled_dot_product":
+            raise SystemExit(
+                f"--attn_name {attn_name}: the attention variants are not ported yet; "
+                "see ROADMAP.md (queue 1 item 13)")
+        args.attention = attn_name
+    if getattr(args, "ffn_name", "MLP") != "MLP":
+        # The reference's own assert (MAE_ViT_Baseline.py:69-70).
+        raise ValueError(f"Feedforward {args.ffn_name} not supported: only MLP")
     if role == "linprobe" and args.loss != "classification_cross":
         raise ValueError("Only classification_cross is supported (main_linprobe.py:562-565)")
     flags = {"pin_mem": "_compat_pin_mem", "no_pin_mem": "_compat_no_pin_mem",
@@ -129,11 +168,15 @@ def apply_reference_compat(args, role: str) -> None:
              "transform_checkpoint_keys": "transform_checkpoint_keys",
              "dist_eval": "dist_eval", "use_psa": "use_psa", "use_xformers": "use_xformers",
              "norm_pix_loss": "norm_pix_loss", "print_level": "print_level",
-             "spatial_mask": "spatial_mask"}
-    ignored = [f for f, attr in flags.items() if getattr(args, attr, None) not in (None, False)]
+             "spatial_mask": "spatial_mask", "log_dir": "log_dir",
+             "device_batch_dtype": "device_batch_dtype"}
+    if role != "linprobe":
+        flags.pop("norm_pix_loss")   # a loss flag of pretraining
+    ignored = [f for f, attr in flags.items()
+               if getattr(args, attr, None) is not None and getattr(args, attr) is not False]
     if ignored:
-        print("reference-compat flags accepted but not applicable here: "
-              + ", ".join(f"--{n}" for n in ignored) + " (see docs/MIGRATION.md)", flush=True)
+        rank0_print("reference-compat flags accepted but not applicable here: "
+                    + ", ".join(f"--{n}" for n in ignored) + " (see docs/MIGRATION.md)")
 
 
 def refuse_unported(args, flags: dict[str, int]) -> None:
@@ -141,7 +184,8 @@ def refuse_unported(args, flags: dict[str, int]) -> None:
     (flag -> queue 1 item) that is set, or for a dataset family the port
     does not read yet."""
     for flag, item in flags.items():
-        if getattr(args, flag, None) not in (None, False):
+        value = getattr(args, flag, None)
+        if value is not None and value is not False and value != _OFF.get(flag):
             raise SystemExit(f"--{flag} is not ported yet; see ROADMAP.md (queue 1 item {item})")
     if args.dataset_type in UNPORTED_DATASETS:
         raise SystemExit(
@@ -160,12 +204,31 @@ def resolve_attention(args, device: torch.device) -> str:
     return args.attention_impl
 
 
-def make_loader(args, dataset: Dataset, batch_size: int, *, is_train: bool = True,
-                seed: int = 0) -> DataLoader:
-    """Shuffled with drop_last for training, in order and whole for eval;
-    one shard of one until DDP lands (ROADMAP.md, queue 1 item 11)."""
+def setup_runtime(args) -> Runtime:
+    """This process's runtime (counterpart of the JAX package's
+    ``setup_runtime``): the process group that --coordinator_address,
+    --num_processes and --process_id or the torchrun environment name, on
+    NCCL for --device cuda (this rank's card) and gloo for --device cpu;
+    without them one process and no group. numpy is seeded per rank (JAX
+    cli/common.py:162), and --batch_size, the global batch, must split
+    evenly over the ranks."""
+    rt = initialize_distributed(args.coordinator_address, args.num_processes,
+                                args.process_id, args.device)
+    if args.batch_size % rt.world_size:
+        raise SystemExit(f"--batch_size {args.batch_size} does not split over "
+                         f"{rt.world_size} processes")
+    np.random.seed(args.seed + rt.rank)
+    return rt
+
+
+def make_loader(args, dataset: Dataset, batch_size: int, rt: Runtime, *,
+                is_train: bool = True, seed: int = 0) -> DataLoader:
+    """``batch_size`` rows per rank from this rank's strided shard of the
+    epoch order (the JAX loader's ``shard_id``/``num_shards``); shuffled
+    with drop_last for training, in order and whole for eval."""
     return DataLoader(dataset, batch_size, shuffle=is_train, seed=seed, drop_last=is_train,
-                      num_threads=max(2, args.num_workers), shard_id=0, num_shards=1)
+                      num_threads=max(2, args.num_workers), shard_id=rt.rank,
+                      num_shards=rt.world_size)
 
 
 def encode_run_name(**config: Any) -> str:

@@ -18,10 +18,12 @@ on the device), or ``fmow_rgb``, ``coco`` or ``naip`` with ``--train_path``
 and ``--test_path``, read by ``data/loader.DataLoader`` and moved by
 ``device_prefetch`` (NAIP adds the rot90 augmentation). At the end the
 params are written as the JAX package's npz (``<output_dir>/params.npz``).
-Mixup/CutMix, RandAugment, color jitter, random erasing, the TIFF and
-temporal datasets, resume, DDP and TP/SP, the Adam moment dtypes, Orbax
-and ``.pth`` checkpoints are not ported yet and refuse with a pointer to
-ROADMAP.md.
+Data parallel as ``cli/pretrain``: one process per GPU, in the JAX jit's
+global-batch semantics; ``--batch_size`` is the global batch, and every
+rank reports the global eval. Mixup/CutMix, RandAugment, color jitter,
+random erasing, the TIFF and temporal datasets, resume, TP/SP/FSDP, the
+Adam moment dtypes, Orbax and ``.pth`` checkpoints are not ported yet and
+refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.finetune --finetune pretrain/params.npz \\
@@ -30,6 +32,8 @@ Usage:
         --embed_dim 128 --depth 4 --num_heads 8 --input_size 32 --patch_size 8 \\
         --batch_size 4 --synthetic_len 8 --max_steps 2 --device cpu \\
         --output_dir out                                                  # CPU
+    torchrun --nproc_per_node 4 -m cross_scale_mae_torch.cli.finetune \\
+        --finetune pretrain/params.npz --output_dir out                  # 4 GPUs
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from cross_scale_mae_torch.cli.common import (
     apply_reference_compat,
     make_loader,
     refuse_unported,
+    setup_runtime,
 )
 from cross_scale_mae_torch.configs import (
     MAEConfig,
@@ -66,7 +71,8 @@ from cross_scale_mae_torch.data.datasets import (
 from cross_scale_mae_torch.data.loader import DataLoader, device_prefetch
 from cross_scale_mae_torch.models.vit import trunc_normal, vit_init
 from cross_scale_mae_torch.ops.augment import make_eval_preprocess, make_finetune_augment
-from cross_scale_mae_torch.serving import resolve_device
+from cross_scale_mae_torch.parallel.dist import Runtime, barrier, shutdown
+from cross_scale_mae_torch.parallel.mesh import all_reduce_total, broadcast_params
 from cross_scale_mae_torch.train.classify import (
     make_classify_train_step,
     make_eval_step,
@@ -77,6 +83,7 @@ from cross_scale_mae_torch.train.pretrain import _step_rng
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, finite_loss, tree_leaves
 from cross_scale_mae_torch.utils.checkpoint import load_flat_npz, read_config_json, save_params_npz
+from cross_scale_mae_torch.utils.logging import rank0_print
 from cross_scale_mae_torch.utils.metrics import ConfusionMatrix, MetricLogger
 from cross_scale_mae_torch.utils.params import (
     mae_encoder_to_classifier,
@@ -174,17 +181,18 @@ def load_pretrained_encoder(path: str, vcfg: ViTClassifierConfig, params: dict,
     mae_params = params_from_jax(load_flat_npz(path), mae_cfg, device)
     pre, missing = mae_encoder_to_classifier(mae_params, vcfg)
     if pre["patch_embed"]["kernel"].shape != params["patch_embed"]["kernel"].shape:
-        print("patch_embed shape mismatch; keeping fresh init", flush=True)
+        rank0_print("patch_embed shape mismatch; keeping fresh init")
         pre.pop("patch_embed")
     merged = merge_pretrained(params, pre)
-    print(f"loaded pretrained encoder from {path}; fresh: {missing}", flush=True)
+    rank0_print(f"loaded pretrained encoder from {path}; fresh: {missing}")
     return merged
 
 
 @dataclasses.dataclass
 class FinetuneRun:
     """Everything one run's loop needs, built by :func:`build_run`: the
-    synthetic sets on the device, or the real ones behind loaders."""
+    synthetic sets on the device, or the real ones behind loaders (this
+    rank's shards)."""
 
     cfg: ViTClassifierConfig
     tcfg: TrainConfig
@@ -192,7 +200,7 @@ class FinetuneRun:
     step_fn: Callable
     eval_fn: Callable
     steps_per_epoch: int
-    device: torch.device
+    rt: Runtime                                 # this process's rank, world and device
     canvas: int                                 # the train canvas the crops are drawn on
     rot90: bool = False                         # the NAIP rotations
     images: Optional[torch.Tensor] = None       # synthetic train set, uint8 on the device
@@ -202,15 +210,21 @@ class FinetuneRun:
     train_loader: Optional[DataLoader] = None   # a real dataset's
     eval_loader: Optional[DataLoader] = None
 
+    @property
+    def device(self) -> torch.device:
+        return self.rt.device
+
     def draws(self, step: int) -> list:
-        """The draws of ``step``: one set per microbatch, on the device."""
+        """The draws of ``step``, this rank's rows of the global batch's: one
+        set per microbatch, on the device."""
         gen = _step_rng(self.tcfg, self.tcfg.seed + 1, step, self.device)
         return [sample_finetune_draws(gen, self.tcfg.batch_size, self.cfg, self.canvas,
-                                      self.rot90)
+                                      self.rot90).shard(self.rt.rank, self.rt.world_size)
                 for _ in range(self.tcfg.accum_iter)]
 
     def train_batches(self, epoch: int) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
-        """The epoch's (uint8 images, int64 labels) step batches on the device."""
+        """The epoch's (uint8 images, int64 labels) step batches on the
+        device, this rank's rows (rank::world of each global batch)."""
         if self.train_loader is not None:
             for imgs, labels in device_prefetch(self.train_loader.epoch(epoch), self.device):
                 yield imgs, labels.long()
@@ -220,20 +234,26 @@ class FinetuneRun:
                                generator=torch.Generator(device=self.device)
                                .manual_seed(self.tcfg.seed * 1_000_003 + epoch))
         for it in range(self.steps_per_epoch):
-            idx = order[it * batch:(it + 1) * batch]
+            idx = order[it * batch:(it + 1) * batch][self.rt.rank::self.rt.world_size]
             yield self.images[idx], self.labels[idx]
 
     def eval_batches(self, batch_size: int) -> Iterable:
-        """The eval set in order, in batches of ``batch_size`` (the last one
-        ragged): host batches from the loader, or device slices."""
+        """This rank's shard of the eval set in order (rank::world), in
+        batches of ``batch_size`` (the last one ragged), then batches of no
+        sample up to the largest shard's count: host batches from the
+        loader, or device slices."""
         if self.eval_loader is not None:
-            return self.eval_loader.epoch(0)
-        return ((self.eval_images[i:i + batch_size], self.eval_labels[i:i + batch_size])
-                for i in range(0, len(self.eval_labels), batch_size))
+            return self.eval_loader.padded_epoch(0)
+        rank, world = self.rt.rank, self.rt.world_size
+        images, labels = self.eval_images[rank::world], self.eval_labels[rank::world]
+        largest = -(-len(self.eval_labels) // world)
+        return ((images[i:i + batch_size], labels[i:i + batch_size])
+                for i in range(0, largest, batch_size))
 
 
-def classifier_datasets(args, train_batch: int, eval_batch: int):
-    """(train loader, eval loader) of a real dataset: the train canvas at
+def classifier_datasets(args, train_batch: int, eval_batch: int, rt: Runtime):
+    """(train loader, eval loader) of a real dataset, this rank's shards of
+    ``train_batch`` and ``eval_batch`` rows: the train canvas at
     ``--canvas_scale``, the eval canvas at 1/0.875 of the input size
     (util/datasets.py:140-148); shuffled with drop_last for training, in
     order and whole for eval."""
@@ -246,21 +266,23 @@ def classifier_datasets(args, train_batch: int, eval_batch: int):
                             canvas_scale=1.0 / 0.875 if args.input_size <= 224 else 1.0,
                             **{**common, "synthetic_len": max(args.synthetic_len // 4, 64)},
                             **syn)
-    return (make_loader(args, train_ds, train_batch, seed=args.seed),
-            make_loader(args, eval_ds, eval_batch, is_train=False, seed=args.seed))
+    return (make_loader(args, train_ds, train_batch, rt, seed=args.seed),
+            make_loader(args, eval_ds, eval_batch, rt, is_train=False, seed=args.seed))
 
 
 def build_run(args) -> FinetuneRun:
     """Config, data, seeded init (and the pretrained encoder), AdamW with
     layer decay, and the train and eval steps, on ``args.device``."""
     check_args(args)
-    dev = resolve_device(args.device)
+    rt = setup_runtime(args)
+    dev = rt.device
     eff_batch = args.batch_size * args.accum_iter
     data: dict[str, Any] = {}
     if args.dataset_type == "synthetic":
         num_classes = args.nb_classes
     else:
-        train_loader, eval_loader = classifier_datasets(args, eff_batch, args.batch_size)
+        train_loader, eval_loader = classifier_datasets(
+            args, eff_batch // rt.world_size, args.batch_size // rt.world_size, rt)
         data = {"train_loader": train_loader, "eval_loader": eval_loader}
         num_classes = args.nb_classes or train_loader.dataset.num_classes
     overrides = {k: v for k, v in dict(embed_dim=args.embed_dim, depth=args.depth,
@@ -303,6 +325,7 @@ def build_run(args) -> FinetuneRun:
         params["head"]["kernel"] = trunc_normal(
             torch.Generator(device=dev).manual_seed(args.seed + 2),
             tuple(params["head"]["kernel"].shape), 2e-5)
+    broadcast_params([params, mstate])
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay, b1=0.9, b2=0.999,
                          clip_grad=args.clip_grad, layer_decay=args.layer_decay,
                          depth=vcfg.depth, no_decay_names=("pos_embed", "cls_token"))
@@ -315,26 +338,29 @@ def build_run(args) -> FinetuneRun:
     augment = make_finetune_augment(mean, std, args.input_size, rot90=rot90,
                                     dtype=args.compute_dtype)
     preprocess = make_eval_preprocess(mean, std, args.input_size, dtype=args.compute_dtype)
-    print(f"finetune {args.model}: {n_train} train / {n_eval} eval, "
-          f"{vcfg.num_classes} classes, lr {lr:.3e}, layer_decay {args.layer_decay}",
-          flush=True)
+    rank0_print(f"finetune {args.model}: {n_train} train / {n_eval} eval, "
+                f"{vcfg.num_classes} classes, lr {lr:.3e}, layer_decay {args.layer_decay}")
     return FinetuneRun(vcfg, tcfg, state,
-                       make_classify_train_step(vcfg, tcfg, schedule, augment=augment),
-                       make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, dev,
+                       make_classify_train_step(vcfg, tcfg, schedule, augment=augment,
+                                                data_parallel=rt.distributed),
+                       make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
                        canvas, rot90, **data)
 
 
 def evaluate(eval_fn: Callable, state: TrainState, batches: Iterable, num_classes: int,
-             batch_size: int, device: torch.device) -> tuple[dict, int]:
+             batch_size: int, device: torch.device, distributed: bool = False
+             ) -> tuple[dict, int]:
     """One pass over ``batches``, (images, labels) pairs on the host (numpy)
     or on the device, each moved to ``device`` and a short one padded with
     zero images to ``batch_size`` under a validity mask
-    (engine_finetune.py:127-236). Returns (loss, acc1, acc5, macro/micro F1
-    and mIoU in percent, the valid count ``n`` and the confusion matrix
-    ``cm``), and the number of batches."""
-    cm = ConfusionMatrix(num_classes)
-    sums = {"loss": 0.0, "acc1": 0.0, "acc5": 0.0}
-    count, n_batches = 0.0, 0
+    (engine_finetune.py:127-236). ``distributed``: the sums and the
+    confusion matrix are summed over the ranks, so every rank returns the
+    global stats. Returns (loss, acc1, acc5, macro/micro F1 and mIoU in
+    percent, the valid count ``n`` and the confusion matrix ``cm``), and the
+    number of batches this rank ran."""
+    cm = torch.zeros((num_classes, num_classes), dtype=torch.float64, device=device)
+    sums = torch.zeros(4, dtype=torch.float64, device=device)   # loss, acc1, acc5, n
+    n_batches = 0
     for imgs, labels in batches:
         imgs = torch.as_tensor(imgs, device=device)
         labels = torch.as_tensor(labels, device=device).long()
@@ -345,23 +371,28 @@ def evaluate(eval_fn: Callable, state: TrainState, batches: Iterable, num_classe
             labels = torch.cat([labels, labels.new_zeros(pad)])
         valid = torch.arange(batch_size, device=device) < n
         out = eval_fn(state.params, state.model_state, imgs, labels, valid)
-        cm.mat += out["cm"].double().round().long().cpu().numpy()
-        n_valid = float(out["n"])
-        for k in sums:
-            sums[k] += float(out[k]) * n_valid
-        count += n_valid
+        cm += out["cm"].double()
+        sums += torch.stack([out["loss"], out["acc1"], out["acc5"], torch.ones_like(out["n"])]
+                            ).double() * out["n"].double()
         n_batches += 1
+    if distributed:
+        all_reduce_total([cm, sums])
+    mat = ConfusionMatrix(num_classes)
+    mat.mat = cm.round().long().cpu().numpy()
+    loss, acc1, acc5, count = sums.tolist()
     count = max(count, 1.0)
-    return {"loss": sums["loss"] / count, "acc1": 100.0 * sums["acc1"] / count,
-            "acc5": 100.0 * sums["acc5"] / count, "macro_f1": 100.0 * cm.f1("macro"),
-            "micro_f1": 100.0 * cm.f1("micro"), "miou": 100.0 * cm.miou(),
-            "n": int(cm.mat.sum()), "cm": cm.mat}, n_batches
+    return {"loss": loss / count, "acc1": 100.0 * acc1 / count,
+            "acc5": 100.0 * acc5 / count, "macro_f1": 100.0 * mat.f1("macro"),
+            "micro_f1": 100.0 * mat.f1("micro"), "miou": 100.0 * mat.miou(),
+            "n": int(mat.mat.sum()), "cm": mat.mat}, n_batches
 
 
 def evaluate_run(run: FinetuneRun, batch_size: int) -> tuple[dict, int]:
-    """:func:`evaluate` over the run's eval set."""
-    return evaluate(run.eval_fn, run.state, run.eval_batches(batch_size),
-                    run.cfg.num_classes, batch_size, run.device)
+    """:func:`evaluate` over the run's eval set, ``batch_size`` the global
+    eval batch (each rank runs its 1/world of it)."""
+    local = batch_size // run.rt.world_size
+    return evaluate(run.eval_fn, run.state, run.eval_batches(local), run.cfg.num_classes,
+                    local, run.device, run.rt.distributed)
 
 
 def fit(run: FinetuneRun, args,
@@ -405,7 +436,7 @@ def fit(run: FinetuneRun, args,
             if (total - 1) % args.log_interval == 0:
                 last_metrics = {k: float(v) for k, v in metrics.items()}
                 mlog.update(**last_metrics)
-                print(f"epoch {epoch} step {total} {mlog}", flush=True)
+                rank0_print(f"epoch {epoch} step {total} {mlog}")
             if args.max_steps and total >= args.max_steps:
                 break
         if timed:
@@ -417,7 +448,7 @@ def fit(run: FinetuneRun, args,
             stats, n = evaluate_run(run, args.batch_size)
             eval_batches += n
             max_acc = max(max_acc, stats["acc1"])
-            print(f"Epoch {epoch}: {eval_line(stats)} max_acc {max_acc:.2f}%", flush=True)
+            rank0_print(f"Epoch {epoch}: {eval_line(stats)} max_acc {max_acc:.2f}%")
             if on_eval is not None:
                 on_eval(epoch, stats, max_acc)
         if on_epoch_end is not None:
@@ -434,20 +465,23 @@ def fit(run: FinetuneRun, args,
 
 def main(args) -> dict[str, Any]:
     """Finetune, then evaluate; returns :func:`fit`'s results and the npz
-    path."""
+    path (written by rank 0)."""
     run = build_run(args)
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
-    print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
-          f"{run.steps_per_epoch} steps/epoch", flush=True)
+    rank0_print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
+                f"{run.steps_per_epoch} steps/epoch; {run.rt.world_size} process(es)")
     if args.eval:
         stats, batches = evaluate_run(run, args.batch_size)
-        print(f"eval: {eval_line(stats)}", flush=True)
+        rank0_print(f"eval: {eval_line(stats)}")
         return {"eval": stats, "eval_batches": batches}
     result = fit(run, args)
-    os.makedirs(args.output_dir, exist_ok=True)
     npz = os.path.join(args.output_dir, "params.npz")
-    save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
-    print(f"finetuning done: {result['steps']} steps; params written to {npz}", flush=True)
+    if run.rt.rank == 0:
+        os.makedirs(args.output_dir, exist_ok=True)
+        save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
+    if run.rt.distributed:
+        barrier()
+    rank0_print(f"finetuning done: {result['steps']} steps; params written to {npz}")
     return {**result, "npz": npz}
 
 
@@ -457,4 +491,7 @@ def eval_line(stats: dict) -> str:
 
 
 if __name__ == "__main__":
-    main(argparse.ArgumentParser(parents=[get_args_parser()]).parse_args())
+    try:
+        main(argparse.ArgumentParser(parents=[get_args_parser()]).parse_args())
+    finally:
+        shutdown()

@@ -19,9 +19,12 @@ runs a backward kernel.
 Data: ``--dataset_type`` fmow_rgb, coco, naip or synthetic through
 ``data/loader.DataLoader`` and ``device_prefetch``. The run directory
 (``<output_dir>/<run name>``) gets ``log.jsonl`` (one line per evaluation)
-and ``params.npz`` (the JAX package's npz). ``--resume``, DDP/TP/SP,
-TensorBoard/wandb, the TIFF and temporal datasets and Orbax or ``.pth``
-inputs are not ported yet and refuse with a pointer to ROADMAP.md.
+and ``params.npz`` (the JAX package's npz), written by rank 0. Data
+parallel as ``cli/pretrain``: one process per GPU, in the JAX jit's
+global-batch semantics (the BN head's statistics over every rank's rows).
+``--resume``, TP/SP/FSDP, TensorBoard/wandb, the TIFF and temporal datasets
+and Orbax or ``.pth`` inputs are not ported yet and refuse with a pointer
+to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.linprobe --finetune pretrain/params.npz \\
@@ -51,6 +54,7 @@ from cross_scale_mae_torch.cli.common import (
     encode_run_name,
     refuse_unported,
     resolve_attention,
+    setup_runtime,
 )
 from cross_scale_mae_torch.cli.finetune import (
     FinetuneRun,
@@ -63,13 +67,14 @@ from cross_scale_mae_torch.cli.finetune import (
 from cross_scale_mae_torch.configs import TrainConfig, get_vit_config
 from cross_scale_mae_torch.models.vit import trunc_normal, vit_init
 from cross_scale_mae_torch.ops.augment import make_eval_preprocess, make_pretrain_augment
-from cross_scale_mae_torch.serving import resolve_device
+from cross_scale_mae_torch.parallel.dist import barrier, broadcast_object, shutdown
+from cross_scale_mae_torch.parallel.mesh import broadcast_params
 from cross_scale_mae_torch.train.classify import make_classify_train_step, make_eval_step
 from cross_scale_mae_torch.train.optim import build_optimizer
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, tree_leaves
 from cross_scale_mae_torch.utils.checkpoint import save_params_npz
-from cross_scale_mae_torch.utils.logging import RunLogger, auto_output_dir
+from cross_scale_mae_torch.utils.logging import RunLogger, auto_output_dir, rank0_print
 from cross_scale_mae_torch.utils.params import params_to_jax
 
 
@@ -130,11 +135,13 @@ def build_run(args) -> FinetuneRun:
     the head alone, and the train and eval steps, on ``args.device``."""
     apply_reference_compat(args, "linprobe")
     refuse_unported(args, UNPORTED_RUNTIME)
-    dev = resolve_device(args.device)
+    rt = setup_runtime(args)
+    dev = rt.device
     resolve_attention(args, dev)
     eff_batch = args.batch_size * args.accum_iter
     # accum_iter loader batches per optimizer step keep lr = blr * eff_batch / 256.
-    train_loader, eval_loader = classifier_datasets(args, eff_batch, args.batch_size)
+    train_loader, eval_loader = classifier_datasets(
+        args, eff_batch // rt.world_size, args.batch_size // rt.world_size, rt)
     train_ds = train_loader.dataset
     num_classes = args.nb_classes or train_ds.num_classes
     overrides = {k: v for k, v in dict(embed_dim=args.embed_dim, depth=args.depth,
@@ -161,6 +168,7 @@ def build_run(args) -> FinetuneRun:
         params["head"]["kernel"] = trunc_normal(
             torch.Generator(device=dev).manual_seed(args.seed + 2),
             tuple(params["head"]["kernel"].shape), 0.01)
+    broadcast_params([params, mstate])
     tx = build_optimizer(params, schedule, optimizer="lars", weight_decay=0.0,
                          frozen_mask=head_only_mask(params))
     state = TrainState.create(params, mstate, tx)
@@ -169,48 +177,60 @@ def build_run(args) -> FinetuneRun:
                                     rot90=rot90, dtype=args.compute_dtype)
     preprocess = make_eval_preprocess(train_ds.mean, train_ds.std, args.input_size,
                                       dtype=args.compute_dtype)
-    print(f"linprobe {args.model}: {len(train_ds)} train / {len(eval_loader.dataset)} eval, "
-          f"{num_classes} classes, lr {lr:.3e} (LARS), attention {args.attention_impl}",
-          flush=True)
+    rank0_print(f"linprobe {args.model}: {len(train_ds)} train / {len(eval_loader.dataset)} "
+                f"eval, {num_classes} classes, lr {lr:.3e} (LARS), attention "
+                f"{args.attention_impl}; {rt.world_size} process(es)")
     return FinetuneRun(
         vcfg, tcfg, state,
-        make_classify_train_step(vcfg, tcfg, schedule, augment=augment, freeze_backbone=True),
-        make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, dev,
+        make_classify_train_step(vcfg, tcfg, schedule, augment=augment, freeze_backbone=True,
+                                 data_parallel=rt.distributed),
+        make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
         train_ds.canvas_size, rot90, train_loader=train_loader, eval_loader=eval_loader)
 
 
 def main(args) -> dict[str, Any]:
     """Probe, evaluating every ``--eval_interval`` epochs into log.jsonl and
-    writing params.npz every ``--ckpt_interval`` epochs and after the last;
-    returns :func:`cli.finetune.fit`'s results, the run directory, the npz
-    path and the run itself."""
+    writing params.npz every ``--ckpt_interval`` epochs and after the last
+    (rank 0 alone logs and writes, in the run directory it chose for every
+    rank); returns :func:`cli.finetune.fit`'s results, the run directory,
+    the npz path and the run itself."""
     run = build_run(args)
     if args.eval:
         stats, batches = evaluate_run(run, args.batch_size)
-        print(f"eval: {eval_line(stats)}", flush=True)
+        rank0_print(f"eval: {eval_line(stats)}")
         return {"eval": stats, "eval_batches": batches, "run": run}
     lr = run.tcfg.resolved_lr(args.batch_size * args.accum_iter)
     run_name = encode_run_name(lin=args.model, in_sz=args.input_size, lr=lr,
                                ds=args.dataset_type)
-    output_dir = auto_output_dir(args.output_dir, run=run_name)
-    logger = RunLogger(output_dir)
+    main_rank = run.rt.rank == 0
+    # One directory for all ranks: rank 0 claims it and tells the others.
+    output_dir = broadcast_object(
+        auto_output_dir(args.output_dir, run=run_name) if main_rank else None)
+    logger = RunLogger(output_dir) if main_rank else None
     npz = os.path.join(output_dir, "params.npz")
 
     def log_eval(epoch: int, stats: dict, max_acc: float) -> None:
-        logger.log_epoch({"epoch": epoch, **{k: v for k, v in stats.items() if k != "cm"},
-                          "max_acc": max_acc})
+        if logger is not None:
+            logger.log_epoch({"epoch": epoch, **{k: v for k, v in stats.items() if k != "cm"},
+                              "max_acc": max_acc})
 
     def save(epoch: int, last: bool) -> None:
-        if (epoch + 1) % args.ckpt_interval == 0 or last:
+        if main_rank and ((epoch + 1) % args.ckpt_interval == 0 or last):
             save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
 
     result = fit(run, args, on_eval=log_eval, on_epoch_end=save)
-    logger.close()
+    if logger is not None:
+        logger.close()
+    if run.rt.distributed:
+        barrier()
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
-    print(f"linear probe done: {result['steps']} steps, {n_params / 1e6:.1f}M params; "
-          f"params written to {npz}", flush=True)
+    rank0_print(f"linear probe done: {result['steps']} steps, {n_params / 1e6:.1f}M params; "
+                f"params written to {npz}")
     return {**result, "output_dir": output_dir, "npz": npz, "run": run}
 
 
 if __name__ == "__main__":
-    main(argparse.ArgumentParser(parents=[get_args_parser()]).parse_args())
+    try:
+        main(argparse.ArgumentParser(parents=[get_args_parser()]).parse_args())
+    finally:
+        shutdown()

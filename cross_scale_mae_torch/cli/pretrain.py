@@ -2,11 +2,21 @@
 
 Counterpart of ``cross_scale_mae_tpu/cli/pretrain.py`` with its flag names
 for what the port runs: the model registry (``--model
-mae_vit_base_MsLdCeCd``), the lr rule lr = blr * eff_batch / 256, AdamW
-under the warmup + half-cosine schedule, and the whole step (augment,
-two-view forward, losses, backward, AdamW) on one device, with the
-attention in the hand-written CUDA kernels when ``--attention_impl
-pallas_v3`` (the default).
+mae_vit_base_MsLdCeCd``), the loss flags, the lr rule lr = blr * eff_batch
+/ 256, AdamW under the warmup + half-cosine schedule, and the whole step
+(augment, two-view forward, losses, backward, AdamW) with the attention in
+the hand-written CUDA kernels when ``--attention_impl pallas_v3`` (the
+default).
+
+Data parallel: one process per GPU over ``torch.distributed`` (NCCL on the
+card, gloo with ``--device cpu``), launched by torchrun or given
+``--coordinator_address host:port --num_processes W --process_id r``.
+``--batch_size`` is the global batch; each rank runs its 1/W of it.
+``--ddp_mode gspmd`` (the default) computes the JAX jit's global loss:
+NT-Xent over the gathered batch, the predictors' BatchNorm on global
+statistics. ``--ddp_mode shard_map`` computes the reference DDP's
+per-rank loss, as ``--reference_semantics`` (with ``--gelu exact`` and
+``--batch_crop``) asks. Only rank 0 prints and writes files.
 
 Data: ``--dataset_type synthetic`` (the default: seeded uint8 images, made
 as the JAX package's ``SyntheticDataset`` makes them and held on the
@@ -14,15 +24,21 @@ device), or ``fmow_rgb``, ``coco`` or ``naip`` with ``--train_path``, read
 by ``data/loader.DataLoader`` and moved by ``device_prefetch`` (NAIP adds
 the rot90 augmentation). At the end the params are written as the JAX
 package's npz (``<output_dir>/params.npz``), which ``cli/serve.py`` serves.
-The TIFF and temporal datasets, resume, DDP, TP/SP, wandb and the fault
-knobs are not ported yet and refuse with a pointer to ROADMAP.md.
+The TIFF and temporal datasets, resume and checkpoints, TP/SP/ZeRO/FSDP,
+wandb, the perceptual loss, the reconstruction plots and the fault knobs
+are not ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_base_MsLdCeCd \\
         --dataset_type synthetic --batch_size 384 --output_dir out   # GPU
+    torchrun --nproc_per_node 4 -m cross_scale_mae_torch.cli.pretrain \\
+        --batch_size 1536 --output_dir out                            # 4 GPUs
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_tiny_MsLdCeCd \\
         --input_size 32 --patch_size 8 --batch_size 8 --synthetic_len 16 \\
         --max_steps 2 --device cpu --output_dir out                   # CPU
+    python -m cross_scale_mae_torch.cli.pretrain ... --device cpu \\
+        --coordinator_address localhost:29500 --num_processes 2 --process_id 0
+                                      # and --process_id 1: two gloo ranks
 """
 
 from __future__ import annotations
@@ -38,10 +54,12 @@ import torch
 from cross_scale_mae_torch.cli.common import (
     UNPORTED_RUNTIME,
     add_data_args,
+    add_reference_compat_args,
     add_runtime_args,
     apply_reference_compat,
     make_loader,
     refuse_unported,
+    setup_runtime,
 )
 from cross_scale_mae_torch.configs import MAEConfig, TrainConfig, get_mae_config
 from cross_scale_mae_torch.data.datasets import DATASET_STATS, build_dataset, synthetic_images
@@ -49,9 +67,11 @@ from cross_scale_mae_torch.data.loader import DataLoader, device_prefetch
 from cross_scale_mae_torch.losses.recon import RECON_LOSSES
 from cross_scale_mae_torch.models.mae import mae_init
 from cross_scale_mae_torch.ops.augment import make_pretrain_augment
-from cross_scale_mae_torch.serving import resolve_device
+from cross_scale_mae_torch.parallel.dist import Runtime, barrier, shutdown
+from cross_scale_mae_torch.parallel.mesh import broadcast_params
 from cross_scale_mae_torch.train.optim import build_optimizer
 from cross_scale_mae_torch.train.pretrain import (
+    DDP_MODES,
     _step_rng,
     make_pretrain_step,
     sample_pretrain_draws,
@@ -59,12 +79,14 @@ from cross_scale_mae_torch.train.pretrain import (
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, finite_loss, tree_leaves
 from cross_scale_mae_torch.utils.checkpoint import save_params_npz
+from cross_scale_mae_torch.utils.logging import rank0_print
 from cross_scale_mae_torch.utils.params import params_to_jax
 
 # Flags of the JAX CLI that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item.
 UNPORTED_FLAGS = {
-    **UNPORTED_RUNTIME, "zero1": 11, "ddp_mode": 11, "use_perceptual_loss": 14,
+    **UNPORTED_RUNTIME, "zero1": 11, "use_perceptual_loss": 14, "vgg_weights": 14,
+    "plot_recon": 14, "val_img_path": 14, "ckpt_interval": 9, "wandb_id": 16,
     "adam_mu_dtype": 7, "adam_nu_dtype": 7,
 }
 FAULT_ENV = ("CSM_FAULT_STEP", "CSM_FAULT_PROCESS", "CSM_FAULT_ATTEMPT")
@@ -78,6 +100,16 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--mask_ratio", default=0.75, type=float)
     p.add_argument("--loss", default="mse", choices=sorted(RECON_LOSSES))
     p.add_argument("--norm_pix_loss", action="store_true")
+    p.add_argument("--loss_e", default=None)
+    p.add_argument("--loss_ce", default=None)
+    p.add_argument("--loss_cd", default=None)
+    p.add_argument("--ms_range", default=(0.25, 0.75), type=float, nargs=2)
+    p.add_argument("--ms_decoder_loss_reduction", default="sum", choices=["sum", "mean"])
+    p.add_argument("--batch_crop", action="store_true",
+                   help="one shared crop box per batch (reference behavior)")
+    p.add_argument("--consistent_mask", action="store_true")
+    p.add_argument("--mask_seed", default=None, type=int)
+    p.add_argument("--apply_encoder_norm", action="store_true")
     p.add_argument("--epochs", default=400, type=int)
     p.add_argument("--warmup_epochs", default=40, type=int)
     p.add_argument("--batch_size", default=512, type=int,
@@ -89,20 +121,33 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", default=0.05, type=float)
     p.add_argument("--clip_grad", default=None, type=float)
     p.add_argument("--max_steps", default=None, type=int, help="hard step cap")
+    p.add_argument("--unroll_blocks", action="store_true",
+                   help="a layout knob of the JAX package (scan or unrolled); the port "
+                        "runs the same loop for every setting")
+    p.add_argument("--watch_gradients", action="store_true",
+                   help="log per-subtree gradient norms (main_pretrain.py:537)")
+    p.add_argument("--ddp_mode", default="gspmd", choices=list(DDP_MODES),
+                   help="gspmd: the global batch's NT-Xent negatives and BatchNorm "
+                        "statistics; shard_map: each rank's own (the reference DDP's)")
+    p.add_argument("--reference_semantics", action="store_true",
+                   help="--gelu exact --batch_crop --ddp_mode shard_map in one switch")
     add_data_args(p, pretrain=True, default="synthetic")
     add_runtime_args(p)
+    add_reference_compat_args(p, "pretrain")
     # The K1 kernels, as the flagship step runs them (bench.py).
     p.set_defaults(attention_impl="pallas_v3")
     g = p.add_argument_group("not ported yet (ROADMAP.md)")
-    for flag in ("adam_mu_dtype", "adam_nu_dtype", "ddp_mode"):
+    for flag in ("adam_mu_dtype", "adam_nu_dtype", "vgg_weights", "val_img_path"):
         g.add_argument(f"--{flag}", default=None)
-    for flag in ("zero1", "use_perceptual_loss"):
+    g.add_argument("--ckpt_interval", default=None, type=int)
+    for flag in ("zero1", "use_perceptual_loss", "plot_recon"):
         g.add_argument(f"--{flag}", action="store_true")
     return p
 
 
 def check_args(args) -> None:
-    """SystemExit for a flag, dataset or environment knob not ported yet."""
+    """Resolve the compat flags and --reference_semantics in place;
+    SystemExit for a flag, dataset or environment knob not ported yet."""
     apply_reference_compat(args, "pretrain")
     refuse_unported(args, UNPORTED_FLAGS)
     for name in FAULT_ENV:
@@ -110,6 +155,10 @@ def check_args(args) -> None:
             raise SystemExit(
                 f"{name}: the fault-injection knobs are not ported yet; see "
                 "ROADMAP.md (queue 1 item 16)")
+    if args.reference_semantics:
+        # JAX cli/pretrain.py:136-160: exact GELU, the reference's batch-shared
+        # crop box, and the per-rank NT-Xent and BatchNorm of its DDP.
+        args.gelu, args.batch_crop, args.ddp_mode = "exact", True, "shard_map"
 
 
 @dataclasses.dataclass
@@ -122,46 +171,68 @@ class PretrainRun:
     step_fn: Callable
     images: Optional[torch.Tensor]   # the synthetic dataset, uint8 on the device
     steps_per_epoch: int
-    device: torch.device
-    loader: Optional[DataLoader] = None   # a real dataset's
+    rt: Runtime                           # this process's rank, world and device
+    loader: Optional[DataLoader] = None   # a real dataset's, this rank's shard
     rot90: bool = False                   # the NAIP rotations
+    ddp_mode: Optional[str] = None        # the step's semantics; None without a group
+
+    @property
+    def device(self) -> torch.device:
+        return self.rt.device
 
     def draws(self, step: int) -> list:
-        """The draws of ``step``: one set per microbatch, on the device."""
-        gen = _step_rng(self.tcfg, self.tcfg.seed + 1, step, self.device)
+        """The draws of ``step``, this rank's rows: one set per microbatch,
+        on the device. Under shard_map each rank draws its own rows from its
+        own generator; else every rank draws the global batch and keeps its
+        rows."""
+        rank, world = self.rt.rank, self.rt.world_size
+        own = self.ddp_mode == "shard_map"
+        gen = _step_rng(self.tcfg, self.tcfg.seed + 1, step, self.device,
+                        rank=rank if own else None)
         canvas = self.loader.dataset.canvas_size if self.loader else None
-        return [sample_pretrain_draws(gen, self.tcfg.batch_size, self.cfg, self.tcfg,
-                                      canvas, self.rot90)
+        n = self.tcfg.batch_size // world if own else self.tcfg.batch_size
+        return [sample_pretrain_draws(gen, n, self.cfg, self.tcfg, canvas, self.rot90)
+                .shard(*((0, 1) if own else (rank, world)))
                 for _ in range(self.tcfg.accum_iter)]
 
     def batches(self, epoch: int) -> Iterator[torch.Tensor]:
-        """The epoch's uint8 step batches on the device."""
+        """The epoch's uint8 step batches on the device, this rank's rows
+        (rank::world of each global batch, as the loader's shard holds)."""
         if self.loader is not None:
             for imgs, _ in device_prefetch(self.loader.epoch(epoch), self.device):
                 yield imgs
             return
+        rank, world = self.rt.rank, self.rt.world_size
         batch = self.tcfg.batch_size * self.tcfg.accum_iter
         order = torch.randperm(len(self.images), device=self.device,
                                generator=torch.Generator(device=self.device)
                                .manual_seed(self.tcfg.seed * 1_000_003 + epoch))
         for it in range(self.steps_per_epoch):
-            yield self.images[order[it * batch:(it + 1) * batch]]
+            yield self.images[order[it * batch:(it + 1) * batch][rank::world]]
 
 
 def build_run(args) -> PretrainRun:
-    """Config, data, seeded init, AdamW and the step, on ``args.device``."""
+    """Config, runtime, data, seeded init (rank 0's on every rank), AdamW
+    and the step, on this rank's device."""
     check_args(args)
-    dev = resolve_device(args.device)
+    rt = setup_runtime(args)
+    dev = rt.device
+    ddp_mode = args.ddp_mode if rt.distributed else None
     cfg = get_mae_config(
         args.model, input_size=args.input_size, patch_size=args.patch_size,
         mask_ratio=args.mask_ratio, loss=args.loss, norm_pix_loss=args.norm_pix_loss,
+        loss_e=args.loss_e, loss_ce=args.loss_ce, loss_cd=args.loss_cd,
+        ms_range=tuple(args.ms_range), ms_decoder_loss_reduction=args.ms_decoder_loss_reduction,
+        ms_per_sample_crop=not args.batch_crop, apply_encoder_norm=args.apply_encoder_norm,
         compute_dtype=args.compute_dtype, attention_impl=args.attention_impl,
-        gelu=args.gelu)
+        remat=args.remat, gelu=args.gelu, scan_blocks=not args.unroll_blocks)
     tcfg = TrainConfig(
         epochs=args.epochs, warmup_epochs=args.warmup_epochs,
         batch_size=args.batch_size, accum_iter=args.accum_iter, blr=args.blr,
         lr=args.lr, min_lr=args.min_lr, weight_decay=args.weight_decay,
-        clip_grad=args.clip_grad, seed=args.seed, log_interval=args.log_interval)
+        clip_grad=args.clip_grad, seed=args.seed, log_interval=args.log_interval,
+        mask_seed=args.mask_seed, consistent_mask=args.consistent_mask,
+        watch_gradients=args.watch_gradients)
     eff_batch = args.batch_size * args.accum_iter
     images = loader = None
     if args.dataset_type == "synthetic":
@@ -171,13 +242,14 @@ def build_run(args) -> PretrainRun:
     else:
         dataset = build_dataset(args.dataset_type, True, train_path=args.train_path,
                                 input_size=args.input_size, canvas_scale=args.canvas_scale)
-        loader = make_loader(args, dataset, eff_batch, seed=args.seed)
+        loader = make_loader(args, dataset, eff_batch // rt.world_size, rt, seed=args.seed)
         n_train, steps_per_epoch = len(dataset), loader.steps_per_epoch()
     if steps_per_epoch < 1:
         raise SystemExit(f"{n_train} train images are fewer than one step's {eff_batch}")
     schedule = warmup_half_cosine(tcfg.resolved_lr(eff_batch), args.min_lr,
                                   args.warmup_epochs, args.epochs, steps_per_epoch)
     params, mstate = mae_init(cfg, torch.Generator(device=dev).manual_seed(args.seed))
+    broadcast_params([params, mstate])
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay,
                          b1=tcfg.adam_b1, b2=tcfg.adam_b2, clip_grad=args.clip_grad)
     state = TrainState.create(params, mstate, tx)
@@ -186,24 +258,28 @@ def build_run(args) -> PretrainRun:
     rot90 = args.dataset_type == "naip"
     augment = make_pretrain_augment(mean, std, args.input_size, rot90=rot90,
                                     dtype=args.compute_dtype)
-    step_fn = make_pretrain_step(cfg, tcfg, schedule, augment=augment)
-    return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, dev, loader, rot90)
+    step_fn = make_pretrain_step(cfg, tcfg, schedule, augment=augment, ddp_mode=ddp_mode)
+    return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, rt, loader, rot90,
+                       ddp_mode)
 
 
 def main(args) -> dict[str, Any]:
     """Train; returns the step count, every step's loss, the last logged
     metrics, the steady ms per step on the GPU (the steps after the first,
-    which builds the kernels) and the npz path."""
+    which builds the kernels), images/s per process and in total, the rank
+    and world size, and the npz path (written by rank 0)."""
     run = build_run(args)
+    rt = run.rt
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
-    print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
-          f"{run.steps_per_epoch} steps/epoch", flush=True)
+    rank0_print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
+                f"{run.steps_per_epoch} steps/epoch; {rt.world_size} process(es), "
+                f"ddp_mode {run.ddp_mode}")
     losses: list[float] = []
     last_metrics: dict[str, float] = {}
     prev_loss = None
     t_first = None
     total = 0
-    for epoch in range(args.epochs):
+    for epoch in range(args.start_epoch or 0, args.epochs):
         for imgs in run.batches(epoch):
             _, metrics = run.step_fn(run.state, imgs, run.draws(run.state.step))
             # NaN abort (engine_pretrain.py:57-59) one step behind, so the
@@ -218,26 +294,36 @@ def main(args) -> dict[str, Any]:
             # On the global step: an epoch may be a single step.
             if (total - 1) % args.log_interval == 0:
                 last_metrics = {k: float(v) for k, v in metrics.items()}
-                print(f"epoch {epoch} step {total} " + " ".join(
-                    f"{k}={v:.5g}" for k, v in last_metrics.items()), flush=True)
+                rank0_print(f"epoch {epoch} step {total} " + " ".join(
+                    f"{k}={v:.5g}" for k, v in last_metrics.items()))
             if args.max_steps and total >= args.max_steps:
                 break
         if args.max_steps and total >= args.max_steps:
             break
     if prev_loss is not None:
         losses.append(finite_loss(prev_loss))
-    steady_ms = None
+    steady_ms = imgs_per_s = None
     if run.device.type == "cuda":
         torch.cuda.synchronize(run.device)
         if total > 1:
             steady_ms = (time.perf_counter() - t_first) / (total - 1) * 1e3
-    os.makedirs(args.output_dir, exist_ok=True)
+            imgs_per_s = args.batch_size * args.accum_iter / (steady_ms / 1e3)
+            rank0_print(f"{steady_ms:.2f} ms per step: {imgs_per_s / rt.world_size:.1f} "
+                        f"images/s per process, {imgs_per_s:.1f} in total")
     npz = os.path.join(args.output_dir, "params.npz")
-    save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
-    print(f"training done: {total} steps; params written to {npz}", flush=True)
+    if rt.rank == 0:
+        os.makedirs(args.output_dir, exist_ok=True)
+        save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
+    if rt.distributed:
+        barrier()
+    rank0_print(f"training done: {total} steps; params written to {npz}")
     return {"steps": total, "losses": losses, "last_metrics": last_metrics,
-            "steady_ms_per_step": steady_ms, "npz": npz}
+            "steady_ms_per_step": steady_ms, "imgs_per_s": imgs_per_s, "npz": npz,
+            "rank": rt.rank, "world_size": rt.world_size}
 
 
 if __name__ == "__main__":
-    main(argparse.ArgumentParser(parents=[get_args_parser()]).parse_args())
+    try:
+        main(argparse.ArgumentParser(parents=[get_args_parser()]).parse_args())
+    finally:
+        shutdown()

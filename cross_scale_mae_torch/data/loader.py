@@ -69,6 +69,19 @@ class DataLoader:
         largest = (len(self.dataset) + self.num_shards - 1) // self.num_shards
         return (largest + self.batch_size - 1) // self.batch_size
 
+    def padded_epoch(self, epoch: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """:meth:`epoch`, then batches of no sample up to
+        :meth:`max_shard_steps`: every shard runs the same number of eval
+        steps, each of which is a collective, so a shard one batch short
+        does not leave the others waiting (JAX cli/finetune.py:235-247)."""
+        done = 0
+        for batch in self.epoch(epoch):
+            done += 1
+            yield batch
+        s, c = self.dataset.canvas_size, self.dataset.in_c
+        for _ in range(self.max_shard_steps() - done):
+            yield np.zeros((0, s, s, c), np.uint8), np.zeros((0,), np.int32)
+
     def _load_batch(self, idx: np.ndarray, pool: ThreadPoolExecutor | None
                     ) -> tuple[np.ndarray, np.ndarray]:
         s, c = self.dataset.canvas_size, self.dataset.in_c

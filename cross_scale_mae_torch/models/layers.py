@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from cross_scale_mae_torch.configs import GELU_MODES
 from cross_scale_mae_torch.ops.attention import mha, mha_folded, mha_v3, mha_v3_reference
 from cross_scale_mae_torch.ops.numerics import accum_dtype, at_least_f32
+from cross_scale_mae_torch.parallel.collectives import all_reduce_sum
+from cross_scale_mae_torch.parallel.dist import world_size
 
 Params = dict[str, Any]
 
@@ -199,28 +201,47 @@ def predictor_state_init(num_tokens: int, device: torch.device | str) -> Params:
                    "var": torch.ones(num_tokens, device=device)}}
 
 
+def batch_stats(x32: torch.Tensor, dims: tuple[int, ...], global_stats: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """BatchNorm's batch statistics of fp32 ``x32`` over ``dims``: (mean,
+    biased variance, count), the first two kept as broadcastable dims. Two
+    passes, as ``jnp.var`` computes them: the sum over the count, then the
+    sum of squared deviations from that mean over the count. With
+    ``global_stats`` each sum runs over every rank's rows (the gspmd
+    semantics, where the JAX package's ``jnp.mean`` on a batch-sharded
+    array is the global mean), its gradient summed back over the ranks."""
+    count = math.prod(x32.shape[d] for d in dims)
+    reduce = all_reduce_sum if global_stats else (lambda t: t)
+    if global_stats:
+        count *= world_size()
+    mean = reduce(x32.sum(dim=dims, keepdim=True)) / count
+    var = reduce(torch.square(x32 - mean).sum(dim=dims, keepdim=True)) / count
+    return mean, var, count
+
+
 def predictor_apply(p: Params, state: Params, x: torch.Tensor, train: bool = True,
-                    momentum: float = 0.1, eps: float = 1e-5
+                    momentum: float = 0.1, eps: float = 1e-5, global_stats: bool = False
                     ) -> tuple[torch.Tensor, Params]:
     """x: (N, T, D) -> ((N, T, D), new_state). BatchNorm normalizes over
     (N, hidden) per token position T (torch BatchNorm1d(T) on an (N, T, L)
-    input) with fp32 statistics and the biased batch variance; the running
-    variance is the unbiased one, updated without grad."""
+    input) with fp32 statistics (:func:`batch_stats`; over every rank's
+    rows with ``global_stats``) and the biased batch variance; the running
+    variance is the unbiased one of the statistics' count, updated without
+    grad."""
     h = linear(p["fc1"], x)
     h32 = at_least_f32(h)
     if train:
-        mean = h32.mean(dim=(0, 2))
-        var = h32.var(dim=(0, 2), correction=0)
+        mean, var, n = batch_stats(h32, (0, 2), global_stats)
         with torch.no_grad():
-            n = h32.shape[0] * h32.shape[2]
-            unbiased = var * n / max(n - 1, 1)
+            unbiased = var.reshape(-1) * n / max(n - 1, 1)
             new_state = {"bn": {
-                "mean": (1 - momentum) * state["bn"]["mean"] + momentum * mean,
+                "mean": (1 - momentum) * state["bn"]["mean"] + momentum * mean.reshape(-1),
                 "var": (1 - momentum) * state["bn"]["var"] + momentum * unbiased,
             }}
     else:
-        mean, var = state["bn"]["mean"], state["bn"]["var"]
+        mean = state["bn"]["mean"][None, :, None]
+        var = state["bn"]["var"][None, :, None]
         new_state = state
-    h32 = (h32 - mean[None, :, None]) * torch.rsqrt(var[None, :, None] + eps)
+    h32 = (h32 - mean) * torch.rsqrt(var + eps)
     h32 = h32 * p["bn"]["scale"][None, :, None] + p["bn"]["bias"][None, :, None]
     return linear(p["fc2"], torch.relu(h32).to(h.dtype)), new_state

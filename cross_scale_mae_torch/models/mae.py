@@ -177,13 +177,16 @@ def mae_encode(params: Params, cfg: MAEConfig, imgs: torch.Tensor) -> torch.Tens
 
 def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tensor, *,
                 noise: torch.Tensor, ms_boxes: torch.Tensor | None = None,
-                train: bool = True) -> MAEOutput:
+                train: bool = True, global_batch: bool = False) -> MAEOutput:
     """The training objective of any variant (mae.py:253-396).
 
     imgs: (N, H, W, C) normalized. noise: (N, L) mask noise, or (2N, L) for
     a multi-scale config (the original view's rows first; equal halves give
     the consistent mask). ms_boxes: (N, 4) crop boxes of the low-GSD view
-    (equal rows give the batch-shared crop)."""
+    (equal rows give the batch-shared crop). ``global_batch`` (the gspmd
+    data-parallel semantics) takes NT-Xent's negatives and the predictors'
+    BatchNorm statistics over every rank's rows; the per-sample terms stay
+    means over this rank's N, which the step averages over the ranks."""
     if imgs.dim() == 5:
         raise NotImplementedError(
             "temporal (N, T, H, W, C) batches are not ported yet; see "
@@ -221,14 +224,16 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
     if cfg.use_ce_pred:
         # Crop encoder tokens -> original encoder tokens (MAE_ViT_MsLdCe.py:46-48).
         pred_ce, new_state["predictor_ce"] = layers.predictor_apply(
-            params["predictor_ce"], state["predictor_ce"], enc_c[:, 1:, :], train)
+            params["predictor_ce"], state["predictor_ce"], enc_c[:, 1:, :], train,
+            global_stats=global_batch)
         losses["loss_ce_pred"] = recon_loss(
             cfg.loss_name("ce"), at_least_f32(enc_o[:, 1:, :]), at_least_f32(pred_ce))
         total = total + losses["loss_ce_pred"]
     if cfg.use_cd_pred:
         # The same on decoder embeddings (MAE_ViT_MsLdCd.py:49-51).
         pred_cd, new_state["predictor_cd"] = layers.predictor_apply(
-            params["predictor_cd"], state["predictor_cd"], dec_c[:, 1:, :], train)
+            params["predictor_cd"], state["predictor_cd"], dec_c[:, 1:, :], train,
+            global_stats=global_batch)
         losses["loss_cd"] = recon_loss(
             cfg.loss_name("cd"), at_least_f32(dec_o[:, 1:, :]), at_least_f32(pred_cd))
         total = total + losses["loss_cd"]
@@ -236,7 +241,7 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
         # NT-Xent between mean-pooled patch tokens (MAE_ViT_MsLdCeCd.py:62-69).
         f1 = at_least_f32(enc_o[:, 1:, :]).mean(dim=1)
         f2 = at_least_f32(enc_c[:, 1:, :]).mean(dim=1)
-        losses["loss_ce"] = ntxent_loss(f1, f2, tau=cfg.ntxent_tau)
+        losses["loss_ce"] = ntxent_loss(f1, f2, tau=cfg.ntxent_tau, global_batch=global_batch)
         total = total + losses["loss_ce"]
     return MAEOutput(loss=total, losses=losses, pred=pred[:n], mask=mask[:n],
                      enc_emb=(enc_o, enc_c), dec_emb=(dec_o, dec_c), state=new_state)

@@ -100,23 +100,25 @@ def vit_forward_features(params: Params, cfg: ViTClassifierConfig, imgs: torch.T
 
 def vit_apply(params: Params, state: Params, cfg: ViTClassifierConfig, imgs: torch.Tensor,
               *, train: bool = False, drop_masks: Optional[torch.Tensor] = None,
-              bn_momentum: float = 0.1, freeze_backbone: bool = False
-              ) -> tuple[torch.Tensor, Params]:
+              bn_momentum: float = 0.1, freeze_backbone: bool = False,
+              global_stats: bool = False) -> tuple[torch.Tensor, Params]:
     """Returns (fp32 logits (N, num_classes), new_state).
     ``freeze_backbone`` runs the backbone without autograd (the linear
     probe's requires_grad=False; JAX's ``stop_gradient`` at the features,
     which lets XLA prune the backbone's backward): no block records a node
     or saves an activation, and the attention takes its forward-only
-    kernel. The logits are the same bits either way."""
+    kernel. The logits are the same bits either way. ``global_stats``
+    takes the BN head's batch statistics over every rank's rows (the JAX
+    package's jit over a batch-sharded array); behind a frozen backbone no
+    gradient flows through them."""
     with torch.no_grad() if freeze_backbone else contextlib.nullcontext():
         feat = vit_forward_features(params, cfg, imgs, train=train, drop_masks=drop_masks)
     new_state = dict(state)
     if cfg.use_bn_head:
         f32 = at_least_f32(feat)
         if train:
-            mean = f32.mean(dim=0)
-            var = f32.var(dim=0, correction=0)
-            nb = f32.shape[0]
+            mean, var, nb = layers.batch_stats(f32, (0,), global_stats)
+            mean, var = mean[0], var[0]
             with torch.no_grad():
                 new_state["head_bn"] = {
                     "mean": (1 - bn_momentum) * state["head_bn"]["mean"] + bn_momentum * mean,

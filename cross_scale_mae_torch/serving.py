@@ -31,6 +31,7 @@ from cross_scale_mae_torch.configs import MAEConfig
 from cross_scale_mae_torch.data.datasets import DATASET_STATS, normalize_on_device_for
 from cross_scale_mae_torch.models.mae import compute_dtype, mae_encode
 from cross_scale_mae_torch.ops.augment import make_eval_preprocess
+from cross_scale_mae_torch.parallel.dist import resolve_device
 from cross_scale_mae_torch.utils.checkpoint import load_flat_npz, read_config_json
 from cross_scale_mae_torch.utils.params import params_from_jax
 
@@ -47,16 +48,6 @@ class ServingModel:
     batch_size: Optional[int]  # largest dispatch; None = any size
     kind: str                  # 'mae'
     meta: dict
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """The device to run on; raises when CUDA is asked for and absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} asked for, but torch.cuda.is_available() is "
-            "False; pass device='cpu' (--device cpu) to run on the CPU")
-    return dev
 
 
 def _cast_linears(tree: Any, dtype: torch.dtype) -> Any:

@@ -7,7 +7,11 @@ mixup and model (drop-path) draws. Here the draws are explicit: a
 :class:`FinetuneDraws` per microbatch, made by :func:`sample_finetune_draws`
 from a ``torch.Generator`` or, in a test, from the JAX package's keys.
 Gradient accumulation (``accum_iter``) is a Python loop over microbatches.
-Mixup and CutMix are not ported yet (ROADMAP.md, queue 1 item 12).
+Data parallelism has the JAX package's one semantics for these steps, its
+jit over a batch-sharded array: every rank draws for the global batch and
+takes its own rows (:meth:`FinetuneDraws.shard`), the BN head's statistics
+are the global batch's, and the gradients are averaged over the ranks once
+per step. Mixup and CutMix are not ported yet (ROADMAP.md, queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from cross_scale_mae_torch.configs import TrainConfig, ViTClassifierConfig
 from cross_scale_mae_torch.models.vit import drop_path_rates, vit_apply
 from cross_scale_mae_torch.ops.augment import PRETRAIN_CROP_SCALE
 from cross_scale_mae_torch.ops.image import sample_crop_boxes
+from cross_scale_mae_torch.parallel.mesh import FlatGrads, all_reduce_mean
 from cross_scale_mae_torch.train.mixup import smooth_one_hot, soft_cross_entropy
 from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_leaves
 
@@ -35,6 +40,17 @@ class FinetuneDraws:
     crop_boxes: torch.Tensor             # (N, 4) RandomResizedCrop boxes on the canvas
     drop_masks: Optional[torch.Tensor]   # (depth, N) bool drop-path keeps, or None
     rot_k: Optional[torch.Tensor] = None  # (N,) NAIP rotations in {0..3}, or None
+
+    def shard(self, rank: int, world: int) -> "FinetuneDraws":
+        """Rank ``rank``'s rows (rank::world, the rows of each global batch
+        the loader's shard holds) of draws made for a global batch."""
+        if world == 1:
+            return self
+        rows = slice(rank, None, world)
+        return FinetuneDraws(
+            self.hflip[rows], self.vflip[rows], self.crop_boxes[rows],
+            None if self.drop_masks is None else self.drop_masks[:, rows],
+            None if self.rot_k is None else self.rot_k[rows])
 
 
 def sample_finetune_draws(gen: torch.Generator, n: int, cfg: ViTClassifierConfig,
@@ -60,10 +76,12 @@ def sample_finetune_draws(gen: torch.Generator, n: int, cfg: ViTClassifierConfig
 
 
 def make_classify_loss_fn(cfg: ViTClassifierConfig, tcfg: TrainConfig,
-                          augment: Callable | None = None, freeze_backbone: bool = False):
+                          augment: Callable | None = None, freeze_backbone: bool = False,
+                          global_stats: bool = False):
     """``loss_fn(params, model_state, imgs, labels, draws) -> (loss, (acc1,
     new_model_state))``: augment, smoothed one-hot targets, the classifier
-    with drop-path (its backbone frozen with ``freeze_backbone``), soft
+    with drop-path (its backbone frozen with ``freeze_backbone``, its BN
+    head's statistics over every rank's rows with ``global_stats``), soft
     cross-entropy."""
     if tcfg.mixup > 0 or tcfg.cutmix > 0 or tcfg.cutmix_minmax is not None:
         raise NotImplementedError(
@@ -75,7 +93,8 @@ def make_classify_loss_fn(cfg: ViTClassifierConfig, tcfg: TrainConfig,
         targets = smooth_one_hot(labels, cfg.num_classes, tcfg.label_smoothing)
         logits, new_state = vit_apply(params, model_state, cfg, imgs, train=True,
                                       drop_masks=draws.drop_masks,
-                                      freeze_backbone=freeze_backbone)
+                                      freeze_backbone=freeze_backbone,
+                                      global_stats=global_stats)
         acc1 = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
         return soft_cross_entropy(logits, targets), (acc1.detach(), new_state)
 
@@ -85,7 +104,8 @@ def make_classify_loss_fn(cfg: ViTClassifierConfig, tcfg: TrainConfig,
 def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
                              schedule: Callable[[int], float],
                              augment: Callable | None = None,
-                             freeze_backbone: bool = False) -> Callable:
+                             freeze_backbone: bool = False,
+                             data_parallel: bool = False) -> Callable:
     """Returns ``step(state, imgs, labels, draws) -> (state, metrics)``.
 
     imgs: (B, H, W, C), raw uint8 when ``augment``
@@ -100,14 +120,22 @@ def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
     autograd, so no backbone leaf gets a gradient buffer: their gradients
     go to the optimizer as None, which its frozen mask must cover, and the
     gradient norm is that of the head's, the JAX value (where the
-    backbone's gradients are zeros)."""
-    loss_fn = make_classify_loss_fn(cfg, tcfg, augment, freeze_backbone)
+    backbone's gradients are zeros).
+
+    ``data_parallel`` (needs a process group): imgs and draws are this
+    rank's rows, the BN head's statistics the global batch's, the gradients
+    averaged over the ranks before the norm, and the metrics the ranks'
+    means."""
+    loss_fn = make_classify_loss_fn(cfg, tcfg, augment, freeze_backbone,
+                                    global_stats=data_parallel)
     accum = tcfg.accum_iter
     if accum < 1:
         raise ValueError(f"accum_iter must be >= 1, got {accum}")
+    flat: Optional[FlatGrads] = None   # data parallel: the gradients' buffers
 
     def step(state: TrainState, imgs: torch.Tensor, labels: torch.Tensor,
              draws: FinetuneDraws | Sequence[FinetuneDraws]):
+        nonlocal flat
         draws = [draws] if isinstance(draws, FinetuneDraws) else list(draws)
         if len(draws) != accum or imgs.shape[0] % accum:
             raise ValueError(
@@ -130,6 +158,13 @@ def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
         grads = [p.grad if p.grad is not None or freeze_backbone else torch.zeros_like(p)
                  for p in leaves]
         reached = [g for g in grads if g is not None]
+        if data_parallel:
+            if flat is None or not flat.holds(reached):
+                flat = FlatGrads(reached)
+            averaged = iter(flat.all_reduce(reached))
+            grads = [None if g is None else next(averaged) for g in grads]
+            reached = [g for g in grads if g is not None]
+            all_reduce_mean([loss, acc1])
         if accum > 1:
             torch._foreach_mul_(reached, 1.0 / accum)
             loss, acc1 = loss / accum, acc1 / accum

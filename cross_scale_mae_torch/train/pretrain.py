@@ -7,6 +7,18 @@ makes them on the device from a ``torch.Generator`` (seeded per step by
 :func:`_step_rng`), and the step takes them as an argument, so a test can
 inject the JAX package's draws instead. Gradient accumulation
 (``accum_iter``) is a Python loop over microbatches, one set of draws each.
+
+Data parallelism (``ddp_mode``, with a process group: one process per GPU)
+has the JAX package's two semantics. ``gspmd``, its jit over a
+batch-sharded array: every rank draws for the global batch from the same
+generator and takes its own rows (:meth:`PretrainDraws.shard`), and the
+loss sees the global batch (NT-Xent's negatives gathered, the predictors'
+BatchNorm statistics summed over the ranks). ``shard_map`` (the JAX
+package's ``make_pretrain_step_shard_map``): each rank draws for its own rows from
+its own generator, the loss is the rank's own, and the BatchNorm running
+state is averaged. Either way the gradients are averaged over the ranks
+once, after the last microbatch, before the norm and the clipping; the
+metrics are the ranks' means.
 """
 
 from __future__ import annotations
@@ -20,7 +32,10 @@ from cross_scale_mae_torch.configs import MAEConfig, TrainConfig
 from cross_scale_mae_torch.models.mae import mae_loss_fn
 from cross_scale_mae_torch.ops.augment import PRETRAIN_CROP_SCALE
 from cross_scale_mae_torch.ops.image import sample_crop_boxes
-from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_leaves
+from cross_scale_mae_torch.parallel.mesh import FlatGrads, all_reduce_mean
+from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_items, tree_leaves
+
+DDP_MODES = ("gspmd", "shard_map")
 
 
 @dataclasses.dataclass
@@ -33,6 +48,20 @@ class PretrainDraws:
     ms_boxes: torch.Tensor    # (N, 4) the low-GSD view's crop boxes
     noise: torch.Tensor       # (2N, L) mask noise of both views (N, L single-scale)
     rot_k: Optional[torch.Tensor] = None  # (N,) NAIP rotations in {0..3}, or None
+
+    def shard(self, rank: int, world: int) -> "PretrainDraws":
+        """Rank ``rank``'s rows of draws made for a global batch: rows
+        rank::world, the rows of each global batch that the loader's shard
+        holds (and so the single-process run's pairing of draws with
+        images); of the mask noise, those rows of each view's half."""
+        if world == 1:
+            return self
+        n = self.hflip.shape[0]
+        noise = torch.cat([half[rank::world] for half in self.noise.split(n)])
+        rot_k = None if self.rot_k is None else self.rot_k[rank::world]
+        return PretrainDraws(self.hflip[rank::world], self.vflip[rank::world],
+                             self.crop_boxes[rank::world], self.ms_boxes[rank::world],
+                             noise, rot_k)
 
 
 def sample_pretrain_draws(gen: torch.Generator, n: int, cfg: MAEConfig,
@@ -65,29 +94,35 @@ def sample_pretrain_draws(gen: torch.Generator, n: int, cfg: MAEConfig,
     return PretrainDraws(hflip, vflip, crop_boxes, ms_boxes, noise, rot_k)
 
 
-def _step_rng(tcfg: TrainConfig, seed: int, step: int,
-              device: torch.device | str) -> torch.Generator:
+def _step_rng(tcfg: TrainConfig, seed: int, step: int, device: torch.device | str,
+              rank: Optional[int] = None) -> torch.Generator:
     """The generator of one step: seeded from (seed, step), so one run seed
-    covers the whole run, or from ``mask_seed`` alone, which repeats the
-    same crops, flips and masks every step (the reference's
-    torch.manual_seed semantics, MAE_ViT_Baseline.py:301-302)."""
+    covers the whole run, and from ``rank`` too for the shard_map
+    semantics' per-rank draws (the JAX step's ``fold_in`` of the axis
+    index); or from ``mask_seed`` alone, which repeats the same crops, flips
+    and masks every step on every rank (the reference's torch.manual_seed
+    semantics, MAE_ViT_Baseline.py:301-302; JAX train/pretrain.py:144-148)."""
     gen = torch.Generator(device=device)
     if tcfg.mask_seed is not None:
         return gen.manual_seed(tcfg.mask_seed)
-    return gen.manual_seed((seed * 1_000_003 + step) % 2 ** 63)
+    seed = seed * 1_000_003 + step
+    if rank is not None:
+        seed = seed * 4_099 + 1 + rank
+    return gen.manual_seed(seed % 2 ** 63)
 
 
-def make_pretrain_loss_fn(cfg: MAEConfig, augment: Callable | None):
+def make_pretrain_loss_fn(cfg: MAEConfig, augment: Callable | None,
+                          global_batch: bool = False):
     """The per-(micro)batch objective the step differentiates:
     ``loss_fn(params, model_state, imgs, draws) -> (loss, MAEOutput)``.
     (The JAX one also takes the TrainConfig for the consistent mask; here
-    the draws carry it.)"""
+    the draws carry it.) ``global_batch``: see ``mae_loss_fn``."""
 
     def loss_fn(params, model_state, imgs: torch.Tensor, draws: PretrainDraws):
         if augment is not None:
             imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes, draws.rot_k)
         out = mae_loss_fn(params, model_state, cfg, imgs, noise=draws.noise,
-                          ms_boxes=draws.ms_boxes, train=True)
+                          ms_boxes=draws.ms_boxes, train=True, global_batch=global_batch)
         return out.loss, out
 
     return loss_fn
@@ -95,23 +130,31 @@ def make_pretrain_loss_fn(cfg: MAEConfig, augment: Callable | None):
 
 def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
                        schedule: Callable[[int], float],
-                       augment: Callable | None = None) -> Callable:
+                       augment: Callable | None = None,
+                       ddp_mode: Optional[str] = None) -> Callable:
     """Returns ``step(state, batch, draws) -> (state, metrics)``.
 
     batch: (B, H, W, C) normalized images, or raw uint8 when ``augment``
     (``ops/augment.make_pretrain_augment``) is given; B = accum_iter *
-    microbatch. draws: one :class:`PretrainDraws` per microbatch (a single
-    one when accum_iter is 1). The state's params are updated in place.
-    metrics hold 0-d device tensors (the loss terms, ``loss`` and
-    ``grad_norm``, before clipping) and the step's ``lr``; nothing in the
-    step waits on the device."""
-    loss_fn = make_pretrain_loss_fn(cfg, augment)
+    microbatch, this rank's rows. draws: one :class:`PretrainDraws` per
+    microbatch (a single one when accum_iter is 1). The state's params are
+    updated in place. metrics hold 0-d device tensors (the loss terms,
+    ``loss`` and ``grad_norm``, before clipping; with
+    ``tcfg.watch_gradients`` each top-level subtree's gradient norm as
+    ``gnorm/<name>``) and the step's ``lr``; nothing in the step waits on
+    the device. ``ddp_mode`` None runs one process with no collective;
+    'gspmd' or 'shard_map' (the module's docstring) needs a process group."""
+    if ddp_mode not in (None, *DDP_MODES):
+        raise ValueError(f"ddp_mode must be one of {DDP_MODES} or None, got {ddp_mode!r}")
+    loss_fn = make_pretrain_loss_fn(cfg, augment, global_batch=ddp_mode == "gspmd")
     accum = tcfg.accum_iter
     if accum < 1:
         raise ValueError(f"accum_iter must be >= 1, got {accum}")
+    flat: Optional[FlatGrads] = None   # data parallel: the gradients' buffers
 
     def step(state: TrainState, batch: torch.Tensor,
              draws: PretrainDraws | Sequence[PretrainDraws]):
+        nonlocal flat
         draws = [draws] if isinstance(draws, PretrainDraws) else list(draws)
         if len(draws) != accum or batch.shape[0] % accum:
             raise ValueError(
@@ -133,12 +176,23 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
         # A parameter the objective does not reach (encoder_norm while
         # apply_encoder_norm is False) has a zero gradient, as in JAX.
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        if ddp_mode is not None:
+            if flat is None or not flat.holds(grads):
+                flat = FlatGrads(grads)
+            grads = flat.all_reduce(grads)
+            all_reduce_mean([loss, losses, model_state if ddp_mode == "shard_map" else {}])
         if accum > 1:
             torch._foreach_mul_(grads, 1.0 / accum)
             loss = loss / accum
             losses = {k: v / accum for k, v in losses.items()}
         metrics = dict(losses, loss=loss, grad_norm=global_norm(grads),
                        lr=schedule(state.step))
+        if tcfg.watch_gradients:
+            # wandb.watch's per-subtree gradient norms (main_pretrain.py:537).
+            names = [path[0] for path, _ in tree_items(state.params)]
+            for name in dict.fromkeys(names):
+                metrics[f"gnorm/{name}"] = global_norm(
+                    [g for g, owner in zip(grads, names) if owner == name])
         state.apply_gradients(grads, model_state)
         for p in leaves:
             p.grad = None

@@ -1,12 +1,21 @@
-"""Run directories and the ``log.jsonl`` record (counterpart of the part of
-``cross_scale_mae_tpu/utils/logging.py`` the port runs: one process, no
-TensorBoard or wandb, which the CLIs refuse)."""
+"""Run directories, the ``log.jsonl`` record and rank-0 printing
+(counterpart of the part of ``cross_scale_mae_tpu/utils/logging.py`` the
+port runs: no TensorBoard or wandb, which the CLIs refuse). Under data
+parallelism only rank 0 prints, logs and writes files."""
 
 from __future__ import annotations
 
 import json
 import os
 from typing import Any, Optional
+
+from cross_scale_mae_torch.parallel.dist import is_main_process
+
+
+def rank0_print(*args: Any) -> None:
+    """print, flushed, on rank 0 (or the single process) alone."""
+    if is_main_process():
+        print(*args, flush=True)
 
 
 class RunLogger:

@@ -48,7 +48,8 @@ TRAINING_MODULES = [
     "cross_scale_mae_torch/utils/metrics.py", "cross_scale_mae_torch/data/datasets.py",
     "cross_scale_mae_torch/cli/finetune.py", "cross_scale_mae_torch/data/loader.py",
     "cross_scale_mae_torch/cli/common.py", "cross_scale_mae_torch/utils/logging.py",
-    "cross_scale_mae_torch/cli/linprobe.py",
+    "cross_scale_mae_torch/cli/linprobe.py", "cross_scale_mae_torch/parallel/dist.py",
+    "cross_scale_mae_torch/parallel/mesh.py", "cross_scale_mae_torch/parallel/collectives.py",
 ]
 
 

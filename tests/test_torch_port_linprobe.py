@@ -346,7 +346,7 @@ def test_linprobe_cli_eval_only_evaluates(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [
     ("--resume", "ckpt"), ("--model_parallel", "2"), ("--fsdp",), ("--sequence_parallel",),
-    ("--num_processes", "2"), ("--use_wandb",), ("--use_tensorboard",),
+    ("--num_slices", "2"), ("--use_wandb",), ("--use_tensorboard",),
     ("--dataset_type", "euro_sat"),
 ])
 def test_linprobe_cli_refuses_unported_flags(tmp_path, extra):
