@@ -45,7 +45,8 @@ class FlatGrads:
     shapes of ``like``. :meth:`all_reduce` copies the gradients in (one
     multi-tensor copy), averages each buffer over the ranks in place (DDP's
     gradient all-reduce; the JAX shard_map step's ``pmean``) and returns the
-    averages as views of the buffers, so no gradient is copied back."""
+    averages as views of the buffers, so no gradient is copied back. The
+    gradients must have ``like``'s shapes (the copy raises otherwise)."""
 
     def __init__(self, like: list[torch.Tensor]):
         self.views: list[Optional[torch.Tensor]] = [None] * len(like)
@@ -58,12 +59,6 @@ class FlatGrads:
             for i, part in zip(idx, flat.split([like[i].numel() for i in idx])):
                 self.views[i] = part.view_as(like[i])
             self.buffers.append(flat)
-
-    def holds(self, grads: list[torch.Tensor]) -> bool:
-        """Whether the buffers fit these gradients' shapes, dtypes and devices."""
-        return len(grads) == len(self.views) and all(
-            (g.shape, g.dtype, g.device) == (v.shape, v.dtype, v.device)
-            for g, v in zip(grads, self.views))
 
     def all_reduce(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
         torch._foreach_copy_(self.views, grads)

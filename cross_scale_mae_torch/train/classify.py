@@ -159,8 +159,7 @@ def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
                  for p in leaves]
         reached = [g for g in grads if g is not None]
         if data_parallel:
-            if flat is None or not flat.holds(reached):
-                flat = FlatGrads(reached)
+            flat = flat or FlatGrads(reached)
             averaged = iter(flat.all_reduce(reached))
             grads = [None if g is None else next(averaged) for g in grads]
             reached = [g for g in grads if g is not None]

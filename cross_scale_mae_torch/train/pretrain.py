@@ -177,8 +177,7 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
         # apply_encoder_norm is False) has a zero gradient, as in JAX.
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
         if ddp_mode is not None:
-            if flat is None or not flat.holds(grads):
-                flat = FlatGrads(grads)
+            flat = flat or FlatGrads(grads)
             grads = flat.all_reduce(grads)
             all_reduce_mean([loss, losses, model_state if ddp_mode == "shard_map" else {}])
         if accum > 1:

@@ -54,7 +54,7 @@ assert dist.initialize_distributed(sys.argv[1], 2, r, "cpu") == rt   # idempoten
 grads = [torch.full((3,), r + 1.0), torch.full((2, 2), 10.0 * (r + 1)),
          torch.full((1,), -1.0 - r, dtype=torch.float64)]
 flat = mesh.FlatGrads(grads)
-assert flat.holds(grads) and len(flat.buffers) == 2 and not flat.holds(grads[:2])
+assert len(flat.buffers) == 2
 for _ in range(2):
     out = flat.all_reduce(grads)
     assert all(torch.equal(g, torch.full_like(g, v)) for g, v in zip(out, (1.5, 15.0, -1.5))), out
