@@ -7,10 +7,11 @@ parameter starts from rank 0's values (:func:`broadcast_params`), and the
 gradients are averaged once per step after the last microbatch
 (:class:`FlatGrads`): they are copied into one persistent flat buffer per
 dtype, which one all-reduce averages in place, and the optimizer reads
-them there; there is no per-step flatten and no copy back. The metrics, the BatchNorm state and the
-eval's counts, small tensors, are flattened into one buffer a dtype,
-all-reduced and copied back. The mesh's model axis (TP, SP), ZeRO-1 and FSDP are not
-ported; their flags refuse (ROADMAP.md, queue 1 item 11).
+them there; there is no per-step flatten and no copy back. The metrics,
+the BatchNorm state and the eval's counts, small tensors, go through a
+buffer made for the call and are copied back. The mesh's model axis (TP,
+SP), ZeRO-1 and FSDP are not ported; their flags refuse (ROADMAP.md, queue
+1 item 11).
 
 Every function here runs its collectives whenever a process group exists,
 at world size 1 too, and does nothing without one.
@@ -18,26 +19,12 @@ at world size 1 too, and does nothing without one.
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
 from cross_scale_mae_torch.train.state import tree_leaves
-
-def _all_reduce_(tensors: Iterable[torch.Tensor], op) -> None:
-    """All-reduce ``tensors`` in place: one flat buffer per dtype and
-    device, all-reduced and copied back."""
-    if not dist.is_initialized():
-        return
-    groups: dict[tuple, list[torch.Tensor]] = {}
-    for t in tensors:
-        groups.setdefault((t.dtype, t.device), []).append(t)
-    for group in groups.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat, op=op)
-        parts = flat.split([t.numel() for t in group])
-        torch._foreach_copy_(group, [p.view_as(t) for p, t in zip(parts, group)])
 
 
 class FlatGrads:
@@ -60,11 +47,18 @@ class FlatGrads:
                 self.views[i] = part.view_as(like[i])
             self.buffers.append(flat)
 
-    def all_reduce(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+    def all_reduce(self, grads: list[torch.Tensor], op=dist.ReduceOp.AVG
+                   ) -> list[torch.Tensor]:
         torch._foreach_copy_(self.views, grads)
         for flat in self.buffers:
-            dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+            dist.all_reduce(flat, op=op)
         return list(self.views)
+
+
+def _all_reduce_(tensors: list[torch.Tensor], op) -> None:
+    """All-reduce ``tensors`` in place through a buffer made for them."""
+    if dist.is_initialized() and tensors:
+        torch._foreach_copy_(tensors, FlatGrads(tensors).all_reduce(tensors, op))
 
 
 def all_reduce_mean(tree: Any) -> None:
