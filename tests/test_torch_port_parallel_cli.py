@@ -213,6 +213,28 @@ def test_a_torchrun_world_of_one_runs_its_collectives(monkeypatch):
         dist.shutdown()
 
 
+def test_setup_runtime_refuses_a_batch_the_ranks_do_not_split(monkeypatch):
+    import argparse
+
+    from cross_scale_mae_torch.cli import common
+    from cross_scale_mae_torch.parallel.dist import Runtime
+
+    monkeypatch.setattr(common, "initialize_distributed",
+                        lambda *a: Runtime(1, 3, torch.device("cpu"), True))
+    args = argparse.Namespace(coordinator_address="h:1", num_processes=3, process_id=1,
+                              device="cpu", seed=5, batch_size=8)
+    with pytest.raises(SystemExit, match="does not split over 3"):
+        common.setup_runtime(args)
+    args.batch_size = 9
+    state = np.random.get_state()
+    try:
+        assert common.setup_runtime(args).world_size == 3
+        # numpy seeded per rank: seed + rank (JAX cli/common.py:162).
+        assert np.random.get_state()[1][0] == np.random.RandomState(6).get_state()[1][0]
+    finally:
+        np.random.set_state(state)
+
+
 # ---------------------------------------------------------------- draws
 
 
