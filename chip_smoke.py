@@ -118,6 +118,23 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    and the eval logits and one train step from the same weights, batch and
    draws through K1f and through the plain attention (logits, loss and
    gradient norm within a bf16 budget).
+12. resume: the flagship step (ViT-B MsLdCeCd, 128 px, batch 384, bf16,
+    ``pallas_v3``) for 4 epochs of 2 steps over 768 synthetic images, one
+    warmup epoch, a checkpoint per epoch, each run ``cli/pretrain.main`` in
+    a process of its own. Run A unbroken, twice (A and A': their gap is the
+    control); run B through ``cli/launch.main`` with one rank over NCCL,
+    ended by the fault drill (``CSM_FAULT_STEP=5``) after step 5 in attempt
+    1, relaunched with ``--resume`` from its step-4 checkpoint. Gates: B's
+    params no farther from A's than A''s are; B's losses at steps 5-8
+    within the A-A' spread; the launcher's state shows attempt 2 given
+    ``--resume``; 20 + 20 K1 launches a step in every process and attempt;
+    a truncated copy of a checkpoint refused by ``restore_checkpoint``.
+    Printed: the checkpoint's bytes, the save and restore ms of the full
+    state on one rank, the restore ms in the CLI, the recovery seconds (from
+    attempt 1's exit to attempt 2's first step done on the card) and the
+    steps redone.
+    It runs last, so that its checkpoint writes (15 of 1.37 GB) touch no
+    other phase's timing.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -157,6 +174,14 @@ ATTN_PER_STEP = 20
 # rounds of the step timing in turns.
 DDP_STEPS = 8
 DDP_ROUNDS = 4
+# The [resume] drill: the flagship step for 4 epochs of 2 steps (768
+# synthetic images), one warmup epoch so the lr moves every step, a
+# checkpoint per epoch; the fault ends attempt 1 after step 5, in epoch 2,
+# so attempt 2 resumes from step 4 and redoes step 5.
+RESUME_EPOCHS = 4
+RESUME_LEN = 2 * TRAIN_BATCH
+RESUME_FAULT = 5
+RESUME_TIMEOUT_S = 600
 # The kernels' shapes: (N, L, H, hd); "linprobe" is the ViT-B probe's batch
 # of 1024, train steps and padded eval batches alike. The JSON line reports the forward at
 # the serving shape and the backward at the decoder's training shape, the
@@ -1361,6 +1386,197 @@ def phase_ddp(card: str) -> tuple[int, int]:
     return tuple(sum(v[i] for v in launches.values()) for i in (0, 1))
 
 
+# The [resume] worker: cli/pretrain.main in a process of its own, which
+# prints its K1 launch counts and the time when it ends (also when the fault
+# drill ends it through os._exit), the time its first step finished on the
+# card, and its losses. argv: the repo root, then the pretrain flags (and
+# the launcher's).
+_RESUME_WORKER = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from cross_scale_mae_torch.cli import pretrain
+from cross_scale_mae_torch.ops.attention import mha_v3
+from cross_scale_mae_torch.parallel import dist
+
+def report(tag):
+    print(tag + " " + json.dumps({"fwd": mha_v3.launches, "bwd": mha_v3.bwd_launches,
+                                   "t": time.time()}), flush=True)
+
+make_step = pretrain.make_pretrain_step
+def first_step_timed(*args, **kwargs):
+    step, done = make_step(*args, **kwargs), []
+    def run(*a, **k):
+        out = step(*a, **k)
+        if not done:
+            torch.cuda.synchronize()
+            done.append(time.time())
+            print("FIRST_STEP %.6f" % done[0], flush=True)
+        return out
+    return run
+pretrain.make_pretrain_step = first_step_timed
+exit_now = os._exit
+def exit_reported(code):
+    report("EXIT")
+    exit_now(code)
+os._exit = exit_reported
+try:
+    res = pretrain.main(pretrain.get_args_parser().parse_args(sys.argv[2:]))
+    report("DONE")
+    print("RESULT " + json.dumps({"steps": res["steps"], "losses": res["losses"],
+                                  "npz": res["npz"]}), flush=True)
+finally:
+    dist.shutdown()
+"""
+
+
+def _resume_argv(out: str) -> list[str]:
+    return ["--model", "mae_vit_base_MsLdCeCd", "--input_size", "128", "--patch_size", "16",
+            "--mask_ratio", "0.75", "--batch_size", str(TRAIN_BATCH),
+            "--synthetic_len", str(RESUME_LEN), "--epochs", str(RESUME_EPOCHS),
+            "--warmup_epochs", "1", "--ckpt_interval", "1", "--compute_dtype", "bfloat16",
+            "--attention_impl", "pallas_v3", "--gelu", "tanh", "--log_interval", "1",
+            "--seed", "0", "--device", "cuda", "--output_dir", out]
+
+
+def _tagged(text: str, tag: str) -> list:
+    """The JSON (or number) after each line that starts with ``tag``."""
+    return [json.loads(ln[len(tag) + 1:]) for ln in text.splitlines() if ln.startswith(tag + " ")]
+
+
+def _npz_gap(a: str, b: str) -> float:
+    """The largest |a - b| over every parameter of two params.npz files."""
+    with np.load(a) as x, np.load(b) as y:
+        check(sorted(x.files) == sorted(y.files), f"{a} and {b} hold other parameters")
+        return max(float(np.abs(x[k].astype(np.float64) - y[k]).max())
+                   for k in x.files if k != "__config__")
+
+
+def phase_resume(card: str) -> tuple[int, int]:
+    """The flagship pretrain run through a lost process and a relaunch:
+    run A unbroken (twice, A and A': their gap is the control), run B
+    through ``cli/launch.main`` with one rank over NCCL, ended by the fault
+    drill after step 5 and resumed from its step-4 checkpoint; then the
+    save and restore times of the full state, and a truncated checkpoint
+    refused. Returns the K1 (forward, backward) launches of B's two
+    attempts."""
+    from cross_scale_mae_torch.cli import launch
+    from cross_scale_mae_torch.cli.pretrain import build_run
+    from cross_scale_mae_torch.utils.checkpoint import (
+        STATE_FILE,
+        latest_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    steps = RESUME_EPOCHS * RESUME_LEN // TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for name in ("A", "A_prime"):
+            out = os.path.join(tmp, name)
+            proc = subprocess.run([sys.executable, "-c", _RESUME_WORKER, repo,
+                                   *_resume_argv(out)], cwd=repo, capture_output=True,
+                                  text=True, timeout=RESUME_TIMEOUT_S)
+            check(proc.returncode == 0, f"run {name} failed:\n{proc.stdout[-3000:]}"
+                  f"{proc.stderr[-3000:]}")
+            runs[name] = {"result": _tagged(proc.stdout, "RESULT")[-1],
+                          "done": _tagged(proc.stdout, "DONE")[-1]}
+            shutil.rmtree(os.path.join(out, "checkpoints"))
+        work = os.path.join(tmp, "B")
+        fault = {"CSM_FAULT_STEP": str(RESUME_FAULT), "CSM_FAULT_ATTEMPT": "1"}
+        saved = {k: os.environ.get(k) for k in fault}
+        os.environ.update(fault)
+        try:
+            res = launch.main(launch.get_args_parser().parse_args([
+                "--nprocs", "1", "--workdir", work, "--grace_s", "30", "--max_restarts", "1",
+                "--", sys.executable, "-c", _RESUME_WORKER, repo,
+                *_resume_argv(os.path.join(work, "out"))]))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        logs = [open(os.path.join(work, "launcher", f"attempt{k}.worker0.log")).read()
+                for k in (1, 2)]
+        check(res == {"success": True, "attempts": 2, "final_nprocs": 1, "restarts": 1},
+              f"launcher {res}:\n{logs[0][-2000:]}\n{logs[1][-3000:]}")
+        with open(os.path.join(work, "launcher", "state.json")) as f:
+            state = json.load(f)
+        ckpt = os.path.join(work, "out", "checkpoints")
+        check(state["attempt"] == 2 and state["cmd"][-2:] == ["--resume", ckpt],
+              f"attempt 2 was not given --resume: {state}")
+        check(f"[fault-injection] killing process 0 at step {RESUME_FAULT}" in logs[0],
+              "attempt 1 was not ended by the fault drill")
+        resumed = [ln for ln in logs[1].splitlines() if ln.startswith("resumed from")]
+        check(len(resumed) == 1 and " at epoch 2 (step 4, " in resumed[0],
+              f"attempt 2 did not resume from step 4: {resumed}")
+        restore_cli_ms = float(resumed[0].rsplit(", ", 1)[1].split(" ms")[0])
+        exit1, done2 = _tagged(logs[0], "EXIT")[-1], _tagged(logs[1], "DONE")[-1]
+        first2 = float(_tagged(logs[1], "FIRST_STEP")[-1])
+        b = _tagged(logs[1], "RESULT")[-1]
+        a, a2 = runs["A"]["result"], runs["A_prime"]["result"]
+        redone = RESUME_FAULT + b["steps"] - steps
+        check(a["steps"] == a2["steps"] == steps and b["steps"] == steps - 4,
+              f"steps A {a['steps']}, A' {a2['steps']}, B's attempt 2 {b['steps']}")
+        # K1: 20 forward and 20 backward launches a step, in each process.
+        for name, counts, n in (("A", runs["A"]["done"], steps),
+                                ("A'", runs["A_prime"]["done"], steps),
+                                ("B attempt 1", exit1, RESUME_FAULT),
+                                ("B attempt 2", done2, b["steps"])):
+            check(counts["fwd"] == counts["bwd"] == ATTN_PER_STEP * n,
+                  f"{name}: K1 launches {counts['fwd']}, {counts['bwd']} != "
+                  f"{ATTN_PER_STEP} x {n} steps")
+        control = _npz_gap(a2["npz"], a["npz"])
+        gap = _npz_gap(b["npz"], a["npz"])
+        loss_spread = max(abs(x - y) for x, y in zip(a2["losses"], a["losses"]))
+        loss_gap = max(abs(x - y) for x, y in zip(b["losses"], a["losses"][4:]))
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, str(latest_step(ckpt)), STATE_FILE))
+
+        # A truncated copy of the newest checkpoint is refused, never loaded as zeros.
+        bad = os.path.join(tmp, "bad")
+        os.makedirs(os.path.join(bad, str(steps)))
+        with open(os.path.join(ckpt, str(steps), STATE_FILE), "rb") as f:
+            blob = f.read(ckpt_bytes // 2)
+        with open(os.path.join(bad, str(steps), STATE_FILE), "wb") as f:
+            f.write(blob)
+        run = build_run(_train_argv(tmp, "pallas_v3"))
+        try:
+            restore_checkpoint(bad, run.state)
+            refused = None
+        except (RuntimeError, EOFError, OSError) as e:
+            refused = type(e).__name__
+        check(refused is not None, "a truncated checkpoint restored")
+        # Save and restore of the full-size state on one rank, in turns.
+        save_ms, restore_ms = [], []
+        timed = os.path.join(tmp, "timed")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(timed, run.state.step, run.state)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            restore_checkpoint(timed, run.state)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        del run
+        torch.cuda.empty_cache()
+    log("resume", card=json.dumps(card), steps=steps, fault_after_step=RESUME_FAULT,
+        params_gap_b_to_a=gap, params_gap_a_prime_to_a=control, bit_equal=gap == 0.0,
+        loss_gap_redone_steps=loss_gap, loss_spread_a_prime=loss_spread,
+        losses_a=json.dumps(a["losses"]), losses_b_attempt2=json.dumps(b["losses"]),
+        launches_attempt1=json.dumps([exit1["fwd"], exit1["bwd"]]),
+        launches_attempt2=json.dumps([done2["fwd"], done2["bwd"]]),
+        checkpoint_bytes=ckpt_bytes, save_ms_rank0=json.dumps(save_ms),
+        restore_ms=json.dumps(restore_ms), restore_ms_in_cli=restore_cli_ms,
+        recovery_s=first2 - exit1["t"], steps_redone=redone, corrupt_refused=refused)
+    check(gap <= control, f"B's params {gap} from A's, farther than A' ({control})")
+    check(loss_gap <= loss_spread, f"B's losses at steps 5-{steps} {b['losses']} against "
+          f"A's {a['losses'][4:]} (A' spread {loss_spread})")
+    return exit1["fwd"] + done2["fwd"], exit1["bwd"] + done2["bwd"]
+
+
 def _ft_argv(tmp: str, impl: str, images: int, steps: int):
     from cross_scale_mae_torch.cli.finetune import get_args_parser
 
@@ -2027,8 +2243,9 @@ def main() -> int:
     phase_build()
     rows = phase_kernel(card)
     # Each path is driven with the counts set to 0 just before it and read
-    # just after it: serving (forward only), pretraining, finetuning, then
-    # linear probing from the pretraining's weights.
+    # just after it: serving (forward only), pretraining, finetuning, linear
+    # probing from the pretraining's weights, then pretraining through a
+    # fault and a relaunch (each process counts from 0).
     served = phase_serving(card)
     with tempfile.TemporaryDirectory() as work:
         npz = os.path.join(work, "pretrain.npz")
@@ -2038,10 +2255,11 @@ def main() -> int:
         ft_fwd, ft_bwd = phase_finetune(card)
         phase_finetune_grads_fp64(card)
         lp_fwd = phase_linprobe(card, npz)
+    resume_fwd, resume_bwd = phase_resume(card)
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "train_ddp": ddp_fwd,
-                            "linprobe": lp_fwd},
+                            "train_resume": resume_fwd, "linprobe": lp_fwd},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
-                            "linprobe": 0},
+                            "train_resume": resume_bwd, "linprobe": 0},
                "mha_fwd": {"finetune": ft_fwd}, "mha_bwd": {"finetune": ft_bwd},
                "mha2_fwd": {}, "mha2_bwd": {}}
     replaces = {"mha3_fwd": "cross_scale_mae_tpu/ops/attention.py:326",

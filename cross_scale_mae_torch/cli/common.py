@@ -2,7 +2,8 @@
 ``cross_scale_mae_tpu/cli/common.py``): the data and runtime flags, the
 reference-compat flags and their resolution, the process runtime (one
 process per GPU, ``parallel/dist.py``), the attention choice, the loader
-factory, run names, and the refusal of flags not ported yet."""
+factory, run names, the classifier CLIs' ``--resume``, and the refusal of
+flags not ported yet."""
 
 from __future__ import annotations
 
@@ -16,14 +17,15 @@ import torch
 from cross_scale_mae_torch.data.datasets import UNPORTED_DATASETS, Dataset
 from cross_scale_mae_torch.data.loader import DataLoader
 from cross_scale_mae_torch.parallel.dist import Runtime, initialize_distributed
+from cross_scale_mae_torch.utils.checkpoint import latest_step, restore_checkpoint
 from cross_scale_mae_torch.utils.logging import rank0_print
 
 # Runtime flags of the JAX CLIs that the port parses but does not run yet:
-# flag -> ROADMAP.md queue 1 item (9 checkpoints and resume, 11 the mesh
-# beyond its data axis: TP, SP, FSDP and multi-slice layouts, 16 logging,
-# profiling and JAX's own platform pin, whose port counterpart is --device).
+# flag -> ROADMAP.md queue 1 item (11 the mesh beyond its data axis: TP, SP,
+# FSDP and multi-slice layouts, 16 logging, profiling and JAX's own platform
+# pin, whose port counterpart is --device).
 UNPORTED_RUNTIME = {
-    "resume": 9, "model_parallel": 11, "sequence_parallel": 11, "fsdp": 11,
+    "model_parallel": 11, "sequence_parallel": 11, "fsdp": 11,
     "num_slices": 11, "use_tensorboard": 16, "use_wandb": 16, "wandb_project": 16,
     "wandb_entity": 16, "profile_dir": 16, "jax_platforms": 16,
 }
@@ -35,6 +37,7 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("runtime")
     g.add_argument("--seed", default=0, type=int)
     g.add_argument("--output_dir", default="./output_dir")
+    g.add_argument("--resume", default="", help="checkpoint directory to resume from")
     g.add_argument("--num_workers", default=os.cpu_count() or 4, type=int,
                    help="decode threads of the loader (at least 2)")
     g.add_argument("--log_interval", default=20, type=int)
@@ -64,7 +67,7 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     n.add_argument("--log_dir", default=None)
     n.add_argument("--device_batch_dtype", default=None)
     u = p.add_argument_group("runtime, not ported yet (ROADMAP.md)")
-    for flag in ("resume", "profile_dir", "jax_platforms", "wandb_project", "wandb_entity"):
+    for flag in ("profile_dir", "jax_platforms", "wandb_project", "wandb_entity"):
         u.add_argument(f"--{flag}", default=None)
     u.add_argument("--model_parallel", default=None, type=int)
     u.add_argument("--num_slices", default=1, type=int)
@@ -229,6 +232,28 @@ def make_loader(args, dataset: Dataset, batch_size: int, rt: Runtime, *,
     return DataLoader(dataset, batch_size, shuffle=is_train, seed=seed, drop_last=is_train,
                       num_threads=max(2, args.num_workers), shard_id=rt.rank,
                       num_shards=rt.world_size)
+
+
+def restore_classifier_run(args, state) -> tuple[Any, int, float]:
+    """--resume of the classifier CLIs (cli/common.py:183-203 of the JAX
+    package; util/misc.py:382-411): the newest checkpoint of the
+    directory restored into ``state`` in place, the epoch after its
+    ``epoch`` to start from, and its ``max_acc``; --start_epoch, where the
+    CLI has it, wins when given. Returns (state, start_epoch, max_acc),
+    (state, 0, 0.0) without either flag; a --resume directory with no
+    checkpoint raises FileNotFoundError."""
+    start_epoch, max_acc = 0, 0.0
+    if args.resume:
+        if latest_step(args.resume) is None:
+            raise FileNotFoundError(f"--resume: no checkpoints in {args.resume}")
+        state, meta = restore_checkpoint(args.resume, state)
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        max_acc = float(meta.get("max_acc", 0.0))
+        rank0_print(f"resumed from {args.resume}: epoch {start_epoch}, "
+                    f"max_acc {max_acc:.2f}%")
+    if getattr(args, "start_epoch", None) is not None:
+        start_epoch = args.start_epoch   # the reference's flag wins when given
+    return state, start_epoch, max_acc
 
 
 def encode_run_name(**config: Any) -> str:

@@ -4,7 +4,8 @@ Counterpart of ``cross_scale_mae_tpu/cli/finetune.py`` with its flag names
 for what the port runs: a ViT classifier (``--model vit_large_patch16``, 64
 px, patch 8 by default) started from a pretrained MAE encoder
 (``--finetune params.npz``, written by the port's ``cli/pretrain`` or the
-JAX package's ``save_params_npz``), the head re-initialised, AdamW (b2
+JAX package's ``save_params_npz``, or a pretrain run's checkpoint
+directory, ``<output_dir>/checkpoints``), the head re-initialised, AdamW (b2
 0.999) with layer-wise lr decay under the warmup + half-cosine schedule,
 label smoothing and drop-path, then the evaluation (loss, acc1, acc5, F1,
 mIoU) with the ragged last batch padded under a validity mask. With
@@ -18,12 +19,16 @@ on the device), or ``fmow_rgb``, ``coco`` or ``naip`` with ``--train_path``
 and ``--test_path``, read by ``data/loader.DataLoader`` and moved by
 ``device_prefetch`` (NAIP adds the rot90 augmentation). At the end the
 params are written as the JAX package's npz (``<output_dir>/params.npz``).
-Data parallel as ``cli/pretrain``: one process per GPU, in the JAX jit's
-global-batch semantics; ``--batch_size`` is the global batch, and every
-rank reports the global eval. Mixup/CutMix, RandAugment, color jitter,
-random erasing, the TIFF and temporal datasets, resume, TP/SP/FSDP, the
-Adam moment dtypes, Orbax and ``.pth`` checkpoints are not ported yet and
-refuse with a pointer to ROADMAP.md.
+Checkpoints (``utils/checkpoint.py``) go to ``<output_dir>/checkpoints``
+every ``--ckpt_interval`` (``--save_every``) epochs and after the last,
+with the epoch and the best acc1 in the sidecar; ``--resume <dir>``
+restores the newest and starts at the epoch after it, the best acc1
+carried on. Data parallel as ``cli/pretrain``: one process per GPU, in the
+JAX jit's global-batch semantics; ``--batch_size`` is the global batch,
+and every rank reports the global eval. Mixup/CutMix, RandAugment, color
+jitter, random erasing, the TIFF and temporal datasets, TP/SP/FSDP, the
+Adam moment dtypes and ``.pth`` checkpoints are not ported yet and refuse
+with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.finetune --finetune pretrain/params.npz \\
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 from typing import Any, Callable, Iterable, Iterator, Optional
@@ -53,6 +59,7 @@ from cross_scale_mae_torch.cli.common import (
     apply_reference_compat,
     make_loader,
     refuse_unported,
+    restore_classifier_run,
     setup_runtime,
 )
 from cross_scale_mae_torch.configs import (
@@ -82,7 +89,15 @@ from cross_scale_mae_torch.train.optim import build_optimizer
 from cross_scale_mae_torch.train.pretrain import _step_rng
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, finite_loss, tree_leaves
-from cross_scale_mae_torch.utils.checkpoint import load_flat_npz, read_config_json, save_params_npz
+from cross_scale_mae_torch.utils.checkpoint import (
+    checkpoint_kind,
+    checkpoint_meta,
+    load_flat_npz,
+    read_config_json,
+    restore_arrays_host,
+    save_checkpoint,
+    save_params_npz,
+)
 from cross_scale_mae_torch.utils.logging import rank0_print
 from cross_scale_mae_torch.utils.metrics import ConfusionMatrix, MetricLogger
 from cross_scale_mae_torch.utils.params import (
@@ -113,7 +128,8 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="classify from the cls token (main_finetune.py:276-279)")
     p.add_argument("--drop_path", default=0.1, type=float)
     p.add_argument("--finetune", default="",
-                   help="pretrained MAE params: an npz of save_params_npz")
+                   help="pretrained MAE params: an npz of save_params_npz, or a "
+                        "pretrain run's checkpoint directory")
     p.add_argument("--eval", action="store_true", help="evaluate only")
     p.add_argument("--embed_dim", default=None, type=int)
     p.add_argument("--depth", default=None, type=int)
@@ -131,6 +147,10 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--smoothing", default=0.1, type=float)
     p.add_argument("--mixup", default=0.0, type=float)
     p.add_argument("--cutmix", default=0.0, type=float)
+    p.add_argument("--ckpt_interval", default=20, type=int,
+                   help="write <output_dir>/checkpoints every N epochs and after the last")
+    p.add_argument("--save_every", dest="ckpt_interval", type=int,
+                   default=argparse.SUPPRESS, help="reference alias for --ckpt_interval")
     p.add_argument("--eval_interval", default=1, type=int,
                    help="evaluate every N epochs and after the last")
     p.add_argument("--max_steps", default=None, type=int, help="hard step cap")
@@ -161,24 +181,33 @@ def check_args(args) -> None:
 
 def load_pretrained_encoder(path: str, vcfg: ViTClassifierConfig, params: dict,
                             device: torch.device) -> dict:
-    """Overlay a pretrained MAE encoder from an npz of ``save_params_npz``
-    onto fresh classifier params. pos_embed and the head stay fresh (and
-    fc_norm with the global-pool head); a patch_embed of another shape keeps
-    the fresh init, any other misfit raises naming the parameter."""
+    """Overlay a pretrained MAE encoder onto fresh classifier params, from
+    an npz of ``save_params_npz`` or the newest step of a pretrain run's
+    checkpoint directory (its params and sidecar config). pos_embed and the
+    head stay fresh (and fc_norm with the global-pool head); a patch_embed
+    of another shape keeps the fresh init, any other misfit raises naming
+    the parameter."""
     if os.path.isdir(path):
+        try:
+            tree, step = restore_arrays_host(path, subset=("params",))
+        except FileNotFoundError as e:
+            raise SystemExit(f"--finetune {path}: {e}") from None
+        meta = checkpoint_meta(path, step)
+        if "config" not in meta or checkpoint_kind(meta) != "mae":
+            raise SystemExit(f"--finetune {path}: step {step} is not a pretrain run's "
+                             "checkpoint with its config sidecar")
+        cfg_json, tree = json.dumps(meta["config"]), tree["params"]
+    elif not path.endswith(".npz"):
         raise SystemExit(
-            f"--finetune {path}: restoring an Orbax checkpoint directory is not "
-            "ported yet; see ROADMAP.md (queue 1 item 9). Pass the npz that "
-            "cli/pretrain writes, or one from the JAX package's save_params_npz.")
-    if not path.endswith(".npz"):
-        raise SystemExit(
-            f"--finetune {path}: the port reads save_params_npz files only; reference "
-            ".pth import is not ported yet, see ROADMAP.md (queue 1 item 16)")
-    cfg_json = read_config_json(path)
-    if cfg_json is None:
-        raise SystemExit(f"--finetune {path}: the npz has no model config entry")
+            f"--finetune {path}: the port reads save_params_npz files and its own "
+            "checkpoint directories; reference .pth import is not ported yet, see "
+            "ROADMAP.md (queue 1 item 16)")
+    else:
+        cfg_json, tree = read_config_json(path), load_flat_npz(path)
+        if cfg_json is None:
+            raise SystemExit(f"--finetune {path}: the npz has no model config entry")
     mae_cfg = MAEConfig.from_json(cfg_json).replace(apply_encoder_norm=not vcfg.global_pool)
-    mae_params = params_from_jax(load_flat_npz(path), mae_cfg, device)
+    mae_params = params_from_jax(tree, mae_cfg, device)
     pre, missing = mae_encoder_to_classifier(mae_params, vcfg)
     if pre["patch_embed"]["kernel"].shape != params["patch_embed"]["kernel"].shape:
         rank0_print("patch_embed shape mismatch; keeping fresh init")
@@ -209,6 +238,8 @@ class FinetuneRun:
     eval_labels: Optional[torch.Tensor] = None
     train_loader: Optional[DataLoader] = None   # a real dataset's
     eval_loader: Optional[DataLoader] = None
+    start_epoch: int = 0                        # after --resume, the checkpoint's epoch + 1
+    max_acc: float = 0.0                        # the best acc1 so far, from the checkpoint
 
     @property
     def device(self) -> torch.device:
@@ -330,6 +361,7 @@ def build_run(args) -> FinetuneRun:
                          clip_grad=args.clip_grad, layer_decay=args.layer_decay,
                          depth=vcfg.depth, no_decay_names=("pos_embed", "cls_token"))
     state = TrainState.create(params, mstate, tx)
+    state, start_epoch, max_acc = restore_classifier_run(args, state)
     # The dataset's own statistics, as the JAX CLI normalizes with them.
     train_loader = data.get("train_loader")
     mean, std = ((train_loader.dataset.mean, train_loader.dataset.std) if train_loader
@@ -344,7 +376,7 @@ def build_run(args) -> FinetuneRun:
                        make_classify_train_step(vcfg, tcfg, schedule, augment=augment,
                                                 data_parallel=rt.distributed),
                        make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
-                       canvas, rot90, **data)
+                       canvas, rot90, **data, start_epoch=start_epoch, max_acc=max_acc)
 
 
 def evaluate(eval_fn: Callable, state: TrainState, batches: Iterable, num_classes: int,
@@ -395,14 +427,18 @@ def evaluate_run(run: FinetuneRun, batch_size: int) -> tuple[dict, int]:
                     local, run.device, run.rt.distributed)
 
 
-def fit(run: FinetuneRun, args,
+def fit(run: FinetuneRun, args, ckpt_dir: Optional[str] = None,
         on_eval: Optional[Callable[[int, dict, float], None]] = None,
         on_epoch_end: Optional[Callable[[int, bool], None]] = None) -> dict[str, Any]:
-    """The epoch loop of the classifier CLIs: one step per batch with the
+    """The epoch loop of the classifier CLIs, from ``run.start_epoch`` with
+    ``run.max_acc`` as the best acc1 so far: one step per batch with the
     NaN abort one step behind (and after the last step), the metrics every
     ``--log_interval`` steps, an evaluation every ``--eval_interval``
-    epochs and after the last (then ``on_eval(epoch, stats, max_acc)``),
-    then ``on_epoch_end(epoch, last)``; ``--max_steps`` ends the run.
+    epochs and after the last (then ``on_eval(epoch, stats, max_acc)``), a
+    checkpoint in ``ckpt_dir`` every ``--ckpt_interval`` epochs and after
+    the last (JAX cli/finetune.py:429-438: the epoch and the best acc1 in
+    its sidecar), then ``on_epoch_end(epoch, last)``; ``--max_steps`` ends
+    the run.
 
     Returns the step count, every step's loss, the last logged metrics, the
     last eval's stats, the eval batches run, the best acc1 and, on the GPU,
@@ -417,8 +453,8 @@ def fit(run: FinetuneRun, args,
     stats: dict = {}
     prev_loss = None
     total = eval_batches = timed_steps = 0
-    max_acc, train_s = 0.0, 0.0
-    first = getattr(args, "start_epoch", None) or 0
+    max_acc, train_s = run.max_acc, 0.0
+    first = run.start_epoch
     for epoch in range(first, args.epochs):
         timed = cuda and epoch > first
         if timed:
@@ -451,6 +487,9 @@ def fit(run: FinetuneRun, args,
             rank0_print(f"Epoch {epoch}: {eval_line(stats)} max_acc {max_acc:.2f}%")
             if on_eval is not None:
                 on_eval(epoch, stats, max_acc)
+        if ckpt_dir and ((epoch + 1) % args.ckpt_interval == 0 or epoch + 1 == args.epochs):
+            save_checkpoint(ckpt_dir, run.state.step, run.state, run.cfg.to_json(),
+                            {"epoch": epoch, "max_acc": max_acc})
         if on_epoch_end is not None:
             on_epoch_end(epoch, last)
         if last:
@@ -474,7 +513,7 @@ def main(args) -> dict[str, Any]:
         stats, batches = evaluate_run(run, args.batch_size)
         rank0_print(f"eval: {eval_line(stats)}")
         return {"eval": stats, "eval_batches": batches}
-    result = fit(run, args)
+    result = fit(run, args, ckpt_dir=os.path.join(args.output_dir, "checkpoints"))
     npz = os.path.join(args.output_dir, "params.npz")
     if run.rt.rank == 0:
         os.makedirs(args.output_dir, exist_ok=True)

@@ -5,7 +5,8 @@ and defaults (linprobe.sh:6-9, main_linprobe.py:119-142): a ViT classifier
 (``--model vit_base_patch16``, 128 px, patch 16, the cls-token head) with
 the affine-free BatchNorm in front of the head (main_linprobe.py:517-520),
 started from a pretrained MAE encoder (``--finetune params.npz``, written by
-the port's ``cli/pretrain`` or the JAX package's ``save_params_npz``) with
+the port's ``cli/pretrain`` or the JAX package's ``save_params_npz``, or a
+pretrain run's checkpoint directory) with
 the head re-initialised as trunc_normal(0.01); everything but the head is
 frozen (main_linprobe.py:521-525): the backbone runs without autograd and
 LARS (blr 0.1, lr = blr * eff_batch / 256, weight decay 0) updates the head
@@ -18,12 +19,15 @@ runs a backward kernel.
 
 Data: ``--dataset_type`` fmow_rgb, coco, naip or synthetic through
 ``data/loader.DataLoader`` and ``device_prefetch``. The run directory
-(``<output_dir>/<run name>``) gets ``log.jsonl`` (one line per evaluation)
-and ``params.npz`` (the JAX package's npz), written by rank 0. Data
-parallel as ``cli/pretrain``: one process per GPU, in the JAX jit's
-global-batch semantics (the BN head's statistics over every rank's rows).
-``--resume``, TP/SP/FSDP, TensorBoard/wandb, the TIFF and temporal datasets
-and Orbax or ``.pth`` inputs are not ported yet and refuse with a pointer
+(``<output_dir>/<run name>``) gets ``log.jsonl`` (one line per evaluation),
+``params.npz`` (the JAX package's npz) and ``checkpoints/`` (the head's
+LARS state with the rest; the epoch and the best acc1 in the sidecar),
+written by rank 0 every ``--ckpt_interval`` epochs and after the last;
+``--resume <dir>`` restores the newest checkpoint and starts at the epoch
+after it. Data parallel as ``cli/pretrain``: one process per GPU, in the
+JAX jit's global-batch semantics (the BN head's statistics over every
+rank's rows). TP/SP/FSDP, TensorBoard/wandb, the TIFF and temporal
+datasets and ``.pth`` inputs are not ported yet and refuse with a pointer
 to ROADMAP.md.
 
 Usage:
@@ -54,6 +58,7 @@ from cross_scale_mae_torch.cli.common import (
     encode_run_name,
     refuse_unported,
     resolve_attention,
+    restore_classifier_run,
     setup_runtime,
 )
 from cross_scale_mae_torch.cli.finetune import (
@@ -87,7 +92,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--cls_token", action="store_false", dest="global_pool",
                    help="classify from the cls token (the linprobe default)")
     p.add_argument("--finetune", default="",
-                   help="pretrained MAE params: an npz of save_params_npz")
+                   help="pretrained MAE params: an npz of save_params_npz, or a "
+                        "pretrain run's checkpoint directory")
     p.add_argument("--eval", action="store_true", help="evaluate only")
     p.add_argument("--embed_dim", default=None, type=int)
     p.add_argument("--depth", default=None, type=int)
@@ -104,7 +110,8 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="accepted; the probe runs LARS with weight decay 0 "
                         "(main_linprobe.py:557-558), as the JAX package does")
     p.add_argument("--ckpt_interval", default=20, type=int,
-                   help="write params.npz every N epochs and after the last")
+                   help="write checkpoints/ every N epochs and after the last, and "
+                        "params.npz then and at the end")
     p.add_argument("--save_every", dest="ckpt_interval", type=int,
                    default=argparse.SUPPRESS, help="reference alias for --ckpt_interval")
     p.add_argument("--eval_interval", default=1, type=int,
@@ -172,6 +179,7 @@ def build_run(args) -> FinetuneRun:
     tx = build_optimizer(params, schedule, optimizer="lars", weight_decay=0.0,
                          frozen_mask=head_only_mask(params))
     state = TrainState.create(params, mstate, tx)
+    state, start_epoch, max_acc = restore_classifier_run(args, state)
     rot90 = args.dataset_type == "naip"
     augment = make_pretrain_augment(train_ds.mean, train_ds.std, args.input_size,
                                     rot90=rot90, dtype=args.compute_dtype)
@@ -185,14 +193,15 @@ def build_run(args) -> FinetuneRun:
         make_classify_train_step(vcfg, tcfg, schedule, augment=augment, freeze_backbone=True,
                                  data_parallel=rt.distributed),
         make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
-        train_ds.canvas_size, rot90, train_loader=train_loader, eval_loader=eval_loader)
+        train_ds.canvas_size, rot90, train_loader=train_loader, eval_loader=eval_loader,
+        start_epoch=start_epoch, max_acc=max_acc)
 
 
 def main(args) -> dict[str, Any]:
     """Probe, evaluating every ``--eval_interval`` epochs into log.jsonl and
-    writing params.npz every ``--ckpt_interval`` epochs and after the last
-    (rank 0 alone logs and writes, in the run directory it chose for every
-    rank); returns :func:`cli.finetune.fit`'s results, the run directory,
+    writing a checkpoint and params.npz every ``--ckpt_interval`` epochs
+    and after the last (rank 0 alone logs and writes, in the run directory
+    it chose for every rank); returns :func:`cli.finetune.fit`'s results, the run directory,
     the npz path and the run itself."""
     run = build_run(args)
     if args.eval:
@@ -218,7 +227,8 @@ def main(args) -> dict[str, Any]:
         if main_rank and ((epoch + 1) % args.ckpt_interval == 0 or last):
             save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
 
-    result = fit(run, args, on_eval=log_eval, on_epoch_end=save)
+    result = fit(run, args, os.path.join(output_dir, "checkpoints"), on_eval=log_eval,
+                 on_epoch_end=save)
     if logger is not None:
         logger.close()
     if run.rt.distributed:

@@ -24,9 +24,26 @@ device), or ``fmow_rgb``, ``coco`` or ``naip`` with ``--train_path``, read
 by ``data/loader.DataLoader`` and moved by ``device_prefetch`` (NAIP adds
 the rot90 augmentation). At the end the params are written as the JAX
 package's npz (``<output_dir>/params.npz``), which ``cli/serve.py`` serves.
-The TIFF and temporal datasets, resume and checkpoints, TP/SP/ZeRO/FSDP,
-wandb, the perceptual loss, the reconstruction plots and the fault knobs
-are not ported yet and refuse with a pointer to ROADMAP.md.
+
+Checkpoints and recovery, as the JAX CLI: ``<output_dir>/checkpoints/``
+(``utils/checkpoint.py``) every ``--ckpt_interval`` epochs, after the last
+and on a stop request; ``--resume <dir>`` restores its newest step and
+starts at the epoch after the checkpoint's (a directory with no checkpoint
+starts fresh; ``--start_epoch`` wins when given). A checkpoint written on
+a stop in the middle of an epoch resumes at the next epoch, leaving that
+epoch's remaining steps out, as the JAX package does. SIGTERM or SIGINT
+finishes the current step, writes a checkpoint and exits 0; under data
+parallelism the ranks agree on the step to stop after through the step's
+own reduction (``train/pretrain.make_pretrain_step``'s ``stop``). The
+failure drills: ``CSM_FAULT_STEP=k`` ends the process with
+``os._exit(13)`` after k steps of this launch, on rank
+``CSM_FAULT_PROCESS`` (0) when ``CSM_LAUNCH_ATTEMPT`` (1, set by
+``cli/launch.py``) equals ``CSM_FAULT_ATTEMPT`` (1). ``cli/launch.py``
+restarts a gang that loses a process from the newest checkpoint.
+
+The TIFF and temporal datasets, TP/SP/ZeRO/FSDP, wandb, the perceptual
+loss and the reconstruction plots are not ported yet and refuse with a
+pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_base_MsLdCeCd \\
@@ -46,6 +63,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import signal
 import time
 from typing import Any, Callable, Iterator, Optional
 
@@ -78,7 +96,12 @@ from cross_scale_mae_torch.train.pretrain import (
 )
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, finite_loss, tree_leaves
-from cross_scale_mae_torch.utils.checkpoint import save_params_npz
+from cross_scale_mae_torch.utils.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+    save_params_npz,
+)
 from cross_scale_mae_torch.utils.logging import rank0_print
 from cross_scale_mae_torch.utils.params import params_to_jax
 
@@ -86,10 +109,10 @@ from cross_scale_mae_torch.utils.params import params_to_jax
 # flag -> ROADMAP.md queue 1 item.
 UNPORTED_FLAGS = {
     **UNPORTED_RUNTIME, "zero1": 11, "use_perceptual_loss": 14, "vgg_weights": 14,
-    "plot_recon": 14, "val_img_path": 14, "ckpt_interval": 9, "wandb_id": 16,
+    "plot_recon": 14, "val_img_path": 14, "wandb_id": 16,
     "adam_mu_dtype": 7, "adam_nu_dtype": 7,
 }
-FAULT_ENV = ("CSM_FAULT_STEP", "CSM_FAULT_PROCESS", "CSM_FAULT_ATTEMPT")
+FAULT_EXIT_CODE = 13
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -120,6 +143,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--min_lr", default=0.0, type=float)
     p.add_argument("--weight_decay", default=0.05, type=float)
     p.add_argument("--clip_grad", default=None, type=float)
+    p.add_argument("--ckpt_interval", default=25, type=int,
+                   help="write <output_dir>/checkpoints every N epochs, after the last "
+                        "and on SIGTERM/SIGINT")
     p.add_argument("--max_steps", default=None, type=int, help="hard step cap")
     p.add_argument("--unroll_blocks", action="store_true",
                    help="a layout knob of the JAX package (scan or unrolled); the port "
@@ -139,7 +165,6 @@ def get_args_parser() -> argparse.ArgumentParser:
     g = p.add_argument_group("not ported yet (ROADMAP.md)")
     for flag in ("adam_mu_dtype", "adam_nu_dtype", "vgg_weights", "val_img_path"):
         g.add_argument(f"--{flag}", default=None)
-    g.add_argument("--ckpt_interval", default=None, type=int)
     for flag in ("zero1", "use_perceptual_loss", "plot_recon"):
         g.add_argument(f"--{flag}", action="store_true")
     return p
@@ -147,14 +172,9 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 def check_args(args) -> None:
     """Resolve the compat flags and --reference_semantics in place;
-    SystemExit for a flag, dataset or environment knob not ported yet."""
+    SystemExit for a flag or dataset not ported yet."""
     apply_reference_compat(args, "pretrain")
     refuse_unported(args, UNPORTED_FLAGS)
-    for name in FAULT_ENV:
-        if os.environ.get(name):
-            raise SystemExit(
-                f"{name}: the fault-injection knobs are not ported yet; see "
-                "ROADMAP.md (queue 1 item 16)")
     if args.reference_semantics:
         # JAX cli/pretrain.py:136-160: exact GELU, the reference's batch-shared
         # crop box, and the per-rank NT-Xent and BatchNorm of its DDP.
@@ -175,6 +195,7 @@ class PretrainRun:
     loader: Optional[DataLoader] = None   # a real dataset's, this rank's shard
     rot90: bool = False                   # the NAIP rotations
     ddp_mode: Optional[str] = None        # the step's semantics; None without a group
+    start_epoch: int = 0                  # after --resume, the checkpoint's epoch + 1
 
     @property
     def device(self) -> torch.device:
@@ -213,7 +234,8 @@ class PretrainRun:
 
 def build_run(args) -> PretrainRun:
     """Config, runtime, data, seeded init (rank 0's on every rank), AdamW
-    and the step, on this rank's device."""
+    and the step, on this rank's device; with --resume, the newest
+    checkpoint restored into the state (on every rank, from the file)."""
     check_args(args)
     rt = setup_runtime(args)
     dev = rt.device
@@ -253,6 +275,16 @@ def build_run(args) -> PretrainRun:
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay,
                          b1=tcfg.adam_b1, b2=tcfg.adam_b2, clip_grad=args.clip_grad)
     state = TrainState.create(params, mstate, tx)
+    start_epoch = 0
+    if args.resume and latest_step(args.resume) is not None:
+        t0 = time.perf_counter()
+        state, meta = restore_checkpoint(args.resume, state)
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        rank0_print(f"resumed from {args.resume} at epoch {start_epoch} (step {state.step}, "
+                    f"{(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    if args.start_epoch is not None:
+        # The reference's --start_epoch wins only when given (JAX cli/pretrain.py:287-291).
+        start_epoch = args.start_epoch
     # The dataset's own statistics, as the JAX CLI normalizes with them.
     mean, std = (loader.dataset.mean, loader.dataset.std) if loader else DATASET_STATS["synthetic"]
     rot90 = args.dataset_type == "naip"
@@ -260,7 +292,46 @@ def build_run(args) -> PretrainRun:
                                     dtype=args.compute_dtype)
     step_fn = make_pretrain_step(cfg, tcfg, schedule, augment=augment, ddp_mode=ddp_mode)
     return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, rt, loader, rot90,
-                       ddp_mode)
+                       ddp_mode, start_epoch)
+
+
+def fault_step(rank: int) -> int:
+    """The step count after which this process ends itself for a failure
+    drill (``CSM_FAULT_STEP``), or 0: the drill names one rank
+    (``CSM_FAULT_PROCESS``, 0) and one launch attempt (``CSM_FAULT_ATTEMPT``
+    against ``CSM_LAUNCH_ATTEMPT``, both 1 by default), so the relaunch
+    does not fault again."""
+    env = os.environ
+    step = int(env.get("CSM_FAULT_STEP", "0"))
+    if step and (rank != int(env.get("CSM_FAULT_PROCESS", "0"))
+                 or env.get("CSM_LAUNCH_ATTEMPT", "1") != env.get("CSM_FAULT_ATTEMPT", "1")):
+        return 0
+    return step
+
+
+class StopRequest:
+    """Set by SIGTERM or SIGINT while installed (in the main thread): the
+    loop finishes its step, checkpoints and ends."""
+
+    def __init__(self):
+        self.requested = False
+        self._previous: dict = {}
+
+    def _handle(self, signum, frame) -> None:
+        rank0_print(f"signal {signum}: checkpoint-and-exit after this step")
+        self.requested = True
+
+    def __enter__(self) -> "StopRequest":
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._previous[sig] = signal.signal(sig, self._handle)
+            except ValueError:
+                pass   # not the main thread: no handler
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for sig, handler in self._previous.items():
+            signal.signal(sig, handler)
 
 
 def main(args) -> dict[str, Any]:
@@ -276,30 +347,52 @@ def main(args) -> dict[str, Any]:
                 f"ddp_mode {run.ddp_mode}")
     losses: list[float] = []
     last_metrics: dict[str, float] = {}
-    prev_loss = None
+    prev_loss = prev_stop = None
     t_first = None
     total = 0
-    for epoch in range(args.start_epoch or 0, args.epochs):
-        for imgs in run.batches(epoch):
-            _, metrics = run.step_fn(run.state, imgs, run.draws(run.state.step))
-            # NaN abort (engine_pretrain.py:57-59) one step behind, so the
-            # host does not wait for the step it just enqueued.
-            if prev_loss is not None:
-                losses.append(finite_loss(prev_loss))
-            prev_loss = metrics["loss"]
-            total += 1
-            if total == 1 and run.device.type == "cuda":
-                torch.cuda.synchronize(run.device)
-                t_first = time.perf_counter()
-            # On the global step: an epoch may be a single step.
-            if (total - 1) % args.log_interval == 0:
-                last_metrics = {k: float(v) for k, v in metrics.items()}
-                rank0_print(f"epoch {epoch} step {total} " + " ".join(
-                    f"{k}={v:.5g}" for k, v in last_metrics.items()))
+    stopping = False
+    ckpt_dir = os.path.join(args.output_dir, "checkpoints")
+    fault = fault_step(rt.rank)
+    with StopRequest() as stop:
+        for epoch in range(run.start_epoch, args.epochs):
+            for imgs in run.batches(epoch):
+                _, metrics = run.step_fn(run.state, imgs, run.draws(run.state.step),
+                                         stop=stop.requested)
+                # NaN abort (engine_pretrain.py:57-59) one step behind, so the
+                # host does not wait for the step it just enqueued. The ranks'
+                # consensus on a stop is read with it; one process stops on
+                # its own request.
+                if prev_loss is not None:
+                    losses.append(finite_loss(prev_loss))
+                    if prev_stop is not None and float(prev_stop) > 0:
+                        stopping = True
+                prev_loss, prev_stop = metrics["loss"], metrics.pop("stop", None)
+                if not rt.distributed and stop.requested:
+                    stopping = True
+                total += 1
+                if total == 1 and run.device.type == "cuda":
+                    torch.cuda.synchronize(run.device)
+                    t_first = time.perf_counter()
+                # On the global step: an epoch may be a single step.
+                if (total - 1) % args.log_interval == 0:
+                    last_metrics = {k: float(v) for k, v in metrics.items()}
+                    rank0_print(f"epoch {epoch} step {total} " + " ".join(
+                        f"{k}={v:.5g}" for k, v in last_metrics.items()))
+                if fault and total >= fault:
+                    print(f"[fault-injection] killing process {rt.rank} at step {total}",
+                          flush=True)
+                    os._exit(FAULT_EXIT_CODE)
+                if stopping or (args.max_steps and total >= args.max_steps):
+                    break
+            if args.output_dir and ((epoch + 1) % args.ckpt_interval == 0
+                                    or epoch + 1 == args.epochs or stopping):
+                save_checkpoint(ckpt_dir, run.state.step, run.state, run.cfg.to_json(),
+                                {"epoch": epoch})
+            if stopping:
+                rank0_print("preemption checkpoint written; exiting")
+                break
             if args.max_steps and total >= args.max_steps:
                 break
-        if args.max_steps and total >= args.max_steps:
-            break
     if prev_loss is not None:
         losses.append(finite_loss(prev_loss))
     steady_ms = imgs_per_s = None

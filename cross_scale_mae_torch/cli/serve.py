@@ -1,4 +1,4 @@
-"""Online inference server: npz checkpoint -> HTTP, on the GPU.
+"""Online inference server: checkpoint -> HTTP, on the GPU.
 
 Counterpart of ``cross_scale_mae_tpu/cli/serve.py``: the model runs behind a
 dynamic micro-batching queue (``serving.MicroBatcher``), so concurrent
@@ -23,6 +23,8 @@ Usage:
     python -m cross_scale_mae_torch.cli.serve --ckpt params.npz \
         --batch_size 64 --port 8901            # on the GPU
     python -m cross_scale_mae_torch.cli.serve --ckpt params.npz --device cpu
+    python -m cross_scale_mae_torch.cli.serve --ckpt out/checkpoints --step 8
+                                               # a pretrain run's checkpoint
 """
 
 from __future__ import annotations
@@ -47,11 +49,12 @@ def get_args_parser():
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--ckpt", default=None,
                      help="npz parameter file with its __config__ entry (as "
-                          "written by save_params_npz)")
+                          "written by save_params_npz), or a pretrain run's "
+                          "checkpoint directory (<output_dir>/checkpoints)")
     src.add_argument("--artifact", default=None,
                      help="exported artifact: not ported yet (ROADMAP.md)")
     p.add_argument("--step", default=None, type=int,
-                   help="Orbax checkpoint step: not ported yet (ROADMAP.md)")
+                   help="step of a checkpoint directory (default: the newest)")
     p.add_argument("--pool", default="cls", choices=["cls", "mean", "tokens"])
     p.add_argument("--dataset_type", default="fmow_rgb")
     p.add_argument("--canvas_scale", default=None, type=float)

@@ -1,9 +1,11 @@
-"""Serving core: npz checkpoint -> callable forward + micro-batcher.
+"""Serving core: checkpoint -> callable forward + micro-batcher.
 
 Counterpart of ``cross_scale_mae_tpu/serving.py`` for the MAE kind:
 
-* :func:`prepare_serving` rebuilds a checkpoint as ``forward(params,
-  uint8_canvas)``: the eval preprocessing (normalize + center-crop resize),
+* :func:`prepare_serving` rebuilds a checkpoint (an npz of
+  ``save_params_npz``, or one step of a checkpoint directory that the
+  training CLIs write, rebuilt from its config sidecar) as
+  ``forward(params, uint8_canvas)``: the eval preprocessing (normalize + center-crop resize),
   the unmasked encoder and the pooling, on one device. The checkpoint's
   ``attention_impl`` is honoured: one trained with ``pallas_v3`` serves
   through the Hopper attention kernel.
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import threading
 import time
 from typing import Any, Callable, Optional
@@ -32,7 +35,13 @@ from cross_scale_mae_torch.data.datasets import DATASET_STATS, normalize_on_devi
 from cross_scale_mae_torch.models.mae import compute_dtype, mae_encode
 from cross_scale_mae_torch.ops.augment import make_eval_preprocess
 from cross_scale_mae_torch.parallel.dist import resolve_device
-from cross_scale_mae_torch.utils.checkpoint import load_flat_npz, read_config_json
+from cross_scale_mae_torch.utils.checkpoint import (
+    checkpoint_kind,
+    checkpoint_meta,
+    load_flat_npz,
+    read_config_json,
+    restore_arrays_host,
+)
 from cross_scale_mae_torch.utils.params import params_from_jax
 
 POOLS = ("cls", "mean", "tokens")
@@ -70,30 +79,41 @@ def prepare_serving(
     canvas_scale: Optional[float] = None,
     device: torch.device | str = "cuda",
 ):
-    """npz checkpoint -> (forward(params, imgs), params, cfg, kind, canvas, C).
+    """Checkpoint -> (forward(params, imgs), params, cfg, kind, canvas, C).
 
-    ``forward`` takes a uint8 (B, canvas, canvas, C) tensor on ``device`` and
-    returns float32 pooled features: the cls token, the mean of the patch
-    tokens, or all tokens (``pool``)."""
+    ``ckpt`` is an npz of ``save_params_npz`` or a checkpoint directory,
+    whose step ``step`` (the newest by default) is read through
+    :func:`restore_arrays_host` and its sidecar config. ``forward`` takes a
+    uint8 (B, canvas, canvas, C) tensor on ``device`` and returns float32
+    pooled features: the cls token, the mean of the patch tokens, or all
+    tokens (``pool``)."""
     dev = resolve_device(device)
-    if step is not None:
-        raise ValueError(
-            "an npz checkpoint holds one set of parameters: --step applies to "
-            "Orbax checkpoint directories, which the port does not read yet "
-            "(ROADMAP.md, queue 1 item 9)")
     if pool not in POOLS:
         raise ValueError(f"unknown pool {pool!r}; known: {POOLS}")
-    config_json = read_config_json(ckpt)
-    if config_json is None:
-        raise ValueError(
-            f"{ckpt} has no __config__ entry: write it with "
-            "save_params_npz(path, params, cfg.to_json())")
-    if "embed_dim" in json.loads(config_json):
+    if os.path.isdir(ckpt):
+        tree, step = restore_arrays_host(ckpt, step, subset=("params",))
+        meta = checkpoint_meta(ckpt, step)
+        if "config" not in meta:
+            raise ValueError(f"{ckpt} has no config sidecar meta-{step}.json")
+        config_json = json.dumps(meta["config"])
+        tree = tree["params"]
+    else:
+        if step is not None:
+            raise ValueError(
+                f"{ckpt} is an npz, which holds one set of parameters: --step "
+                "picks a step of a checkpoint directory")
+        config_json = read_config_json(ckpt)
+        if config_json is None:
+            raise ValueError(
+                f"{ckpt} has no __config__ entry: write it with "
+                "save_params_npz(path, params, cfg.to_json())")
+        tree = load_flat_npz(ckpt)
+    if checkpoint_kind({"config": json.loads(config_json)}) == "classifier":
         raise NotImplementedError(
             "serving a finetune/linprobe classifier checkpoint is not ported "
             "yet; see ROADMAP.md (queue 1 items 12 and 15)")
     cfg = MAEConfig.from_json(config_json)
-    params = params_from_jax(load_flat_npz(ckpt), cfg, dev)
+    params = params_from_jax(tree, cfg, dev)
     params = _cast_linears(params, compute_dtype(cfg))
 
     if dataset_type not in DATASET_STATS:

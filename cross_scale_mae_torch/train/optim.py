@@ -20,6 +20,11 @@ JAX package's ``lars``; with ``frozen_mask`` only the trainable leaves
 have momentum buffers and are touched (optax ``masked`` with
 ``set_to_zero`` on the complement).
 
+Each optimizer's state goes to a flat path -> tensor dict and back in
+place (``state_dict``, ``load_state_dict``): ``count``, and each moment
+under the parameter's JAX path (``mu/<path>``, ``nu/<path>``), block
+leaves stacked on a leading layer axis.
+
 Not ported yet (ROADMAP.md): SGD, AdamW under a frozen mask (queue 1 item
 12), the bf16 moment dtypes (item 7).
 """
@@ -31,7 +36,14 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from cross_scale_mae_torch.train.state import global_norm, tree_items, tree_leaves
+from cross_scale_mae_torch.train.state import (
+    flat_state,
+    global_norm,
+    load_flat_state,
+    tree_items,
+    tree_leaves,
+    tree_like,
+)
 
 Params = dict[str, Any]
 
@@ -125,6 +137,20 @@ class AdamW:
             torch._foreach_add_(params, upd)
         state.count = t
 
+    def state_dict(self, state: AdamWState, params: Params) -> dict[str, torch.Tensor]:
+        return {"count": torch.tensor(state.count, dtype=torch.int64),
+                **flat_state(tree_like(params, state.mu), "mu"),
+                **flat_state(tree_like(params, state.nu), "nu")}
+
+    def load_state_dict(self, state: AdamWState, flat: dict[str, torch.Tensor],
+                        params: Params) -> set[str]:
+        """Copy the moments into ``state``'s tensors and set its count;
+        returns the keys read."""
+        used = load_flat_state(tree_like(params, state.mu), "mu", flat)
+        used |= load_flat_state(tree_like(params, state.nu), "nu", flat)
+        state.count = int(flat["count"])
+        return used | {"count"}
+
 
 # MoCo-v3's LARS constants (util/lars.py:27-57), the JAX package's defaults.
 LARS_MOMENTUM = 0.9
@@ -190,6 +216,23 @@ class Lars:
         torch._foreach_add_(state.mu, dps)
         torch._foreach_add_(ps, state.mu, alpha=-lr)
         state.count += 1
+
+    def _mu_tree(self, state: LarsState, params: Params) -> Any:
+        """The momentum buffers as a tree like ``params``, None on frozen leaves."""
+        mu = iter(state.mu)
+        return tree_like(params, (next(mu) if t else None for t in self.trainable))
+
+    def state_dict(self, state: LarsState, params: Params) -> dict[str, torch.Tensor]:
+        return {"count": torch.tensor(state.count, dtype=torch.int64),
+                **flat_state(self._mu_tree(state, params), "mu")}
+
+    def load_state_dict(self, state: LarsState, flat: dict[str, torch.Tensor],
+                        params: Params) -> set[str]:
+        """Copy the trainable leaves' momentum into ``state``'s tensors and
+        set its count; returns the keys read."""
+        used = load_flat_state(self._mu_tree(state, params), "mu", flat)
+        state.count = int(flat["count"])
+        return used | {"count"}
 
 
 def build_optimizer(

@@ -132,7 +132,7 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
                        schedule: Callable[[int], float],
                        augment: Callable | None = None,
                        ddp_mode: Optional[str] = None) -> Callable:
-    """Returns ``step(state, batch, draws) -> (state, metrics)``.
+    """Returns ``step(state, batch, draws, stop=False) -> (state, metrics)``.
 
     batch: (B, H, W, C) normalized images, or raw uint8 when ``augment``
     (``ops/augment.make_pretrain_augment``) is given; B = accum_iter *
@@ -143,7 +143,11 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
     ``tcfg.watch_gradients`` each top-level subtree's gradient norm as
     ``gnorm/<name>``) and the step's ``lr``; nothing in the step waits on
     the device. ``ddp_mode`` None runs one process with no collective;
-    'gspmd' or 'shard_map' (the module's docstring) needs a process group."""
+    'gspmd' or 'shard_map' (the module's docstring) needs a process group.
+    There ``stop`` is this rank's request to stop (a preemption signal): it
+    rides the step's reduction of its metrics, and ``metrics["stop"]``, the
+    ranks' mean, is above 0 on every rank when any rank asked, so the ranks
+    agree on the step to stop after without a collective of their own."""
     if ddp_mode not in (None, *DDP_MODES):
         raise ValueError(f"ddp_mode must be one of {DDP_MODES} or None, got {ddp_mode!r}")
     loss_fn = make_pretrain_loss_fn(cfg, augment, global_batch=ddp_mode == "gspmd")
@@ -153,7 +157,7 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
     flat: Optional[FlatGrads] = None   # data parallel: the gradients' buffers
 
     def step(state: TrainState, batch: torch.Tensor,
-             draws: PretrainDraws | Sequence[PretrainDraws]):
+             draws: PretrainDraws | Sequence[PretrainDraws], stop: bool = False):
         nonlocal flat
         draws = [draws] if isinstance(draws, PretrainDraws) else list(draws)
         if len(draws) != accum or batch.shape[0] % accum:
@@ -176,16 +180,20 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
         # A parameter the objective does not reach (encoder_norm while
         # apply_encoder_norm is False) has a zero gradient, as in JAX.
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        stops = {}
         if ddp_mode is not None:
             flat = flat or FlatGrads(grads)
             grads = flat.all_reduce(grads)
-            all_reduce_mean([loss, losses, model_state if ddp_mode == "shard_map" else {}])
+            # A fill, not a copy from the host: the step does not wait.
+            stops["stop"] = torch.full((), float(stop), device=batch.device)
+            all_reduce_mean([loss, losses, stops,
+                             model_state if ddp_mode == "shard_map" else {}])
         if accum > 1:
             torch._foreach_mul_(grads, 1.0 / accum)
             loss = loss / accum
             losses = {k: v / accum for k, v in losses.items()}
         metrics = dict(losses, loss=loss, grad_norm=global_norm(grads),
-                       lr=schedule(state.step))
+                       lr=schedule(state.step), **stops)
         if tcfg.watch_gradients:
             # wandb.watch's per-subtree gradient norms (main_pretrain.py:537).
             names = [path[0] for path, _ in tree_items(state.params)]

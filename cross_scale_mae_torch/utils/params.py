@@ -8,6 +8,8 @@ leaves into a list of per-layer dicts. ``params_from_jax`` keeps only what
 the encoder runs (serving, as the JAX package's ``serving.py:94-97``) or,
 with ``full=True``, the whole tree the training step runs;
 ``state_from_jax`` carries the predictors' BatchNorm statistics;
+``train_state_from_jax`` carries a whole JAX pretrain TrainState (params,
+BatchNorm state, optax's Adam moments and count, step) into the port's;
 ``vit_params_from_jax`` carries the downstream classifier's tree;
 ``params_to_jax`` is the way back for every tree. ``mae_encoder_to_classifier``
 and ``merge_pretrained`` start a classifier from a pretrained encoder, as the
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from cross_scale_mae_torch.configs import MAEConfig, ViTClassifierConfig
+from cross_scale_mae_torch.train.state import TrainState
 
 
 def _linear_shapes(d_in: int, d_out: int, lead: tuple = ()) -> dict:
@@ -183,6 +186,58 @@ def state_from_jax(state: Mapping[str, Any], cfg: MAEConfig,
     """The JAX ``mae_init`` state (predictor BatchNorm statistics) as fp32
     tensors on ``device``; the same checks as :func:`params_from_jax`."""
     return _to_torch(_checked(state, mae_state_shapes(cfg), "state"), device)
+
+
+def _adam_state(node: Any) -> Mapping | None:
+    """The optax Adam state (``count``, ``mu``, ``nu``) inside a chain's
+    state: a namedtuple in a live JAX TrainState, a dict in a host restore;
+    its place in the chain depends on the options (clipping comes first)."""
+    if hasattr(node, "_asdict"):
+        node = node._asdict()
+    if isinstance(node, Mapping):
+        if "mu" in node and "nu" in node:
+            return node
+        children = list(node.values())
+    elif isinstance(node, (list, tuple)):
+        children = list(node)
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _flat_np(tree: Any, prefix: str) -> dict[str, torch.Tensor]:
+    if isinstance(tree, Mapping):
+        out = {}
+        for k in tree:
+            out.update(_flat_np(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: torch.from_numpy(np.array(tree))}
+
+
+def train_state_from_jax(state: Any, cfg: MAEConfig, tx,
+                         device: torch.device | str = "cpu") -> TrainState:
+    """A JAX pretrain TrainState as the port's: its params, BatchNorm
+    state, optax Adam moments and count and its step, restored into a
+    state made with ``tx`` (the port's AdamW for the same options).
+    ``state`` is a JAX TrainState or the dict of
+    ``restore_arrays_host(..., subset=None)``; leaves go through numpy."""
+    def get(key):
+        return state[key] if isinstance(state, Mapping) else getattr(state, key)
+
+    adam = _adam_state(get("opt_state"))
+    if adam is None:
+        raise ValueError("the JAX optimizer state holds no Adam moments (mu, nu)")
+    params = params_from_jax(get("params"), cfg, device, full=True)
+    out = TrainState.create(params, state_from_jax(get("model_state"), cfg, device), tx)
+    flat = {**_flat_np(get("params"), "params"), **_flat_np(get("model_state"), "model_state"),
+            **_flat_np(adam["mu"], "opt_state/mu"), **_flat_np(adam["nu"], "opt_state/nu"),
+            "opt_state/count": torch.tensor(int(np.asarray(adam["count"]))),
+            "step": torch.tensor(int(np.asarray(get("step"))))}
+    return out.load_state_dict({k: v.to(device) for k, v in flat.items()})
 
 
 def params_to_jax(tree: Any) -> Any:

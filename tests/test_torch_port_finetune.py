@@ -16,6 +16,7 @@ otherwise; bf16 bounds are stated where used.
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -696,7 +697,7 @@ def test_finetune_cli_pads_the_ragged_eval_batch(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--resume", "ckpt"), ("--model_parallel", "2"), ("--fsdp",), ("--mixup", "0.8"),
+    ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",), ("--mixup", "0.8"),
     ("--cutmix", "1.0"), ("--aa", "rand-m9-mstd0.5"), ("--color_jitter", "0.4"),
     ("--reprob", "0.25"), ("--dataset_type", "euro_sat"), ("--dataset_type", "fmow_sentinel"),
     ("--adam_nu_dtype", "bfloat16"), ("--cutmix_minmax", "0.2", "0.8"),
@@ -720,10 +721,13 @@ def test_finetune_cli_eval_only_evaluates(tmp_path, capsys):
 
 @pytest.mark.parametrize("make", [lambda p: p.mkdir() or str(p), lambda p: str(p) + ".pth"])
 def test_finetune_cli_refuses_orbax_dirs_and_pth(tmp_path, make):
+    """A directory without the port's checkpoints (an Orbax one of the JAX
+    package) is refused, and so is a .pth (ROADMAP.md queue 1 item 16)."""
     from cross_scale_mae_torch.cli.finetune import build_run
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        build_run(_ft_args(tmp_path, "--finetune", make(tmp_path / "ckpt")))
+    path = make(tmp_path / "ckpt")
+    with pytest.raises(SystemExit, match="Orbax" if os.path.isdir(path) else "ROADMAP"):
+        build_run(_ft_args(tmp_path, "--finetune", path))
 
 
 def test_finetune_cli_defaults_to_the_gpu_and_the_k2_kernels():

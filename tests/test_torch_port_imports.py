@@ -50,6 +50,8 @@ TRAINING_MODULES = [
     "cross_scale_mae_torch/cli/common.py", "cross_scale_mae_torch/utils/logging.py",
     "cross_scale_mae_torch/cli/linprobe.py", "cross_scale_mae_torch/parallel/dist.py",
     "cross_scale_mae_torch/parallel/mesh.py", "cross_scale_mae_torch/parallel/collectives.py",
+    "cross_scale_mae_torch/utils/checkpoint.py", "cross_scale_mae_torch/utils/params.py",
+    "cross_scale_mae_torch/cli/launch.py",
 ]
 
 

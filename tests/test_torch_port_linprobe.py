@@ -13,6 +13,7 @@ value), the backbone exactly.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -345,7 +346,7 @@ def test_linprobe_cli_eval_only_evaluates(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--resume", "ckpt"), ("--model_parallel", "2"), ("--fsdp",), ("--sequence_parallel",),
+    ("--profile_dir", "p"), ("--model_parallel", "2"), ("--fsdp",), ("--sequence_parallel",),
     ("--num_slices", "2"), ("--use_wandb",), ("--use_tensorboard",),
     ("--dataset_type", "euro_sat"),
 ])
@@ -358,11 +359,13 @@ def test_linprobe_cli_refuses_unported_flags(tmp_path, extra):
 
 @pytest.mark.parametrize("make", [lambda p: p.mkdir() or str(p), lambda p: str(p) + ".pth"])
 def test_linprobe_cli_refuses_orbax_dirs_and_pth(tmp_path, make):
+    """A directory without the port's checkpoints (an Orbax one of the JAX
+    package) is refused, and so is a .pth (ROADMAP.md queue 1 item 16)."""
     from cross_scale_mae_torch.cli.linprobe import build_run
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        build_run(_lp_args(tmp_path, _naip_dir(tmp_path), "--finetune",
-                           make(tmp_path / "ckpt")))
+    path = make(tmp_path / "ckpt")
+    with pytest.raises(SystemExit, match="Orbax" if os.path.isdir(path) else "ROADMAP"):
+        build_run(_lp_args(tmp_path, _naip_dir(tmp_path), "--finetune", path))
 
 
 @pytest.mark.parametrize("extra,match", [

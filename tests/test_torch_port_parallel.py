@@ -16,6 +16,16 @@ the conftest's 8 CPU devices and compares.
   draws from ``fold_in(step key, r)``; port rank r takes shard r's
   contiguous rows and its draws.
 
+With ``accum_iter`` 2 (two microbatches of 4 rows a step) the JAX step
+splits the global batch into rows [4k, 4k + 4) and draws microbatch k
+from ``split(step key, 2)[k]`` (``_accum_value_and_grads``); port rank r
+takes rows r::2 of the global batch, whose k-th local microbatch is rows
+r::2 of that global microbatch, and the same rows of its draws. Under
+shard_map each device splits its own 4 rows in two, with the keys split
+from its folded key. These are the only microbatch semantics under which
+a run resumed at another world size (``cli/launch.py --elastic``) equals
+an unbroken one.
+
 Tolerances: those of ``test_pretrain_step_10_step_lockstep_with_jax``
 (losses rtol 3e-4, gradient norms rtol 1e-3, params atol 5e-4, BatchNorm
 state atol 1e-5), over 3 steps. Two controls must miss them: the NT-Xent
@@ -53,6 +63,7 @@ TINY = dict(input_size=32, patch_size=8, dim_model=64, encoder_num_layers=2,
             decoder_num_heads=4, predictor_hidden_size=32, compute_dtype="float32",
             attention_impl="pallas_v3")
 N, STEPS, WORLD = 8, 3, 2
+ACCUMS = (1, 2)
 SCHED = (1e-3, 0.0, 1, 2, 5)
 DRAW_KEYS = ("hflip", "vflip", "boxes", "ms_boxes", "noise")
 TIMEOUT_S = 240
@@ -75,7 +86,7 @@ from cross_scale_mae_torch.utils.checkpoint import load_flat_npz, save_params_np
 from cross_scale_mae_torch.utils.params import params_from_jax, params_to_jax, state_from_jax
 
 mode, control, src, out, address = sys.argv[1:6]
-rank, world = int(sys.argv[6]), int(sys.argv[7])
+rank, world, accum = int(sys.argv[6]), int(sys.argv[7]), int(sys.argv[8])
 if mode != "none":
     dist.initialize_distributed(address, world, rank, "cpu")
 if control == "slice_only_gather":
@@ -87,9 +98,10 @@ elif control == "local_bn":
     layers.predictor_apply = lambda *a, global_stats=False, **k: apply(*a, **k)
 meta = json.load(open(src + "/meta.json"))
 cfg = configs.MAEConfig.from_json(meta["cfg"])
-tcfg = configs.TrainConfig.from_json(meta["tcfg"])
+tcfg = configs.TrainConfig.from_json(meta["tcfg"]).replace(accum_iter=accum)
 tree = load_flat_npz(src + "/weights.npz")
-draws = np.load(src + "/draws_" + ("global" if mode != "shard_map" else "shards") + ".npz")
+draws = np.load(src + "/draws_" + ("global" if mode != "shard_map" else "shards")
+                + f"_accum{accum}.npz")
 params = params_from_jax(tree["params"], cfg, full=True)
 sched = warmup_half_cosine(*meta["sched"])
 state = TrainState.create(params, state_from_jax(tree["state"], cfg),
@@ -101,13 +113,16 @@ batch = torch.from_numpy(draws["batch"])
 keys = ("hflip", "vflip", "boxes", "ms_boxes", "noise")
 losses, norms = [], []
 for s in range(draws["hflip"].shape[0]):
+    # One set of draws per microbatch: the draw arrays' last leading axis.
     if mode == "shard_map":
         n = batch.shape[0] // world
         imgs = batch[rank * n:(rank + 1) * n]
-        d = PretrainDraws(*(torch.from_numpy(draws[k][s, rank]) for k in keys))
+        d = [PretrainDraws(*(torch.from_numpy(draws[k][s, rank, a]) for k in keys))
+             for a in range(accum)]
     else:
         imgs = batch[rank::world]
-        d = PretrainDraws(*(torch.from_numpy(draws[k][s]) for k in keys)).shard(rank, world)
+        d = [PretrainDraws(*(torch.from_numpy(draws[k][s, a]) for k in keys)).shard(rank, world)
+             for a in range(accum)]
     state, m = step(state, imgs, d)
     losses.append(float(m["loss"]))
     norms.append(float(m["grad_norm"]))
@@ -210,26 +225,36 @@ def lockstep(tmp_path_factory):
         {"cfg": cfg.to_json(), "tcfg": tcfg.to_json(), "sched": list(SCHED)}))
     batch = np.random.default_rng(0).integers(0, 256, (N, 32, 32, 3), np.uint8)
     rng = jax.random.key(1)
-    glob = [_draws(jax.random.fold_in(rng, s), N, cfg) for s in range(STEPS)]
-    shards = [[_draws(jax.random.fold_in(jax.random.fold_in(rng, s), r), N // WORLD, cfg)
-               for r in range(WORLD)] for s in range(STEPS)]
-    np.savez(src / "draws_global.npz", batch=batch,
-             **{k: np.stack([d[i] for d in glob]) for i, k in enumerate(DRAW_KEYS)})
-    np.savez(src / "draws_shards.npz", batch=batch,
-             **{k: np.stack([np.stack([d[i] for d in s]) for s in shards])
-                for i, k in enumerate(DRAW_KEYS)})
+
+    def micro_draws(key, n, accum):
+        """The draws of each of ``accum`` microbatches of n // accum rows
+        (``_accum_value_and_grads``: one split key each; the key itself at 1)."""
+        keys = [key] if accum == 1 else list(jax.random.split(key, accum))
+        return [_draws(k, n // accum, cfg) for k in keys]
+
+    for accum in ACCUMS:
+        glob = [micro_draws(jax.random.fold_in(rng, s), N, accum) for s in range(STEPS)]
+        shards = [[micro_draws(jax.random.fold_in(jax.random.fold_in(rng, s), r), N // WORLD,
+                               accum) for r in range(WORLD)] for s in range(STEPS)]
+        np.savez(src / f"draws_global_accum{accum}.npz", batch=batch,
+                 **{k: np.stack([np.stack([m[i] for m in step]) for step in glob])
+                    for i, k in enumerate(DRAW_KEYS)})
+        np.savez(src / f"draws_shards_accum{accum}.npz", batch=batch,
+                 **{k: np.stack([np.stack([np.stack([m[i] for m in shard]) for shard in step])
+                                 for step in shards]) for i, k in enumerate(DRAW_KEYS)})
 
     jobs, outs = [], {}
-    for name, mode, control, world in (
-            ("gspmd", "gspmd", "", WORLD), ("slice_only_gather", "gspmd", "slice_only_gather",
-                                            WORLD),
-            ("local_bn", "gspmd", "local_bn", WORLD), ("shard_map", "shard_map", "", WORLD),
-            ("one_process", "none", "", 1)):
+    for name, mode, control, world, accum in (
+            ("gspmd", "gspmd", "", WORLD, 1),
+            ("slice_only_gather", "gspmd", "slice_only_gather", WORLD, 1),
+            ("local_bn", "gspmd", "local_bn", WORLD, 1), ("shard_map", "shard_map", "", WORLD, 1),
+            ("one_process", "none", "", 1, 1), ("gspmd_accum2", "gspmd", "", WORLD, 2),
+            ("shard_map_accum2", "shard_map", "", WORLD, 2)):
         out = tmp_path_factory.mktemp(name)
         outs[name] = (out, world)
         address = "127.0.0.1:" + _free_port()
         jobs += [(_STEP_DRIVER, [mode, control, str(src), str(out), address, str(r),
-                                 str(world)]) for r in range(world)]
+                                 str(world), str(accum)]) for r in range(world)]
     procs_started = time.perf_counter()
     run_ranks(jobs)
     port_s = time.perf_counter() - procs_started
@@ -238,10 +263,11 @@ def lockstep(tmp_path_factory):
     augment = make_pretrain_augment(FMOW_RGB_MEAN, FMOW_RGB_STD, 32, dtype="float32")
     sched = warmup_half_cosine(*SCHED)
     jax_runs = {}
-    for mode in ("gspmd", "shard_map"):
-        step = (make_pretrain_step(cfg, tcfg, sched, donate=False, augment=augment)
+    for mode, accum in (("gspmd", 1), ("shard_map", 1), ("gspmd", 2), ("shard_map", 2)):
+        tc = tcfg.replace(accum_iter=accum)
+        step = (make_pretrain_step(cfg, tc, sched, donate=False, augment=augment)
                 if mode == "gspmd" else
-                make_pretrain_step_shard_map(cfg, tcfg, sched, mesh, donate=False,
+                make_pretrain_step_shard_map(cfg, tc, sched, mesh, donate=False,
                                              augment=augment))
         state = TrainState.create(params, mstate, build_optimizer(params, sched,
                                                                   weight_decay=0.05))
@@ -252,9 +278,9 @@ def lockstep(tmp_path_factory):
             state, m = step(state, b, rng)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-        jax_runs[mode] = {"params": jax.tree.map(_t, state.params),
-                          "state": jax.tree.map(_t, state.model_state),
-                          "losses": np.array(losses), "grad_norms": np.array(norms)}
+        jax_runs[mode if accum == 1 else f"{mode}_accum{accum}"] = {
+            "params": jax.tree.map(_t, state.params), "state": jax.tree.map(_t, state.model_state),
+            "losses": np.array(losses), "grad_norms": np.array(norms)}
     port = {}
     for name, (out, world) in outs.items():
         ranks = [load_flat_npz(str(out / f"rank{r}.npz")) for r in range(world)]
@@ -297,6 +323,20 @@ def test_two_rank_step_matches_the_jax_step_on_a_two_device_mesh(lockstep, mode)
     gaps = misses(ranks[0], lockstep["jax"][mode])
     assert max(gaps.values()) <= 1.0, gaps
     assert ranks[0]["losses"][-1] < ranks[0]["losses"][0]
+
+
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map"])
+def test_two_rank_accumulated_step_matches_the_jax_step_on_a_two_device_mesh(lockstep, mode):
+    """accum_iter 2 over 2 ranks against the JAX step at accum_iter 2 on a
+    2-device mesh: the same microbatch rows, so the same step."""
+    name = f"{mode}_accum2"
+    ranks = lockstep["port"][name]
+    for (k, a), (_, b) in zip(_flat(ranks[0]), _flat(ranks[1])):
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    gaps = misses(ranks[0], lockstep["jax"][name])
+    assert max(gaps.values()) <= 1.0, gaps
+    # And not the accum_iter-1 step: the microbatch split is seen.
+    assert misses(ranks[0], lockstep["jax"][mode])["losses"] > 1.0
 
 
 @pytest.mark.parametrize("control,reading", [("slice_only_gather", "grad_norms"),

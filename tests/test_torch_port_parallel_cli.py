@@ -485,14 +485,16 @@ _RUN = {
     "--compute_dtype": (["--compute_dtype", "float32"],
                         lambda r: r.cfg.compute_dtype == "float32"),
     "--output_dir_base": (["--output_dir_base", "base"], lambda r: True),
-    "--start_epoch": (["--start_epoch", "1"], lambda r: True),
+    "--start_epoch": (["--start_epoch", "1"], lambda r: r.start_epoch == 1),
+    # A directory with no checkpoint starts fresh (JAX cli/pretrain.py:283).
+    "--resume": (["--resume", "no_checkpoints_here"], lambda r: r.start_epoch == 0),
+    "--ckpt_interval": (["--ckpt_interval", "5"], lambda r: True),
     "--device": (["--device", "cpu"], lambda r: r.device == torch.device("cpu")),
     "--coordinator_address": ([], lambda r: not r.rt.distributed),
     "--num_processes": ([], lambda r: r.rt.world_size == 1),
     "--process_id": ([], lambda r: r.rt.rank == 0),
 }
 _REFUSED = {
-    "--resume": ["--resume", "ckpt"], "--ckpt_interval": ["--ckpt_interval", "5"],
     "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
     "--fsdp": ["--fsdp"], "--zero1": ["--zero1"], "--num_slices": ["--num_slices", "2"],
     "--use_perceptual_loss": ["--use_perceptual_loss"], "--vgg_weights": ["--vgg_weights", "v"],

@@ -162,7 +162,9 @@ def test_npz_format_is_shared(npz_files, tmp_path):
 
 
 def test_directory_checkpoint_points_to_roadmap(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    """load_flat_npz reads one npz; a checkpoint directory is read by
+    restore_arrays_host, and the error says so."""
+    with pytest.raises(ValueError, match="restore_arrays_host"):
         pckpt.load_flat_npz(str(tmp_path))
 
 

@@ -629,7 +629,7 @@ def test_pretrain_cli_synthetic_images_match_jax_dataset():
 
 
 @pytest.mark.parametrize("extra", [
-    ("--resume", "ckpt"), ("--model_parallel", "2"), ("--fsdp",), ("--use_wandb",),
+    ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",), ("--use_wandb",),
     ("--dataset_type", "euro_sat"), ("--dataset_type", "fmow_temporal"),
     ("--use_perceptual_loss",),
 ])
@@ -641,11 +641,43 @@ def test_pretrain_cli_refuses_unported_flags(tmp_path, extra):
 
 
 def test_pretrain_cli_refuses_fault_knobs(tmp_path, monkeypatch):
-    from cross_scale_mae_torch.cli.pretrain import build_run
+    """The fault knobs run now (tests/test_torch_port_resume.py drives the
+    fault itself): a drill aimed at another rank or another launch attempt
+    leaves this process's run whole, and one aimed at it names its step."""
+    from cross_scale_mae_torch.cli.pretrain import fault_step, main
 
-    monkeypatch.setenv("CSM_FAULT_STEP", "3")
-    with pytest.raises(SystemExit, match="fault"):
-        build_run(_cli_args(tmp_path))
+    monkeypatch.setenv("CSM_FAULT_STEP", "1")
+    for knob, value in (("CSM_FAULT_PROCESS", "1"), ("CSM_FAULT_ATTEMPT", "2")):
+        with monkeypatch.context() as m:
+            m.setenv(knob, value)
+            assert fault_step(0) == 0
+            assert main(_cli_args(tmp_path, "--max_steps", "2"))["steps"] == 2
+    assert fault_step(0) == 1 and fault_step(1) == 0
+    monkeypatch.setenv("CSM_LAUNCH_ATTEMPT", "2")
+    monkeypatch.setenv("CSM_FAULT_ATTEMPT", "2")
+    assert fault_step(0) == 1
+
+
+def test_pretrain_cli_resume_and_ckpt_interval_run(tmp_path, capsys):
+    """--ckpt_interval writes a checkpoint per interval and at the last
+    epoch; --resume restores the newest and starts at the epoch after it,
+    and a directory with no checkpoint starts fresh (JAX cli/pretrain.py:283);
+    --start_epoch wins when given."""
+    from cross_scale_mae_torch.cli.pretrain import build_run, main
+    from cross_scale_mae_torch.utils.checkpoint import checkpoint_meta, latest_step
+
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    fresh = build_run(_cli_args(tmp_path, "--resume", str(empty)))
+    assert fresh.start_epoch == 0 and fresh.state.step == 0
+    out = tmp_path / "run"
+    main(_cli_args(out, "--ckpt_interval", "1"))
+    ckpt = str(out / "checkpoints")
+    assert latest_step(ckpt) == 4 and checkpoint_meta(ckpt, 2)["epoch"] == 0
+    run = build_run(_cli_args(out, "--resume", ckpt))
+    assert run.start_epoch == 2 and run.state.step == 4 and run.state.opt_state.count == 4
+    assert "resumed from" in capsys.readouterr().out
+    assert build_run(_cli_args(out, "--resume", ckpt, "--start_epoch", "1")).start_epoch == 1
 
 
 def test_pretrain_cli_runs_on_the_gpu_by_default():
