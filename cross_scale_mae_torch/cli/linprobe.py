@@ -201,8 +201,8 @@ def main(args) -> dict[str, Any]:
     """Probe, evaluating every ``--eval_interval`` epochs into log.jsonl and
     writing a checkpoint and params.npz every ``--ckpt_interval`` epochs
     and after the last (rank 0 alone logs and writes, in the run directory
-    it chose for every rank); returns :func:`cli.finetune.fit`'s results, the run directory,
-    the npz path and the run itself."""
+    it chose for every rank); returns :func:`cli.finetune.fit`'s results,
+    the run directory, the npz path and the run itself."""
     run = build_run(args)
     if args.eval:
         stats, batches = evaluate_run(run, args.batch_size)

@@ -5,10 +5,10 @@ Counterpart of ``cross_scale_mae_tpu/serving.py`` for the MAE kind:
 * :func:`prepare_serving` rebuilds a checkpoint (an npz of
   ``save_params_npz``, or one step of a checkpoint directory that the
   training CLIs write, rebuilt from its config sidecar) as
-  ``forward(params, uint8_canvas)``: the eval preprocessing (normalize + center-crop resize),
-  the unmasked encoder and the pooling, on one device. The checkpoint's
-  ``attention_impl`` is honoured: one trained with ``pallas_v3`` serves
-  through the Hopper attention kernel.
+  ``forward(params, uint8_canvas)``: the eval preprocessing (normalize +
+  center-crop resize), the unmasked encoder and the pooling, on one
+  device. The checkpoint's ``attention_impl`` is honoured: one trained
+  with ``pallas_v3`` serves through the Hopper attention kernel.
 * :func:`build_serving_model` wraps it as a numpy-in, numpy-out
   :class:`ServingModel`.
 * :class:`MicroBatcher` coalesces concurrent requests into batches padded to

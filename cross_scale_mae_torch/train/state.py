@@ -86,13 +86,13 @@ def load_flat_state(tree: Any, prefix: str, flat: Mapping[str, torch.Tensor]) ->
     for key, dst in jax_paths(tree, prefix).items():
         if key not in flat:
             raise KeyError(f"the checkpoint lacks {key}")
-        src = flat[key]
-        layers = dst if isinstance(dst, list) else [dst]
-        want = (len(layers), *layers[0].shape) if isinstance(dst, list) else tuple(dst.shape)
+        src, stacked = flat[key], isinstance(dst, list)
+        layers = dst if stacked else [dst]
+        want = (len(layers), *layers[0].shape) if stacked else tuple(dst.shape)
         if tuple(src.shape) != want:
             raise ValueError(f"{key}: shape {tuple(src.shape)} in the checkpoint, "
                              f"{want} in the run")
-        for d, s in zip(layers, src.unbind(0) if isinstance(dst, list) else [src]):
+        for d, s in zip(layers, src.unbind(0) if stacked else [src]):
             d.copy_(s)
         used.add(key)
     return used

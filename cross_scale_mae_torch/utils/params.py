@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from cross_scale_mae_torch.configs import MAEConfig, ViTClassifierConfig
-from cross_scale_mae_torch.train.state import TrainState
+from cross_scale_mae_torch.train.state import TrainState, jax_paths
 
 
 def _linear_shapes(d_in: int, d_out: int, lead: tuple = ()) -> dict:
@@ -209,15 +209,6 @@ def _adam_state(node: Any) -> Mapping | None:
     return None
 
 
-def _flat_np(tree: Any, prefix: str) -> dict[str, torch.Tensor]:
-    if isinstance(tree, Mapping):
-        out = {}
-        for k in tree:
-            out.update(_flat_np(tree[k], f"{prefix}/{k}"))
-        return out
-    return {prefix: torch.from_numpy(np.array(tree))}
-
-
 def train_state_from_jax(state: Any, cfg: MAEConfig, tx,
                          device: torch.device | str = "cpu") -> TrainState:
     """A JAX pretrain TrainState as the port's: its params, BatchNorm
@@ -233,11 +224,13 @@ def train_state_from_jax(state: Any, cfg: MAEConfig, tx,
         raise ValueError("the JAX optimizer state holds no Adam moments (mu, nu)")
     params = params_from_jax(get("params"), cfg, device, full=True)
     out = TrainState.create(params, state_from_jax(get("model_state"), cfg, device), tx)
-    flat = {**_flat_np(get("params"), "params"), **_flat_np(get("model_state"), "model_state"),
-            **_flat_np(adam["mu"], "opt_state/mu"), **_flat_np(adam["nu"], "opt_state/nu"),
-            "opt_state/count": torch.tensor(int(np.asarray(adam["count"]))),
-            "step": torch.tensor(int(np.asarray(get("step"))))}
-    return out.load_state_dict({k: v.to(device) for k, v in flat.items()})
+    trees = {"params": get("params"), "model_state": get("model_state"),
+             "opt_state/mu": adam["mu"], "opt_state/nu": adam["nu"]}
+    flat = {k: torch.from_numpy(np.array(v)).to(device)
+            for prefix, tree in trees.items() for k, v in jax_paths(tree, prefix).items()}
+    flat["opt_state/count"] = torch.tensor(int(np.asarray(adam["count"])))
+    flat["step"] = torch.tensor(int(np.asarray(get("step"))))
+    return out.load_state_dict(flat)
 
 
 def params_to_jax(tree: Any) -> Any:

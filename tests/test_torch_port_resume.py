@@ -16,8 +16,11 @@ draws and batches, so its final state (params, moments, BatchNorm state,
 count, step) must equal the unbroken run's bit for bit. The elastic run
 finishes its last 4 epochs at world size 1: held to the unbroken 2-rank
 run with the 2-rank-against-one-process tolerances of
-``tests/test_torch_port_parallel.py`` (losses rtol 1e-6, params atol 1e-4:
-the same arithmetic but for the order of fp32 sums).
+``tests/test_torch_port_parallel.py`` (params atol 1e-4, BatchNorm state
+atol 1e-6: the same arithmetic but for the order of fp32 sums; the
+elastic run reads about 1e-7 and 6e-8). At the CLI's own lr (blr 5e-5 x
+4 / 256) the params move little, so the BatchNorm running statistics,
+which move by about 6e-2 an epoch, are what would show a lost epoch.
 """
 
 import json
@@ -192,10 +195,20 @@ def test_elastic_launcher_shrinks_to_one_process_and_resumes(drills):
     assert find_latest_checkpoints(str(work)) == str(work / "out" / "checkpoints")
     got, want = _final_state(str(work / "out")), _final_state(str(root / "two_gspmd"))
     assert sorted(got) == sorted(want) and int(got["step"]) == EPOCHS * STEPS_PER_EPOCH
-    worst = max(float((got[k].double() - want[k].double()).abs().max())
-                for k in got if k.startswith("params/"))
-    assert worst <= 1e-4, worst
     assert torch.equal(got["opt_state/count"], want["opt_state/count"])
+
+    def worst(a, b, prefix):
+        return max(float((a[k].double() - b[k].double()).abs().max())
+                   for k in a if k.startswith(prefix))
+
+    assert worst(got, want, "params/") <= 1e-4
+    assert worst(got, want, "model_state/") <= 1e-6
+    # The control: the unbroken run one epoch short misses the BatchNorm
+    # state's limit by far, so a lost or doubled epoch would show.
+    short = torch.load(os.path.join(root, "two_gspmd", "checkpoints",
+                                    str((EPOCHS - 1) * STEPS_PER_EPOCH), pckpt.STATE_FILE),
+                       weights_only=True)
+    assert worst(short, want, "model_state/") > 1e3 * 1e-6
 
 
 def _until(proc: subprocess.Popen, prefix: str) -> list[str]:
