@@ -117,12 +117,14 @@ def drills(tmp_path_factory):
     mode relaunched at 2, and the elastic gspmd one relaunched at 1); then
     the one-process run's resume."""
     root = tmp_path_factory.mktemp("drills")
-    cmds = [[*_env(), sys.executable, *PRETRAIN, "--output_dir", str(root / "one")],
+    # The unbroken references write only their last checkpoint, the one compared.
+    last_only = ("--ckpt_interval", str(EPOCHS))
+    cmds = [[*_env(), sys.executable, *PRETRAIN, *last_only, "--output_dir", str(root / "one")],
             [*_env(CSM_FAULT_STEP=str(FAULT_STEP)), sys.executable, *PRETRAIN,
              "--output_dir", str(root / "one_fault")]]
     for mode in ("gspmd", "shard_map"):
         address = "127.0.0.1:" + _free_port()
-        cmds += [[*_env(), sys.executable, *PRETRAIN, "--ddp_mode", mode,
+        cmds += [[*_env(), sys.executable, *PRETRAIN, *last_only, "--ddp_mode", mode,
                   "--output_dir", str(root / f"two_{mode}"), "--coordinator_address", address,
                   "--num_processes", "2", "--process_id", str(r)] for r in range(2)]
     launched: dict = {}
@@ -203,9 +205,9 @@ def test_elastic_launcher_shrinks_to_one_process_and_resumes(drills):
 
     assert worst(got, want, "params/") <= 1e-4
     assert worst(got, want, "model_state/") <= 1e-6
-    # The control: the unbroken run one epoch short misses the BatchNorm
-    # state's limit by far, so a lost or doubled epoch would show.
-    short = torch.load(os.path.join(root, "two_gspmd", "checkpoints",
+    # The control: the run one epoch short misses the BatchNorm state's
+    # limit by far, so a lost or doubled epoch would show.
+    short = torch.load(os.path.join(work, "out", "checkpoints",
                                     str((EPOCHS - 1) * STEPS_PER_EPOCH), pckpt.STATE_FILE),
                        weights_only=True)
     assert worst(short, want, "model_state/") > 1e3 * 1e-6

@@ -651,7 +651,9 @@ def test_pretrain_cli_refuses_fault_knobs(tmp_path, monkeypatch):
         with monkeypatch.context() as m:
             m.setenv(knob, value)
             assert fault_step(0) == 0
-            assert main(_cli_args(tmp_path, "--max_steps", "2"))["steps"] == 2
+    with monkeypatch.context() as m:
+        m.setenv("CSM_FAULT_PROCESS", "1")
+        assert main(_cli_args(tmp_path, "--max_steps", "1"))["steps"] == 1
     assert fault_step(0) == 1 and fault_step(1) == 0
     monkeypatch.setenv("CSM_LAUNCH_ATTEMPT", "2")
     monkeypatch.setenv("CSM_FAULT_ATTEMPT", "2")
@@ -671,11 +673,11 @@ def test_pretrain_cli_resume_and_ckpt_interval_run(tmp_path, capsys):
     fresh = build_run(_cli_args(tmp_path, "--resume", str(empty)))
     assert fresh.start_epoch == 0 and fresh.state.step == 0
     out = tmp_path / "run"
-    main(_cli_args(out, "--ckpt_interval", "1"))
+    main(_cli_args(out, "--ckpt_interval", "1", "--synthetic_len", "4"))   # 1 step an epoch
     ckpt = str(out / "checkpoints")
-    assert latest_step(ckpt) == 4 and checkpoint_meta(ckpt, 2)["epoch"] == 0
+    assert latest_step(ckpt) == 2 and checkpoint_meta(ckpt, 1)["epoch"] == 0
     run = build_run(_cli_args(out, "--resume", ckpt))
-    assert run.start_epoch == 2 and run.state.step == 4 and run.state.opt_state.count == 4
+    assert run.start_epoch == 2 and run.state.step == 2 and run.state.opt_state.count == 2
     assert "resumed from" in capsys.readouterr().out
     assert build_run(_cli_args(out, "--resume", ckpt, "--start_epoch", "1")).start_epoch == 1
 
