@@ -640,7 +640,17 @@ def test_pretrain_cli_refuses_unported_flags(tmp_path, extra):
         build_run(_cli_args(tmp_path, *extra))
 
 
-def test_pretrain_cli_refuses_fault_knobs(tmp_path, monkeypatch):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test's small CPU run, which the other test
+    workers would otherwise contend with; restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_pretrain_cli_refuses_fault_knobs(tmp_path, monkeypatch, one_thread):
     """The fault knobs run now (tests/test_torch_port_resume.py drives the
     fault itself): a drill aimed at another rank or another launch attempt
     leaves this process's run whole, and one aimed at it names its step."""
@@ -660,7 +670,7 @@ def test_pretrain_cli_refuses_fault_knobs(tmp_path, monkeypatch):
     assert fault_step(0) == 1
 
 
-def test_pretrain_cli_resume_and_ckpt_interval_run(tmp_path, capsys):
+def test_pretrain_cli_resume_and_ckpt_interval_run(tmp_path, capsys, one_thread):
     """--ckpt_interval writes a checkpoint per interval and at the last
     epoch; --resume restores the newest and starts at the epoch after it,
     and a directory with no checkpoint starts fresh (JAX cli/pretrain.py:283);
