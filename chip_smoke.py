@@ -118,7 +118,31 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    and the eval logits and one train step from the same weights, batch and
    draws through K1f and through the plain attention (logits, loss and
    gradient norm within a bf16 budget).
-12. resume: the flagship step (ViT-B MsLdCeCd, 128 px, batch 384, bf16,
+12. native: host decode of the loader's two backends on the same seeded
+    files, one epoch each: 128 px JPEGs (an fMoW-RGB CSV) and 13-band
+    uint16 TIFFs (an fMoW-Sentinel CSV, bands 0, 9 and 10 dropped), through
+    the native C++ core (``data/native``, built with g++ into
+    ``build/native/`` with the codec libraries whose headers the host has;
+    uncompressed TIFFs need none) and through the Python path; images/s of
+    each, the core's codecs, the host's CPU. The TIFF batches of the two
+    backends must be equal byte for byte; a source whose codec the core
+    lacks reads "not measured" on the native side.
+13. temporal: ``cli/pretrain.main --dataset_type fmow_temporal`` trains
+    the flagship step (ViT-B MsLdCeCd, 128 px, mask 0.75, bf16,
+    ``pallas_v3``) on seeded JPEG pairs through the loader, 384 pairs (768
+    frames) a step: 6 steps over 3 batches an epoch, then 12 on one repeated
+    batch of pairs at a constant lr. Every loss finite, the loss falling on
+    the repeated batch, 20 + 20 K1 launches a step, the draws 2 x 384 rows;
+    the step's ms, pairs/s, MFU, and the loader's own pairs/s and backend.
+14. sentinel: ``cli/finetune.main --dataset_type fmow_sentinel`` finetunes
+    ViT-L (64 px, patch 8, batch 512, bf16, ``pallas``) on seeded 13-band
+    TIFFs with ``--dropped_bands 0 9 10`` (10 channels in), 6 steps over 2
+    batches an epoch, then the eval pass (one full and one ragged batch on
+    the 73 px canvas). Both loaders on the native core, every loss finite,
+    24 + 24 K2 launches a step and 24 per eval batch, the confusion matrix
+    summing to the eval count; the step's ms, images/s, MFU, the loader's
+    own images/s and backend.
+15. resume: the flagship step (ViT-B MsLdCeCd, 128 px, batch 384, bf16,
     ``pallas_v3``) for 4 epochs of 2 steps over 768 synthetic images, one
     warmup epoch, a checkpoint per epoch, each run ``cli/pretrain.main`` in
     a process of its own. Run A unbroken, twice (A and A': their gap is the
@@ -2234,6 +2258,317 @@ def phase_linprobe(card: str, npz: str) -> int:
     return fwd
 
 
+# ------------------------------------------------------- the rest of the data
+
+TEMPORAL_SIZE = 128                 # the flagship's input and the JPEGs' side
+TEMPORAL_ROWS = 3 * TRAIN_BATCH     # 3 steps an epoch
+TEMPORAL_FILES = 96                 # distinct pairs, reused across the rows
+TEMPORAL_STEPS = 6
+TEMPORAL_REPEAT_STEPS = 12
+SN_SIZE = 64                        # ViT-L finetuning's input, the train TIFFs' side
+SN_BANDS = 13
+SN_DROPPED = (0, 9, 10)
+SN_TRAIN = 2 * FT_BATCH             # 2 steps an epoch
+SN_EVAL = FT_BATCH + FT_BATCH // 2  # one full eval batch and a ragged one
+SN_FILES = 128
+SN_STEPS = 6
+SN_CLASSES = 62
+NATIVE_IMAGES = 512
+
+
+def host_cpu() -> str:
+    """The host's CPU model (/proc/cpuinfo) and core count."""
+    model = "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), model)
+    except OSError:
+        pass
+    return f"{model}, {os.cpu_count()} cores"
+
+
+def _write_tiff(path: str, arr: np.ndarray) -> None:
+    """An uncompressed chunky little-endian TIFF of an (H, W, C) uint16
+    array, one strip (the layout the tests' writer gives)."""
+    import struct
+
+    h, w, c = arr.shape
+    data = np.ascontiguousarray(arr, "<u2").tobytes()
+    bps_off = 8 + len(data)
+    fmt_off = bps_off + 2 * c
+    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, c, bps_off), (259, 3, 1, 1),
+               (262, 3, 1, 1), (273, 4, 1, 8), (277, 3, 1, c), (278, 4, 1, h),
+               (279, 4, 1, len(data)), (284, 3, 1, 1), (339, 3, c, fmt_off)]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<2sHI", b"II", 42, fmt_off + 2 * c))
+        f.write(data + struct.pack(f"<{c}H", *[16] * c) + struct.pack(f"<{c}H", *[1] * c))
+        f.write(struct.pack("<H", len(entries)))
+        for tag, typ, count, value in entries:
+            inline = struct.pack("<HH", value, 0) if typ == 3 and count == 1 else \
+                struct.pack("<I", value)
+            f.write(struct.pack("<HHI", tag, typ, count) + inline)
+        f.write(struct.pack("<I", 0))
+
+
+def _write_pairs(root: str, rows: int, seed: int) -> str:
+    """An fMoW temporal CSV of ``rows`` rows over TEMPORAL_FILES pairs of
+    seeded TEMPORAL_SIZE px JPEGs (two noisy takes of one base image) (a file is reused by every TEMPORAL_FILES-th row),
+    the first column the later capture in every other row."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for i in range(TEMPORAL_FILES):
+        side = TEMPORAL_SIZE
+        base = rng.integers(0, 200, (side, side, 3))
+        for k in (1, 2):
+            img = np.clip(base + rng.integers(0, 56, (side, side, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(f"{root}/p{i}_{k}.jpg", quality=90)
+    lines = ["category,image_path,image_path2,timestamp,timestamp2"]
+    for r in range(rows):
+        i = r % TEMPORAL_FILES
+        early, late = f"2016-0{1 + r % 9}-1{r % 10}", f"2017-0{1 + r % 7}-0{1 + r % 9}"
+        stamps = (late, early) if r % 2 else (early, late)
+        lines.append(f"{r % 62},p{i}_1.jpg,p{i}_2.jpg,{stamps[0]},{stamps[1]}")
+    path = f"{root}/pairs_{rows}.csv"
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _write_sentinel(root: str, name: str, rows: int, canvas: int, seed: int) -> str:
+    """An fMoW-Sentinel CSV of ``rows`` rows over SN_FILES seeded 13-band
+    uint16 TIFFs on a ``canvas`` square; category i % SN_CLASSES."""
+    rng = np.random.default_rng(seed)
+    for i in range(SN_FILES):
+        _write_tiff(f"{root}/{name}{i}.tif",
+                    rng.integers(0, 5000, (canvas, canvas, SN_BANDS)).astype(np.uint16))
+    lines = ["category,image_path,timestamp"] + [
+        f"c{r % SN_CLASSES:02d},{name}{r % SN_FILES}.tif,2017-01-01" for r in range(rows)]
+    path = f"{root}/{name}.csv"
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _loader_rate(loader) -> tuple[float, int]:
+    """One epoch of ``loader`` on the host alone: samples per second and
+    the sample count."""
+    t0 = time.perf_counter()
+    n = sum(len(labels) for _, labels in loader.epoch(0))
+    return n / (time.perf_counter() - t0), n
+
+
+def phase_native(card: str) -> None:
+    """Host decode: the native C++ core against the Python path on the same
+    seeded JPEGs and 13-band TIFFs, one epoch each; the TIFF batches equal
+    byte for byte (at the canvas size neither resizes)."""
+    import PIL
+
+    from cross_scale_mae_torch.data import native
+    from cross_scale_mae_torch.data.datasets import build_dataset
+    from cross_scale_mae_torch.data.loader import DataLoader
+
+    t0 = time.perf_counter()
+    lib = native.get_library()
+    build_s = time.perf_counter() - t0
+    check(lib is not None, "the native core did not build (g++ missing or failing)")
+    codecs = native.codecs(lib)
+    rates: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        from PIL import Image
+
+        rng = np.random.default_rng(11)
+        with open(f"{tmp}/rgb.csv", "w") as f:
+            f.write("category,image_path\n")
+            for i in range(NATIVE_IMAGES // 4):
+                Image.fromarray(rng.integers(0, 256, (128, 128, 3)).astype(np.uint8)).save(
+                    f"{tmp}/r{i}.jpg", quality=90)
+            f.writelines(f"{i % 10},r{i % (NATIVE_IMAGES // 4)}.jpg\n"
+                         for i in range(NATIVE_IMAGES))
+        sentinel = _write_sentinel(tmp, "n", NATIVE_IMAGES, SN_SIZE, 12)
+        threads = os.cpu_count() or 4
+        for source, kind, path, size, kw in (
+                ("jpeg", "fmow_rgb", f"{tmp}/rgb.csv", 128, {}),
+                ("tiff_13band", "fmow_sentinel", sentinel, SN_SIZE,
+                 {"dropped_bands": list(SN_DROPPED)})):
+            ds = build_dataset(kind, True, train_path=path, input_size=size, **kw)
+            loaders = {b: DataLoader(ds, 64, shuffle=False, drop_last=False, num_threads=threads,
+                                     use_native=None if b == "native" else False)
+                       for b in ("python", "native")}
+            check(loaders["python"].backend == "python", "use_native=False took the core")
+            row = {"python_imgs_per_s": _loader_rate(loaders["python"])[0]}
+            if loaders["native"].backend == "native":
+                row["native_imgs_per_s"] = _loader_rate(loaders["native"])[0]
+                row["native_over_python"] = row["native_imgs_per_s"] / row["python_imgs_per_s"]
+            else:
+                row["native_imgs_per_s"] = (f"not measured: the core on this host has no "
+                                            f"{source} codec (codecs {list(codecs)})")
+            rates[source] = row
+            if source == "tiff_13band":
+                check(loaders["native"].backend == "native",
+                      "the native core did not take the 13-band TIFFs")
+                for (a, la), (b, lb) in zip(loaders["native"].epoch(0),
+                                            loaders["python"].epoch(0)):
+                    check(np.array_equal(a, b) and np.array_equal(la, lb),
+                          "native TIFF batch differs from the Python path's")
+    log("native", card=json.dumps(card), host_cpu=json.dumps(host_cpu()),
+        cxx=shutil.which("g++"), codecs=json.dumps(list(codecs)), pil=PIL.__version__,
+        build_s=build_s, threads=os.cpu_count(), images=NATIVE_IMAGES,
+        rates=json.dumps(rates))
+
+
+def _temporal_argv(tmp: str, csv: str, steps: int):
+    from cross_scale_mae_torch.cli.pretrain import get_args_parser
+
+    return get_args_parser().parse_args([
+        "--model", "mae_vit_base_MsLdCeCd", "--input_size", str(TEMPORAL_SIZE),
+        "--patch_size", "16", "--mask_ratio", "0.75", "--batch_size", str(TRAIN_BATCH),
+        "--dataset_type", "fmow_temporal", "--train_path", csv,
+        # A constant lr: no warmup, and a cosine far longer than the run.
+        "--warmup_epochs", "0", "--epochs", "100000",
+        "--compute_dtype", "bfloat16", "--attention_impl", "pallas_v3", "--gelu", "tanh",
+        "--max_steps", str(steps), "--log_interval", "5", "--seed", "0",
+        "--device", "cuda", "--output_dir", tmp])
+
+
+def phase_temporal(card: str) -> tuple[int, int]:
+    """Temporal pretraining: the flagship step on seeded JPEG pairs through
+    the loader (``cli/pretrain.main --dataset_type fmow_temporal``), 3
+    steps an epoch for the timing, then one repeated batch of pairs at a
+    constant lr; returns K1's (forward, backward) launches in those runs."""
+    from cross_scale_mae_torch.cli.pretrain import build_run
+    from cross_scale_mae_torch.cli.pretrain import main as pretrain_main
+    from cross_scale_mae_torch.ops.attention import mha, mha_v3
+    from cross_scale_mae_torch.utils.flops import mae_train_flops_per_image, mfu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        timing_csv = _write_pairs(tmp, TEMPORAL_ROWS, 21)
+        repeat_csv = _write_pairs(tmp, TRAIN_BATCH, 21)
+        data_s = time.perf_counter() - t0
+        run = build_run(_temporal_argv(tmp, timing_csv, 1))
+        loader = run.loader
+        check(run.frames == 2 and loader.sample_shape == (2, TEMPORAL_SIZE, TEMPORAL_SIZE, 3),
+              f"frames {run.frames}, sample shape {loader.sample_shape}")
+        draws = run.draws(0)[0]
+        check(draws.hflip.shape == (2 * TRAIN_BATCH,) and draws.noise.shape[0] == 2 * TRAIN_BATCH,
+              f"draws of {draws.hflip.shape[0]} frames, {draws.noise.shape[0]} noise rows")
+        decode_pairs_s, n = _loader_rate(loader)
+        check(n == TEMPORAL_ROWS, f"the loader gave {n} pairs, not {TEMPORAL_ROWS}")
+        backend, cfg = loader.backend, run.cfg
+        del run, loader
+        torch.cuda.empty_cache()
+
+        mha_v3.launches = mha_v3.bwd_launches = mha.launches = mha.bwd_launches = 0
+        result = pretrain_main(_temporal_argv(tmp, timing_csv, TEMPORAL_STEPS))
+        repeated = pretrain_main(_temporal_argv(tmp, repeat_csv, TEMPORAL_REPEAT_STEPS))
+        fwd, bwd = mha_v3.launches, mha_v3.bwd_launches
+        check(mha.launches == mha.bwd_launches == 0, "temporal pretraining launched K2")
+        steps = result["steps"] + repeated["steps"]
+        check(result["steps"] == TEMPORAL_STEPS and repeated["steps"] == TEMPORAL_REPEAT_STEPS,
+              f"steps {result['steps']}, {repeated['steps']}")
+        check(fwd == bwd == ATTN_PER_STEP * steps,
+              f"K1 launches fwd {fwd}, bwd {bwd} != {ATTN_PER_STEP} x {steps} steps")
+        losses = result["losses"] + repeated["losses"]
+        check(all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}")
+        rep = repeated["losses"]
+        check(rep[-1] < rep[0], f"loss did not fall on the repeated pairs: {rep}")
+        torch.cuda.empty_cache()
+
+    ms = result["steady_ms_per_step"]
+    pairs_per_s = TRAIN_BATCH / (ms / 1e3)
+    flops = mae_train_flops_per_image(cfg)
+    log("temporal", card=json.dumps(card), steps=steps, batch_pairs=TRAIN_BATCH,
+        frames_per_step=2 * TRAIN_BATCH, losses=json.dumps(result["losses"]),
+        repeated_batch_losses=json.dumps(rep), launches_fwd=fwd, launches_bwd=bwd,
+        ms_per_step=ms, pairs_per_s=pairs_per_s, train_flops_per_pair=flops,
+        mfu=mfu(pairs_per_s, flops), loader_backend=backend,
+        loader_pairs_per_s=decode_pairs_s, loader_frames_per_s=2 * decode_pairs_s,
+        data_write_s=data_s, host_cpu=json.dumps(host_cpu()))
+    return fwd, bwd
+
+
+def _sentinel_argv(tmp: str, train: str, test: str):
+    from cross_scale_mae_torch.cli.finetune import get_args_parser
+
+    return get_args_parser().parse_args([
+        "--model", "vit_large_patch16", "--input_size", str(SN_SIZE), "--patch_size", "8",
+        "--dataset_type", "fmow_sentinel", "--train_path", train, "--test_path", test,
+        "--dropped_bands", *map(str, SN_DROPPED), "--nb_classes", str(SN_CLASSES),
+        "--batch_size", str(FT_BATCH), "--compute_dtype", "bfloat16",
+        "--attention_impl", "pallas", "--gelu", "tanh", "--drop_path", "0.1",
+        "--smoothing", "0.1", "--layer_decay", "0.75", "--lr", str(FT_LR),
+        "--warmup_epochs", "0", "--epochs", "100000", "--eval_interval", "100000",
+        "--max_steps", str(SN_STEPS), "--log_interval", "5", "--seed", "0",
+        "--device", "cuda", "--output_dir", tmp])
+
+
+def phase_sentinel(card: str) -> tuple[int, int]:
+    """Multi-band finetuning: ViT-L on seeded 13-band fMoW-Sentinel TIFFs
+    with bands 0, 9 and 10 dropped (``cli/finetune.main --dataset_type
+    fmow_sentinel``), then the eval pass; returns K2's (forward, backward)
+    launches in that run."""
+    from cross_scale_mae_torch.cli.finetune import build_run
+    from cross_scale_mae_torch.cli.finetune import main as finetune_main
+    from cross_scale_mae_torch.ops.attention import mha, mha_v3
+    from cross_scale_mae_torch.utils.flops import mfu, vit_train_flops_per_image
+
+    in_c = SN_BANDS - len(SN_DROPPED)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train = _write_sentinel(tmp, "train", SN_TRAIN, SN_SIZE, 31)
+        # The eval canvas is 1/0.875 of the input size (util/datasets.py:140-148).
+        test = _write_sentinel(tmp, "val", SN_EVAL, round(SN_SIZE / 0.875), 32)
+        data_s = time.perf_counter() - t0
+        run = build_run(_sentinel_argv(tmp, train, test))
+        cfg = run.cfg
+        loaders = {"train": run.train_loader, "eval": run.eval_loader}
+        check(cfg.input_channels == in_c and run.train_loader.dataset.in_c == in_c,
+              f"input_channels {cfg.input_channels}, dataset in_c {run.train_loader.dataset.in_c}")
+        backends = {k: v.backend for k, v in loaders.items()}
+        check(backends == {"train": "native", "eval": "native"},
+              f"the 13-band TIFFs did not go through the native core: {backends}")
+        decode_imgs_s, n = _loader_rate(run.train_loader)
+        check(n == SN_TRAIN, f"the loader gave {n} images, not {SN_TRAIN}")
+        imgs, _ = next(iter(run.train_batches(0)))
+        check(tuple(imgs.shape) == (FT_BATCH, SN_SIZE, SN_SIZE, in_c) and imgs.dtype == torch.uint8,
+              f"train batch {tuple(imgs.shape)} {imgs.dtype}")
+        del run, loaders, imgs
+        torch.cuda.empty_cache()
+
+        mha.launches = mha.bwd_launches = mha_v3.launches = mha_v3.bwd_launches = 0
+        result = finetune_main(_sentinel_argv(tmp, train, test))
+        fwd, bwd = mha.launches, mha.bwd_launches
+        check(mha_v3.launches == mha_v3.bwd_launches == 0, "multi-band finetuning launched K1")
+        steps, eval_batches = result["steps"], result["eval_batches"]
+        check(steps == SN_STEPS and eval_batches == 2,
+              f"{steps} steps, {eval_batches} eval batches")
+        check(fwd == FT_ATTN * (steps + eval_batches) and bwd == FT_ATTN * steps,
+              f"K2 launches fwd {fwd}, bwd {bwd}: expected {FT_ATTN} x ({steps} steps + "
+              f"{eval_batches} eval batches) and {FT_ATTN} x {steps} steps")
+        check(all(math.isfinite(v) for v in result["losses"]),
+              f"non-finite loss in {result['losses']}")
+        stats = result["eval"]
+        check(stats["n"] == SN_EVAL == int(stats["cm"].sum()),
+              f"confusion matrix sums to {stats['cm'].sum()}, eval count {SN_EVAL}")
+        check(all(math.isfinite(stats[k]) for k in ("loss", "acc1", "acc5")),
+              f"non-finite eval stats {stats}")
+        torch.cuda.empty_cache()
+
+    ms = result["steady_ms_per_step"]
+    imgs_per_s = FT_BATCH / (ms / 1e3)
+    flops = vit_train_flops_per_image(cfg)
+    log("sentinel", card=json.dumps(card), steps=steps, batch=FT_BATCH, in_c=in_c,
+        dropped_bands=json.dumps(list(SN_DROPPED)), losses=json.dumps(result["losses"]),
+        eval=json.dumps({k: v for k, v in stats.items() if k != "cm"}),
+        launches_fwd=fwd, launches_bwd=bwd, ms_per_step=ms, imgs_per_s=imgs_per_s,
+        train_flops_per_image=flops, mfu=mfu(imgs_per_s, flops),
+        loader_backend=json.dumps(backends), loader_imgs_per_s=decode_imgs_s,
+        data_write_s=data_s, host_cpu=json.dumps(host_cpu()))
+    return fwd, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2244,8 +2579,9 @@ def main() -> int:
     rows = phase_kernel(card)
     # Each path is driven with the counts set to 0 just before it and read
     # just after it: serving (forward only), pretraining, finetuning, linear
-    # probing from the pretraining's weights, then pretraining through a
-    # fault and a relaunch (each process counts from 0).
+    # probing from the pretraining's weights, temporal pretraining on pairs
+    # and multi-band finetuning through the loader, then pretraining through
+    # a fault and a relaunch (each process counts from 0).
     served = phase_serving(card)
     with tempfile.TemporaryDirectory() as work:
         npz = os.path.join(work, "pretrain.npz")
@@ -2255,12 +2591,18 @@ def main() -> int:
         ft_fwd, ft_bwd = phase_finetune(card)
         phase_finetune_grads_fp64(card)
         lp_fwd = phase_linprobe(card, npz)
+    phase_native(card)
+    temporal_fwd, temporal_bwd = phase_temporal(card)
+    sn_fwd, sn_bwd = phase_sentinel(card)
     resume_fwd, resume_bwd = phase_resume(card)
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "train_ddp": ddp_fwd,
-                            "train_resume": resume_fwd, "linprobe": lp_fwd},
+                            "train_resume": resume_fwd, "linprobe": lp_fwd,
+                            "train_temporal": temporal_fwd},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
-                            "train_resume": resume_bwd, "linprobe": 0},
-               "mha_fwd": {"finetune": ft_fwd}, "mha_bwd": {"finetune": ft_bwd},
+                            "train_resume": resume_bwd, "linprobe": 0,
+                            "train_temporal": temporal_bwd},
+               "mha_fwd": {"finetune": ft_fwd, "finetune_sentinel": sn_fwd},
+               "mha_bwd": {"finetune": ft_bwd, "finetune_sentinel": sn_bwd},
                "mha2_fwd": {}, "mha2_bwd": {}}
     replaces = {"mha3_fwd": "cross_scale_mae_tpu/ops/attention.py:326",
                 "mha3_bwd": "cross_scale_mae_tpu/ops/attention.py:355",

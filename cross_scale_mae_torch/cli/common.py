@@ -14,7 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from cross_scale_mae_torch.data.datasets import UNPORTED_DATASETS, Dataset
+from cross_scale_mae_torch.data.datasets import Dataset
 from cross_scale_mae_torch.data.loader import DataLoader
 from cross_scale_mae_torch.parallel.dist import Runtime, initialize_distributed
 from cross_scale_mae_torch.utils.checkpoint import latest_step, restore_checkpoint
@@ -77,8 +77,9 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
 
 def add_data_args(p: argparse.ArgumentParser, pretrain: bool,
                   default: str = "fmow_rgb") -> None:
-    """The JAX package's data flags. Every family of its choices parses;
-    ``build_dataset`` refuses those the port does not read yet."""
+    """The JAX package's data flags: every dataset family, the band flags
+    of the multi-band ones (``--masked_bands``, ``--dropped_bands``: raw
+    band indices), and pretraining's temporal pairs."""
     g = p.add_argument_group("data")
     choices = ["fmow_rgb", "coco", "euro_sat", "fmow_sentinel", "naip", "synthetic"]
     if pretrain:
@@ -184,17 +185,11 @@ def apply_reference_compat(args, role: str) -> None:
 
 def refuse_unported(args, flags: dict[str, int]) -> None:
     """SystemExit naming the ROADMAP.md item for the first flag of ``flags``
-    (flag -> queue 1 item) that is set, or for a dataset family the port
-    does not read yet."""
+    (flag -> queue 1 item) that is set."""
     for flag, item in flags.items():
         value = getattr(args, flag, None)
         if value is not None and value is not False and value != _OFF.get(flag):
             raise SystemExit(f"--{flag} is not ported yet; see ROADMAP.md (queue 1 item {item})")
-    if args.dataset_type in UNPORTED_DATASETS:
-        raise SystemExit(
-            f"--dataset_type {args.dataset_type}: the TIFF datasets and the temporal pairs "
-            "are not ported yet; see ROADMAP.md (queue 1 item "
-            f"{UNPORTED_DATASETS[args.dataset_type]})")
 
 
 def resolve_attention(args, device: torch.device) -> str:
@@ -228,7 +223,8 @@ def make_loader(args, dataset: Dataset, batch_size: int, rt: Runtime, *,
                 is_train: bool = True, seed: int = 0) -> DataLoader:
     """``batch_size`` rows per rank from this rank's strided shard of the
     epoch order (the JAX loader's ``shard_id``/``num_shards``); shuffled
-    with drop_last for training, in order and whole for eval."""
+    with drop_last for training, in order and whole for eval; decoded by the
+    native core where it applies (``DataLoader.backend``)."""
     return DataLoader(dataset, batch_size, shuffle=is_train, seed=seed, drop_last=is_train,
                       num_threads=max(2, args.num_workers), shard_id=rt.rank,
                       num_shards=rt.world_size)

@@ -15,9 +15,13 @@ backward runs in the hand-written CUDA kernels ``csrc/mha_fwd.cu`` and
 
 Data: ``--dataset_type synthetic`` (the default: seeded uint8 images and
 labels, made as the JAX package's ``SyntheticDataset`` makes them and held
-on the device), or ``fmow_rgb``, ``coco`` or ``naip`` with ``--train_path``
-and ``--test_path``, read by ``data/loader.DataLoader`` and moved by
-``device_prefetch`` (NAIP adds the rot90 augmentation). At the end the
+on the device), or ``fmow_rgb``, ``coco``, ``naip``, ``euro_sat`` or
+``fmow_sentinel`` with ``--train_path`` and ``--test_path``, read by
+``data/loader.DataLoader`` (the native core where it applies) and moved by
+``device_prefetch`` (NAIP adds the rot90 augmentation). The multi-band
+families take ``--masked_bands`` and ``--dropped_bands`` (raw band
+indices), are normalized by the loader (SentinelNormalize), and give the
+classifier the channels left (``input_channels``). At the end the
 params are written as the JAX package's npz (``<output_dir>/params.npz``).
 Checkpoints (``utils/checkpoint.py``) go to ``<output_dir>/checkpoints``
 every ``--ckpt_interval`` (``--save_every``) epochs and after the last,
@@ -26,9 +30,8 @@ restores the newest and starts at the epoch after it, the best acc1
 carried on. Data parallel as ``cli/pretrain``: one process per GPU, in the
 JAX jit's global-batch semantics; ``--batch_size`` is the global batch,
 and every rank reports the global eval. Mixup/CutMix, RandAugment, color
-jitter, random erasing, the TIFF and temporal datasets, TP/SP/FSDP, the
-Adam moment dtypes and ``.pth`` checkpoints are not ported yet and refuse
-with a pointer to ROADMAP.md.
+jitter, random erasing, TP/SP/FSDP, the Adam moment dtypes and ``.pth``
+checkpoints are not ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.finetune --finetune pretrain/params.npz \\
@@ -289,7 +292,8 @@ def classifier_datasets(args, train_batch: int, eval_batch: int, rt: Runtime):
     (util/datasets.py:140-148); shuffled with drop_last for training, in
     order and whole for eval."""
     common = dict(train_path=args.train_path, test_path=args.test_path,
-                  input_size=args.input_size, synthetic_len=args.synthetic_len)
+                  input_size=args.input_size, synthetic_len=args.synthetic_len,
+                  masked_bands=args.masked_bands, dropped_bands=args.dropped_bands)
     syn = {"num_classes": args.nb_classes} if args.dataset_type == "synthetic" else {}
     train_ds = build_dataset(args.dataset_type, True, canvas_scale=args.canvas_scale,
                              **common, **syn)
@@ -318,11 +322,13 @@ def build_run(args) -> FinetuneRun:
         num_classes = args.nb_classes or train_loader.dataset.num_classes
     overrides = {k: v for k, v in dict(embed_dim=args.embed_dim, depth=args.depth,
                                        num_heads=args.num_heads).items() if v is not None}
+    train_ds = data["train_loader"].dataset if data else None
     vcfg = get_vit_config(
         args.model, input_size=args.input_size, patch_size=args.patch_size,
         num_classes=num_classes, global_pool=args.global_pool,
         drop_path_rate=args.drop_path, compute_dtype=args.compute_dtype,
-        attention_impl=args.attention_impl, gelu=args.gelu, **overrides)
+        attention_impl=args.attention_impl, gelu=args.gelu,
+        input_channels=train_ds.in_c if train_ds else 3, **overrides)
     tcfg = TrainConfig(
         epochs=args.epochs, warmup_epochs=args.warmup_epochs, batch_size=args.batch_size,
         accum_iter=args.accum_iter, blr=args.blr, lr=args.lr, min_lr=args.min_lr,
@@ -363,13 +369,13 @@ def build_run(args) -> FinetuneRun:
     state = TrainState.create(params, mstate, tx)
     state, start_epoch, max_acc = restore_classifier_run(args, state)
     # The dataset's own statistics, as the JAX CLI normalizes with them.
-    train_loader = data.get("train_loader")
-    mean, std = ((train_loader.dataset.mean, train_loader.dataset.std) if train_loader
-                 else DATASET_STATS["synthetic"])
+    mean, std = (train_ds.mean, train_ds.std) if train_ds else DATASET_STATS["synthetic"]
+    normalize = train_ds.normalize_on_device if train_ds else True
     rot90 = args.dataset_type == "naip"
     augment = make_finetune_augment(mean, std, args.input_size, rot90=rot90,
-                                    dtype=args.compute_dtype)
-    preprocess = make_eval_preprocess(mean, std, args.input_size, dtype=args.compute_dtype)
+                                    dtype=args.compute_dtype, normalize=normalize)
+    preprocess = make_eval_preprocess(mean, std, args.input_size, dtype=args.compute_dtype,
+                                      normalize=normalize)
     rank0_print(f"finetune {args.model}: {n_train} train / {n_eval} eval, "
                 f"{vcfg.num_classes} classes, lr {lr:.3e}, layer_decay {args.layer_decay}")
     return FinetuneRun(vcfg, tcfg, state,

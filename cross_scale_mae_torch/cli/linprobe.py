@@ -17,8 +17,10 @@ last batch under a validity mask. With ``--attention_impl pallas_v3`` (what
 forward runs in the hand-written CUDA kernel ``csrc/mha3_fwd.cu``; nothing
 runs a backward kernel.
 
-Data: ``--dataset_type`` fmow_rgb, coco, naip or synthetic through
-``data/loader.DataLoader`` and ``device_prefetch``. The run directory
+Data: ``--dataset_type`` fmow_rgb, coco, naip, euro_sat, fmow_sentinel
+(with ``--masked_bands``/``--dropped_bands``; the classifier takes the
+channels left) or synthetic through ``data/loader.DataLoader`` (the native
+core where it applies) and ``device_prefetch``. The run directory
 (``<output_dir>/<run name>``) gets ``log.jsonl`` (one line per evaluation),
 ``params.npz`` (the JAX package's npz) and ``checkpoints/`` (the head's
 LARS state with the rest; the epoch and the best acc1 in the sidecar),
@@ -26,9 +28,8 @@ written by rank 0 every ``--ckpt_interval`` epochs and after the last;
 ``--resume <dir>`` restores the newest checkpoint and starts at the epoch
 after it. Data parallel as ``cli/pretrain``: one process per GPU, in the
 JAX jit's global-batch semantics (the BN head's statistics over every
-rank's rows). TP/SP/FSDP, TensorBoard/wandb, the TIFF and temporal
-datasets and ``.pth`` inputs are not ported yet and refuse with a pointer
-to ROADMAP.md.
+rank's rows). TP/SP/FSDP, TensorBoard/wandb and ``.pth`` inputs are
+not ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.linprobe --finetune pretrain/params.npz \\
@@ -181,10 +182,12 @@ def build_run(args) -> FinetuneRun:
     state = TrainState.create(params, mstate, tx)
     state, start_epoch, max_acc = restore_classifier_run(args, state)
     rot90 = args.dataset_type == "naip"
+    normalize = train_ds.normalize_on_device   # False: the loader normalized
     augment = make_pretrain_augment(train_ds.mean, train_ds.std, args.input_size,
-                                    rot90=rot90, dtype=args.compute_dtype)
+                                    rot90=rot90, dtype=args.compute_dtype,
+                                    normalize=normalize)
     preprocess = make_eval_preprocess(train_ds.mean, train_ds.std, args.input_size,
-                                      dtype=args.compute_dtype)
+                                      dtype=args.compute_dtype, normalize=normalize)
     rank0_print(f"linprobe {args.model}: {len(train_ds)} train / {len(eval_loader.dataset)} "
                 f"eval, {num_classes} classes, lr {lr:.3e} (LARS), attention "
                 f"{args.attention_impl}; {rt.world_size} process(es)")

@@ -20,10 +20,16 @@ per-rank loss, as ``--reference_semantics`` (with ``--gelu exact`` and
 
 Data: ``--dataset_type synthetic`` (the default: seeded uint8 images, made
 as the JAX package's ``SyntheticDataset`` makes them and held on the
-device), or ``fmow_rgb``, ``coco`` or ``naip`` with ``--train_path``, read
-by ``data/loader.DataLoader`` and moved by ``device_prefetch`` (NAIP adds
-the rot90 augmentation). At the end the params are written as the JAX
-package's npz (``<output_dir>/params.npz``), which ``cli/serve.py`` serves.
+device), or ``fmow_rgb``, ``coco``, ``naip``, ``euro_sat``,
+``fmow_sentinel`` (with ``--masked_bands``/``--dropped_bands``) or
+``fmow_temporal`` with ``--train_path``, read by ``data/loader.DataLoader``
+(the native core where it applies) and moved by ``device_prefetch`` (NAIP
+adds the rot90 augmentation; the SentinelNormalize families are normalized
+by the loader). ``fmow_temporal`` reads pairs of captures of one site and
+needs a multi-scale model: each frame is augmented with its own draws, and
+the later frame stands in for the low-GSD crop as the second view. At the
+end the params are written as the JAX package's npz
+(``<output_dir>/params.npz``), which ``cli/serve.py`` serves.
 
 Checkpoints and recovery, as the JAX CLI: ``<output_dir>/checkpoints/``
 (``utils/checkpoint.py``) every ``--ckpt_interval`` epochs, after the last
@@ -41,9 +47,8 @@ failure drills: ``CSM_FAULT_STEP=k`` ends the process with
 ``cli/launch.py``) equals ``CSM_FAULT_ATTEMPT`` (1). ``cli/launch.py``
 restarts a gang that loses a process from the newest checkpoint.
 
-The TIFF and temporal datasets, TP/SP/ZeRO/FSDP, wandb, the perceptual
-loss and the reconstruction plots are not ported yet and refuse with a
-pointer to ROADMAP.md.
+TP/SP/ZeRO/FSDP, wandb, the perceptual loss and the reconstruction plots
+are not ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_base_MsLdCeCd \\
@@ -172,7 +177,7 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 def check_args(args) -> None:
     """Resolve the compat flags and --reference_semantics in place;
-    SystemExit for a flag or dataset not ported yet."""
+    SystemExit for a flag not ported yet."""
     apply_reference_compat(args, "pretrain")
     refuse_unported(args, UNPORTED_FLAGS)
     if args.reference_semantics:
@@ -194,6 +199,7 @@ class PretrainRun:
     rt: Runtime                           # this process's rank, world and device
     loader: Optional[DataLoader] = None   # a real dataset's, this rank's shard
     rot90: bool = False                   # the NAIP rotations
+    frames: int = 1                       # frames a sample: 2 for temporal pairs
     ddp_mode: Optional[str] = None        # the step's semantics; None without a group
     start_epoch: int = 0                  # after --resume, the checkpoint's epoch + 1
 
@@ -212,7 +218,8 @@ class PretrainRun:
                         rank=rank if own else None)
         canvas = self.loader.dataset.canvas_size if self.loader else None
         n = self.tcfg.batch_size // world if own else self.tcfg.batch_size
-        return [sample_pretrain_draws(gen, n, self.cfg, self.tcfg, canvas, self.rot90)
+        return [sample_pretrain_draws(gen, n, self.cfg, self.tcfg, canvas, self.rot90,
+                                      self.frames)
                 .shard(*((0, 1) if own else (rank, world)))
                 for _ in range(self.tcfg.accum_iter)]
 
@@ -256,6 +263,11 @@ def build_run(args) -> PretrainRun:
         mask_seed=args.mask_seed, consistent_mask=args.consistent_mask,
         watch_gradients=args.watch_gradients)
     eff_batch = args.batch_size * args.accum_iter
+    if args.dataset_type == "fmow_temporal" and not cfg.multi_scale:
+        raise SystemExit(
+            "--dataset_type fmow_temporal needs a multi-scale model (mae_vit_*_MsLd*): the "
+            "second frame replaces the on-device crop as the second view (models/mae.py); "
+            "single-view MAE has no slot for it")
     images = loader = None
     if args.dataset_type == "synthetic":
         images = synthetic_images(args.synthetic_len, args.input_size, cfg.input_channels,
@@ -263,7 +275,9 @@ def build_run(args) -> PretrainRun:
         n_train, steps_per_epoch = args.synthetic_len, args.synthetic_len // eff_batch
     else:
         dataset = build_dataset(args.dataset_type, True, train_path=args.train_path,
-                                input_size=args.input_size, canvas_scale=args.canvas_scale)
+                                input_size=args.input_size, canvas_scale=args.canvas_scale,
+                                masked_bands=args.masked_bands,
+                                dropped_bands=args.dropped_bands)
         loader = make_loader(args, dataset, eff_batch // rt.world_size, rt, seed=args.seed)
         n_train, steps_per_epoch = len(dataset), loader.steps_per_epoch()
     if steps_per_epoch < 1:
@@ -288,11 +302,13 @@ def build_run(args) -> PretrainRun:
     # The dataset's own statistics, as the JAX CLI normalizes with them.
     mean, std = (loader.dataset.mean, loader.dataset.std) if loader else DATASET_STATS["synthetic"]
     rot90 = args.dataset_type == "naip"
-    augment = make_pretrain_augment(mean, std, args.input_size, rot90=rot90,
-                                    dtype=args.compute_dtype)
+    augment = make_pretrain_augment(
+        mean, std, args.input_size, rot90=rot90, dtype=args.compute_dtype,
+        normalize=loader.dataset.normalize_on_device if loader else True)
     step_fn = make_pretrain_step(cfg, tcfg, schedule, augment=augment, ddp_mode=ddp_mode)
+    frames = getattr(loader.dataset, "frames", 1) if loader else 1
     return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, rt, loader, rot90,
-                       ddp_mode, start_epoch)
+                       frames, ddp_mode, start_epoch)
 
 
 def fault_step(rank: int) -> int:

@@ -5,9 +5,12 @@
   epoch)``, truncated with ``drop_last`` to a multiple of ``num_shards *
   batch_size`` before each shard takes its strided slice, as in the JAX
   package, so every shard runs the same number of steps.
-* **Decode**: a thread pool per batch, and a producer thread that decodes
-  batch k+1 while batch k is consumed. The native C++ loader of the JAX
-  package is not ported (ROADMAP.md, queue 1 item 10).
+* **Decode**: the native C++ core (``data/native``) where it applies and
+  builds (JPEG/PNG datasets whose codecs it holds, multi-band TIFF
+  datasets), else a thread pool per batch with a producer thread that
+  decodes batch k+1 while batch k is consumed. ``DataLoader.backend`` says
+  which ('native' or 'python'). Temporal pairs stay on the Python path, as
+  in the JAX package.
 * **Device prefetch**: :func:`device_prefetch` copies each batch into
   pinned host memory and to the device on a side CUDA stream, ``buffer``
   batches ahead; the consumer's stream waits on the copy's event, and
@@ -30,9 +33,14 @@ from cross_scale_mae_torch.data.datasets import Dataset
 
 
 class DataLoader:
+    """Batches of one shard of a dataset. ``use_native``: None takes the
+    native core where it applies and builds, False never (the Python path),
+    as the JAX package's loader does. The native core's epoch order is its
+    own splitmix64 shuffle, so a run is reproducible within one backend."""
+
     def __init__(self, dataset: Dataset, batch_size: int, *, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, num_threads: int = 4,
-                 shard_id: int = 0, num_shards: int = 1):
+                 shard_id: int = 0, num_shards: int = 1, use_native: bool | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -41,6 +49,19 @@ class DataLoader:
         self.num_threads = max(1, num_threads)
         self.shard_id = shard_id
         self.num_shards = num_shards
+        self._native = None if use_native is False else _try_native(dataset, batch_size, self)
+
+    @property
+    def backend(self) -> str:
+        """'native' when the C++ core decodes, else 'python'."""
+        return "python" if self._native is None else "native"
+
+    @property
+    def sample_shape(self) -> tuple[int, ...]:
+        """One sample's shape: the dataset's ``sample_shape`` where it has
+        one (a temporal pair's (2, S, S, C)), else (S, S, C)."""
+        s, c = self.dataset.canvas_size, self.dataset.in_c
+        return tuple(getattr(self.dataset, "sample_shape", (s, s, c)))
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
@@ -78,19 +99,18 @@ class DataLoader:
         for batch in self.epoch(epoch):
             done += 1
             yield batch
-        s, c = self.dataset.canvas_size, self.dataset.in_c
         for _ in range(self.max_shard_steps() - done):
-            yield np.zeros((0, s, s, c), np.uint8), np.zeros((0,), np.int32)
+            yield np.zeros((0,) + self.sample_shape, np.uint8), np.zeros((0,), np.int32)
 
     def _load_batch(self, idx: np.ndarray, pool: ThreadPoolExecutor | None
                     ) -> tuple[np.ndarray, np.ndarray]:
-        s, c = self.dataset.canvas_size, self.dataset.in_c
-        imgs = np.empty((len(idx), s, s, c), np.uint8)
+        shape = self.sample_shape
+        imgs = np.empty((len(idx),) + shape, np.uint8)
         labels = np.empty((len(idx),), np.int32)
 
         def one(slot: int) -> None:
             img, label = self.dataset.load(int(idx[slot]))
-            imgs[slot] = img.reshape(s, s, c)
+            imgs[slot] = img.reshape(shape)
             labels[slot] = label
 
         if pool is not None and len(idx) > 1:
@@ -101,7 +121,11 @@ class DataLoader:
         return imgs, labels
 
     def epoch(self, epoch: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """Yields (imgs uint8 (B, S, S, C), labels int32 (B,)) on the host."""
+        """Yields (imgs uint8 (B, *sample_shape), labels int32 (B,)) on the
+        host."""
+        if self._native is not None:
+            yield from self._native.epoch(epoch)
+            return
         order = self._epoch_indices(epoch)
         bs = self.batch_size
         batches = [order[i:i + bs] for i in range(0, len(order), bs)]
@@ -139,6 +163,18 @@ class DataLoader:
                     q.get_nowait()
                 except queue.Empty:
                     t.join(0.01)
+
+
+def _try_native(dataset: Dataset, batch_size: int, loader: DataLoader):
+    """The C++ core for ``dataset`` where it applies and builds, else None
+    (JAX data/loader.py:147-154; a core that fails to start leaves the
+    Python path)."""
+    from cross_scale_mae_torch.data.native import NativeJpegLoader
+
+    try:
+        return NativeJpegLoader.maybe_create(dataset, batch_size, loader)
+    except OSError:
+        return None
 
 
 def device_prefetch(batches: Iterable, device: torch.device | str,

@@ -180,17 +180,24 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
                 train: bool = True, global_batch: bool = False) -> MAEOutput:
     """The training objective of any variant (mae.py:253-396).
 
-    imgs: (N, H, W, C) normalized. noise: (N, L) mask noise, or (2N, L) for
-    a multi-scale config (the original view's rows first; equal halves give
-    the consistent mask). ms_boxes: (N, 4) crop boxes of the low-GSD view
-    (equal rows give the batch-shared crop). ``global_batch`` (the gspmd
-    data-parallel semantics) takes NT-Xent's negatives and the predictors'
-    BatchNorm statistics over every rank's rows; the per-sample terms stay
-    means over this rank's N, which the step averages over the ranks."""
+    imgs: (N, H, W, C) normalized, or a temporal pair (N, 2, H, W, C)
+    (``data/datasets.FmowTemporalDataset``), whose frame 1 takes the place
+    of the low-GSD crop as the second view (a multi-scale config only; the
+    Le/Ce/Cd/NT-Xent terms then hold the frames together). noise: (N, L)
+    mask noise, or (2N, L) for a multi-scale config (the original view's
+    rows first; equal halves give the consistent mask). ms_boxes: (N, 4)
+    crop boxes of the low-GSD view (equal rows give the batch-shared crop),
+    unused for a pair. ``global_batch`` (the gspmd data-parallel semantics)
+    takes NT-Xent's negatives and the predictors' BatchNorm statistics over
+    every rank's rows; the per-sample terms stay means over this rank's N,
+    which the step averages over the ranks."""
+    view2 = None
     if imgs.dim() == 5:
-        raise NotImplementedError(
-            "temporal (N, T, H, W, C) batches are not ported yet; see "
-            "ROADMAP.md (queue 1 item 10)")
+        if not cfg.multi_scale:
+            raise ValueError(
+                "temporal (N, T, H, W, C) batches need a multi-scale variant "
+                "(MsLd*): single-view MAE has no slot for the second frame")
+        imgs, view2 = imgs[:, 0], imgs[:, 1]
     if cfg.use_perceptual:
         raise NotImplementedError(
             "use_perceptual needs losses/perceptual.py, which is not ported "
@@ -199,8 +206,10 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
         return mae_apply(params, cfg, imgs, noise=noise)._replace(state=state)
 
     n = imgs.shape[0]
-    # Low-GSD view: per-sample RandomResizedCrop (MAE_ViT_MsLd.py:29-35,52).
-    imgs_crop = random_resized_crop(imgs, ms_boxes, cfg.input_size, "linear")
+    # The second view: the pair's later frame, or the low-GSD per-sample
+    # RandomResizedCrop (MAE_ViT_MsLd.py:29-35,52).
+    imgs_crop = (view2 if view2 is not None
+                 else random_resized_crop(imgs, ms_boxes, cfg.input_size, "linear"))
     both = torch.cat([imgs, imgs_crop], dim=0)
     enc, mask, ids_restore = mae_forward_encoder(params, cfg, both, noise=noise)
     pred, dec = mae_forward_decoder(params, cfg, enc, ids_restore)

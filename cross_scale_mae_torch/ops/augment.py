@@ -31,13 +31,15 @@ def make_pretrain_augment(
     input_size: int,
     *,
     rot90: bool = False,
+    normalize: bool = True,
     dtype: str = "float32",
 ) -> Callable[..., torch.Tensor]:
     """Train chain (util/datasets.py:123-138), op for op in ``dtype``:
-    uint8 -> dtype, /255, normalize, per-sample horizontal and vertical
-    flips, with ``rot90`` the NAIP chain's per-sample k * 90 degree rotation
-    (util/naip_loader.py), then bicubic RandomResizedCrop on the fast
-    product path. Returns ``augment(batch_u8, hflip, vflip, boxes,
+    uint8 -> dtype, /255, normalize (unless the loader did, ``normalize``
+    False: the SentinelNormalize families), per-sample horizontal and
+    vertical flips, with ``rot90`` the NAIP chain's per-sample k * 90 degree
+    rotation (util/naip_loader.py), then bicubic RandomResizedCrop on the
+    fast product path. Returns ``augment(batch_u8, hflip, vflip, boxes,
     rot_k=None)`` with (N,) bool flip flags, (N, 4) crop boxes
     (``ops/image.sample_crop_boxes`` with ``PRETRAIN_CROP_SCALE``) and, with
     ``rot90``, (N,) rotation counts in {0, 1, 2, 3}."""
@@ -45,7 +47,9 @@ def make_pretrain_augment(
 
     def augment(batch_u8: torch.Tensor, hflip: torch.Tensor, vflip: torch.Tensor,
                 boxes: torch.Tensor, rot_k: torch.Tensor | None = None) -> torch.Tensor:
-        x = normalize_images(batch_u8.to(tdtype) / 255.0, mean, std)
+        x = batch_u8.to(tdtype) / 255.0
+        if normalize:
+            x = normalize_images(x, mean, std)
         x = random_flips(x, hflip, vflip)
         if rot90:
             x = random_rot90(x, _rotations(rot_k))
@@ -69,14 +73,15 @@ def make_finetune_augment(
     color_jitter: float | None = None,
     aa: str | None = None,
     reprob: float = 0.0,
+    normalize: bool = True,
     dtype: str = "float32",
 ) -> Callable[..., torch.Tensor]:
     """Finetune train chain (augment.py:57-114) without its extras: uint8 ->
     fp32, /255, per-sample horizontal and vertical flips, with ``rot90`` the
     NAIP rotation, bicubic RandomResizedCrop on the fast product path, then
-    normalize (after the crop, unlike the pretrain chain) and cast to
-    ``dtype``. Returns ``augment(batch_u8, hflip, vflip, boxes,
-    rot_k=None)``, boxes drawn on the batch's canvas with
+    normalize (after the crop, unlike the pretrain chain; not where the
+    loader did, ``normalize`` False) and cast to ``dtype``. Returns
+    ``augment(batch_u8, hflip, vflip, boxes, rot_k=None)``, boxes drawn on the batch's canvas with
     ``PRETRAIN_CROP_SCALE``. RandAugment, color jitter and random erasing
     are not ported yet and refuse."""
     unported = {"color_jitter": color_jitter, "aa": aa, "reprob": reprob > 0}
@@ -93,7 +98,9 @@ def make_finetune_augment(
         if rot90:
             x = random_rot90(x, _rotations(rot_k))
         x = random_resized_crop(x, boxes, input_size, "cubic")
-        return normalize_images(x, mean, std).to(tdtype)
+        if normalize:
+            x = normalize_images(x, mean, std)
+        return x.to(tdtype)
 
     return augment
 

@@ -7,6 +7,10 @@ makes them on the device from a ``torch.Generator`` (seeded per step by
 :func:`_step_rng`), and the step takes them as an argument, so a test can
 inject the JAX package's draws instead. Gradient accumulation
 (``accum_iter``) is a Python loop over microbatches, one set of draws each.
+A batch of temporal pairs (B, 2, H, W, C) is augmented frame by frame, each
+frame with draws of its own, in the JAX step's flattened order (row b * 2 +
+t of the augmentation's draws is frame t of sample b), and the frames then
+stand in for the two views.
 
 Data parallelism (``ddp_mode``, with a process group: one process per GPU)
 has the JAX package's two semantics. ``gspmd``, its jit over a
@@ -40,40 +44,46 @@ DDP_MODES = ("gspmd", "shard_map")
 
 @dataclasses.dataclass
 class PretrainDraws:
-    """The random numbers of one (micro)batch of N samples."""
+    """The random numbers of one (micro)batch of N samples of T frames
+    each (T = 2 for temporal pairs, else 1): the augmentation's draws have a
+    row per frame, N * T, frame t of sample n at row n * T + t."""
 
-    hflip: torch.Tensor       # (N,) bool: augment's horizontal flips
-    vflip: torch.Tensor       # (N,) bool: augment's vertical flips
-    crop_boxes: torch.Tensor  # (N, 4) augment's RandomResizedCrop boxes
-    ms_boxes: torch.Tensor    # (N, 4) the low-GSD view's crop boxes
+    hflip: torch.Tensor       # (N*T,) bool: augment's horizontal flips
+    vflip: torch.Tensor       # (N*T,) bool: augment's vertical flips
+    crop_boxes: torch.Tensor  # (N*T, 4) augment's RandomResizedCrop boxes
+    ms_boxes: torch.Tensor    # (N, 4) the low-GSD view's crop boxes (unused for pairs)
     noise: torch.Tensor       # (2N, L) mask noise of both views (N, L single-scale)
-    rot_k: Optional[torch.Tensor] = None  # (N,) NAIP rotations in {0..3}, or None
+    rot_k: Optional[torch.Tensor] = None  # (N*T,) NAIP rotations in {0..3}, or None
 
     def shard(self, rank: int, world: int) -> "PretrainDraws":
-        """Rank ``rank``'s rows of draws made for a global batch: rows
+        """Rank ``rank``'s rows of draws made for a global batch: samples
         rank::world, the rows of each global batch that the loader's shard
         holds (and so the single-process run's pairing of draws with
-        images); of the mask noise, those rows of each view's half."""
+        images), with every frame of each; of the mask noise, those rows of
+        each view's half."""
         if world == 1:
             return self
-        n = self.hflip.shape[0]
+        n = self.ms_boxes.shape[0]
+        frames = self.hflip.shape[0] // n
+        rows = (torch.arange(rank, n, world, device=self.hflip.device)[:, None] * frames
+                + torch.arange(frames, device=self.hflip.device)).flatten()
         noise = torch.cat([half[rank::world] for half in self.noise.split(n)])
-        rot_k = None if self.rot_k is None else self.rot_k[rank::world]
-        return PretrainDraws(self.hflip[rank::world], self.vflip[rank::world],
-                             self.crop_boxes[rank::world], self.ms_boxes[rank::world],
-                             noise, rot_k)
+        rot_k = None if self.rot_k is None else self.rot_k[rows]
+        return PretrainDraws(self.hflip[rows], self.vflip[rows], self.crop_boxes[rows],
+                             self.ms_boxes[rank::world], noise, rot_k)
 
 
 def sample_pretrain_draws(gen: torch.Generator, n: int, cfg: MAEConfig,
                           tcfg: TrainConfig, canvas: Optional[int] = None,
-                          rot90: bool = False) -> PretrainDraws:
-    """Draw what one step of ``n`` samples needs, on ``gen``'s device, with
-    the JAX package's distributions: Bernoulli(0.5) flips, crop boxes from
-    four uniforms each (``ops/image.sample_crop_boxes``) on the batch's
-    ``canvas`` (the input size by default), uniform mask noise, and with
+                          rot90: bool = False, frames: int = 1) -> PretrainDraws:
+    """Draw what one step of ``n`` samples of ``frames`` frames needs, on
+    ``gen``'s device, with the JAX package's distributions: Bernoulli(0.5)
+    flips and crop boxes from four uniforms each
+    (``ops/image.sample_crop_boxes``) on the batch's ``canvas`` (the input
+    size by default) for every frame, uniform mask noise, and with
     ``rot90`` uniform rotations in {0, 1, 2, 3}, drawn last. The consistent
     mask (``consistent_mask`` or ``mask_seed``) repeats the original view's
-    noise for the crop view; ``ms_per_sample_crop=False`` shares one MsLd
+    noise for the second view; ``ms_per_sample_crop=False`` shares one MsLd
     box across the batch."""
     dev = gen.device
     size = cfg.input_size
@@ -82,15 +92,16 @@ def sample_pretrain_draws(gen: torch.Generator, n: int, cfg: MAEConfig,
     def uniform(*shape):
         return torch.rand(shape, generator=gen, device=dev)
 
-    hflip, vflip = uniform(n) < 0.5, uniform(n) < 0.5
-    crop_boxes = sample_crop_boxes(uniform(4, n), canvas, canvas, PRETRAIN_CROP_SCALE)
+    rows = n * frames
+    hflip, vflip = uniform(rows) < 0.5, uniform(rows) < 0.5
+    crop_boxes = sample_crop_boxes(uniform(4, rows), canvas, canvas, PRETRAIN_CROP_SCALE)
     ms_boxes = sample_crop_boxes(uniform(4, n if cfg.ms_per_sample_crop else 1),
                                  size, size, cfg.ms_range, cfg.ms_aspect_ratio).expand(n, 4)
     noise = uniform(n, cfg.num_patches)
     if cfg.multi_scale:
         consistent = tcfg.consistent_mask or tcfg.mask_seed is not None
         noise = torch.cat([noise, noise if consistent else uniform(n, cfg.num_patches)])
-    rot_k = torch.randint(0, 4, (n,), generator=gen, device=dev) if rot90 else None
+    rot_k = torch.randint(0, 4, (rows,), generator=gen, device=dev) if rot90 else None
     return PretrainDraws(hflip, vflip, crop_boxes, ms_boxes, noise, rot_k)
 
 
@@ -120,7 +131,12 @@ def make_pretrain_loss_fn(cfg: MAEConfig, augment: Callable | None,
 
     def loss_fn(params, model_state, imgs: torch.Tensor, draws: PretrainDraws):
         if augment is not None:
-            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes, draws.rot_k)
+            # A pair's frames are rows b * T + t of the augmentation
+            # (JAX train/pretrain.py:40-47); the pair axis comes back after.
+            lead = imgs.shape[:-3]
+            flat = augment(imgs.reshape((-1,) + imgs.shape[-3:]), draws.hflip, draws.vflip,
+                           draws.crop_boxes, draws.rot_k)
+            imgs = flat.reshape(lead + flat.shape[1:])
         out = mae_loss_fn(params, model_state, cfg, imgs, noise=draws.noise,
                           ms_boxes=draws.ms_boxes, train=True, global_batch=global_batch)
         return out.loss, out
@@ -135,11 +151,11 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
     """Returns ``step(state, batch, draws, stop=False) -> (state, metrics)``.
 
     batch: (B, H, W, C) normalized images, or raw uint8 when ``augment``
-    (``ops/augment.make_pretrain_augment``) is given; B = accum_iter *
-    microbatch, this rank's rows. draws: one :class:`PretrainDraws` per
-    microbatch (a single one when accum_iter is 1). The state's params are
-    updated in place. metrics hold 0-d device tensors (the loss terms,
-    ``loss`` and ``grad_norm``, before clipping; with
+    (``ops/augment.make_pretrain_augment``) is given, or temporal pairs (B,
+    2, H, W, C); B = accum_iter * microbatch, this rank's rows. draws: one
+    :class:`PretrainDraws` per microbatch (a single one when accum_iter is
+    1). The state's params are updated in place. metrics hold 0-d device
+    tensors (the loss terms, ``loss`` and ``grad_norm``, before clipping; with
     ``tcfg.watch_gradients`` each top-level subtree's gradient norm as
     ``gnorm/<name>``) and the step's ``lr``; nothing in the step waits on
     the device. ``ddp_mode`` None runs one process with no collective;

@@ -4,9 +4,9 @@ chains of ops/augment.py) held against the JAX package on the CPU.
 
 The loaders must yield the same batches bit for bit: the same epoch
 permutations, the same drop_last truncation before the shards' strides, the
-same decode (PIL's bicubic resize, NAIP's CHW and dtype handling). The JAX
-side runs its Python loader (``use_native=False``); the native C++ loader
-is not ported. Augmentation on injected JAX draws: fp32 atol 1e-5 (sums in
+same decode (PIL's bicubic resize, NAIP's CHW and dtype handling). Both
+sides run their Python loaders (``use_native=False``); the native cores
+are held against each other in ``tests/test_torch_port_data_multiband.py``. Augmentation on injected JAX draws: fp32 atol 1e-5 (sums in
 another order); bf16 one bf16 ulp of the largest value, as the pretrain
 chain's test in tests/test_torch_port_train.py.
 """
@@ -82,7 +82,7 @@ def test_loader_yields_the_jax_batches(tmp_path, kind, drop_last):
         kw = dict(shuffle=True, seed=3, drop_last=drop_last, num_threads=3, shard_id=shard,
                   num_shards=2)
         jl = JLoader(jd, 2, use_native=False, **kw)
-        pl = DataLoader(pd, 2, **kw)
+        pl = DataLoader(pd, 2, use_native=False, **kw)
         assert pl.steps_per_epoch() == jl.steps_per_epoch()
         assert pl.max_shard_steps() == jl.max_shard_steps()
         for epoch in range(2):
@@ -119,9 +119,19 @@ def test_eval_canvas_and_dataset_attributes_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["euro_sat", "fmow_sentinel", "fmow_temporal"])
-def test_build_dataset_refuses_the_unported_families(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pds.build_dataset(kind, True, train_path="x.csv")
+def test_build_dataset_refuses_the_unported_families(kind, tmp_path):
+    """The families once refused are ported; an index that points at a
+    missing file is refused at construction, as the JAX package refuses it
+    (their loads: tests/test_torch_port_data_multiband.py and
+    tests/test_torch_port_temporal.py)."""
+    index = tmp_path / "index.csv"
+    index.write_text({"euro_sat": "gone/a.tif\n",
+                      "fmow_sentinel": "category,image_path\nbarn,gone.tif\n",
+                      "fmow_temporal": "category,image_path,image_path2,timestamp,timestamp2\n"
+                                       "0,gone.jpg,gone2.jpg,2016-01-01,2017-01-01\n"}[kind])
+    for m in (jds, pds):
+        with pytest.raises(FileNotFoundError, match="gone"):
+            m.build_dataset(kind, True, train_path=str(index))
 
 
 def test_missing_files_fail_at_construction(tmp_path):

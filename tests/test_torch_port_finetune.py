@@ -699,7 +699,7 @@ def test_finetune_cli_pads_the_ragged_eval_batch(tmp_path):
 @pytest.mark.parametrize("extra", [
     ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",), ("--mixup", "0.8"),
     ("--cutmix", "1.0"), ("--aa", "rand-m9-mstd0.5"), ("--color_jitter", "0.4"),
-    ("--reprob", "0.25"), ("--dataset_type", "euro_sat"), ("--dataset_type", "fmow_sentinel"),
+    ("--reprob", "0.25"), ("--num_slices", "2"), ("--jax_platforms", "cpu"),
     ("--adam_nu_dtype", "bfloat16"), ("--cutmix_minmax", "0.2", "0.8"),
     ("--use_tensorboard",),
 ])

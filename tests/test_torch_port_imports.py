@@ -51,7 +51,7 @@ TRAINING_MODULES = [
     "cross_scale_mae_torch/cli/linprobe.py", "cross_scale_mae_torch/parallel/dist.py",
     "cross_scale_mae_torch/parallel/mesh.py", "cross_scale_mae_torch/parallel/collectives.py",
     "cross_scale_mae_torch/utils/checkpoint.py", "cross_scale_mae_torch/utils/params.py",
-    "cross_scale_mae_torch/cli/launch.py",
+    "cross_scale_mae_torch/cli/launch.py", "cross_scale_mae_torch/data/native/__init__.py",
 ]
 
 

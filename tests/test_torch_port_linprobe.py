@@ -348,7 +348,7 @@ def test_linprobe_cli_eval_only_evaluates(tmp_path, capsys):
 @pytest.mark.parametrize("extra", [
     ("--profile_dir", "p"), ("--model_parallel", "2"), ("--fsdp",), ("--sequence_parallel",),
     ("--num_slices", "2"), ("--use_wandb",), ("--use_tensorboard",),
-    ("--dataset_type", "euro_sat"),
+    ("--jax_platforms", "cpu"),
 ])
 def test_linprobe_cli_refuses_unported_flags(tmp_path, extra):
     from cross_scale_mae_torch.cli.linprobe import build_run

@@ -86,11 +86,19 @@ print("OK")
 """
 
 _HANG_DRIVER = r"""
-import sys, time
+import os, sys, time
 import torch
 import torch.distributed as tdist
 from cross_scale_mae_torch.parallel import dist
-rank = int(sys.argv[2])
+rank, ready = int(sys.argv[2]), sys.argv[3]
+# Both ranks have imported torch before either starts the 2 s rendezvous: a
+# rank slow to import (six test workers share the cores) would otherwise
+# time rank 0 out in init_process_group, before its all-reduce.
+open(os.path.join(ready, str(rank)), "w").close()
+deadline = time.monotonic() + 120
+while not os.path.exists(os.path.join(ready, str(1 - rank))):
+    assert time.monotonic() < deadline, "the other rank never started"
+    time.sleep(0.01)
 dist.initialize_distributed(sys.argv[1], 2, rank, "cpu", timeout_s=2)
 if rank == 0:
     t0 = time.perf_counter()
@@ -101,6 +109,10 @@ if rank == 0:
         print("RAISED %.3f" % (time.perf_counter() - t0))
 else:
     time.sleep(6)
+# The line is out; leave without the interpreter's teardown, which can
+# abort (SIGABRT) on a gloo group whose collective timed out.
+sys.stdout.flush()
+os._exit(0)
 """
 
 
@@ -164,11 +176,11 @@ def test_collectives_and_reductions_at_two_ranks():
     assert all(o.rstrip().endswith("OK") for o in outs), outs
 
 
-def test_a_hung_collective_raises_within_the_timeout():
+def test_a_hung_collective_raises_within_the_timeout(tmp_path):
     """Rank 1 never joins rank 0's all-reduce: rank 0 raises after the
     group's 2 s timeout, long before rank 1 wakes."""
     address = _address()
-    outs = run_jobs([[_HANG_DRIVER, address, str(r)] for r in range(2)])
+    outs = run_jobs([[_HANG_DRIVER, address, str(r), str(tmp_path)] for r in range(2)])
     line = [ln for ln in outs[0].splitlines() if ln.startswith(("RAISED", "RETURNED"))][-1]
     assert line.startswith("RAISED") and float(line.split()[1]) < 5.0, outs[0]
 

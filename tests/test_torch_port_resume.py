@@ -286,11 +286,18 @@ def test_ranks_agree_on_the_step_to_stop_after(tmp_path):
 
 
 _WEDGED_WORKER = r"""
-import signal, sys, time
+import os, signal, sys, time
+ready = READY
 rank = int(sys.argv[sys.argv.index("--process_id") + 1])
 if rank == 1:
+    # Fail only once rank 0 is deaf to SIGTERM, so the launcher's SIGTERM
+    # cannot end it first.
+    deadline = time.monotonic() + 20
+    while not os.path.exists(ready) and time.monotonic() < deadline:
+        time.sleep(0.01)
     sys.exit(3)
 signal.signal(signal.SIGTERM, signal.SIG_IGN)   # wedged: deaf to the teardown
+open(ready, "w").close()
 time.sleep(60)
 """
 
@@ -305,7 +312,8 @@ def test_launcher_kills_a_worker_wedged_past_the_grace_period(tmp_path):
 
     args = launch.get_args_parser().parse_args([
         "--nprocs", "2", "--workdir", str(tmp_path), "--grace_s", "1", "--poll_s", "0.05",
-        "--max_restarts", "0", "--", sys.executable, "-c", _WEDGED_WORKER])
+        "--max_restarts", "0", "--", sys.executable, "-c",
+        _WEDGED_WORKER.replace("READY", repr(str(tmp_path / "rank0_deaf")))])
     t0 = time.monotonic()
     with pytest.raises(SystemExit, match=r"failed workers \[1\], rcs \{1: 3, 0: -9\}"):
         launch.main(args)

@@ -430,8 +430,13 @@ def test_mae_loss_fn_refuses_unported_inputs():
 
     _, pc = _cfgs()
     params, state = mae_init(pc, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="temporal"):
-        mae_loss_fn(params, state, pc, torch.zeros(2, 2, 32, 32, 3), noise=None)
+    # Temporal pairs run on a multi-scale config
+    # (tests/test_torch_port_temporal.py); a single-view one refuses them.
+    _, single = _cfgs("mae_vit_tiny")
+    single_params, single_state = mae_init(single, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="temporal"):
+        mae_loss_fn(single_params, single_state, single, torch.zeros(2, 2, 32, 32, 3),
+                    noise=None)
     with pytest.raises(NotImplementedError, match="perceptual"):
         mae_loss_fn(params, state, pc.replace(use_perceptual=True),
                     torch.zeros(2, 32, 32, 3), noise=None)
@@ -630,7 +635,7 @@ def test_pretrain_cli_synthetic_images_match_jax_dataset():
 
 @pytest.mark.parametrize("extra", [
     ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",), ("--use_wandb",),
-    ("--dataset_type", "euro_sat"), ("--dataset_type", "fmow_temporal"),
+    ("--zero1",), ("--plot_recon",),
     ("--use_perceptual_loss",),
 ])
 def test_pretrain_cli_refuses_unported_flags(tmp_path, extra):
