@@ -159,6 +159,33 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
     steps redone.
     It runs last, so that its checkpoint writes (15 of 1.37 GB) touch no
     other phase's timing.
+16. finetune_recipe (runs after phase 10): ``cli/finetune.main`` on the
+    finetuning cell's ViT-L (64 px, patch 8, 62 classes, batch 512, bf16,
+    ``pallas``) with the repo's finetuning recipe (``RECIPE_FLAGS``:
+    scripts/finetune.sh's ``--mixup 0.8 --cutmix 1.0`` with its smoothing,
+    layer decay and drop path, plus RandAugment ``rand-m9-mstd0.5-inc1`` and
+    RandomErasing 0.25): 10 steps over five synthetic batches and the eval
+    pass, then 2 steps each in ``--mixup_mode pair``, ``elem`` and with
+    ``--cutmix_minmax 0.2 0.8``. Gates: every loss finite; 24 + 24 K2
+    launches a step and 24 per eval batch; each confusion matrix summing to
+    its eval count; the recipe step from the same weights and draws through
+    the kernels and the plain attention within [finetune]'s bf16 budget;
+    the recipe's batch on the card finite and its mixed targets' rows
+    summing to 1. Printed: ms per step, images/s and MFU; the recipe step
+    and [finetune]'s plain-augment step from the same weights timed in
+    turns; device ms by kind, idle share, and the device ms of the
+    ``randaug``, ``random_erasing`` and ``mixup_cutmix`` profiler ranges
+    in one profiled window.
+17. moments (runs after phase 16): ``cli/pretrain.main`` trains the
+    flagship step (ViT-B MsLdCeCd, 128 px, batch 384, bf16, ``pallas_v3``)
+    for 8 steps with ``--adam_mu_dtype bfloat16 --adam_nu_dtype bfloat16``,
+    writing a checkpoint at step 8. Gates: the losses finite and falling;
+    20 + 20 K1 launches a step; the checkpoint's moments bf16; restoring
+    it into an fp32-moment state raises (and into a bf16 one does not).
+    Printed: the optimizer state's bytes beside the fp32 state's, the
+    checkpoint's bytes, and the bf16 and fp32 steps timed in turns (each
+    run's first step left out; the CLI's own ms per step covers the
+    checkpoint write).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -913,13 +940,18 @@ LP_KINDS = (("mha3_fwd", ("mha3_fwd",)), ("matmul", MATMUL_NAMES),
             ("copies", ("copy", "catarray")))
 
 
+# The port's torch.profiler ranges (ops/augment.py, train/classify.py): their
+# device-side spans are ranges, not kernels, and are left out of the kinds.
+RANGES = ("randaug", "color_jitter", "random_erasing", "mixup_cutmix")
+
+
 def _kernel_ms_by_kind(prof, rules=K1_KINDS) -> dict:
     """Device ms by kernel kind from a torch.profiler run: the first rule
     whose name fragments a kernel's name holds, else "other"."""
     kinds = {name: 0.0 for name, _ in rules}
     kinds["other"] = 0.0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in RANGES:
             continue
         name = e.key.lower()
         kind = next((k for k, frags in rules if any(f in name for f in frags)), "other")
@@ -1601,7 +1633,7 @@ def phase_resume(card: str) -> tuple[int, int]:
     return exit1["fwd"] + done2["fwd"], exit1["bwd"] + done2["bwd"]
 
 
-def _ft_argv(tmp: str, impl: str, images: int, steps: int):
+def _ft_argv(tmp: str, impl: str, images: int, steps: int, *extra: str):
     from cross_scale_mae_torch.cli.finetune import get_args_parser
 
     return get_args_parser().parse_args([
@@ -1611,7 +1643,7 @@ def _ft_argv(tmp: str, impl: str, images: int, steps: int):
         "--drop_path", "0.1", "--smoothing", "0.1", "--layer_decay", "0.75",
         "--lr", str(FT_LR), "--warmup_epochs", "0", "--epochs", "100000",
         "--eval_interval", "100000", "--max_steps", str(steps), "--log_interval", "5",
-        "--seed", "0", "--device", "cuda", "--output_dir", tmp])
+        "--seed", "0", "--device", "cuda", "--output_dir", tmp, *extra])
 
 
 def _ft_leaf_grads(run, draws, bwd=None) -> tuple[float, dict]:
@@ -2569,6 +2601,248 @@ def phase_sentinel(card: str) -> tuple[int, int]:
     return fwd, bwd
 
 
+# [finetune_recipe]: scripts/finetune.sh:19-21's flags (mixup, cutmix; its
+# smoothing, layer decay and drop path are _ft_argv's) with the reference
+# finetune's --aa and --reprob defaults (ops/randaug.py:252-253 of the JAX
+# package); then 2 steps in each other mix: pair and elem modes, a min/max box.
+RECIPE_FLAGS = ("--mixup", "0.8", "--cutmix", "1.0", "--aa", "rand-m9-mstd0.5-inc1",
+                "--reprob", "0.25")
+RECIPE_VARIANTS = (("pair", ("--mixup_mode", "pair")), ("elem", ("--mixup_mode", "elem")),
+                   ("minmax", ("--cutmix_minmax", "0.2", "0.8")))
+RECIPE_VARIANT_STEPS = 2
+RECIPE_RANGES = ("randaug", "random_erasing", "mixup_cutmix")
+# [moments]: the flagship step with both Adam moments in bf16.
+MOMENT_FLAGS = ("--adam_mu_dtype", "bfloat16", "--adam_nu_dtype", "bfloat16")
+MOMENT_STEPS = 8
+
+
+def _range_device_ms(prof, names) -> dict:
+    """Device ms under each torch.profiler range of ``names``: the kernels
+    launched inside it (the host-side range's device total, children
+    included); "not measured" where the profiler shows none."""
+    out = {name: 0.0 for name in names}
+    for e in prof.key_averages():
+        if e.key in out and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.key] += e.device_time_total / 1e3
+    return {k: v if v > 0 else "not measured" for k, v in out.items()}
+
+
+def _recipe_batch(run, draws):
+    """The recipe step's input on the card, before the model: the augment
+    with RandAugment and RandomErasing, then Mixup/CutMix against the
+    reversed batch, as ``train/classify.make_classify_loss_fn`` runs them."""
+    from cross_scale_mae_torch.data.datasets import DATASET_STATS
+    from cross_scale_mae_torch.ops.augment import make_finetune_augment
+    from cross_scale_mae_torch.train.mixup import mixup_cutmix, smooth_one_hot
+
+    augment = make_finetune_augment(*DATASET_STATS["synthetic"], run.cfg.input_size,
+                                    dtype=run.cfg.compute_dtype, aa=RECIPE_FLAGS[5],
+                                    reprob=float(RECIPE_FLAGS[7]))
+    with torch.no_grad():
+        imgs = augment(run.images[:FT_BATCH], draws.hflip, draws.vflip, draws.crop_boxes,
+                       draws.rot_k, **draws.augment_extras())
+        targets = smooth_one_hot(run.labels[:FT_BATCH], run.cfg.num_classes,
+                                 run.tcfg.label_smoothing)
+        return mixup_cutmix(imgs, targets, imgs.flip(0), targets.flip(0), draws.mixup,
+                            run.mixup.cutmix_minmax)
+
+
+def phase_finetune_recipe(card: str) -> tuple[int, int]:
+    """The finetuning recipe through ``cli/finetune.main`` on ViT-L; returns
+    the K2 kernels' (forward, backward) launches during those runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cross_scale_mae_torch.cli.finetune import build_run
+    from cross_scale_mae_torch.cli.finetune import main as finetune_main
+    from cross_scale_mae_torch.ops.attention import mha, mha_v3
+    from cross_scale_mae_torch.train.state import tree_leaves
+    from cross_scale_mae_torch.utils.flops import mfu, vit_train_flops_per_image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mha.launches = mha.bwd_launches = mha_v3.launches = mha_v3.bwd_launches = 0
+        result = finetune_main(_ft_argv(tmp, "pallas", FT_SYNTHETIC, FT_STEPS, *RECIPE_FLAGS))
+        variants = {name: finetune_main(_ft_argv(tmp, "pallas", FT_BATCH, RECIPE_VARIANT_STEPS,
+                                                 *RECIPE_FLAGS, *flags))
+                    for name, flags in RECIPE_VARIANTS}
+        fwd, bwd = mha.launches, mha.bwd_launches
+        check(mha_v3.launches == mha_v3.bwd_launches == 0, "the recipe launched the K1 kernels")
+        every = [result, *variants.values()]
+        steps = sum(r["steps"] for r in every)
+        eval_batches = sum(r["eval_batches"] for r in every)
+        check(result["steps"] == FT_STEPS
+              and all(v["steps"] == RECIPE_VARIANT_STEPS for v in variants.values()),
+              f"steps {[r['steps'] for r in every]}")
+        check(fwd == FT_ATTN * (steps + eval_batches) and bwd == FT_ATTN * steps,
+              f"K2 launches fwd {fwd}, bwd {bwd}: expected {FT_ATTN} x ({steps} steps + "
+              f"{eval_batches} eval batches) and {FT_ATTN} x {steps} steps")
+        losses = {name: r["losses"] for name, r in (("recipe", result), *variants.items())}
+        check(all(math.isfinite(v) for ls in losses.values() for v in ls),
+              f"non-finite loss in {losses}")
+        for r, n_eval in ((result, FT_SYNTHETIC // 4),
+                          *((v, max(FT_BATCH // 4, 64)) for v in variants.values())):
+            stats = r["eval"]
+            check(stats["n"] == n_eval == int(stats["cm"].sum()),
+                  f"confusion matrix sums to {stats['cm'].sum()}, eval count {n_eval}")
+            check(all(math.isfinite(stats[k]) for k in ("loss", "acc1", "acc5", "macro_f1")),
+                  f"non-finite eval stats {stats}")
+        torch.cuda.empty_cache()
+
+        # The recipe step through the kernels and the plain attention, and
+        # [finetune]'s plain-augment step, from the same weights.
+        recipe = {impl: build_run(_ft_argv(tmp, impl, FT_BATCH, 1, *RECIPE_FLAGS))
+                  for impl in ("pallas", "xla")}
+        plain_aug = build_run(_ft_argv(tmp, "pallas", FT_BATCH, 1))
+        check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(
+            tree_leaves(recipe["pallas"].state.params), tree_leaves(recipe["xla"].state.params),
+            tree_leaves(plain_aug.state.params))), "the runs did not start from the same weights")
+        kernel = recipe["pallas"]
+        draws = kernel.draws(0)
+        imgs, targets = _recipe_batch(kernel, draws[0])
+        row_err = float((targets.sum(dim=-1) - 1).abs().max())
+        check(bool(torch.isfinite(imgs.float()).all()), "the recipe's batch is not finite")
+        check(row_err <= 1e-5, f"mixed targets' rows sum to 1 within {row_err}, limit 1e-5")
+        del imgs, targets
+
+        def one_step(run, d):
+            return run.step_fn(run.state, run.images[:FT_BATCH], run.labels[:FT_BATCH], d)[1]
+
+        first = {}
+        for impl, run in recipe.items():
+            f0, b0 = mha.launches, mha.bwd_launches
+            m = one_step(run, draws)
+            first[impl] = (float(m["loss"]), float(m["grad_norm"]))
+            launched = (mha.launches - f0, mha.bwd_launches - b0)
+            check(launched == ((FT_ATTN,) * 2 if impl == "pallas" else (0, 0)),
+                  f"recipe {impl} step launched {launched}")
+        (kl, kg), (pl, pg) = first["pallas"], first["xla"]
+        dl, dg = abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg)
+        check(dl <= 2.0 ** -7 and dg <= 2.0 ** -5,
+              f"recipe kernel vs plain step: loss {kl} vs {pl} (rel {dl}), "
+              f"grad norm {kg} vs {pg} (rel {dg})")
+        del recipe["xla"]
+        torch.cuda.empty_cache()
+
+        def step_ms(run, reps=3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                one_step(run, run.draws(run.state.step))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        step_ms(plain_aug, reps=1)   # its first step, as the recipe run's above
+        p1, r1, r2, p2 = (step_ms(plain_aug), step_ms(kernel), step_ms(kernel),
+                          step_ms(plain_aug))
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                one_step(kernel, kernel.draws(kernel.state.step))
+            torch.cuda.synchronize()
+        kinds = _kernel_ms_by_kind(prof, K2_KINDS)
+        ranges = _range_device_ms(prof, RECIPE_RANGES)
+        busy = sum(kinds.values())
+        cfg = kernel.cfg
+        del kernel, recipe, plain_aug
+        torch.cuda.empty_cache()
+
+    ms = result["steady_ms_per_step"]
+    imgs_per_s = FT_BATCH / (ms / 1e3)
+    flops = vit_train_flops_per_image(cfg)
+    log("finetune_recipe", card=json.dumps(card), flags=json.dumps(" ".join(RECIPE_FLAGS)),
+        steps=steps, batch=FT_BATCH, losses=json.dumps(losses),
+        eval=json.dumps({k: v for k, v in result["eval"].items() if k != "cm"}),
+        launches_fwd=fwd, launches_bwd=bwd, ms_per_step=ms, imgs_per_s=imgs_per_s,
+        train_flops_per_image=flops, mfu=mfu(imgs_per_s, flops),
+        recipe_step_ms=json.dumps([r1, r2]), plain_augment_step_ms=json.dumps([p1, p2]),
+        kernel_vs_plain_loss=json.dumps([kl, pl]), kernel_vs_plain_grad_norm=json.dumps([kg, pg]),
+        target_row_sum_err=row_err,
+        augment_device_ms_per_step=json.dumps(
+            {k: v / reps if isinstance(v, float) else v for k, v in ranges.items()}),
+        device_ms_per_step=json.dumps({k: v / reps for k, v in kinds.items()}),
+        device_idle_share=(1 - busy / reps / ((r1 + r2) / 2)) if busy else "not measured")
+    return fwd, bwd
+
+
+def _opt_bytes(state) -> int:
+    opt = state.opt_state
+    return sum(t.numel() * t.element_size() for t in (*opt.mu, *opt.nu))
+
+
+def phase_moments(card: str) -> tuple[int, int]:
+    """The flagship pretrain step with bf16 Adam moments through
+    ``cli/pretrain.main``; returns the K1 kernels' (forward, backward)
+    launches during that run."""
+    from cross_scale_mae_torch.cli.pretrain import build_run
+    from cross_scale_mae_torch.cli.pretrain import main as pretrain_main
+    from cross_scale_mae_torch.ops.attention import mha_v3
+    from cross_scale_mae_torch.utils.checkpoint import STATE_FILE, latest_step, restore_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bf16")
+        mha_v3.launches = mha_v3.bwd_launches = 0
+        result = pretrain_main(_train_argv(out, "pallas_v3", *MOMENT_FLAGS, "--max_steps",
+                                           str(MOMENT_STEPS), "--ckpt_interval",
+                                           str(MOMENT_STEPS)))
+        fwd, bwd = mha_v3.launches, mha_v3.bwd_launches
+        losses, steps = result["losses"], result["steps"]
+        check(steps == MOMENT_STEPS and len(losses) == steps, f"{steps} steps, {len(losses)} losses")
+        check(all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+        check(fwd == bwd == ATTN_PER_STEP * steps,
+              f"kernel launches fwd {fwd}, bwd {bwd} != {ATTN_PER_STEP} x {steps} steps")
+        ckpt = os.path.join(out, "checkpoints")
+        step = latest_step(ckpt)
+        check(step == MOMENT_STEPS, f"checkpoint at step {step}, expected {MOMENT_STEPS}")
+        flat = torch.load(os.path.join(ckpt, str(step), STATE_FILE), map_location="cpu",
+                          weights_only=True)
+        moments = {k: v.dtype for k, v in flat.items() if k.startswith(("opt_state/mu/",
+                                                                         "opt_state/nu/"))}
+        check(moments and set(moments.values()) == {torch.bfloat16},
+              f"the checkpoint's moments are {set(moments.values())}, not bf16")
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, str(step), STATE_FILE))
+        del flat
+        torch.cuda.empty_cache()
+
+        runs = {"fp32": build_run(_train_argv(os.path.join(tmp, "f32"), "pallas_v3")),
+                "bf16": build_run(_train_argv(os.path.join(tmp, "b16"), "pallas_v3",
+                                              *MOMENT_FLAGS))}
+        refused = None
+        try:
+            restore_checkpoint(ckpt, runs["fp32"].state)
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "dtype" in refused,
+              f"a bf16-moment checkpoint restored into an fp32-moment state ({refused})")
+        restore_checkpoint(ckpt, runs["bf16"].state)
+        check(runs["bf16"].state.step == MOMENT_STEPS, "the bf16 checkpoint did not restore")
+        state_bytes = {name: _opt_bytes(run.state) for name, run in runs.items()}
+        n_params = sum(t.numel() for t in runs["fp32"].state.opt_state.mu)
+
+        def step_ms(run, reps=3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run.step_fn(run.state, run.images, run.draws(run.state.step))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        for run in runs.values():
+            step_ms(run, reps=1)     # each run's first step, left out of the turns
+        f1, b1, b2, f2 = (step_ms(runs["fp32"]), step_ms(runs["bf16"]), step_ms(runs["bf16"]),
+                          step_ms(runs["fp32"]))
+        del runs
+        torch.cuda.empty_cache()
+    log("moments", card=json.dumps(card), flags=json.dumps(" ".join(MOMENT_FLAGS)), steps=steps,
+        batch=TRAIN_BATCH, loss_first=losses[0], loss_last=losses[-1], launches_fwd=fwd,
+        launches_bwd=bwd,
+        # The CLI's steady ms covers steps 2-8 and the checkpoint written after step 8.
+        cli_ms_per_step_with_checkpoint=result["steady_ms_per_step"], params=n_params, opt_state_bytes=json.dumps(state_bytes),
+        opt_state_bytes_saved=state_bytes["fp32"] - state_bytes["bf16"],
+        checkpoint_bytes=ckpt_bytes, fp32_restore_refused=json.dumps(refused),
+        bf16_step_ms=json.dumps([b1, b2]), fp32_step_ms=json.dumps([f1, f2]))
+    return fwd, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2578,10 +2852,11 @@ def main() -> int:
     phase_build()
     rows = phase_kernel(card)
     # Each path is driven with the counts set to 0 just before it and read
-    # just after it: serving (forward only), pretraining, finetuning, linear
-    # probing from the pretraining's weights, temporal pretraining on pairs
-    # and multi-band finetuning through the loader, then pretraining through
-    # a fault and a relaunch (each process counts from 0).
+    # just after it: serving (forward only), pretraining, finetuning, the
+    # finetuning recipe, pretraining with bf16 moments, linear probing from
+    # the pretraining's weights, temporal pretraining on pairs and
+    # multi-band finetuning through the loader, then pretraining through a
+    # fault and a relaunch (each process counts from 0).
     served = phase_serving(card)
     with tempfile.TemporaryDirectory() as work:
         npz = os.path.join(work, "pretrain.npz")
@@ -2590,6 +2865,8 @@ def main() -> int:
         ddp_fwd, ddp_bwd = phase_ddp(card)
         ft_fwd, ft_bwd = phase_finetune(card)
         phase_finetune_grads_fp64(card)
+        recipe_fwd, recipe_bwd = phase_finetune_recipe(card)
+        moment_fwd, moment_bwd = phase_moments(card)
         lp_fwd = phase_linprobe(card, npz)
     phase_native(card)
     temporal_fwd, temporal_bwd = phase_temporal(card)
@@ -2597,12 +2874,14 @@ def main() -> int:
     resume_fwd, resume_bwd = phase_resume(card)
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "train_ddp": ddp_fwd,
                             "train_resume": resume_fwd, "linprobe": lp_fwd,
-                            "train_temporal": temporal_fwd},
+                            "train_temporal": temporal_fwd, "moments": moment_fwd},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
                             "train_resume": resume_bwd, "linprobe": 0,
-                            "train_temporal": temporal_bwd},
-               "mha_fwd": {"finetune": ft_fwd, "finetune_sentinel": sn_fwd},
-               "mha_bwd": {"finetune": ft_bwd, "finetune_sentinel": sn_bwd},
+                            "train_temporal": temporal_bwd, "moments": moment_bwd},
+               "mha_fwd": {"finetune": ft_fwd, "finetune_sentinel": sn_fwd,
+                           "finetune_recipe": recipe_fwd},
+               "mha_bwd": {"finetune": ft_bwd, "finetune_sentinel": sn_bwd,
+                           "finetune_recipe": recipe_bwd},
                "mha2_fwd": {}, "mha2_bwd": {}}
     replaces = {"mha3_fwd": "cross_scale_mae_tpu/ops/attention.py:326",
                 "mha3_bwd": "cross_scale_mae_tpu/ops/attention.py:355",

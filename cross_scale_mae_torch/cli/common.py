@@ -127,6 +127,8 @@ def add_reference_compat_args(p: argparse.ArgumentParser, role: str) -> None:
         g.add_argument("--transform_checkpoint_keys", action="store_true")
         g.add_argument("--dist_eval", action="store_true")
         g.add_argument("--use_psa", action="store_true")
+    if role == "finetune":
+        g.add_argument("--resplit", action="store_true", help="dead in the reference (never read)")
     if role == "linprobe":
         g.add_argument("--loss", default="classification_cross",
                        help="must be classification_cross (main_linprobe.py:562-565)")
@@ -171,6 +173,7 @@ def apply_reference_compat(args, role: str) -> None:
              "dist_on_itp": "dist_on_itp", "model_type": "model_type",
              "transform_checkpoint_keys": "transform_checkpoint_keys",
              "dist_eval": "dist_eval", "use_psa": "use_psa", "use_xformers": "use_xformers",
+             "resplit": "resplit",
              "norm_pix_loss": "norm_pix_loss", "print_level": "print_level",
              "spatial_mask": "spatial_mask", "log_dir": "log_dir",
              "device_batch_dtype": "device_batch_dtype"}

@@ -29,9 +29,14 @@ with the epoch and the best acc1 in the sidecar; ``--resume <dir>``
 restores the newest and starts at the epoch after it, the best acc1
 carried on. Data parallel as ``cli/pretrain``: one process per GPU, in the
 JAX jit's global-batch semantics; ``--batch_size`` is the global batch,
-and every rank reports the global eval. Mixup/CutMix, RandAugment, color
-jitter, random erasing, TP/SP/FSDP, the Adam moment dtypes and ``.pth``
-checkpoints are not ported yet and refuse with a pointer to ROADMAP.md.
+and every rank reports the global eval. The recipe's flags run as in the
+JAX CLI: Mixup/CutMix (``--mixup``, ``--cutmix``, ``--cutmix_minmax``,
+``--mixup_prob``, ``--mixup_switch_prob``, ``--mixup_mode``), RandAugment
+(``--aa``), ColorJitter (``--color_jitter``), RandomErasing (``--reprob``,
+``--remode``, ``--recount``) and bf16 Adam moments (``--adam_mu_dtype``,
+``--adam_nu_dtype``). TP/SP/FSDP, wandb and ``.pth`` checkpoints are not
+ported yet and refuse with a pointer to ROADMAP.md; the reference
+launcher's torch-DDP flags are accepted and reported as not applicable.
 
 Usage:
     python -m cross_scale_mae_torch.cli.finetune --finetune pretrain/params.npz \\
@@ -40,6 +45,8 @@ Usage:
         --embed_dim 128 --depth 4 --num_heads 8 --input_size 32 --patch_size 8 \\
         --batch_size 4 --synthetic_len 8 --max_steps 2 --device cpu \\
         --output_dir out                                                  # CPU
+    python -m cross_scale_mae_torch.cli.finetune ... --mixup 0.8 --cutmix 1.0 \\
+        --smoothing 0.1 --aa rand-m9-mstd0.5-inc1 --reprob 0.25      # the recipe
     torchrun --nproc_per_node 4 -m cross_scale_mae_torch.cli.finetune \\
         --finetune pretrain/params.npz --output_dir out                  # 4 GPUs
 """
@@ -58,6 +65,7 @@ import torch
 from cross_scale_mae_torch.cli.common import (
     UNPORTED_RUNTIME,
     add_data_args,
+    add_reference_compat_args,
     add_runtime_args,
     apply_reference_compat,
     make_loader,
@@ -80,7 +88,11 @@ from cross_scale_mae_torch.data.datasets import (
 )
 from cross_scale_mae_torch.data.loader import DataLoader, device_prefetch
 from cross_scale_mae_torch.models.vit import trunc_normal, vit_init
-from cross_scale_mae_torch.ops.augment import make_eval_preprocess, make_finetune_augment
+from cross_scale_mae_torch.ops.augment import (
+    AugmentExtras,
+    make_eval_preprocess,
+    make_finetune_augment,
+)
 from cross_scale_mae_torch.parallel.dist import Runtime, barrier, shutdown
 from cross_scale_mae_torch.parallel.mesh import all_reduce_total, broadcast_params
 from cross_scale_mae_torch.train.classify import (
@@ -88,7 +100,8 @@ from cross_scale_mae_torch.train.classify import (
     make_eval_step,
     sample_finetune_draws,
 )
-from cross_scale_mae_torch.train.optim import build_optimizer
+from cross_scale_mae_torch.train.mixup import MIXUP_MODES, MixupConfig
+from cross_scale_mae_torch.train.optim import MOMENT_DTYPES, build_optimizer
 from cross_scale_mae_torch.train.pretrain import _step_rng
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, finite_loss, tree_leaves
@@ -112,12 +125,7 @@ from cross_scale_mae_torch.utils.params import (
 
 # Flags of the JAX CLI that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item.
-UNPORTED_FLAGS = {
-    **UNPORTED_RUNTIME, "adam_mu_dtype": 7, "adam_nu_dtype": 7,
-    "cutmix_minmax": 12, "color_jitter": 12, "aa": 12,
-}
-# Flags whose default means "off": any other value is not ported yet.
-UNPORTED_VALUES = {"mixup": 0.0, "cutmix": 0.0, "reprob": 0.0}
+UNPORTED_FLAGS = {**UNPORTED_RUNTIME, "wandb_id": 16}
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -147,9 +155,25 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", default=0.05, type=float)
     p.add_argument("--layer_decay", default=0.75, type=float)
     p.add_argument("--clip_grad", default=None, type=float)
+    p.add_argument("--adam_mu_dtype", default=None, choices=list(MOMENT_DTYPES),
+                   help="dtype of Adam's first moment (bfloat16 halves its memory)")
+    p.add_argument("--adam_nu_dtype", default=None, choices=list(MOMENT_DTYPES),
+                   help="dtype of Adam's second moment")
+    # Augmentation (main_finetune.py:188-268)
     p.add_argument("--smoothing", default=0.1, type=float)
     p.add_argument("--mixup", default=0.0, type=float)
     p.add_argument("--cutmix", default=0.0, type=float)
+    p.add_argument("--mixup_prob", default=1.0, type=float)
+    p.add_argument("--mixup_switch_prob", default=0.5, type=float)
+    p.add_argument("--cutmix_minmax", default=None, type=float, nargs=2,
+                   help="min/max cut fraction; overrides --cutmix alpha and enables cutmix")
+    p.add_argument("--mixup_mode", default="batch", choices=list(MIXUP_MODES))
+    p.add_argument("--color_jitter", default=None, type=float,
+                   help="ColorJitter factor; only when --aa is unset")
+    p.add_argument("--aa", default=None, help="RandAugment policy, e.g. rand-m9-mstd0.5-inc1")
+    p.add_argument("--reprob", default=0.0, type=float, help="RandomErasing probability")
+    p.add_argument("--remode", default="pixel", choices=["pixel", "const"])
+    p.add_argument("--recount", default=1, type=int)
     p.add_argument("--ckpt_interval", default=20, type=int,
                    help="write <output_dir>/checkpoints every N epochs and after the last")
     p.add_argument("--save_every", dest="ckpt_interval", type=int,
@@ -157,29 +181,22 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_interval", default=1, type=int,
                    help="evaluate every N epochs and after the last")
     p.add_argument("--max_steps", default=None, type=int, help="hard step cap")
+    p.add_argument("--unroll_blocks", action="store_true",
+                   help="a layout knob of the JAX package (scan or unrolled); the port "
+                        "runs the same loop for every setting")
     add_data_args(p, pretrain=False, default="synthetic")
     add_runtime_args(p)
+    add_reference_compat_args(p, "finetune")
     # The K2 kernels, as the JAX finetune step runs them.
     p.set_defaults(attention_impl="pallas")
-    g = p.add_argument_group("not ported yet (ROADMAP.md)")
-    for flag in ("adam_mu_dtype", "adam_nu_dtype", "aa"):
-        g.add_argument(f"--{flag}", default=None)
-    g.add_argument("--color_jitter", default=None, type=float)
-    g.add_argument("--reprob", default=0.0, type=float)
-    g.add_argument("--cutmix_minmax", default=None, type=float, nargs=2)
     return p
 
 
 def check_args(args) -> None:
-    """Resolve the dataset aliases; SystemExit for a flag, value or dataset
-    not ported yet."""
+    """Resolve the compat flags and the dataset aliases; SystemExit for a
+    flag not ported yet."""
     apply_reference_compat(args, "finetune")
     refuse_unported(args, UNPORTED_FLAGS)
-    for flag, off in UNPORTED_VALUES.items():
-        if getattr(args, flag) != off:
-            raise SystemExit(
-                f"--{flag} {getattr(args, flag)}: mixup, cutmix and random erasing are "
-                "not ported yet; see ROADMAP.md (queue 1 item 12)")
 
 
 def load_pretrained_encoder(path: str, vcfg: ViTClassifierConfig, params: dict,
@@ -243,6 +260,8 @@ class FinetuneRun:
     eval_loader: Optional[DataLoader] = None
     start_epoch: int = 0                        # after --resume, the checkpoint's epoch + 1
     max_acc: float = 0.0                        # the best acc1 so far, from the checkpoint
+    extras: Optional[AugmentExtras] = None      # RandAugment, ColorJitter, RandomErasing
+    mixup: Optional[MixupConfig] = None         # Mixup/CutMix
 
     @property
     def device(self) -> torch.device:
@@ -253,7 +272,8 @@ class FinetuneRun:
         set per microbatch, on the device."""
         gen = _step_rng(self.tcfg, self.tcfg.seed + 1, step, self.device)
         return [sample_finetune_draws(gen, self.tcfg.batch_size, self.cfg, self.canvas,
-                                      self.rot90).shard(self.rt.rank, self.rt.world_size)
+                                      self.rot90, self.extras, self.mixup
+                                      ).shard(self.rt.rank, self.rt.world_size)
                 for _ in range(self.tcfg.accum_iter)]
 
     def train_batches(self, epoch: int) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
@@ -327,14 +347,19 @@ def build_run(args) -> FinetuneRun:
         args.model, input_size=args.input_size, patch_size=args.patch_size,
         num_classes=num_classes, global_pool=args.global_pool,
         drop_path_rate=args.drop_path, compute_dtype=args.compute_dtype,
-        attention_impl=args.attention_impl, gelu=args.gelu,
+        attention_impl=args.attention_impl, gelu=args.gelu, remat=args.remat,
+        scan_blocks=not args.unroll_blocks,
         input_channels=train_ds.in_c if train_ds else 3, **overrides)
     tcfg = TrainConfig(
         epochs=args.epochs, warmup_epochs=args.warmup_epochs, batch_size=args.batch_size,
         accum_iter=args.accum_iter, blr=args.blr, lr=args.lr, min_lr=args.min_lr,
         weight_decay=args.weight_decay, clip_grad=args.clip_grad,
-        layer_decay=args.layer_decay, label_smoothing=args.smoothing, seed=args.seed,
-        log_interval=args.log_interval)
+        layer_decay=args.layer_decay, label_smoothing=args.smoothing,
+        mixup=args.mixup, cutmix=args.cutmix, mixup_prob=args.mixup_prob,
+        mixup_switch_prob=args.mixup_switch_prob, mixup_mode=args.mixup_mode,
+        cutmix_minmax=tuple(args.cutmix_minmax) if args.cutmix_minmax else None,
+        seed=args.seed, log_interval=args.log_interval)
+    mixup = MixupConfig.from_train_config(tcfg)
     c = vcfg.input_channels
     if data:
         canvas = data["train_loader"].dataset.canvas_size
@@ -365,15 +390,21 @@ def build_run(args) -> FinetuneRun:
     broadcast_params([params, mstate])
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay, b1=0.9, b2=0.999,
                          clip_grad=args.clip_grad, layer_decay=args.layer_decay,
-                         depth=vcfg.depth, no_decay_names=("pos_embed", "cls_token"))
+                         depth=vcfg.depth, no_decay_names=("pos_embed", "cls_token"),
+                         mu_dtype=args.adam_mu_dtype, nu_dtype=args.adam_nu_dtype)
     state = TrainState.create(params, mstate, tx)
     state, start_epoch, max_acc = restore_classifier_run(args, state)
     # The dataset's own statistics, as the JAX CLI normalizes with them.
     mean, std = (train_ds.mean, train_ds.std) if train_ds else DATASET_STATS["synthetic"]
     normalize = train_ds.normalize_on_device if train_ds else True
     rot90 = args.dataset_type == "naip"
-    augment = make_finetune_augment(mean, std, args.input_size, rot90=rot90,
-                                    dtype=args.compute_dtype, normalize=normalize)
+    try:
+        augment = make_finetune_augment(
+            mean, std, args.input_size, rot90=rot90, dtype=args.compute_dtype,
+            normalize=normalize, color_jitter=args.color_jitter, aa=args.aa,
+            reprob=args.reprob, remode=args.remode, recount=args.recount)
+    except ValueError as e:
+        raise SystemExit(f"--aa {args.aa}: {e}") from None
     preprocess = make_eval_preprocess(mean, std, args.input_size, dtype=args.compute_dtype,
                                       normalize=normalize)
     rank0_print(f"finetune {args.model}: {n_train} train / {n_eval} eval, "
@@ -382,7 +413,8 @@ def build_run(args) -> FinetuneRun:
                        make_classify_train_step(vcfg, tcfg, schedule, augment=augment,
                                                 data_parallel=rt.distributed),
                        make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
-                       canvas, rot90, **data, start_epoch=start_epoch, max_acc=max_acc)
+                       canvas, rot90, **data, start_epoch=start_epoch, max_acc=max_acc,
+                       extras=augment.extras, mixup=mixup)
 
 
 def evaluate(eval_fn: Callable, state: TrainState, batches: Iterable, num_classes: int,

@@ -28,8 +28,8 @@ written by rank 0 every ``--ckpt_interval`` epochs and after the last;
 ``--resume <dir>`` restores the newest checkpoint and starts at the epoch
 after it. Data parallel as ``cli/pretrain``: one process per GPU, in the
 JAX jit's global-batch semantics (the BN head's statistics over every
-rank's rows). TP/SP/FSDP, TensorBoard/wandb and ``.pth`` inputs are
-not ported yet and refuse with a pointer to ROADMAP.md.
+rank's rows). TP/SP/FSDP, TensorBoard/wandb (``--wandb_id`` too) and
+``.pth`` inputs are not ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.linprobe --finetune pretrain/params.npz \\
@@ -84,6 +84,11 @@ from cross_scale_mae_torch.utils.logging import RunLogger, auto_output_dir, rank
 from cross_scale_mae_torch.utils.params import params_to_jax
 
 
+# Flags of the JAX CLI that the port parses but does not run yet:
+# flag -> ROADMAP.md queue 1 item.
+UNPORTED_FLAGS = {**UNPORTED_RUNTIME, "wandb_id": 16}
+
+
 def get_args_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("Cross-Scale MAE linear probing (PyTorch)", add_help=False)
     p.add_argument("--model", default="vit_base_patch16")
@@ -118,6 +123,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_interval", default=1, type=int,
                    help="evaluate every N epochs and after the last")
     p.add_argument("--max_steps", default=None, type=int, help="hard step cap")
+    p.add_argument("--unroll_blocks", action="store_true",
+                   help="a layout knob of the JAX package (scan or unrolled); the port "
+                        "runs the same loop for every setting")
     add_data_args(p, pretrain=False)
     add_runtime_args(p)
     add_reference_compat_args(p, "linprobe")
@@ -142,7 +150,7 @@ def build_run(args) -> FinetuneRun:
     """Config, loaders, the pretrained encoder under a fresh head, LARS on
     the head alone, and the train and eval steps, on ``args.device``."""
     apply_reference_compat(args, "linprobe")
-    refuse_unported(args, UNPORTED_RUNTIME)
+    refuse_unported(args, UNPORTED_FLAGS)
     rt = setup_runtime(args)
     dev = rt.device
     resolve_attention(args, dev)
@@ -158,7 +166,8 @@ def build_run(args) -> FinetuneRun:
         args.model, input_size=args.input_size, patch_size=args.patch_size,
         num_classes=num_classes, global_pool=args.global_pool, use_bn_head=True,
         compute_dtype=args.compute_dtype, attention_impl=args.attention_impl,
-        gelu=args.gelu, input_channels=train_ds.in_c, **overrides)
+        gelu=args.gelu, remat=args.remat, scan_blocks=not args.unroll_blocks,
+        input_channels=train_ds.in_c, **overrides)
     # Plain CE on minimal augmentation (main_linprobe.py:562-565).
     tcfg = TrainConfig(
         epochs=args.epochs, warmup_epochs=args.warmup_epochs, batch_size=args.batch_size,

@@ -47,8 +47,10 @@ failure drills: ``CSM_FAULT_STEP=k`` ends the process with
 ``cli/launch.py``) equals ``CSM_FAULT_ATTEMPT`` (1). ``cli/launch.py``
 restarts a gang that loses a process from the newest checkpoint.
 
-TP/SP/ZeRO/FSDP, wandb, the perceptual loss and the reconstruction plots
-are not ported yet and refuse with a pointer to ROADMAP.md.
+``--adam_mu_dtype``/``--adam_nu_dtype bfloat16`` store Adam's moments in
+bf16 (the checkpoint then holds them so, and restores only into a run with
+the same dtypes). TP/SP/ZeRO/FSDP, wandb, the perceptual loss and the
+reconstruction plots are not ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_base_MsLdCeCd \\
@@ -92,7 +94,7 @@ from cross_scale_mae_torch.models.mae import mae_init
 from cross_scale_mae_torch.ops.augment import make_pretrain_augment
 from cross_scale_mae_torch.parallel.dist import Runtime, barrier, shutdown
 from cross_scale_mae_torch.parallel.mesh import broadcast_params
-from cross_scale_mae_torch.train.optim import build_optimizer
+from cross_scale_mae_torch.train.optim import MOMENT_DTYPES, build_optimizer
 from cross_scale_mae_torch.train.pretrain import (
     DDP_MODES,
     _step_rng,
@@ -115,7 +117,6 @@ from cross_scale_mae_torch.utils.params import params_to_jax
 UNPORTED_FLAGS = {
     **UNPORTED_RUNTIME, "zero1": 11, "use_perceptual_loss": 14, "vgg_weights": 14,
     "plot_recon": 14, "val_img_path": 14, "wandb_id": 16,
-    "adam_mu_dtype": 7, "adam_nu_dtype": 7,
 }
 FAULT_EXIT_CODE = 13
 
@@ -167,8 +168,12 @@ def get_args_parser() -> argparse.ArgumentParser:
     add_reference_compat_args(p, "pretrain")
     # The K1 kernels, as the flagship step runs them (bench.py).
     p.set_defaults(attention_impl="pallas_v3")
+    p.add_argument("--adam_mu_dtype", default=None, choices=list(MOMENT_DTYPES),
+                   help="dtype of Adam's first moment (bfloat16 halves its memory)")
+    p.add_argument("--adam_nu_dtype", default=None, choices=list(MOMENT_DTYPES),
+                   help="dtype of Adam's second moment")
     g = p.add_argument_group("not ported yet (ROADMAP.md)")
-    for flag in ("adam_mu_dtype", "adam_nu_dtype", "vgg_weights", "val_img_path"):
+    for flag in ("vgg_weights", "val_img_path"):
         g.add_argument(f"--{flag}", default=None)
     for flag in ("zero1", "use_perceptual_loss", "plot_recon"):
         g.add_argument(f"--{flag}", action="store_true")
@@ -287,7 +292,8 @@ def build_run(args) -> PretrainRun:
     params, mstate = mae_init(cfg, torch.Generator(device=dev).manual_seed(args.seed))
     broadcast_params([params, mstate])
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay,
-                         b1=tcfg.adam_b1, b2=tcfg.adam_b2, clip_grad=args.clip_grad)
+                         b1=tcfg.adam_b1, b2=tcfg.adam_b2, clip_grad=args.clip_grad,
+                         mu_dtype=args.adam_mu_dtype, nu_dtype=args.adam_nu_dtype)
     state = TrainState.create(params, mstate, tx)
     start_epoch = 0
     if args.resume and latest_step(args.resume) is not None:

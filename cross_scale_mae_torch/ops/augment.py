@@ -3,15 +3,18 @@
 ``make_eval_preprocess`` in ``cross_scale_mae_tpu/ops/augment.py``).
 
 The train chains take their random draws (flip flags, crop boxes, the
-NAIP chain's rotations) as arguments: ``train/pretrain.py::sample_pretrain_draws`` and
+NAIP chain's rotations, the finetune chain's RandAugment, ColorJitter and
+RandomErasing draws) as arguments: ``train/pretrain.py::sample_pretrain_draws`` and
 ``train/classify.py::sample_finetune_draws`` make them, and a test can hand
 the JAX package's draws to both."""
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import dataclasses
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from cross_scale_mae_torch.ops.image import (
     center_crop_resize,
@@ -20,6 +23,18 @@ from cross_scale_mae_torch.ops.image import (
     random_resized_crop,
     random_rot90,
 )
+from cross_scale_mae_torch.ops.randaug import (
+    EraseDraws,
+    RandAugDraws,
+    RandAugmentConfig,
+    parse_rand_augment,
+    rand_augment,
+    random_erasing,
+    sample_erase_draws,
+    sample_jitter_factors,
+    sample_randaug_draws,
+)
+from cross_scale_mae_torch.ops.randaug import color_jitter as color_jitter_fn
 
 # RandomResizedCrop area range of the train transform (util/datasets.py:130-136).
 PRETRAIN_CROP_SCALE = (0.25, 1.0)
@@ -64,6 +79,37 @@ def _rotations(rot_k: torch.Tensor | None) -> torch.Tensor:
     return rot_k
 
 
+@dataclasses.dataclass(frozen=True)
+class AugmentExtras:
+    """The finetune chain's extras (main_finetune.py:188-232): RandAugment
+    (``aa``, a parsed policy), ColorJitter (off under RandAugment, as in
+    timm) and RandomErasing (``reprob``, ``remode``, ``recount``)."""
+
+    aa: Optional[RandAugmentConfig] = None
+    color_jitter: Optional[float] = None
+    reprob: float = 0.0
+    remode: str = "pixel"
+    recount: int = 1
+
+    @property
+    def jitter(self) -> Optional[float]:
+        return self.color_jitter if self.aa is None and self.color_jitter else None
+
+    def sample(self, gen: torch.Generator, n: int, size: int, channels: int) -> dict:
+        """The draws of ``n`` samples on ``size``-pixel crops, keyed as
+        ``FinetuneDraws`` holds them (``randaug``, ``jitter``, ``erase``);
+        drawn in that order after the crop's."""
+        out = {}
+        if self.aa is not None:
+            out["randaug"] = sample_randaug_draws(gen, n, self.aa)
+        if self.jitter is not None:
+            out["jitter"] = sample_jitter_factors(gen, n, self.jitter)
+        if self.reprob > 0:
+            out["erase"] = sample_erase_draws(gen, n, size, channels, self.reprob,
+                                              self.remode, self.recount)
+        return out
+
+
 def make_finetune_augment(
     mean: Sequence[float],
     std: Sequence[float],
@@ -73,36 +119,56 @@ def make_finetune_augment(
     color_jitter: float | None = None,
     aa: str | None = None,
     reprob: float = 0.0,
+    remode: str = "pixel",
+    recount: int = 1,
     normalize: bool = True,
     dtype: str = "float32",
 ) -> Callable[..., torch.Tensor]:
-    """Finetune train chain (augment.py:57-114) without its extras: uint8 ->
-    fp32, /255, per-sample horizontal and vertical flips, with ``rot90`` the
-    NAIP rotation, bicubic RandomResizedCrop on the fast product path, then
-    normalize (after the crop, unlike the pretrain chain; not where the
-    loader did, ``normalize`` False) and cast to ``dtype``. Returns
-    ``augment(batch_u8, hflip, vflip, boxes, rot_k=None)``, boxes drawn on the batch's canvas with
-    ``PRETRAIN_CROP_SCALE``. RandAugment, color jitter and random erasing
-    are not ported yet and refuse."""
-    unported = {"color_jitter": color_jitter, "aa": aa, "reprob": reprob > 0}
-    for name, value in unported.items():
-        if value:
-            raise NotImplementedError(
-                f"finetune augmentation {name} is not ported yet; see ROADMAP.md "
-                "(queue 1 item 12)")
+    """Finetune train chain (augment.py:57-114) with its whole flag surface,
+    in the JAX order: uint8 -> fp32, /255, per-sample horizontal and
+    vertical flips, with ``rot90`` the NAIP rotation, bicubic
+    RandomResizedCrop on the fast product path, RandAugment (``aa``) or
+    else ColorJitter (``color_jitter``) on the [0, 1] pixels, normalize
+    (not where the loader did, ``normalize`` False), RandomErasing
+    (``reprob``, ``remode``, ``recount``) on the normalized fp32 tensor, and
+    the cast to ``dtype``. Returns ``augment(batch_u8, hflip, vflip, boxes,
+    rot_k=None, randaug=None, jitter=None, erase=None)``, boxes drawn on the
+    batch's canvas with ``PRETRAIN_CROP_SCALE``, the extras' draws from
+    ``augment.extras.sample``; ``augment.extras`` is the
+    :class:`AugmentExtras`. Each extra runs in a ``torch.profiler``
+    range of its name (``randaug``, ``color_jitter``, ``random_erasing``)."""
+    extras = AugmentExtras(parse_rand_augment(aa), color_jitter, reprob, remode, recount)
     tdtype = getattr(torch, dtype)
 
     def augment(batch_u8: torch.Tensor, hflip: torch.Tensor, vflip: torch.Tensor,
-                boxes: torch.Tensor, rot_k: torch.Tensor | None = None) -> torch.Tensor:
+                boxes: torch.Tensor, rot_k: torch.Tensor | None = None, *,
+                randaug: RandAugDraws | None = None, jitter: torch.Tensor | None = None,
+                erase: EraseDraws | None = None) -> torch.Tensor:
         x = random_flips(batch_u8.to(torch.float32) / 255.0, hflip, vflip)
         if rot90:
             x = random_rot90(x, _rotations(rot_k))
         x = random_resized_crop(x, boxes, input_size, "cubic")
+        if extras.aa is not None:
+            with record_function("randaug"):
+                x = rand_augment(x, _needed(randaug, "RandAugment"), extras.aa)
+        elif extras.jitter is not None:
+            with record_function("color_jitter"):
+                x = color_jitter_fn(x, _needed(jitter, "ColorJitter"))
         if normalize:
             x = normalize_images(x, mean, std)
+        if extras.reprob > 0:
+            with record_function("random_erasing"):
+                x = random_erasing(x, _needed(erase, "RandomErasing"), extras.remode)
         return x.to(tdtype)
 
+    augment.extras = extras
     return augment
+
+
+def _needed(draws, name: str):
+    if draws is None:
+        raise ValueError(f"the finetune chain runs {name} and needs its draws")
+    return draws
 
 
 def make_eval_preprocess(

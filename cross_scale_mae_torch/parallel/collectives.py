@@ -1,7 +1,8 @@
-"""Collectives with gradients, for the losses that see the global batch
-in the ``gspmd`` semantics (the JAX package's jit over a batch-sharded
-array): NT-Xent's negatives (``models/mae.py:369-374`` of the JAX package)
-and the BatchNorm statistics of the predictor and of the probe's head.
+"""Collectives for the global-batch (``gspmd``) semantics, the JAX
+package's jit over a batch-sharded array. With gradients: NT-Xent's
+negatives (``models/mae.py:369-374`` of the JAX package) and the BatchNorm
+statistics of the predictor and of the probe's head. Without: the rows a
+rank's samples mix with under Mixup/CutMix (:func:`mirror_rank_rows`).
 
 Every rank computes the same global term from the gathered rows or the
 summed statistics; the step then averages the gradients over the ranks.
@@ -57,3 +58,28 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the ranks (SyncBatchNorm's statistics); the
     backward sums the gradient over the ranks."""
     return _AllReduceSum.apply(x)
+
+
+def mirror_rank_rows(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The same tensors of rank W-1-r (this rank r; same shapes and dtypes
+    on every rank): each rank sends its own to the mirror rank and receives
+    that rank's. An identity without a process group, at world size 1 and
+    for the middle rank of an odd world. No gradient flows through it.
+
+    Mixup mixes global row i with row N-1-i (the reversed global batch).
+    Rank r holds rows r::W, so its row j (global jW + r) mixes with global
+    (N/W-1-j)W + (W-1-r): row N/W-1-j of rank W-1-r, that rank's rows
+    reversed."""
+    if not dist.is_available() or not dist.is_initialized():
+        return tensors
+    rank, world = dist.get_rank(), dist.get_world_size()
+    peer = world - 1 - rank
+    if peer == rank:
+        return tensors
+    sent = [t.detach().contiguous() for t in tensors]
+    got = [torch.empty_like(t) for t in sent]
+    ops = ([dist.P2POp(dist.isend, t, peer) for t in sent]
+           + [dist.P2POp(dist.irecv, t, peer) for t in got])
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return got

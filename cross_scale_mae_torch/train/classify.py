@@ -10,8 +10,10 @@ Gradient accumulation (``accum_iter``) is a Python loop over microbatches.
 Data parallelism has the JAX package's one semantics for these steps, its
 jit over a batch-sharded array: every rank draws for the global batch and
 takes its own rows (:meth:`FinetuneDraws.shard`), the BN head's statistics
-are the global batch's, and the gradients are averaged over the ranks once
-per step. Mixup and CutMix are not ported yet (ROADMAP.md, queue 1 item 12).
+are the global batch's, Mixup/CutMix mixes each row with its partner in
+the reversed global (micro)batch (rank W-1-r's rows, reversed:
+``parallel/collectives.mirror_rank_rows``), and the gradients are averaged
+over the ranks once per step.
 """
 
 from __future__ import annotations
@@ -21,13 +23,23 @@ from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from cross_scale_mae_torch.configs import TrainConfig, ViTClassifierConfig
 from cross_scale_mae_torch.models.vit import drop_path_rates, vit_apply
-from cross_scale_mae_torch.ops.augment import PRETRAIN_CROP_SCALE
+from cross_scale_mae_torch.ops.augment import PRETRAIN_CROP_SCALE, AugmentExtras
 from cross_scale_mae_torch.ops.image import sample_crop_boxes
+from cross_scale_mae_torch.ops.randaug import EraseDraws, RandAugDraws
+from cross_scale_mae_torch.parallel.collectives import mirror_rank_rows
 from cross_scale_mae_torch.parallel.mesh import FlatGrads, all_reduce_mean
-from cross_scale_mae_torch.train.mixup import smooth_one_hot, soft_cross_entropy
+from cross_scale_mae_torch.train.mixup import (
+    MixupConfig,
+    MixupDraws,
+    mixup_cutmix,
+    sample_mixup_draws,
+    smooth_one_hot,
+    soft_cross_entropy,
+)
 from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_leaves
 
 
@@ -40,6 +52,15 @@ class FinetuneDraws:
     crop_boxes: torch.Tensor             # (N, 4) RandomResizedCrop boxes on the canvas
     drop_masks: Optional[torch.Tensor]   # (depth, N) bool drop-path keeps, or None
     rot_k: Optional[torch.Tensor] = None  # (N,) NAIP rotations in {0..3}, or None
+    randaug: Optional[RandAugDraws] = None  # the augment's RandAugment (--aa)
+    jitter: Optional[torch.Tensor] = None   # (N, 3) ColorJitter factors
+    erase: Optional[EraseDraws] = None      # RandomErasing (--reprob)
+    mixup: Optional[MixupDraws] = None      # Mixup/CutMix, per element
+
+    def augment_extras(self) -> dict:
+        """The finetune augment's extra draws, keyed as it takes them."""
+        return {k: v for k, v in (("randaug", self.randaug), ("jitter", self.jitter),
+                                  ("erase", self.erase)) if v is not None}
 
     def shard(self, rank: int, world: int) -> "FinetuneDraws":
         """Rank ``rank``'s rows (rank::world, the rows of each global batch
@@ -47,19 +68,30 @@ class FinetuneDraws:
         if world == 1:
             return self
         rows = slice(rank, None, world)
+
+        def take(v):
+            return None if v is None else v.take(rows)
+
         return FinetuneDraws(
             self.hflip[rows], self.vflip[rows], self.crop_boxes[rows],
             None if self.drop_masks is None else self.drop_masks[:, rows],
-            None if self.rot_k is None else self.rot_k[rows])
+            None if self.rot_k is None else self.rot_k[rows],
+            take(self.randaug), None if self.jitter is None else self.jitter[rows],
+            take(self.erase), take(self.mixup))
 
 
 def sample_finetune_draws(gen: torch.Generator, n: int, cfg: ViTClassifierConfig,
-                          canvas: int, rot90: bool = False) -> FinetuneDraws:
+                          canvas: int, rot90: bool = False,
+                          extras: Optional[AugmentExtras] = None,
+                          mixup: Optional[MixupConfig] = None) -> FinetuneDraws:
     """Draw what one step of ``n`` samples needs on ``gen``'s device, with
     the JAX package's distributions: Bernoulli(0.5) flips, crop boxes from
     four uniforms each on a ``canvas``-sized image, Bernoulli(1 - rate)
-    drop-path keeps per block when ``drop_path_rate > 0``, and with
-    ``rot90`` uniform rotations in {0, 1, 2, 3}, drawn last."""
+    drop-path keeps per block when ``drop_path_rate > 0``, with ``rot90``
+    uniform rotations in {0, 1, 2, 3}; then the draws of the augment's
+    ``extras`` (``AugmentExtras.sample`` on the model's input size and
+    channels) and of ``mixup`` (``train/mixup.sample_mixup_draws``), in that
+    order, so the draws without them are those of a run without them."""
     dev = gen.device
 
     def uniform(*shape):
@@ -72,25 +104,41 @@ def sample_finetune_draws(gen: torch.Generator, n: int, cfg: ViTClassifierConfig
         keep = 1.0 - torch.from_numpy(drop_path_rates(cfg)).to(dev)
         masks = uniform(cfg.depth, n) < keep[:, None]
     rot_k = torch.randint(0, 4, (n,), generator=gen, device=dev) if rot90 else None
-    return FinetuneDraws(hflip, vflip, boxes, masks, rot_k)
+    more = {} if extras is None else extras.sample(gen, n, cfg.input_size, cfg.input_channels)
+    mix = None if mixup is None else sample_mixup_draws(gen, n, mixup)
+    return FinetuneDraws(hflip, vflip, boxes, masks, rot_k, **more, mixup=mix)
 
 
 def make_classify_loss_fn(cfg: ViTClassifierConfig, tcfg: TrainConfig,
                           augment: Callable | None = None, freeze_backbone: bool = False,
                           global_stats: bool = False):
     """``loss_fn(params, model_state, imgs, labels, draws) -> (loss, (acc1,
-    new_model_state))``: augment, smoothed one-hot targets, the classifier
-    with drop-path (its backbone frozen with ``freeze_backbone``, its BN
-    head's statistics over every rank's rows with ``global_stats``), soft
-    cross-entropy."""
-    if tcfg.mixup > 0 or tcfg.cutmix > 0 or tcfg.cutmix_minmax is not None:
-        raise NotImplementedError(
-            "mixup/cutmix is not ported yet; see ROADMAP.md (queue 1 item 12)")
+    new_model_state))``: augment, smoothed one-hot targets, Mixup/CutMix
+    when ``tcfg`` asks for it (``MixupConfig.from_train_config``; the
+    partner of each row is its mirror in the reversed batch), the
+    classifier with drop-path (its backbone frozen with
+    ``freeze_backbone``), soft cross-entropy. ``global_stats``: the
+    global-batch semantics under data parallelism (the BN head's statistics
+    over every rank's rows, the mix partners from the mirror rank). The mix
+    runs in a ``torch.profiler`` range, ``mixup_cutmix``."""
+    mix_cfg = MixupConfig.from_train_config(tcfg)
 
     def loss_fn(params, model_state, imgs, labels, draws: FinetuneDraws):
         if augment is not None:
-            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes, draws.rot_k)
+            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes, draws.rot_k,
+                           **draws.augment_extras())
         targets = smooth_one_hot(labels, cfg.num_classes, tcfg.label_smoothing)
+        if mix_cfg is not None:
+            if draws.mixup is None:
+                raise ValueError("the step mixes (Mixup/CutMix) and needs its draws")
+            with record_function("mixup_cutmix"):
+                partner_imgs, partner_labels = (mirror_rank_rows([imgs, labels])
+                                                if global_stats else (imgs, labels))
+                imgs, targets = mixup_cutmix(
+                    imgs, targets, partner_imgs.flip(0),
+                    smooth_one_hot(partner_labels.flip(0), cfg.num_classes,
+                                   tcfg.label_smoothing),
+                    draws.mixup, mix_cfg.cutmix_minmax)
         logits, new_state = vit_apply(params, model_state, cfg, imgs, train=True,
                                       drop_masks=draws.drop_masks,
                                       freeze_backbone=freeze_backbone,

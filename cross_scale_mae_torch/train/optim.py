@@ -1,32 +1,39 @@
-"""AdamW with the JAX package's weight-decay mask and layer-wise lr decay,
-and LARS with a frozen mask for the linear probe (counterpart of
-``cross_scale_mae_tpu/train/optim.py``).
+"""The optimizers of the JAX package's ``build_optimizer`` (counterpart of
+``cross_scale_mae_tpu/train/optim.py``): AdamW with the weight-decay mask
+and layer-wise lr decay, LARS, SGD, each optionally after global-norm
+clipping and under a frozen mask, and Adam's moments stored in bf16.
 
-The update is optax's ``adamw`` (plus ``clip_by_global_norm`` when asked,
-and the layer-decay scale chained after it), step for step: with t the
-number of updates already applied and s the leaf's layer-decay scale (1
-without layer decay),
+The chain is the JAX one, step for step: clip -> the optimizer -> the
+layer-decay scale, inside ``optax.masked`` when a frozen mask is given (the
+clip's norm and the state cover the trainable leaves only; frozen leaves
+are never read or written, and their gradients may be None). AdamW is
+optax's ``adamw``: with t the number of updates already applied and s the
+leaf's layer-decay scale (1 without layer decay),
 
     m <- b1 m + (1 - b1) g,   v <- b2 v + (1 - b2) g^2
     p <- p - s * lr(t) * (m / (1 - b1^(t+1)) / (sqrt(v / (1 - b2^(t+1))) + eps)
                           + wd * mask * p)
 
 so the first update uses ``schedule(0)``, and layer decay scales the whole
-update, weight decay included. It runs as PyTorch multi-tensor
-(``torch._foreach_*``) ops over every parameter at once.
+update, weight decay included. The moment dtypes (``mu_dtype``,
+``nu_dtype``) keep the JAX package's two rounding rules: with ``mu_dtype``
+alone it is ``optax.adamw``, whose b1 m is computed in the stored dtype
+(bf16, b1 rounded to it as well) before it is added to the fp32 (1 - b1) g;
+with ``nu_dtype`` it is ``scale_by_adam_moment_dtypes``, which upcasts each
+moment to fp32 first. (These are the ops' semantics, as JAX runs them
+eagerly; under jit XLA may keep the bf16 product in fp32, its default
+excess precision.)
+Either way the update is computed in fp32 and the new moments are rounded
+to their dtype for storage. Everything runs as PyTorch multi-tensor
+(``torch._foreach_*``) ops over the trainable leaves at once.
 
 LARS (:class:`Lars`) has MoCo-v3 semantics (util/lars.py:27-57), as the
-JAX package's ``lars``; with ``frozen_mask`` only the trainable leaves
-have momentum buffers and are touched (optax ``masked`` with
-``set_to_zero`` on the complement).
-
-Each optimizer's state goes to a flat path -> tensor dict and back in
+JAX package's ``lars``; SGD (:class:`Sgd`) is ``optax.sgd`` with momentum
+0.9. Each optimizer's state goes to a flat path -> tensor dict and back in
 place (``state_dict``, ``load_state_dict``): ``count``, and each moment
-under the parameter's JAX path (``mu/<path>``, ``nu/<path>``), block
-leaves stacked on a leading layer axis.
-
-Not ported yet (ROADMAP.md): SGD, AdamW under a frozen mask (queue 1 item
-12), the bf16 moment dtypes (item 7).
+under the parameter's JAX path (``mu/<path>``, ``nu/<path>``; none for a
+frozen leaf), block leaves stacked on a leading layer axis, in its stored
+dtype.
 """
 
 from __future__ import annotations
@@ -79,125 +86,226 @@ def layer_decay_scales(params: Params, layer_decay: float, depth: int) -> list[f
     return [layer_decay ** (num_layers - layer_id(path)) for path, _ in tree_items(params)]
 
 
+class _Masked:
+    """What the three optimizers share: the trainable leaves (optax
+    ``masked``), the clip over them, the update with the layer-decay
+    scales, and the per-leaf state as a tree with None on frozen leaves."""
+
+    def __init__(self, schedule: Callable[[int], float], trainable: list[bool],
+                 clip_grad: Optional[float], scales: Optional[list[float]]):
+        self.schedule, self.trainable, self.clip_grad = schedule, trainable, clip_grad
+        self.idx = [i for i, t in enumerate(trainable) if t]
+        self.scales = None if scales is None else [scales[i] for i in self.idx]
+
+    def _check(self, params: Params) -> list[torch.Tensor]:
+        leaves = tree_leaves(params)
+        if len(leaves) != len(self.trainable):
+            raise ValueError(f"{len(leaves)} params but a mask of {len(self.trainable)}")
+        return [leaves[i] for i in self.idx]
+
+    def _select(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]]):
+        """The trainable params and their gradients (a trainable leaf the
+        objective did not reach has a zero gradient), clipped when asked:
+        ``optax.clip_by_global_norm`` scales by max_norm / norm when above."""
+        ps = [params[i] for i in self.idx]
+        gs = [torch.zeros_like(params[i]) if grads[i] is None else grads[i] for i in self.idx]
+        if self.clip_grad is not None:
+            factor = torch.clamp(self.clip_grad / global_norm(gs), max=1.0)
+            gs = torch._foreach_mul(gs, factor)
+        return ps, gs
+
+    def _apply(self, ps: list[torch.Tensor], upd: list[torch.Tensor], lr: float) -> None:
+        if self.scales is None:
+            torch._foreach_add_(ps, upd, alpha=-lr)
+        else:
+            # optax's order: -lr * u, then the layer scale, then p + u.
+            upd = torch._foreach_mul(upd, -lr)
+            torch._foreach_mul_(upd, self.scales)
+            torch._foreach_add_(ps, upd)
+
+    def _tree(self, leaves: list[torch.Tensor], params: Params) -> Any:
+        """Per-trainable-leaf state as a tree like ``params``, None on frozen leaves."""
+        it = iter(leaves)
+        return tree_like(params, (next(it) if t else None for t in self.trainable))
+
+    def _state_dict(self, count: int, params: Params, **moments) -> dict[str, torch.Tensor]:
+        out = {"count": torch.tensor(count, dtype=torch.int64)}
+        for name, leaves in moments.items():
+            out.update(flat_state(self._tree(leaves, params), name))
+        return out
+
+    def _load(self, flat: dict[str, torch.Tensor], params: Params, **moments) -> set[str]:
+        used = {"count"}
+        for name, leaves in moments.items():
+            used |= load_flat_state(self._tree(leaves, params), name, flat)
+        return used
+
+
 @dataclasses.dataclass
 class AdamWState:
     count: int
-    mu: list[torch.Tensor]
-    nu: list[torch.Tensor]
+    mu: list[torch.Tensor]   # one per trainable leaf, in mu_dtype
+    nu: list[torch.Tensor]   # one per trainable leaf, in nu_dtype
+    # A moment stored in another dtype than the params': one flat buffer,
+    # of which ``mu``/``nu`` are views, so that it is upcast and cast back
+    # in one kernel each.
+    mu_flat: Optional[torch.Tensor] = None
+    nu_flat: Optional[torch.Tensor] = None
 
 
-class AdamW:
-    """optax ``adamw`` (eps inside the square root's sum: 0) over a list of
-    fp32 leaves, updating them in place; ``scales`` (one per leaf) multiply
-    each leaf's whole update, as the JAX package's layer-decay
-    ``scale_by_tree`` chained after ``adamw`` does."""
+def _views(flat: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``flat`` split into views shaped as the tensors of ``like``."""
+    return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
+class AdamW(_Masked):
+    """optax ``adamw`` (eps inside the square root's sum: 0) over the
+    trainable leaves, updating them in place; ``scales`` (one per leaf)
+    multiply each leaf's whole update, as the JAX package's layer-decay
+    ``scale_by_tree`` chained after ``adamw`` does. ``mu_dtype`` and
+    ``nu_dtype`` (torch dtypes, None: the param's) store the moments
+    (module docstring: the two rounding rules)."""
 
     def __init__(self, schedule: Callable[[int], float], decay: list[bool], *,
                  b1: float, b2: float, eps: float, weight_decay: float,
-                 clip_grad: Optional[float], scales: Optional[list[float]] = None):
-        self.schedule, self.decay = schedule, decay
+                 clip_grad: Optional[float], scales: Optional[list[float]],
+                 trainable: list[bool], mu_dtype: Optional[torch.dtype],
+                 nu_dtype: Optional[torch.dtype]):
+        super().__init__(schedule, trainable, clip_grad, scales)
+        self.decay = [decay[i] for i in self.idx]
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
-        self.clip_grad, self.scales = clip_grad, scales
+        self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
+        # JAX's scale_by_adam_moment_dtypes (JAX optim.py:131-172) when nu_dtype is
+        # set, else optax.adamw's scale_by_adam.
+        self.upcast_first = nu_dtype is not None
 
     def init(self, params: Params) -> AdamWState:
-        leaves = tree_leaves(params)
-        if len(leaves) != len(self.decay):
-            raise ValueError(f"{len(leaves)} params but a decay mask of {len(self.decay)}")
-        zeros = [torch.zeros_like(p, memory_format=torch.contiguous_format) for p in leaves]
-        return AdamWState(0, zeros, [torch.zeros_like(z) for z in zeros])
+        leaves = self._check(params)
+
+        def zeros(dtype):
+            if dtype is None or all(p.dtype == dtype for p in leaves):
+                return [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                        for p in leaves], None
+            flat = torch.zeros(sum(p.numel() for p in leaves), dtype=dtype,
+                               device=leaves[0].device)
+            return _views(flat, leaves), flat
+
+        (mu, mu_flat), (nu, nu_flat) = zeros(self.mu_dtype), zeros(self.nu_dtype)
+        return AdamWState(0, mu, nu, mu_flat, nu_flat)
+
+    def _moments(self, state: AdamWState, gs: list[torch.Tensor]):
+        """The new moments as fp32 leaves, by the chain's rounding rule, and
+        the (flat store, its new fp32 values) pairs to cast back: a moment
+        stored like the params is updated in place."""
+        b1, b2 = self.b1, self.b2
+        casts = []
+        if state.mu_flat is None:
+            mu = state.mu
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, gs, alpha=1 - b1)
+        else:
+            if self.upcast_first:
+                mu32 = state.mu_flat.float()
+                mu = _views(mu32, gs)
+                torch._foreach_mul_(mu, b1)
+            else:
+                # optax tree_update_moment: (1 - b1) g + b1 m, with b1 m in
+                # m's dtype; JAX's weak-typed b1 takes that dtype too (0.9 is
+                # 0.900390625 in bf16).
+                b1_stored = float(torch.tensor(b1, dtype=state.mu_flat.dtype))
+                mu32 = (state.mu_flat * b1_stored).float()
+                mu = _views(mu32, gs)
+            torch._foreach_add_(mu, torch._foreach_mul(gs, 1 - b1))
+            casts.append((state.mu_flat, mu32))
+        if state.nu_flat is None:
+            nu = state.nu
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, gs, gs, value=1 - b2)
+        else:
+            nu32 = state.nu_flat.float()
+            nu = _views(nu32, gs)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(gs, gs), 1 - b2))
+            casts.append((state.nu_flat, nu32))
+        return mu, nu, casts
 
     @torch.no_grad()
-    def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+    def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
                state: AdamWState) -> None:
-        if self.clip_grad is not None:
-            # optax.clip_by_global_norm: scale by max_norm / norm when above.
-            factor = torch.clamp(self.clip_grad / global_norm(grads), max=1.0)
-            grads = torch._foreach_mul(grads, factor)
+        ps, gs = self._select(params, grads)
         lr = self.schedule(state.count)
         t = state.count + 1
-        torch._foreach_mul_(state.mu, self.b1)
-        torch._foreach_add_(state.mu, grads, alpha=1 - self.b1)
-        torch._foreach_mul_(state.nu, self.b2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1 - self.b2)
-        denom = torch._foreach_div(state.nu, 1 - self.b2 ** t)
+        mu, nu, casts = self._moments(state, gs)
+        denom = torch._foreach_div(nu, 1 - self.b2 ** t)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(state.mu, 1 - self.b1 ** t)
+        upd = torch._foreach_div(mu, 1 - self.b1 ** t)
         torch._foreach_div_(upd, denom)
         decayed = [i for i, d in enumerate(self.decay) if d]
         if self.wd and decayed:
-            torch._foreach_add_([upd[i] for i in decayed], [params[i] for i in decayed],
+            torch._foreach_add_([upd[i] for i in decayed], [ps[i] for i in decayed],
                                 alpha=self.wd)
-        if self.scales is None:
-            torch._foreach_add_(params, upd, alpha=-lr)
-        else:
-            # optax's order: -lr * u, then the layer scale, then p + u.
-            torch._foreach_mul_(upd, -lr)
-            torch._foreach_mul_(upd, self.scales)
-            torch._foreach_add_(params, upd)
+        for flat, new in casts:
+            flat.copy_(new)   # the new moment, rounded to its stored dtype
+        self._apply(ps, upd, lr)
         state.count = t
 
     def state_dict(self, state: AdamWState, params: Params) -> dict[str, torch.Tensor]:
-        return {"count": torch.tensor(state.count, dtype=torch.int64),
-                **flat_state(tree_like(params, state.mu), "mu"),
-                **flat_state(tree_like(params, state.nu), "nu")}
+        return self._state_dict(state.count, params, mu=state.mu, nu=state.nu)
 
     def load_state_dict(self, state: AdamWState, flat: dict[str, torch.Tensor],
                         params: Params) -> set[str]:
         """Copy the moments into ``state``'s tensors and set its count;
-        returns the keys read."""
-        used = load_flat_state(tree_like(params, state.mu), "mu", flat)
-        used |= load_flat_state(tree_like(params, state.nu), "nu", flat)
+        returns the keys read. A moment of another dtype than the state's
+        raises (``load_flat_state``)."""
+        used = self._load(flat, params, mu=state.mu, nu=state.nu)
         state.count = int(flat["count"])
-        return used | {"count"}
+        return used
 
 
 # MoCo-v3's LARS constants (util/lars.py:27-57), the JAX package's defaults.
 LARS_MOMENTUM = 0.9
 LARS_TRUST_COEFFICIENT = 0.001
+SGD_MOMENTUM = 0.9
 
 
 @dataclasses.dataclass
 class LarsState:
     count: int
-    mu: list[torch.Tensor]   # one momentum buffer per trainable leaf
+    mu: list[torch.Tensor]   # one momentum buffer per trainable leaf (SGD's too)
 
 
-class Lars:
+class Lars(_Masked):
     """LARS with MoCo-v3 semantics over the leaves ``trainable`` marks
     (JAX ``lars`` under ``optax.masked``), updating them in place; with t the
-    optimizer's own step count, per trainable leaf:
+    optimizer's own step count, per trainable leaf, after the optional clip:
 
         dp = g + wd p,  dp <- dp * tc ||p|| / ||dp||   (leaves of more than 1 dim;
                                                        1 where a norm is 0)
         dp = g                                           (1-D leaves)
-        mu <- momentum mu + dp,  p <- p - lr(t) mu
+        mu <- momentum mu + dp,  p <- p - s lr(t) mu
 
-    The norms are taken over each of the port's leaves (the JAX package
-    stacks the blocks, so its stacked leaves share one norm and count as
-    more than 1-D; a linear probe trains only the head, where the two
-    agree). Frozen leaves are never read or written, and their gradients
-    may be None."""
+    with s the layer-decay scale (1 without). The norms are taken over each
+    of the port's leaves (the JAX package stacks the blocks, so its stacked
+    leaves share one norm and count as more than 1-D; where only unstacked
+    leaves train, as the linear probe's head, the two agree)."""
 
     def __init__(self, schedule: Callable[[int], float], trainable: list[bool], *,
-                 weight_decay: float):
-        self.schedule, self.trainable, self.wd = schedule, trainable, weight_decay
-        self.momentum, self.tc = LARS_MOMENTUM, LARS_TRUST_COEFFICIENT
+                 weight_decay: float, momentum: float = LARS_MOMENTUM,
+                 trust_coefficient: float = LARS_TRUST_COEFFICIENT,
+                 clip_grad: Optional[float] = None, scales: Optional[list[float]] = None):
+        super().__init__(schedule, trainable, clip_grad, scales)
+        self.wd, self.momentum, self.tc = weight_decay, momentum, trust_coefficient
 
     def init(self, params: Params) -> LarsState:
-        leaves = tree_leaves(params)
-        if len(leaves) != len(self.trainable):
-            raise ValueError(f"{len(leaves)} params but a frozen mask of {len(self.trainable)}")
         return LarsState(0, [torch.zeros_like(p, memory_format=torch.contiguous_format)
-                             for p, t in zip(leaves, self.trainable) if t])
+                                 for p in self._check(params)])
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
                state: LarsState) -> None:
-        idx = [i for i, t in enumerate(self.trainable) if t]
-        ps = [params[i] for i in idx]
-        # A trainable leaf the objective did not reach has a zero gradient.
-        dps = [torch.zeros_like(params[i]) if grads[i] is None else grads[i] for i in idx]
+        ps, dps = self._select(params, grads)
+        dps = list(dps)
         wide = [j for j, p in enumerate(ps) if p.dim() > 1]
         if wide:
             pw = [ps[j] for j in wide]
@@ -214,25 +322,51 @@ class Lars:
         lr = self.schedule(state.count)
         torch._foreach_mul_(state.mu, self.momentum)
         torch._foreach_add_(state.mu, dps)
-        torch._foreach_add_(ps, state.mu, alpha=-lr)
+        self._apply(ps, state.mu, lr)
         state.count += 1
 
-    def _mu_tree(self, state: LarsState, params: Params) -> Any:
-        """The momentum buffers as a tree like ``params``, None on frozen leaves."""
-        mu = iter(state.mu)
-        return tree_like(params, (next(mu) if t else None for t in self.trainable))
-
     def state_dict(self, state: LarsState, params: Params) -> dict[str, torch.Tensor]:
-        return {"count": torch.tensor(state.count, dtype=torch.int64),
-                **flat_state(self._mu_tree(state, params), "mu")}
+        return self._state_dict(state.count, params, mu=state.mu)
 
     def load_state_dict(self, state: LarsState, flat: dict[str, torch.Tensor],
                         params: Params) -> set[str]:
         """Copy the trainable leaves' momentum into ``state``'s tensors and
         set its count; returns the keys read."""
-        used = load_flat_state(self._mu_tree(state, params), "mu", flat)
+        used = self._load(flat, params, mu=state.mu)
         state.count = int(flat["count"])
-        return used | {"count"}
+        return used
+
+
+class Sgd(Lars):
+    """``optax.sgd(schedule, momentum=0.9)`` (``trace`` then the lr): per
+    trainable leaf, after the optional clip, mu <- 0.9 mu + g and p <- p - s
+    lr(t) mu; no weight decay."""
+
+    def __init__(self, schedule: Callable[[int], float], trainable: list[bool], *,
+                 clip_grad: Optional[float] = None, scales: Optional[list[float]] = None):
+        super().__init__(schedule, trainable, weight_decay=0.0, momentum=SGD_MOMENTUM,
+                         clip_grad=clip_grad, scales=scales)
+
+    @torch.no_grad()
+    def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
+               state: LarsState) -> None:
+        ps, gs = self._select(params, grads)
+        lr = self.schedule(state.count)
+        torch._foreach_mul_(state.mu, self.momentum)
+        torch._foreach_add_(state.mu, gs)
+        self._apply(ps, state.mu, lr)
+        state.count += 1
+
+
+OPTIMIZERS = ("adamw", "lars", "sgd")
+MOMENT_DTYPES = ("float32", "bfloat16")   # the CLIs' choices
+
+
+def _float_dtype(flag: str, name: Optional[str]) -> Optional[torch.dtype]:
+    dtype = getattr(torch, name, None) if name else None
+    if name and not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
+        raise ValueError(f"{flag} {name!r} is not a floating-point dtype")
+    return dtype
 
 
 def build_optimizer(
@@ -247,44 +381,40 @@ def build_optimizer(
     layer_decay: Optional[float] = None,
     depth: Optional[int] = None,
     no_decay_names: tuple[str, ...] = (),
+    lars_momentum: float = LARS_MOMENTUM,
+    lars_trust_coefficient: float = LARS_TRUST_COEFFICIENT,
     frozen_mask: Optional[Params] = None,
     mu_dtype: Optional[str] = None,
     nu_dtype: Optional[str] = None,
-) -> AdamW | Lars:
-    """``optimizer="adamw"``: AdamW (eps 1e-8) with :func:`wd_mask`
-    (``no_decay_names`` excluded), after optional global-norm clipping, and
-    with :func:`layer_decay_scales` when ``layer_decay`` is set and not 1
-    (it needs ``depth``). ``optimizer="lars"``: :class:`Lars` over the
-    leaves ``frozen_mask`` (a tree of bools like ``params``, True =
-    trainable; every leaf without it) marks, the linear probe's
-    freeze-all-but-head (main_linprobe.py:521-525)."""
-    if optimizer == "lars":
-        unported = {"clip_grad": clip_grad, "layer_decay": layer_decay,
-                    "mu_dtype": mu_dtype, "nu_dtype": nu_dtype}
-        for name, value in unported.items():
-            if value is not None and not (name == "layer_decay" and value == 1.0):
-                raise NotImplementedError(
-                    f"LARS with {name} is not ported yet; see ROADMAP.md (queue 1 item 12)")
-        n = len(tree_leaves(params))
-        trainable = ([True] * n if frozen_mask is None
-                     else [bool(t) for t in tree_leaves(frozen_mask)])
-        return Lars(schedule, trainable, weight_decay=weight_decay)
-    if optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (the port runs "
-            "'adamw' and 'lars'); see ROADMAP.md (queue 1 item 12)")
-    if frozen_mask is not None:
-        raise NotImplementedError(
-            "AdamW under a frozen mask is not ported yet (the linear probe runs "
-            "LARS); see ROADMAP.md (queue 1 item 12)")
+) -> AdamW | Lars | Sgd:
+    """The JAX ``build_optimizer``: optional global-norm clipping, then
+    ``optimizer`` ("adamw": AdamW, eps 1e-8, with :func:`wd_mask` minus
+    ``no_decay_names``; "lars": :class:`Lars`; "sgd": :class:`Sgd`), then
+    :func:`layer_decay_scales` when ``layer_decay`` is set and not 1 (it
+    needs ``depth``), all over the leaves ``frozen_mask`` (a tree of bools
+    like ``params``, True = trainable; every leaf without it) marks: the
+    linear probe's freeze-all-but-head (main_linprobe.py:521-525).
+    ``mu_dtype`` / ``nu_dtype`` (a float dtype's name: "float32",
+    "bfloat16") store AdamW's moments; LARS and SGD ignore them, as the JAX
+    package does."""
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    dtypes = {name: _float_dtype(name, value)
+              for name, value in (("mu_dtype", mu_dtype), ("nu_dtype", nu_dtype))}
+    n = len(tree_leaves(params))
+    trainable = ([True] * n if frozen_mask is None
+                 else [bool(t) for t in tree_leaves(frozen_mask)])
     scales = None
     if layer_decay is not None and layer_decay != 1.0:
         if depth is None:
             raise ValueError("layer_decay needs the model's depth")
         scales = layer_decay_scales(params, layer_decay, depth)
-    if mu_dtype is not None or nu_dtype is not None:
-        raise NotImplementedError(
-            "Adam moment dtypes are not ported yet (the port keeps fp32 "
-            "moments); see ROADMAP.md (queue 1 item 7)")
+    if optimizer == "lars":
+        return Lars(schedule, trainable, weight_decay=weight_decay, momentum=lars_momentum,
+                    trust_coefficient=lars_trust_coefficient, clip_grad=clip_grad,
+                    scales=scales)
+    if optimizer == "sgd":
+        return Sgd(schedule, trainable, clip_grad=clip_grad, scales=scales)
     return AdamW(schedule, wd_mask(params, no_decay_names), b1=b1, b2=b2, eps=1e-8,
-                 weight_decay=weight_decay, clip_grad=clip_grad, scales=scales)
+                 weight_decay=weight_decay, clip_grad=clip_grad, scales=scales,
+                 trainable=trainable, **dtypes)

@@ -81,7 +81,8 @@ def load_flat_state(tree: Any, prefix: str, flat: Mapping[str, torch.Tensor]) ->
     """Copy :func:`flat_state`'s entries back into ``tree``'s tensors in
     place (a block stack's entry into its layers' leaves), so every holder
     of a leaf sees the restored values; returns the keys it read. A missing
-    entry or a shape that does not fit raises."""
+    entry, a shape that does not fit or another dtype (``copy_`` would cast:
+    bf16 Adam moments into an fp32 state) raises."""
     used = set()
     for key, dst in jax_paths(tree, prefix).items():
         if key not in flat:
@@ -92,6 +93,9 @@ def load_flat_state(tree: Any, prefix: str, flat: Mapping[str, torch.Tensor]) ->
         if tuple(src.shape) != want:
             raise ValueError(f"{key}: shape {tuple(src.shape)} in the checkpoint, "
                              f"{want} in the run")
+        if src.dtype != layers[0].dtype:
+            raise ValueError(f"{key}: dtype {src.dtype} in the checkpoint, "
+                             f"{layers[0].dtype} in the run")
         for d, s in zip(layers, src.unbind(0) if stacked else [src]):
             d.copy_(s)
         used.add(key)

@@ -119,7 +119,8 @@ def restore_arrays_host(ckpt_dir: str, step: Optional[int] = None,
     """A checkpoint's leaves as host numpy arrays in the JAX layout, with no
     TrainState to restore into (serving, a finetune's encoder): the nested
     dict of the top-level keys in ``subset`` (None for all, the optimizer
-    state and ``step`` included). Returns (tree, step)."""
+    state and ``step`` included; bf16 Adam moments as fp32, exactly, numpy
+    having no bf16). Returns (tree, step)."""
     path, step = _state_file(ckpt_dir, step)
     flat = torch.load(path, map_location="cpu", weights_only=True)
     tree: dict = {}
@@ -130,7 +131,7 @@ def restore_arrays_host(ckpt_dir: str, step: Optional[int] = None,
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = value.numpy()
+        node[parts[-1]] = (value.float() if value.dtype == torch.bfloat16 else value).numpy()
     return tree, step
 
 

@@ -189,9 +189,11 @@ def state_from_jax(state: Mapping[str, Any], cfg: MAEConfig,
 
 
 def _adam_state(node: Any) -> Mapping | None:
-    """The optax Adam state (``count``, ``mu``, ``nu``) inside a chain's
-    state: a namedtuple in a live JAX TrainState, a dict in a host restore;
-    its place in the chain depends on the options (clipping comes first)."""
+    """The Adam state (``count``, ``mu``, ``nu``) inside a chain's state:
+    optax's ``ScaleByAdamState`` or the JAX package's own
+    (``scale_by_adam_moment_dtypes``, with ``--adam_nu_dtype``), a
+    namedtuple in a live JAX TrainState, a dict in a host restore; its place
+    in the chain depends on the options (clipping comes first)."""
     if hasattr(node, "_asdict"):
         node = node._asdict()
     if isinstance(node, Mapping):
@@ -209,13 +211,24 @@ def _adam_state(node: Any) -> Mapping | None:
     return None
 
 
+def _from_numpy(value: Any) -> torch.Tensor:
+    """A JAX leaf as a tensor of its dtype; numpy has no bfloat16 of its own
+    (JAX's is ml_dtypes'), so a bf16 leaf goes through fp32, exactly."""
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
 def train_state_from_jax(state: Any, cfg: MAEConfig, tx,
                          device: torch.device | str = "cpu") -> TrainState:
     """A JAX pretrain TrainState as the port's: its params, BatchNorm
     state, optax Adam moments and count and its step, restored into a
-    state made with ``tx`` (the port's AdamW for the same options).
+    state made with ``tx`` (the port's AdamW for the same options, the
+    moment dtypes included: bf16 moments restore only into bf16 ones).
     ``state`` is a JAX TrainState or the dict of
-    ``restore_arrays_host(..., subset=None)``; leaves go through numpy."""
+    ``restore_arrays_host(..., subset=None)``; leaves go through numpy,
+    bf16 ones exactly through fp32."""
     def get(key):
         return state[key] if isinstance(state, Mapping) else getattr(state, key)
 
@@ -226,7 +239,7 @@ def train_state_from_jax(state: Any, cfg: MAEConfig, tx,
     out = TrainState.create(params, state_from_jax(get("model_state"), cfg, device), tx)
     trees = {"params": get("params"), "model_state": get("model_state"),
              "opt_state/mu": adam["mu"], "opt_state/nu": adam["nu"]}
-    flat = {k: torch.from_numpy(np.array(v)).to(device)
+    flat = {k: _from_numpy(v).to(device)
             for prefix, tree in trees.items() for k, v in jax_paths(tree, prefix).items()}
     flat["opt_state/count"] = torch.tensor(int(np.asarray(adam["count"])))
     flat["step"] = torch.tensor(int(np.asarray(get("step"))))

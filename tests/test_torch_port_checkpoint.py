@@ -48,14 +48,15 @@ TINY = dict(input_size=32, patch_size=8, dim_model=64, encoder_num_layers=2,
             attention_impl="xla")
 
 
-def _mae_state(seed: int):
+def _mae_state(seed: int, **moment_dtypes):
     from cross_scale_mae_torch.models.mae import mae_init
     from cross_scale_mae_torch.train.optim import build_optimizer
     from cross_scale_mae_torch.train.state import TrainState
 
     cfg = pcfg.get_mae_config("mae_vit_tiny_MsLdCeCd", **TINY)
     params, mstate = mae_init(cfg, torch.Generator().manual_seed(seed))
-    tx = build_optimizer(params, lambda s: 1e-3 * (s + 1), weight_decay=0.05, clip_grad=1.0)
+    tx = build_optimizer(params, lambda s: 1e-3 * (s + 1), weight_decay=0.05, clip_grad=1.0,
+                         **moment_dtypes)
     return TrainState.create(params, mstate, tx)
 
 
@@ -150,6 +151,91 @@ def test_restore_refuses_a_checkpoint_that_does_not_fit(tmp_path):
         pckpt.restore_checkpoint(str(tmp_path), dst)
     with pytest.raises(KeyError, match="lacks"):
         _lars_state(0).load_state_dict(src.state_dict())
+
+
+@pytest.mark.parametrize("dtypes", [dict(mu_dtype="bfloat16"),
+                                    dict(mu_dtype="bfloat16", nu_dtype="bfloat16")])
+def test_bf16_moments_round_trip_and_do_not_restore_into_fp32_moments(tmp_path, dtypes):
+    """A checkpoint of bf16 Adam moments holds them in bf16, restores bit
+    for bit into a state with the same dtypes, and raises naming the dtype
+    against an fp32-moment state (``copy_`` would cast without a word),
+    and the other way round."""
+    src = _random_steps(_mae_state(0, **dtypes), seed=1)
+    # The bf16 moments are views of one flat buffer; fp32 ones are leaves of their own.
+    opt = src.opt_state
+    assert opt.mu_flat is not None and opt.mu[0].data_ptr() == opt.mu_flat.data_ptr()
+    assert (opt.nu_flat is None) == ("nu_dtype" not in dtypes)
+    flat = src.state_dict()
+    assert flat["opt_state/mu/encoder_blocks/attn/qkv/kernel"].dtype == torch.bfloat16
+    nu_dtype = torch.bfloat16 if "nu_dtype" in dtypes else torch.float32
+    assert flat["opt_state/nu/decoder_pred/bias"].dtype == nu_dtype
+    pckpt.save_checkpoint(str(tmp_path / "bf16"), src.step, src)
+    dst = _mae_state(5, **dtypes)
+    pckpt.restore_checkpoint(str(tmp_path / "bf16"), dst)
+    for a, b in zip(_holders(dst), _holders(src)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError, match="dtype torch.bfloat16 in the checkpoint"):
+        pckpt.restore_checkpoint(str(tmp_path / "bf16"), _mae_state(5))
+    pckpt.save_checkpoint(str(tmp_path / "fp32"), 0, _mae_state(0))
+    with pytest.raises(ValueError, match="dtype torch.float32 in the checkpoint"):
+        pckpt.restore_checkpoint(str(tmp_path / "fp32"), _mae_state(5, **dtypes))
+
+
+@pytest.mark.parametrize("dtypes", [dict(mu_dtype="bfloat16"),
+                                    dict(mu_dtype="bfloat16", nu_dtype="bfloat16")])
+def test_train_state_from_jax_carries_bf16_moments(dtypes):
+    """A live JAX TrainState with bf16 moments in both chain shapes (optax
+    adamw's ScaleByAdamState with mu_dtype alone; the JAX package's own
+    ScaleByAdamState from scale_by_adam_moment_dtypes with nu_dtype), two
+    updates in: carried into a port state with the same dtypes, every
+    moment bit-equal in bf16 and the count and step carried; into an
+    fp32-moment state it raises."""
+    from cross_scale_mae_tpu.configs import MAEConfig
+    from cross_scale_mae_tpu.models import mae_init
+    from cross_scale_mae_tpu.train import TrainState, build_optimizer
+    from cross_scale_mae_torch.train.optim import build_optimizer as pbuild
+    from cross_scale_mae_torch.utils.params import (
+        _adam_state,
+        params_from_jax,
+        params_to_jax,
+        train_state_from_jax,
+    )
+
+    pc = pcfg.get_mae_config("mae_vit_tiny_MsLdCeCd", **TINY)
+    jc = MAEConfig.from_json(pc.to_json())
+    params, mstate = mae_init(jax.random.key(0), jc)
+    kw = dict(weight_decay=0.05, clip_grad=1.0, **dtypes)
+    jstate = TrainState.create(params, mstate, build_optimizer(params, lambda s: 1e-3, **kw))
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        grads = jax.tree.map(lambda a: jnp.asarray(rng.normal(size=a.shape), jnp.float32),
+                             params)
+        jstate = jstate.apply_gradients(grads)
+    adam = _adam_state(jstate.opt_state)
+    assert adam["mu"]["decoder_pred"]["kernel"].dtype == jnp.bfloat16
+
+    def template():
+        return params_from_jax(jax.tree.map(np.asarray, jstate.params), pc, full=True)
+
+    state = train_state_from_jax(jstate, pc, pbuild(template(), lambda s: 1e-3, **kw))
+    assert state.step == 2 and state.opt_state.count == 2
+    for name in ("mu", "nu"):
+        ours = state.state_dict()
+        for path, ref in jax.tree_util.tree_flatten_with_path(adam[name])[0]:
+            key = "/".join(["opt_state", name, *(p.key for p in path)])
+            assert ours[key].dtype == (torch.bfloat16 if ref.dtype == jnp.bfloat16
+                                       else torch.float32), key
+            np.testing.assert_array_equal(ours[key].float().numpy(),
+                                          np.asarray(ref, np.float32), err_msg=key)
+    got = params_to_jax(state.params)
+    for path, ref in jax.tree_util.tree_flatten_with_path(jstate.params)[0]:
+        leaf = got
+        for p in path:
+            leaf = leaf[p.key]
+        np.testing.assert_array_equal(leaf, np.asarray(ref), err_msg=str(path))
+    with pytest.raises(ValueError, match="dtype"):
+        train_state_from_jax(jstate, pc, pbuild(template(), lambda s: 1e-3, weight_decay=0.05,
+                                                clip_grad=1.0))
 
 
 def test_latest_step_ignores_interrupted_writes_and_a_corrupt_file_is_refused(tmp_path):

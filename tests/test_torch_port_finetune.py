@@ -411,6 +411,160 @@ def test_layer_decay_needs_depth():
         build_optimizer({"w": {"kernel": torch.zeros(2, 2)}}, lambda s: 0.0, layer_decay=0.75)
 
 
+# The leaves a frozen mask trains in the optimizer tests below: the head and
+# the final norm (the blocks, patch embedding and tokens stay frozen).
+TRAINED = ("head", "fc_norm")
+
+
+def _run_both(kw, steps=4, trained=None, tx_hook=None):
+    """``steps`` updates of the JAX build_optimizer chain and of the port's
+    on the tiny classifier tree, with the same random gradients (frozen
+    leaves' gradients None on the port's side, as a frozen backbone's
+    stay). Returns the port's params in the JAX layout, the JAX params, the
+    port's state and the JAX state."""
+    import optax
+
+    from cross_scale_mae_tpu.train.optim import build_optimizer as jopt
+    from cross_scale_mae_torch.train.optim import build_optimizer
+    from cross_scale_mae_torch.train.state import tree_items, tree_leaves, tree_like
+
+    tree = _vit_tree_np()
+    _, pc = _cfgs(global_pool=True)
+    sched = lambda s: 1e-2 * (s + 1)  # noqa: E731
+    jp = jax.tree.map(jnp.asarray, tree)
+    pp = pparams.vit_params_from_jax(tree, pc)
+    jmask = pmask = None
+    if trained is not None:
+        jmask = {k: jax.tree.map(lambda _: k in trained, v) for k, v in tree.items()}
+        pmask = tree_like(pp, [path[0] in trained for path, _ in tree_items(pp)])
+    jtx = jopt(jp, sched, frozen_mask=jmask, **kw)
+    js = jtx.init(jp)
+    tx = build_optimizer(pp, sched, frozen_mask=pmask, **kw)
+    if tx_hook is not None:
+        tx_hook(tx)
+    ps = tx.init(pp)
+    rng = np.random.default_rng(7)
+    trainable = [True] * len(tree_leaves(pp)) if pmask is None else tree_leaves(pmask)
+    for k in range(steps):
+        g = jax.tree.map(lambda a: (rng.normal(size=a.shape) * (k + 1)).astype(np.float32),
+                         tree)
+        upd, js = jtx.update(jax.tree.map(jnp.asarray, g), js, jp)
+        jp = optax.apply_updates(jp, upd)
+        grads = [p if t else None
+                 for p, t in zip(tree_leaves(pparams.vit_params_from_jax(g, pc)), trainable)]
+        tx.update(tree_leaves(pp), grads, ps)
+    return pparams.params_to_jax(pp), _tree_np(jp), ps, js
+
+
+@pytest.mark.parametrize("kw,trained", [
+    (dict(), None),
+    (dict(clip_grad=0.5, layer_decay=0.75, depth=2), None),
+    (dict(clip_grad=0.5), TRAINED),
+])
+def test_sgd_matches_optax_chain(kw, trained):
+    """optax.sgd (momentum 0.9, no decay) after the clip and before the
+    layer-decay scale, and under a frozen mask (the clip's norm over the
+    trainable leaves), four updates, fp32 1e-6. (Layer decay under a frozen
+    mask has no JAX reading: the JAX chain's scale_by_tree raises on
+    optax.masked's MaskedNode leaves.)"""
+    got, ref, state, _ = _run_both(dict(optimizer="sgd", weight_decay=0.05, **kw),
+                                   trained=trained)
+    _assert_tree_close(got, ref, 1e-6)
+    assert state.count == 4
+    if trained is not None:
+        tree = _vit_tree_np()
+        np.testing.assert_array_equal(got["blocks"]["mlp"]["fc1"]["kernel"],
+                                      tree["blocks"]["mlp"]["fc1"]["kernel"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(clip_grad=0.5),
+    dict(clip_grad=0.05, no_decay_names=("pos_embed", "cls_token")),
+])
+def test_adamw_under_a_frozen_mask_with_clip_matches_optax(kw):
+    """AdamW inside optax.masked: the clip's global norm and the moments
+    cover the trainable leaves only (a clip of 0.05 binds on them alone),
+    and the frozen leaves never move (their updates are zero). Four
+    updates, fp32 1e-6; the moments exist for the trainable leaves only."""
+    from cross_scale_mae_torch.train.state import tree_leaves
+
+    got, ref, state, _ = _run_both(dict(weight_decay=0.05, b2=0.999, **kw), trained=TRAINED)
+    _assert_tree_close(got, ref, 1e-6)
+    tree = _vit_tree_np()
+    for k in ("blocks", "patch_embed", "cls_token", "pos_embed"):
+        _assert_tree_close(got[k], tree[k], 0.0)
+    n_trained = len(tree_leaves({k: tree[k] for k in TRAINED}))
+    assert len(state.mu) == len(state.nu) == n_trained
+
+
+# The moment-dtype tests read the gap of all params at once: its mean, and
+# the share of elements past 5e-6. In fp32 the chain's sums in another
+# order read a mean of 3.6e-7 after six updates of lr up to 0.06; a bf16
+# moment whose fp32 sum lands on the other side of a rounding boundary flips
+# one ulp (2**-8 of itself), which moves that element's update alone (one
+# element in 2048 here, by up to 8.6e-5). The other rounding rule moves
+# 97% of the elements past 5e-6, at a mean of 1.7e-4.
+MOMENT_MEAN_TOL = 2e-6
+MOMENT_SHARE_TOL = 1e-3
+
+
+def _moment_gaps(got, ref) -> tuple[float, float]:
+    a = np.concatenate([np.ravel(x) for x in jax.tree.leaves(got)])
+    b = np.concatenate([np.ravel(x) for x in jax.tree.leaves(ref)])
+    d = np.abs(a - b)
+    return float(d.mean()), float((d > 5e-6).mean())
+
+
+@pytest.mark.parametrize("mu,nu", [("bfloat16", None), (None, "bfloat16"),
+                                   ("bfloat16", "bfloat16"), ("float32", "float32")])
+def test_adam_moment_dtypes_match_jax_over_steps(mu, nu):
+    """Both rounding rules of the JAX package over 6 updates with clipping
+    and layer decay: ``mu_dtype`` alone runs optax.adamw (b1 m in bf16, b1
+    rounded to bf16 too, before the fp32 sum), ``nu_dtype`` runs
+    scale_by_adam_moment_dtypes (each moment upcast first). JAX's update
+    runs eagerly here, the ops' own semantics (under jit XLA may keep the
+    bf16 product in fp32). Params within MOMENT_MEAN_TOL and
+    MOMENT_SHARE_TOL; the stored moments in their dtype, their summed gap
+    within 2**-12 of their summed magnitude in bf16 (rare one-ulp flips),
+    1e-5 in fp32."""
+    kw = dict(weight_decay=0.05, b2=0.999, clip_grad=5.0, layer_decay=0.75, depth=2,
+              mu_dtype=mu, nu_dtype=nu)
+    got, ref, state, js = _run_both(kw, steps=6)
+    mean, share = _moment_gaps(got, ref)
+    assert mean <= MOMENT_MEAN_TOL and share <= MOMENT_SHARE_TOL, (mean, share)
+    adam = pparams._adam_state(js)
+    _, pc = _cfgs(global_pool=True)
+    from cross_scale_mae_torch.train.state import tree_like
+
+    template = pparams.vit_params_from_jax(_vit_tree_np(), pc)
+    for name, dtype in (("mu", mu), ("nu", nu)):
+        moments = getattr(state, name)
+        want = getattr(torch, dtype) if dtype else torch.float32
+        assert all(m.dtype == want for m in moments), name
+        assert all(np.asarray(m).dtype == (jnp.bfloat16 if dtype == "bfloat16" else np.float32)
+                   for m in jax.tree.leaves(adam[name])), name
+        ours = np.concatenate([np.ravel(x) for x in jax.tree.leaves(
+            pparams.params_to_jax(tree_like(template, moments)))])
+        theirs = np.concatenate([np.ravel(x) for x in jax.tree.leaves(_tree_np(adam[name]))])
+        rel = np.abs(ours - theirs).sum() / np.abs(theirs).sum()
+        assert rel <= (2.0 ** -12 if dtype == "bfloat16" else 1e-5), (name, rel)
+
+
+def test_the_moment_dtype_check_sees_the_other_rounding_rule():
+    """The control of the test above: each bf16-mu case run under the other
+    rule misses JAX's params at MOMENT_MEAN_TOL, so the check can tell the
+    two rules apart."""
+    def other_rule(tx):
+        tx.upcast_first = not tx.upcast_first
+
+    for nu in (None, "bfloat16"):
+        kw = dict(weight_decay=0.05, b2=0.999, clip_grad=5.0, layer_decay=0.75, depth=2,
+                  mu_dtype="bfloat16", nu_dtype=nu)
+        got, ref, _, _ = _run_both(kw, steps=6, tx_hook=other_rule)
+        mean, share = _moment_gaps(got, ref)
+        assert mean > MOMENT_MEAN_TOL and share > MOMENT_SHARE_TOL, (nu, mean, share)
+
+
 # ---------------------------------------------------------------- losses, augment
 
 
@@ -431,17 +585,6 @@ def test_smooth_one_hot_and_soft_cross_entropy_match_jax(smoothing):
     ref_bf = float(jce(jnp.asarray(logits, jnp.bfloat16), jnp.asarray(ref_t)))
     assert got == pytest.approx(ref_bf, rel=1e-6)
     assert float(soft_cross_entropy(_t(logits), got_t)) == pytest.approx(ref, rel=1e-6)
-
-
-def test_mixup_refuses():
-    from cross_scale_mae_torch.train.classify import make_classify_train_step
-    from cross_scale_mae_torch.train.mixup import mixup_cutmix
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mixup_cutmix()
-    _, pc = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_classify_train_step(pc, pcfg.TrainConfig(mixup=0.8), lambda s: 0.0)
 
 
 def _jax_finetune_augment_draws(key, n, canvas):
@@ -473,15 +616,6 @@ def test_finetune_augment_matches_jax_on_injected_draws(dtype):
     assert got.dtype == getattr(torch, dtype) and got.shape == (6, 16, 16, 3)
     atol = 1e-5 if dtype == "float32" else 2.0 ** -7 * np.abs(ref).max()
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=atol)
-
-
-@pytest.mark.parametrize("kw", [{"rot90": True, "aa": "rand-m7-mstd0.5"}, {"aa": "rand-m9-mstd0.5"},
-                                {"color_jitter": 0.4}, {"reprob": 0.25}])
-def test_finetune_augment_refuses_unported_extras(kw):
-    from cross_scale_mae_torch.ops.augment import make_finetune_augment
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_finetune_augment((0.5,) * 3, (0.5,) * 3, 16, **kw)
 
 
 # ---------------------------------------------------------------- eval and metrics
@@ -609,6 +743,90 @@ def test_classify_train_step_10_step_lockstep_with_jax():
     assert pl[-1] < pl[0]
 
 
+RECIPES = {
+    # scripts/finetune.sh's mixup/cutmix, the reference finetune's --aa and
+    # --reprob defaults (ops/randaug.py:252-253 of the JAX package).
+    "randaug": (dict(mixup=0.8, cutmix=1.0),
+                dict(aa="rand-m9-mstd0.5-inc1", reprob=0.25)),
+    "jitter": (dict(mixup=0.8, cutmix=1.0, mixup_mode="elem"),
+               dict(color_jitter=0.4, reprob=0.25, remode="const", recount=2)),
+}
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_classify_train_step_recipe_10_step_lockstep_with_jax(recipe):
+    """The sibling of the lockstep above with the whole finetuning recipe:
+    Mixup 0.8 / CutMix 1.0 after the augment, RandAugment
+    rand-m9-mstd0.5-inc1 and RandomErasing 0.25 (or ColorJitter 0.4 with
+    const erasing of 2 rectangles, Mixup per element), 10 steps against
+    the JAX step, every draw of every step injected: the augment's from
+    k_aug (flips, crop, RandAugment or jitter, erasing), the mix's from
+    k_mix (mixup.py:118-170), the drop-path masks from k_model. The same
+    tolerances as the plain lockstep."""
+    from tests.test_torch_port_mixup import _jax_mix_draws
+    from tests.test_torch_port_randaug import _jax_chain_draws
+
+    from cross_scale_mae_tpu.data.datasets import FMOW_RGB_MEAN, FMOW_RGB_STD
+    from cross_scale_mae_tpu.ops.augment import make_finetune_augment as jaug
+    from cross_scale_mae_tpu.train import TrainState as JState
+    from cross_scale_mae_tpu.train import build_optimizer as jopt
+    from cross_scale_mae_tpu.train import warmup_half_cosine as jsched
+    from cross_scale_mae_tpu.train.classify import make_classify_train_step as jstep_fn
+    from cross_scale_mae_torch.ops.augment import make_finetune_augment
+    from cross_scale_mae_torch.train.classify import FinetuneDraws, make_classify_train_step
+    from cross_scale_mae_torch.train.mixup import MixupConfig
+    from cross_scale_mae_torch.train.optim import build_optimizer
+    from cross_scale_mae_torch.train.schedule import warmup_half_cosine
+    from cross_scale_mae_torch.train.state import TrainState
+
+    mix_kw, aug_kw = RECIPES[recipe]
+    jc, pc = _cfgs(drop_path_rate=0.1, global_pool=True)
+    n, steps, canvas, size = 8, 10, 20, 16
+    sched_args = (1e-3, 1e-6, 1, 3, 4)
+    opt_kw = dict(weight_decay=0.05, b1=0.9, b2=0.999, layer_decay=0.75, depth=2,
+                  no_decay_names=("pos_embed", "cls_token"))
+    tkw = dict(batch_size=n, label_smoothing=0.1, layer_decay=0.75, **mix_kw)
+    params, mstate = _jax_vit(jc, seed=6)
+    jstate = JState.create(params, mstate, jopt(params, jsched(*sched_args), **opt_kw))
+    jstep = jstep_fn(jc, jcfg.TrainConfig(**tkw), jsched(*sched_args), donate=False,
+                     augment=jaug(FMOW_RGB_MEAN, FMOW_RGB_STD, size, dtype="float32", **aug_kw))
+
+    sched = warmup_half_cosine(*sched_args)
+    pp = pparams.vit_params_from_jax(_tree_np(params), pc)
+    pstate = TrainState.create(pp, {}, build_optimizer(pp, sched, **opt_kw))
+    ptcfg = pcfg.TrainConfig(**tkw)
+    pstep = make_classify_train_step(pc, ptcfg, sched, augment=make_finetune_augment(
+        FMOW_RGB_MEAN, FMOW_RGB_STD, size, dtype="float32", **aug_kw))
+    mcfg = MixupConfig.from_train_config(ptcfg)
+
+    rng_np = np.random.default_rng(15)
+    batch = rng_np.integers(0, 256, (n, canvas, canvas, 3), np.uint8)
+    labels = rng_np.integers(0, 7, n).astype(np.int32)
+    rng = jax.random.key(16)
+    jl, pl, gn = [], [], []
+    for step in range(steps):
+        k_aug, k_mix, k_model = jax.random.split(jax.random.fold_in(rng, step), 3)
+        base, extra = _jax_chain_draws(
+            k_aug, n, canvas, size, 3, aa=aug_kw.get("aa"), jitter=aug_kw.get("color_jitter"),
+            reprob=aug_kw["reprob"], remode=aug_kw.get("remode", "pixel"),
+            recount=aug_kw.get("recount", 1))
+        draws = FinetuneDraws(*base[:3], _jax_drop_masks(k_model, jc, n), **extra,
+                              mixup=_jax_mix_draws(k_mix, n, mcfg))
+        jstate, jm = jstep(jstate, jnp.asarray(batch), jnp.asarray(labels), rng)
+        pstate, pm = pstep(pstate, torch.from_numpy(batch), torch.from_numpy(labels).long(),
+                           draws)
+        jl.append(float(jm["loss"]))
+        pl.append(float(pm["loss"]))
+        gn.append((float(pm["grad_norm"]), float(jm["grad_norm"])))
+        assert pm["lr"] == pytest.approx(float(jm["lr"]), rel=1e-6)
+        assert float(pm["acc1"]) == pytest.approx(float(jm["acc1"]), abs=1e-6)
+
+    np.testing.assert_allclose(pl, jl, rtol=3e-4)
+    np.testing.assert_allclose(*zip(*gn), rtol=1e-3)
+    assert pstate.step == int(jstate.step) == steps
+    _assert_tree_close(pparams.params_to_jax(pstate.params), _tree_np(jstate.params), 5e-4)
+
+
 def test_classify_step_accumulates_microbatches():
     """accum_iter=2: the loss is the mean of the two microbatches', and the
     gradient norm no larger than the larger of theirs."""
@@ -697,11 +915,8 @@ def test_finetune_cli_pads_the_ragged_eval_batch(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",), ("--mixup", "0.8"),
-    ("--cutmix", "1.0"), ("--aa", "rand-m9-mstd0.5"), ("--color_jitter", "0.4"),
-    ("--reprob", "0.25"), ("--num_slices", "2"), ("--jax_platforms", "cpu"),
-    ("--adam_nu_dtype", "bfloat16"), ("--cutmix_minmax", "0.2", "0.8"),
-    ("--use_tensorboard",),
+    ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",),
+    ("--num_slices", "2"), ("--jax_platforms", "cpu"), ("--use_tensorboard",),
 ])
 def test_finetune_cli_refuses_unported_flags(tmp_path, extra):
     from cross_scale_mae_torch.cli.finetune import build_run

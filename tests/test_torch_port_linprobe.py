@@ -105,15 +105,53 @@ def test_lars_with_a_frozen_mask_matches_optax(weight_decay):
         np.testing.assert_array_equal(pp["blocks"][k].numpy(), tree["blocks"][k])
 
 
-def test_lars_refuses_unported_options():
-    from cross_scale_mae_torch.train.optim import build_optimizer
+@pytest.mark.parametrize("kw,frozen", [
+    (dict(clip_grad=0.5, layer_decay=0.75, depth=2), False),
+    (dict(clip_grad=0.05, layer_decay=0.6, depth=2, weight_decay=0.05), False),
+    (dict(clip_grad=0.5, weight_decay=0.05), True),
+])
+def test_lars_with_clip_and_layer_decay_matches_optax(kw, frozen):
+    """Five updates of the JAX chain clip -> LARS -> layer scale (and clip
+    -> LARS inside optax.masked) on a tree of unstacked leaves (the patch
+    embedding at layer 0, a norm and the head at the top layer; no stacked
+    blocks, whose shared norms the port does not copy), fp32 1e-6; a clip
+    of 0.05 binds. (Layer decay under a frozen mask has no JAX reading: its
+    scale_by_tree raises on optax.masked's MaskedNode leaves.)"""
+    import optax
 
-    p = {"w": {"kernel": torch.zeros(2, 2)}}
-    for kw in ({"clip_grad": 1.0}, {"layer_decay": 0.75}, {"mu_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_optimizer(p, lambda s: 0.0, optimizer="lars", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer(p, lambda s: 0.0, frozen_mask={"w": {"kernel": True}})
+    from cross_scale_mae_tpu.train.optim import build_optimizer as jopt
+    from cross_scale_mae_torch.train.optim import build_optimizer
+    from cross_scale_mae_torch.train.state import tree_leaves
+
+    rng = np.random.default_rng(2)
+    tree = {"patch_embed": {"kernel": rng.normal(size=(8, 6)).astype(np.float32),
+                            "bias": rng.normal(size=(6,)).astype(np.float32)},
+            "fc_norm": {"scale": 1 + 0.1 * rng.normal(size=(6,)).astype(np.float32),
+                        "bias": 0.1 * rng.normal(size=(6,)).astype(np.float32)},
+            "head": {"kernel": rng.normal(size=(6, 3)).astype(np.float32),
+                     "bias": rng.normal(size=(3,)).astype(np.float32)}}
+    mask = ({k: {n: k == "head" for n in v} for k, v in tree.items()} if frozen else None)
+    kw = {"weight_decay": 0.0, **kw}
+    sched = lambda s: 0.1 * (s + 1)  # noqa: E731
+    jp = jax.tree.map(jnp.asarray, tree)
+    jtx = jopt(jp, sched, optimizer="lars", frozen_mask=mask, **kw)
+    js = jtx.init(jp)
+    pp = jax.tree.map(torch.from_numpy, jax.tree.map(np.copy, tree))
+    tx = build_optimizer(pp, sched, optimizer="lars", frozen_mask=mask, **kw)
+    ps = tx.init(pp)
+    trainable = tree_leaves(mask) if frozen else [True] * len(tree_leaves(tree))
+    for k in range(5):
+        g = jax.tree.map(lambda a: (rng.normal(size=a.shape) * (k + 1)).astype(np.float32), tree)
+        upd, js = jtx.update(jax.tree.map(jnp.asarray, g), js, jp)
+        jp = optax.apply_updates(jp, upd)
+        grads = [torch.from_numpy(a) if t else None for a, t in zip(tree_leaves(g), trainable)]
+        tx.update(tree_leaves(pp), grads, ps)
+    for path, ref in jax.tree_util.tree_flatten_with_path(_tree_np(jp))[0]:
+        got = pp[path[0].key][path[1].key].numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6, err_msg=str(path))
+    if frozen:
+        np.testing.assert_array_equal(pp["patch_embed"]["kernel"].numpy(),
+                                      tree["patch_embed"]["kernel"])
 
 
 # ---------------------------------------------------------------- frozen backbone

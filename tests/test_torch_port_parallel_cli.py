@@ -471,6 +471,11 @@ _RUN = {
     "--min_lr": (["--min_lr", "1e-6"], lambda r: r.tcfg.min_lr == 1e-6),
     "--weight_decay": (["--weight_decay", "0.1"], lambda r: r.tcfg.weight_decay == 0.1),
     "--clip_grad": (["--clip_grad", "1.0"], lambda r: r.tcfg.clip_grad == 1.0),
+    "--adam_mu_dtype": (["--adam_mu_dtype", "bfloat16"],
+                        lambda r: r.state.opt_state.mu[0].dtype == torch.bfloat16),
+    "--adam_nu_dtype": (["--adam_nu_dtype", "bfloat16"],
+                        lambda r: r.state.opt_state.nu[0].dtype == torch.bfloat16
+                        and r.state.tx.upcast_first),
     "--max_steps": (["--max_steps", "1"], lambda r: True),
     "--unroll_blocks": (["--unroll_blocks"], lambda r: not r.cfg.scan_blocks),
     "--remat": (["--remat"], lambda r: r.cfg.remat),
@@ -511,8 +516,6 @@ _REFUSED = {
     "--fsdp": ["--fsdp"], "--zero1": ["--zero1"], "--num_slices": ["--num_slices", "2"],
     "--use_perceptual_loss": ["--use_perceptual_loss"], "--vgg_weights": ["--vgg_weights", "v"],
     "--plot_recon": ["--plot_recon"], "--val_img_path": ["--val_img_path", "x.png"],
-    "--adam_mu_dtype": ["--adam_mu_dtype", "bfloat16"],
-    "--adam_nu_dtype": ["--adam_nu_dtype", "bfloat16"],
     "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
     "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
     "--wandb_id": ["--wandb_id", "i"], "--profile_dir": ["--profile_dir", "p"],
@@ -559,4 +562,161 @@ def test_every_jax_pretrain_flag_is_run_or_refused_with_a_roadmap_item(tmp_path,
     capsys.readouterr()
     for flag, argv in _NOT_APPLICABLE.items():
         _tiny_run(tmp_path, *argv)
+        assert f"not applicable here: {flag}" in capsys.readouterr().out, flag
+
+
+# The classifier CLIs' flags, by what the port does with each, as for
+# pretraining above. A check reads the FinetuneRun that build_run returns.
+_CLASSIFIER_RUN = {
+    "--model": (["--model", "vit_large_patch16"], lambda r: r.cfg.embed_dim == 32),
+    "--input_size": ([], lambda r: r.cfg.input_size == 16),
+    "--patch_size": ([], lambda r: r.cfg.patch_size == 8),
+    "--global_pool": (["--global_pool"], lambda r: r.cfg.global_pool),
+    "--cls_token": (["--cls_token"], lambda r: not r.cfg.global_pool),
+    "--finetune": ([], lambda r: True),
+    "--eval": (["--eval"], lambda r: True),
+    "--embed_dim": ([], lambda r: r.cfg.embed_dim == 32),
+    "--depth": ([], lambda r: r.cfg.depth == 2),
+    "--num_heads": ([], lambda r: r.cfg.num_heads == 4),
+    "--epochs": (["--epochs", "3"], lambda r: r.tcfg.epochs == 3),
+    "--warmup_epochs": (["--warmup_epochs", "2"], lambda r: r.tcfg.warmup_epochs == 2),
+    "--batch_size": ([], lambda r: r.tcfg.batch_size == 4),
+    "--accum_iter": (["--accum_iter", "2"], lambda r: r.tcfg.accum_iter == 2),
+    "--blr": (["--blr", "1e-4"], lambda r: r.tcfg.blr == 1e-4),
+    "--lr": (["--lr", "1e-3"], lambda r: r.tcfg.lr == 1e-3),
+    "--min_lr": (["--min_lr", "1e-7"], lambda r: r.tcfg.min_lr == 1e-7),
+    "--ckpt_interval": (["--ckpt_interval", "5"], lambda r: True),
+    "--save_every": (["--save_every", "5"], lambda r: True),
+    "--eval_interval": (["--eval_interval", "2"], lambda r: True),
+    "--max_steps": (["--max_steps", "1"], lambda r: True),
+    "--unroll_blocks": (["--unroll_blocks"], lambda r: not r.cfg.scan_blocks),
+    "--dataset_type": (["--dataset_type", "synthetic"], lambda r: True),
+    "--train_path": ([], lambda r: True),
+    "--test_path": ([], lambda r: True),
+    "--masked_bands": ([], lambda r: True),
+    "--dropped_bands": ([], lambda r: True),
+    "--synthetic_len": ([], lambda r: True),
+    "--canvas_scale": ([], lambda r: True),
+    "--nb_classes": ([], lambda r: r.cfg.num_classes == 3),
+    "--seed": (["--seed", "4"], lambda r: r.tcfg.seed == 4),
+    "--output_dir": ([], lambda r: True),
+    "--num_workers": (["--num_workers", "2"], lambda r: True),
+    "--log_interval": (["--log_interval", "3"], lambda r: r.tcfg.log_interval == 3),
+    "--attention_impl": (["--attention_impl", "xla"], lambda r: r.cfg.attention_impl == "xla"),
+    "--attention": (["--attention", "scaled_dot_product"], lambda r: True),
+    "--gelu": (["--gelu", "exact"], lambda r: r.cfg.gelu == "exact"),
+    "--compute_dtype": (["--compute_dtype", "bfloat16"],
+                        lambda r: r.cfg.compute_dtype == "bfloat16"),
+    "--remat": (["--remat"], lambda r: r.cfg.remat),
+    "--device": (["--device", "cpu"], lambda r: r.device == torch.device("cpu")),
+    "--coordinator_address": ([], lambda r: not r.rt.distributed),
+    "--num_processes": ([], lambda r: r.rt.world_size == 1),
+    "--process_id": ([], lambda r: r.rt.rank == 0),
+    "--output_dir_base": (["--output_dir_base", "base"], lambda r: True),
+    "--start_epoch": (["--start_epoch", "1"], lambda r: r.start_epoch == 1),
+    "--resume": (["--resume", "{ckpt}"], lambda r: r.start_epoch == 3 and r.max_acc == 7.0),
+}
+_CLASSIFIER_ROLE_RUN = {
+    "finetune": {
+        "--cls_token_pool": (["--cls_token_pool"], lambda r: not r.cfg.global_pool),
+        "--drop_path": (["--drop_path", "0.2"], lambda r: r.cfg.drop_path_rate == 0.2),
+        "--weight_decay": (["--weight_decay", "0.1"],
+                           lambda r: r.tcfg.weight_decay == 0.1 and r.state.tx.wd == 0.1),
+        "--layer_decay": (["--layer_decay", "0.5"],
+                          lambda r: r.tcfg.layer_decay == 0.5 and 0.125 in r.state.tx.scales),
+        "--clip_grad": (["--clip_grad", "1.0"], lambda r: r.state.tx.clip_grad == 1.0),
+        "--adam_mu_dtype": (["--adam_mu_dtype", "bfloat16"],
+                            lambda r: r.state.opt_state.mu[0].dtype == torch.bfloat16
+                            and not r.state.tx.upcast_first),
+        "--adam_nu_dtype": (["--adam_nu_dtype", "bfloat16"],
+                            lambda r: r.state.opt_state.nu[0].dtype == torch.bfloat16),
+        "--smoothing": (["--smoothing", "0.2"], lambda r: r.tcfg.label_smoothing == 0.2),
+        "--mixup": (["--mixup", "0.8"], lambda r: r.mixup.mixup_alpha == 0.8),
+        "--cutmix": (["--cutmix", "1.0"], lambda r: r.mixup.cutmix_alpha == 1.0),
+        "--mixup_prob": (["--mixup", "0.8", "--mixup_prob", "0.5"],
+                         lambda r: r.mixup.prob == 0.5),
+        "--mixup_switch_prob": (["--mixup", "0.8", "--mixup_switch_prob", "0.3"],
+                                lambda r: r.mixup.switch_prob == 0.3),
+        "--cutmix_minmax": (["--cutmix_minmax", "0.2", "0.8"],
+                            lambda r: r.mixup.cutmix_minmax == (0.2, 0.8)
+                            and r.mixup.cutmix_alpha == 1.0),
+        "--mixup_mode": (["--mixup", "0.8", "--mixup_mode", "pair"],
+                         lambda r: r.mixup.mode == "pair"),
+        "--color_jitter": (["--color_jitter", "0.4"], lambda r: r.extras.jitter == 0.4),
+        "--aa": (["--aa", "rand-m9-mstd0.5-inc1"],
+                 lambda r: r.extras.aa.magnitude == 9.0 and r.extras.jitter is None),
+        "--reprob": (["--reprob", "0.25"], lambda r: r.extras.reprob == 0.25),
+        "--remode": (["--reprob", "0.25", "--remode", "const"],
+                     lambda r: r.extras.remode == "const"),
+        "--recount": (["--reprob", "0.25", "--recount", "2"], lambda r: r.extras.recount == 2),
+    },
+    "linprobe": {
+        # Accepted; the probe runs LARS with weight decay 0, as the JAX CLI.
+        "--weight_decay": (["--weight_decay", "0.1"], lambda r: r.state.tx.wd == 0.0),
+        "--loss": (["--loss", "classification_cross"], lambda r: True),
+    },
+}
+_CLASSIFIER_REFUSED = {
+    "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
+    "--fsdp": ["--fsdp"], "--num_slices": ["--num_slices", "2"],
+    "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
+    "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
+    "--wandb_id": ["--wandb_id", "i"], "--profile_dir": ["--profile_dir", "p"],
+    "--jax_platforms": ["--jax_platforms", "cpu"],
+}
+_CLASSIFIER_NOT_APPLICABLE = {
+    "--log_dir": ["--log_dir", "logs"], "--device_batch_dtype": ["--device_batch_dtype", "f32"],
+    "--pin_mem": ["--pin_mem"], "--no_pin_mem": ["--no_pin_mem"],
+    "--world_size": ["--world_size", "2"], "--local_rank": ["--local_rank", "0"],
+    "--dist_url": ["--dist_url", "env://"], "--dist_on_itp": ["--dist_on_itp"],
+    "--model_type": ["--model_type", "vit"],
+    "--transform_checkpoint_keys": ["--transform_checkpoint_keys"],
+    "--dist_eval": ["--dist_eval"], "--use_psa": ["--use_psa"],
+}
+_CLASSIFIER_ROLE_NOT_APPLICABLE = {
+    "finetune": {"--resplit": ["--resplit"]},
+    "linprobe": {"--use_xformers": ["--use_xformers"], "--print_level": ["--print_level", "1"],
+                 "--spatial_mask": ["--spatial_mask"], "--norm_pix_loss": ["--norm_pix_loss"]},
+}
+
+
+@pytest.mark.parametrize("cli", ["finetune", "linprobe"])
+def test_every_jax_classifier_flag_is_run_refused_or_not_applicable(tmp_path, capsys, cli):
+    """The JAX finetune and linprobe parsers' flags, each parsed by the
+    port's CLI and either run (its check on the built run holds), refused
+    naming a ROADMAP.md item, or reported as not applicable as the JAX
+    package reports the reference's dead flags; a new JAX flag fails this
+    test until it is sorted here."""
+    import importlib
+
+    from cross_scale_mae_torch.utils.checkpoint import save_checkpoint
+
+    jmod = importlib.import_module(f"cross_scale_mae_tpu.cli.{cli}")
+    pmod = importlib.import_module(f"cross_scale_mae_torch.cli.{cli}")
+    run_table = {**_CLASSIFIER_RUN, **_CLASSIFIER_ROLE_RUN[cli]}
+    na = {**_CLASSIFIER_NOT_APPLICABLE, **_CLASSIFIER_ROLE_NOT_APPLICABLE[cli]}
+    jax_flags = _flags(jmod.get_args_parser())
+    assert jax_flags == set(run_table) | set(_CLASSIFIER_REFUSED) | set(na)
+    assert not set(run_table) & set(_CLASSIFIER_REFUSED) and not set(na) & (
+        set(run_table) | set(_CLASSIFIER_REFUSED))
+    assert jax_flags <= _flags(pmod.get_args_parser())
+
+    def build(*extra):
+        return pmod.build_run(pmod.get_args_parser().parse_args([
+            "--model", "vit_base_patch16", "--embed_dim", "32", "--depth", "2",
+            "--num_heads", "4", "--input_size", "16", "--patch_size", "8",
+            "--batch_size", "4", "--dataset_type", "synthetic", "--synthetic_len", "8",
+            "--nb_classes", "3", "--device", "cpu", "--output_dir", str(tmp_path), *extra]))
+
+    ckpt = str(tmp_path / "ckpt")
+    first = build()
+    save_checkpoint(ckpt, 0, first.state, first.cfg.to_json(), {"epoch": 2, "max_acc": 7.0})
+    for flag, (argv, ok) in run_table.items():
+        assert ok(build(*(a.replace("{ckpt}", ckpt) for a in argv))), flag
+    for flag, argv in _CLASSIFIER_REFUSED.items():
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            build(*argv)
+    capsys.readouterr()
+    for flag, argv in na.items():
+        build(*argv)
         assert f"not applicable here: {flag}" in capsys.readouterr().out, flag

@@ -560,13 +560,31 @@ def test_sample_pretrain_draws_shapes_and_consistent_mask():
 
 
 def test_optimizer_refuses_unported_options():
+    """Nothing the JAX build_optimizer builds is refused any more (every
+    optimizer, clipping, layer decay, a frozen mask and the moment dtypes
+    build); what is refused is what the JAX one refuses too: an unknown
+    optimizer (ValueError on both sides), and a moment dtype that is no
+    float type."""
+    from cross_scale_mae_tpu.train.optim import build_optimizer as jopt
     from cross_scale_mae_torch.train.optim import build_optimizer
 
-    p = {"w": {"kernel": torch.zeros(2, 2)}}
+    p = {"w": {"kernel": torch.zeros(2, 2)}, "head": {"bias": torch.zeros(2)}}
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), p)
+    mask = {"w": {"kernel": False}, "head": {"bias": True}}
     for kw in ({"optimizer": "lars", "clip_grad": 1.0}, {"optimizer": "sgd"},
-               {"nu_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_optimizer(p, lambda s: 0.0, **kw)
+               {"nu_dtype": "bfloat16"}, {"mu_dtype": "bfloat16", "clip_grad": 1.0},
+               {"optimizer": "lars", "mu_dtype": "bfloat16"}, {"frozen_mask": mask},
+               {"optimizer": "sgd", "frozen_mask": mask, "clip_grad": 0.5}):
+        jopt(jp, lambda s: 0.0, **kw)
+        tx = build_optimizer(p, lambda s: 0.0, **kw)
+        tx.update([p["head"]["bias"], p["w"]["kernel"]], [torch.ones(2), None]
+                  if "frozen_mask" in kw else [torch.ones(2), torch.ones(2, 2)], tx.init(p))
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        jopt(jp, lambda s: 0.0, optimizer="adam")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        build_optimizer(p, lambda s: 0.0, optimizer="adam")
+    with pytest.raises(ValueError, match="floating-point"):
+        build_optimizer(p, lambda s: 0.0, mu_dtype="int8")
 
 
 def test_adamw_matches_optax_with_clipping():
