@@ -186,6 +186,41 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
     checkpoint's bytes, and the bf16 and fp32 steps timed in turns (each
     run's first step left out; the CLI's own ms per step covers the
     checkpoint write).
+18. serve_classifier (runs after phase 11): [finetune]'s ViT-L params.npz
+    (``attention_impl="pallas"``, K2f) and [linprobe]'s checkpoint (ViT-B/16
+    with its BN head, ``pallas_v3``, K1f) served by ``cli/serve.build_app``
+    over HTTP at batch 64, requests of 1, 7, 64 and 100 rows in
+    ``CLS_ROUNDS`` rounds (a few hundred dispatches).
+    Gates: K2f 24 x dispatches (K1f 12 x), no other kernel; the logits of
+    every answered row against the same weights served with the plain
+    attention, their relative L2 gap no larger than that of the plain bf16
+    server to the same model in fp32; every row whose plain top-2 margin
+    exceeds twice the largest logit difference has the same argmax.
+    Printed: dispatch p50/p99, images/s at p50, HTTP rows/s.
+19. quantize: the [serving] ViT-B encoder and the ViT-L classifier with
+    ``quantize="int8"`` against bf16 weights on one seeded batch of 64: the
+    weights' device bytes of each, the least cosine similarity of the
+    outputs (gate: ``QUANT_COS_FLOOR``), the classifier's argmax gate as in
+    phase 18, the dispatch ms in turns (bf16, int8, int8, bf16; 50 calls a
+    reading) and the device ms a dispatch by kernel kind. The
+    counts are set to 0 just before the int8 server's calls and read just
+    after: K1f 12 (encoder) and K2f 24 (ViT-L) a call, no other kernel.
+20. export: ``cli/export.main`` on cuda for the ViT-B encoder baked,
+    ``--no_bake_weights``, ``--quantize int8`` and ``--symbolic_batch`` and
+    the ViT-L classifier baked (each self-checks its reload); each served by
+    ``cli/serve --artifact`` over HTTP and held to the in-process forward
+    with the plain attention at ``EXPORT_TOL`` (the symbolic one also at
+    batches 1, 7 and 100). Printed: artifact and sidecar bytes, export
+    seconds, and the artifact's dispatch ms against checkpoint serving in
+    turns.
+21. embed: ``cli/embed.main`` over 1000 seeded 146 px JPEGs (an fMoW-RGB
+    CSV) at batch 256 through [train]'s ViT-B encoder, with the plain
+    attention and then with K1f: the row count, the labels, the features
+    against the plain run's within the bf16 budget, K1f 12 x batches;
+    images/s over a third run of 5000 rows.
+22. data_parallel: ``cli/serve --data_parallel`` at
+    ``torch.cuda.device_count()`` cards, its answers bit-equal to the
+    single-card server's (one card) or within the bf16 budget (more).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -234,12 +269,13 @@ RESUME_LEN = 2 * TRAIN_BATCH
 RESUME_FAULT = 5
 RESUME_TIMEOUT_S = 600
 # The kernels' shapes: (N, L, H, hd); "linprobe" is the ViT-B probe's batch
-# of 1024, train steps and padded eval batches alike. The JSON line reports the forward at
+# of 1024, train steps and padded eval batches alike; "embed" cli/embed's
+# batch of 256. The JSON line reports the forward at
 # the serving shape and the backward at the decoder's training shape, the
 # one that costs the step most; each entry names its case and shape.
 SHAPES = {"serving": (64, 65, 12, 64), "train_enc": (768, 17, 12, 64),
           "train_dec": (768, 65, 16, 32), "long_seq": (8, 257, 12, 64),
-          "linprobe": (1024, 65, 12, 64)}
+          "linprobe": (1024, 65, 12, 64), "embed": (256, 65, 12, 64)}
 BWD_SHAPES = ("train_enc", "train_dec", "long_seq")
 # The K2 kernels' shapes, (N, L, H, hd) folded to (N*H, L, hd): the ViT-L
 # finetune step, ViT-B's 65 tokens, and ViT-H at 224 px, the longest.
@@ -313,7 +349,13 @@ LP_REPEAT_STEPS = 12
 LP_ATTN = 12
 
 
+# The script's clock: every log line ends with the seconds since import,
+# so each phase's share of the time limit reads off the output.
+START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
+    fields["elapsed_s"] = round(time.perf_counter() - START, 1)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -475,7 +517,7 @@ def _buffers(gen, nbytes_each: int, make) -> list:
 
 
 def phase_kernel(card: str) -> dict:
-    """Each kernel against its plain version, bf16: mha3_fwd at the five
+    """Each kernel against its plain version, bf16: mha3_fwd at the six
     shapes of SHAPES, mha3_bwd at the three training and long-sequence
     shapes."""
     import torch.nn.functional as F
@@ -824,6 +866,18 @@ def _get_json(url: str, path: str) -> dict:
         return json.load(r)
 
 
+def _bf16_close(got: np.ndarray, ref: np.ndarray, what: str) -> float:
+    """The bf16 budget of [serving] (tests/test_torch_port_serving.py):
+    max error 2**-4 x max(1, max|ref|), mean error 2**-7 x max(1, mean|ref|)."""
+    err = np.abs(got - ref)
+    max_tol = 2.0 ** -4 * max(1.0, float(np.abs(ref).max()))
+    mean_tol = 2.0 ** -7 * max(1.0, float(np.abs(ref).mean()))
+    check(bool(np.isfinite(got).all()), f"{what}: non-finite output")
+    check(err.max() <= max_tol and err.mean() <= mean_tol,
+          f"{what}: max {err.max()} (tol {max_tol}), mean {err.mean()} (tol {mean_tol})")
+    return float(err.max())
+
+
 def phase_serving(card: str) -> int:
     """Serve a seeded ViT-B checkpoint over HTTP; the forward kernel must
     launch 12 times per dispatch. Returns the served run's launches."""
@@ -899,16 +953,8 @@ def phase_serving(card: str) -> int:
             got = answers[key]
             check(got.shape == (len(arr), cfg.dim_model), f"{key}: shape {got.shape}")
             check(bool(np.isfinite(got).all()), f"{key}: non-finite features")
-            ref = plain.fn(arr)
-            err = np.abs(got - ref)
-            # bf16 budget of the CPU tests (tests/test_torch_port_serving.py):
-            # kernel and plain attention may round one ulp apart per block.
-            max_tol = 2.0 ** -4 * max(1.0, float(np.abs(ref).max()))
-            mean_tol = 2.0 ** -7 * max(1.0, float(np.abs(ref).mean()))
-            check(err.max() <= max_tol and err.mean() <= mean_tol,
-                  f"{key}: served vs plain max {err.max()} (tol {max_tol}), "
-                  f"mean {err.mean()} (tol {mean_tol})")
-            worst = max(worst, float(err.max()))
+            # Kernel and plain attention may round one ulp apart per block.
+            worst = max(worst, _bf16_close(got, plain.fn(arr), f"{key}: served vs plain"))
         check(mha_v3.launches == launches, "the plain reference launched the kernel")
 
         served = build_serving_model(served_npz, pool="mean", batch_size=SERVE_BATCH,
@@ -959,6 +1005,29 @@ def _kernel_ms_by_kind(prof, rules=K1_KINDS) -> dict:
     return kinds
 
 
+def _wall_ms(fn, batch: np.ndarray, reps: int = 10) -> float:
+    """Host ms of one call of ``fn`` on ``batch`` (numpy in and out), over
+    ``reps`` calls after one warm-up."""
+    fn(batch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(batch)  # ends in a device-to-host copy: synchronous
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _device_ms(fn, batch: np.ndarray, rules, reps: int = 10) -> dict:
+    """Device ms of one call of ``fn`` on ``batch`` by kernel kind, from a
+    torch.profiler window of ``reps`` calls, and their sum as "total"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(batch)
+    kinds = {k: v / reps for k, v in _kernel_ms_by_kind(prof, rules).items()}
+    kinds["total"] = sum(kinds.values())
+    return kinds
+
+
 def phase_dispatch(card: str, served_fn, plain_fn, batch: np.ndarray, reps: int = 10) -> None:
     """One 64-image dispatch end to end (host clock, numpy in and out),
     through the kernel and through the plain attention, in turns (plain,
@@ -967,14 +1036,8 @@ def phase_dispatch(card: str, served_fn, plain_fn, batch: np.ndarray, reps: int 
     the unprofiled dispatch time, since the profiler slows the host."""
     from torch.profiler import ProfilerActivity, profile
 
-    def wall_ms(fn):
-        fn(batch)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn(batch)  # ends in a device-to-host copy: synchronous
-        return (time.perf_counter() - t0) / reps * 1e3
-
-    p1, k1, k2, p2 = wall_ms(plain_fn), wall_ms(served_fn), wall_ms(served_fn), wall_ms(plain_fn)
+    p1, k1, k2, p2 = (_wall_ms(plain_fn, batch, reps), _wall_ms(served_fn, batch, reps),
+                      _wall_ms(served_fn, batch, reps), _wall_ms(plain_fn, batch, reps))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -1895,9 +1958,10 @@ def _fold_unfold_ms(n: int, l: int, h: int, hd: int, reps: int = 20) -> float:
     return time_ms(copies, [None], reps)
 
 
-def phase_finetune(card: str) -> tuple[int, int]:
-    """Finetune ViT-L through ``cli/finetune.main`` and evaluate; returns
-    the K2 kernels' (forward, backward) launches during those runs."""
+def phase_finetune(card: str, keep_npz: str) -> tuple[int, int]:
+    """Finetune ViT-L through ``cli/finetune.main`` and evaluate; keeps the
+    first run's params.npz at ``keep_npz``; returns the K2 kernels'
+    (forward, backward) launches during those runs."""
     from torch.profiler import ProfilerActivity, profile
 
     from cross_scale_mae_torch.cli.finetune import build_run
@@ -1909,6 +1973,7 @@ def phase_finetune(card: str) -> tuple[int, int]:
     with tempfile.TemporaryDirectory() as tmp:
         mha.launches = mha.bwd_launches = mha_v3.launches = mha_v3.bwd_launches = 0
         result = finetune_main(_ft_argv(tmp, "pallas", FT_SYNTHETIC, FT_STEPS))
+        shutil.copy(result["npz"], keep_npz)
         repeated = finetune_main(_ft_argv(tmp, "pallas", FT_BATCH, FT_REPEAT_STEPS))
         fwd, bwd = mha.launches, mha.bwd_launches
         check(mha_v3.launches == mha_v3.bwd_launches == 0, "finetuning launched the K1 kernels")
@@ -2088,10 +2153,12 @@ def _backbone(params: dict) -> dict:
     return {"/".join(map(str, path)): t for path, t in tree_items(params) if path[0] != "head"}
 
 
-def phase_linprobe(card: str, npz: str) -> int:
+def phase_linprobe(card: str, npz: str, keep_ckpt: str) -> int:
     """Linear-probe ViT-B through ``cli/linprobe.main`` from the pretrain
-    phase's npz over seeded NAIP tiles; returns K1f's launches in those
-    runs."""
+    phase's npz over seeded NAIP tiles; writes the first run's final state
+    as a checkpoint in ``keep_ckpt`` (as ``--ckpt_interval`` would); returns
+    K1f's launches in those runs."""
+    from cross_scale_mae_torch.utils.checkpoint import save_checkpoint
     from torch.profiler import ProfilerActivity, profile
 
     from cross_scale_mae_torch.cli.linprobe import build_run
@@ -2124,6 +2191,10 @@ def phase_linprobe(card: str, npz: str) -> int:
         for c in counts:
             c.launches = c.bwd_launches = 0
         result = linprobe_main(main_argv)
+        fwd_main = mha_v3.launches
+        run = result["run"]
+        save_checkpoint(keep_ckpt, run.state.step, run.state, run.cfg.to_json(), {"epoch": 1})
+        check(mha_v3.launches == fwd_main, "writing the checkpoint launched a kernel")
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2843,6 +2914,440 @@ def phase_moments(card: str) -> tuple[int, int]:
     return fwd, bwd
 
 
+# The served classifiers: [finetune]'s ViT-L (64 px, patch 8, 62 classes,
+# bf16, K2) and [linprobe]'s ViT-B/16 behind the BN head (128 px, 10
+# classes, bf16, K1), each at batch 64 over HTTP; the requests of
+# REQUEST_ROWS in CLS_ROUNDS rounds.
+CLS_ROUNDS = 64
+# The [quantize] gate: the least cosine similarity of int8-weight outputs to
+# the bf16-weight outputs on one seeded batch.
+QUANT_COS_FLOOR = 0.99
+# Calls of one dispatch-time reading in [quantize] and [export] (each
+# reading after one warm-up call; four readings in turns).
+DISPATCH_REPS = 50
+# The [embed] phase: 1000 seeded 146 px JPEGs in an fMoW-RGB CSV, batch 256
+# (three full batches and a ragged one of 232), through the pretrain
+# phase's ViT-B encoder at 128 px.
+EMBED_IMAGES = 1000
+EMBED_BATCH = 256
+EMBED_CANVAS = 146
+# The [embed] rate is read over this many rows (the 1000 files cycled),
+# after the gated runs: 20 batches, a ragged one of 136.
+EMBED_TIMED = 5000
+# The export's tolerance (rtol = atol) in bf16, the JAX export's
+# (cli/export.py).
+EXPORT_TOL = 3e-2
+
+
+def _serve_cfg():
+    from cross_scale_mae_torch.configs import get_mae_config
+
+    return get_mae_config("mae_vit_base_MsLdCeCd", input_size=128, patch_size=16,
+                          compute_dtype="bfloat16", attention_impl="pallas_v3", gelu="tanh")
+
+
+def write_serving_npz(path: str) -> str:
+    """The [serving] phase's seeded ViT-B checkpoint (seed 0) as an npz."""
+    from cross_scale_mae_torch.utils.checkpoint import save_params_npz
+    from cross_scale_mae_torch.utils.params import random_mae_tree
+
+    cfg = _serve_cfg()
+    save_params_npz(path, random_mae_tree(cfg, seed=0), cfg.to_json())
+    return path
+
+
+def _serve_http(argv: list, rows=REQUEST_ROWS, rounds: int = CLS_ROUNDS, seed: int = 0):
+    """cli/serve.build_app on ``argv`` (one warm-up dispatch), concurrent
+    ``/predict`` requests of ``rows`` rows in ``rounds`` rounds; returns
+    (sent [(key, uint8 batch)], answers {key: output}, /stats, /info, wall s)."""
+    from cross_scale_mae_torch.cli.serve import build_app, get_args_parser
+
+    server, batcher = build_app(get_args_parser().parse_args(argv))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    sent, answers = [], {}
+    try:
+        check(_get_json(url, "/healthz")["warm"], "/healthz: not warm")
+        info = _get_json(url, "/info")
+        _, canvas, _, c = info["input"]
+        rng = np.random.default_rng(seed)
+
+        def post(key, arr):
+            answers[key] = _post_npy(url, arr)
+
+        t0 = time.perf_counter()
+        for rnd in range(rounds):
+            threads = []
+            for n in rows:
+                arr = rng.integers(0, 256, (n, canvas, canvas, c), np.uint8)
+                sent.append(((rnd, n), arr))
+                threads.append(threading.Thread(target=post, args=((rnd, n), arr)))
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+                check(not t.is_alive(), "a /predict request hung")
+        wall = time.perf_counter() - t0
+        stats = _get_json(url, "/stats")
+    finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(30)
+    check(len(answers) == len(sent), "missing answers")
+    return sent, answers, stats, info, wall
+
+
+def _argmax_agreement(got: np.ndarray, ref: np.ndarray, what: str) -> dict:
+    """Argmax of ``got`` against ``ref``'s: every row whose top-2 margin in
+    ``ref`` is more than twice the largest logit difference must agree
+    (a difference that small cannot reorder them); the share of all rows
+    that agree is printed."""
+    dev = float(np.abs(got - ref).max())
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * dev
+    same = got.argmax(-1) == ref.argmax(-1)
+    check(bool(same[clear].all()),
+          f"{what}: argmax differs on {int((~same & clear).sum())} rows whose margin "
+          f"exceeds 2 x {dev}")
+    return {"agree": float(same.mean()), "rows": int(len(same)),
+            "rows_gated": int(clear.sum())}
+
+
+def _reset_counts() -> None:
+    from cross_scale_mae_torch.ops.attention import mha, mha_qkv, mha_v3
+
+    for c in (mha, mha_v3, mha_qkv):
+        c.launches = c.bwd_launches = 0
+
+
+def _counts() -> dict:
+    from cross_scale_mae_torch.ops.attention import mha, mha_qkv, mha_v3
+
+    return {"mha3_fwd": mha_v3.launches, "mha3_bwd": mha_v3.bwd_launches,
+            "mha_fwd": mha.launches, "mha_bwd": mha.bwd_launches,
+            "mha2_fwd": mha_qkv.launches, "mha2_bwd": mha_qkv.bwd_launches}
+
+
+def _rel_gap(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_serve_classifier(card: str, ft_ckpt: str, lp_ckpt: str) -> dict:
+    """Serve [finetune]'s ViT-L (K2f, 24 launches a dispatch) and
+    [linprobe]'s ViT-B with its BN head (K1f, 12 a dispatch) through
+    cli/serve.build_app over HTTP at batch 64. The logits of every answered
+    row against the same weights served with the plain attention: their
+    relative L2 gap no larger than that of the plain server from the same
+    model in fp32 (the kernel moves the logits less than bf16 itself does),
+    and the argmax gate. Returns each kernel's launches."""
+    from cross_scale_mae_torch.serving import build_serving_model, make_forward
+    from cross_scale_mae_torch.utils.checkpoint import classifier_from_host, read_host_checkpoint
+
+    launches = {}
+    for name, ckpt, kernel, per in (("finetune", ft_ckpt, "mha_fwd", FT_ATTN),
+                                    ("linprobe", lp_ckpt, "mha3_fwd", LP_ATTN)):
+        _reset_counts()
+        sent, answers, stats, info, wall = _serve_http(
+            ["--ckpt", ckpt, "--port", "0", "--batch_size", str(SERVE_BATCH),
+             "--device", "cuda", "--max_delay_ms", "5"])
+        counts = _counts()
+        launches[kernel] = counts[kernel]
+        check(info["kind"] == "classifier", f"{name}: served kind {info['kind']}")
+        impl = info["model_config"]["attention_impl"]
+        check(impl == ("pallas" if kernel == "mha_fwd" else "pallas_v3"),
+              f"{name}: attention_impl {impl}")
+        expected = per * (stats["dispatches"] + 1)
+        check(counts[kernel] == expected,
+              f"{name}: {kernel} launches {counts[kernel]} != {per} x (dispatches "
+              f"{stats['dispatches']} + 1 warm-up) = {expected}")
+        check(sum(v for k, v in counts.items() if k != kernel) == 0,
+              f"{name}: other kernels launched {counts}")
+        plain = build_serving_model(ckpt, batch_size=SERVE_BATCH, device="cuda", portable=True)
+        config, tree, state, _ = read_host_checkpoint(ckpt)
+        params, model_state, cfg = classifier_from_host(config, tree, state, "cuda")
+        del tree
+        fp32 = make_forward(cfg.replace(compute_dtype="float32", attention_impl="xla"),
+                            "classifier", "cls", "fmow_rgb", model_state)
+        # The references run on every sent row in full batches of 64.
+        rows_in = np.concatenate([arr for _, arr in sent])
+        ref = np.concatenate([plain.fn(rows_in[i:i + SERVE_BATCH])
+                              for i in range(0, len(rows_in), SERVE_BATCH)])
+        with torch.inference_mode():
+            ref32 = np.concatenate([
+                fp32(params, torch.from_numpy(rows_in[i:i + SERVE_BATCH]).cuda()).cpu().numpy()
+                for i in range(0, len(rows_in), SERVE_BATCH)])
+        got, agree, at = [], [], 0
+        for key, arr in sent:
+            out = answers[key]
+            check(out.shape == (len(arr), cfg.num_classes), f"{name} {key}: shape {out.shape}")
+            check(bool(np.isfinite(out).all()), f"{name} {key}: non-finite logits")
+            got.append(out)
+            agree.append(_argmax_agreement(out, ref[at:at + len(arr)], f"{name} {key}"))
+            at += len(arr)
+        got = np.concatenate(got)
+        gap, bf16_gap = _rel_gap(got, ref), _rel_gap(ref, ref32)
+        check(gap <= bf16_gap, f"{name}: kernel vs plain logits rel gap {gap} above the "
+              f"plain bf16 server's gap to fp32, {bf16_gap}")
+        check(_counts()[kernel] == counts[kernel], "the plain servers launched a kernel")
+        rows = sum(len(a) for _, a in sent)
+        p50 = stats["dispatch_ms_p50"]
+        log("serve_classifier", card=json.dumps(card), model=name, kernel=kernel,
+            rounds=CLS_ROUNDS, requests=len(sent), rows=rows, dispatches=stats["dispatches"],
+            launches=counts[kernel], dispatch_ms_p50=p50,
+            dispatch_ms_p99=stats["dispatch_ms_p99"],
+            imgs_per_s_at_p50=round(SERVE_BATCH / (p50 / 1e3), 1),
+            http_rows_per_s=round(rows / wall, 1),
+            max_abs_vs_plain=float(np.abs(got - ref).max()), rel_gap_vs_plain=gap,
+            plain_bf16_rel_gap_vs_fp32=bf16_gap,
+            argmax_agree=min(a["agree"] for a in agree),
+            rows_gated=sum(a["rows_gated"] for a in agree))
+        del plain, params, fp32
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_quantize(card: str, enc_npz: str, ft_ckpt: str) -> dict:
+    """The [serving] ViT-B encoder and [finetune]'s ViT-L classifier served
+    with --quantize int8 against bf16 weights: device bytes of the weights,
+    the least cosine similarity of the outputs (gated), argmax agreement on
+    the classifier (gated), the dispatch ms in turns (bf16, int8, int8,
+    bf16, DISPATCH_REPS calls each) and the device ms a dispatch by kernel
+    kind (a profiled window of 10 calls each). The counts are set to 0 just before the
+    int8 server's calls and read just after, so each model's window holds
+    its int8 dispatches alone: K1f 12 (encoder) or K2f 24 (ViT-L) a call
+    and no other kernel. Returns those launches."""
+    from cross_scale_mae_torch.serving import build_serving_model
+
+    rng = np.random.default_rng(5)
+    rows, launches = {}, {}
+    for name, ckpt, kernel, per, rules in (
+            ("encoder", enc_npz, "mha3_fwd", LP_ATTN, K1_KINDS),
+            ("finetune", ft_ckpt, "mha_fwd", FT_ATTN, K2_KINDS)):
+        kw = dict(batch_size=SERVE_BATCH, device="cuda",
+                  **({"pool": "mean"} if name == "encoder" else {}))
+        fp = build_serving_model(ckpt, **kw)
+        batch = rng.integers(0, 256, (SERVE_BATCH, fp.canvas, fp.canvas, fp.channels), np.uint8)
+        b = fp.fn(batch).astype(np.float64)
+        f1 = _wall_ms(fp.fn, batch, DISPATCH_REPS)
+        q8 = build_serving_model(ckpt, quantize="int8", **kw)
+        calls = [0]
+
+        def q8_fn(x):
+            calls[0] += 1
+            return q8.fn(x)
+
+        _reset_counts()
+        a = q8_fn(batch).astype(np.float64)
+        q1, q2 = _wall_ms(q8_fn, batch, DISPATCH_REPS), _wall_ms(q8_fn, batch, DISPATCH_REPS)
+        q8_dev = _device_ms(q8_fn, batch, rules)
+        counts = _counts()
+        f2 = _wall_ms(fp.fn, batch, DISPATCH_REPS)
+        fp_dev = _device_ms(fp.fn, batch, rules)
+        check(counts[kernel] == per * calls[0],
+              f"int8 {name}: {kernel} launches {counts[kernel]} != {per} x {calls[0]} calls")
+        check(sum(v for k, v in counts.items() if k != kernel) == 0,
+              f"int8 {name}: other kernels launched {counts}")
+        launches[kernel] = counts[kernel]
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-12)
+        check(bool(np.isfinite(a).all()), f"{name}: non-finite int8 output")
+        check(cos.min() >= QUANT_COS_FLOOR,
+              f"{name}: int8 cosine {cos.min()} below {QUANT_COS_FLOOR}")
+        row = {"bytes_int8": q8.meta["param_bytes"], "bytes_bf16": fp.meta["param_bytes"],
+               "cosine_vs_fp_min": float(cos.min()), "meta": q8.meta["quantize"],
+               "int8_calls": calls[0], "launches": counts[kernel],
+               "int8_dispatch_ms": [q1, q2], "bf16_dispatch_ms": [f1, f2],
+               "reps_per_reading": DISPATCH_REPS,
+               "int8_device_ms_per_dispatch": q8_dev, "bf16_device_ms_per_dispatch": fp_dev}
+        if name == "finetune":
+            row["argmax"] = _argmax_agreement(a, b, "int8 classifier")
+        rows[name] = row
+        del fp, q8
+        torch.cuda.empty_cache()
+    log("quantize", card=json.dumps(card), rows=json.dumps(rows), launches=json.dumps(launches))
+    return launches
+
+
+def phase_export(card: str, enc_npz: str, ft_ckpt: str, work: str) -> None:
+    """cli/export.main on cuda: the ViT-B encoder baked, --no_bake_weights,
+    --quantize int8 and --symbolic_batch, and the ViT-L classifier baked;
+    each served through cli/serve --artifact over HTTP and held to the
+    in-process forward (plain attention, the export's) at EXPORT_TOL;
+    artifact bytes and dispatch ms against checkpoint serving, in turns
+    (DISPATCH_REPS calls a reading)."""
+    from cross_scale_mae_torch.cli.export import get_args_parser as export_parser
+    from cross_scale_mae_torch.cli.export import main as export_main
+    from cross_scale_mae_torch.serving import build_serving_model, load_artifact
+
+    forms = (("encoder_baked", enc_npz, []), ("encoder_params", enc_npz, ["--no_bake_weights"]),
+             ("encoder_int8", enc_npz, ["--quantize", "int8"]),
+             ("encoder_symbolic", enc_npz, ["--symbolic_batch"]),
+             ("finetune_baked", ft_ckpt, []))
+    rows = {}
+    for name, ckpt, extra in forms:
+        pool = ["--pool", "mean"] if name.startswith("encoder") else []
+        out = os.path.join(work, f"{name}.pt2")
+        t0 = time.perf_counter()
+        meta = export_main(export_parser().parse_args(
+            ["--ckpt", ckpt, "--output", out, "--batch_size", str(SERVE_BATCH),
+             "--platforms", "cuda", *pool, *extra]))
+        export_s = time.perf_counter() - t0
+        check(meta["verified"] == "roundtrip", f"{name}: {meta['verified']}")
+        rows_sent = (1, 7, 64) if "--symbolic_batch" in extra else (SERVE_BATCH,)
+        sent, answers, stats, info, _ = _serve_http(
+            ["--artifact", out, "--port", "0", "--batch_size", str(SERVE_BATCH),
+             "--device", "cuda", "--max_delay_ms", "1"], rows=rows_sent, rounds=1, seed=3)
+        ref = build_serving_model(ckpt, batch_size=SERVE_BATCH, device="cuda", portable=True,
+                                  quantize="int8" if "--quantize" in extra else None,
+                                  **({"pool": "mean"} if pool else {}))
+        worst = 0.0
+        for key, arr in sent:
+            got, want = answers[key], ref.fn(arr)
+            np.testing.assert_allclose(got, want, rtol=EXPORT_TOL, atol=EXPORT_TOL,
+                                       err_msg=f"{name} {key}")
+            worst = max(worst, float(np.abs(got - want).max()))
+        served = load_artifact(out, device="cuda")
+        if "--symbolic_batch" in extra:
+            check(served.batch_size is None, f"{name}: batch {served.batch_size}")
+            for n in (1, 7, 100):
+                arr = np.resize(sent[-1][1], (n, *sent[-1][1].shape[1:]))
+                np.testing.assert_allclose(served.fn(arr), ref.fn(arr), rtol=EXPORT_TOL,
+                                           atol=EXPORT_TOL, err_msg=f"{name} at batch {n}")
+        kernel = build_serving_model(ckpt, batch_size=SERVE_BATCH, device="cuda",
+                                     **({"pool": "mean"} if pool else {}))
+        batch = sent[-1][1][:SERVE_BATCH]
+        if len(batch) < SERVE_BATCH:
+            batch = np.concatenate([batch] * (SERVE_BATCH // len(batch) + 1))[:SERVE_BATCH]
+        k1, a1, a2, k2 = (_wall_ms(kernel.fn, batch, DISPATCH_REPS),
+                          _wall_ms(served.fn, batch, DISPATCH_REPS),
+                          _wall_ms(served.fn, batch, DISPATCH_REPS),
+                          _wall_ms(kernel.fn, batch, DISPATCH_REPS))
+        sidecar = meta["weights"]
+        rows[name] = {"artifact_bytes": meta["bytes"],
+                      "sidecar_bytes": os.path.getsize(sidecar) if sidecar != "baked" else 0,
+                      "export_s": export_s, "max_abs_vs_inprocess": worst,
+                      "quantize": meta["quantize"], "artifact_dispatch_ms": [a1, a2],
+                      "checkpoint_dispatch_ms": [k1, k2], "dispatches": stats["dispatches"]}
+        del ref, served, kernel
+        for f in (out, sidecar):
+            if f != "baked" and os.path.exists(f):
+                os.remove(f)
+        torch.cuda.empty_cache()
+    log("export", card=json.dumps(card), rows=json.dumps(rows))
+
+
+def phase_embed(card: str, npz: str) -> int:
+    """cli/embed.main over EMBED_IMAGES seeded 146 px JPEGs (an fMoW-RGB
+    CSV) at batch 256 through the pretrain phase's ViT-B encoder, first with
+    the plain attention (``--attention_impl xla``: the reference, and the
+    warm-up), then with the checkpoint's K1f: the row count, the labels,
+    the features against the plain run's within the bf16 budget, K1f 12 x
+    batches and no other kernel. The images/s is read from a third run over
+    EMBED_TIMED rows (the same files, cycled), K1f gated alike. Returns K1f's
+    launches of the two kernel runs."""
+    from PIL import Image
+
+    from cross_scale_mae_torch.cli.embed import get_args_parser
+    from cross_scale_mae_torch.cli.embed import main as embed_main
+    from cross_scale_mae_torch.utils.checkpoint import read_config_json
+
+    dim = json.loads(read_config_json(npz))["dim_model"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(13)
+        labels = rng.integers(0, 62, EMBED_IMAGES)
+        for i in range(EMBED_IMAGES):
+            Image.fromarray(rng.integers(0, 256, (EMBED_CANVAS, EMBED_CANVAS, 3))
+                            .astype(np.uint8)).save(f"{tmp}/e{i}.jpg", quality=90)
+        for csv, rows in (("val", EMBED_IMAGES), ("timed", EMBED_TIMED)):
+            with open(f"{tmp}/{csv}.csv", "w") as f:
+                f.write("category,image_path\n")
+                for r in range(rows):
+                    f.write(f"{labels[r % EMBED_IMAGES]},e{r % EMBED_IMAGES}.jpg\n")
+
+        def run(csv: str, out: str, *extra: str):
+            _reset_counts()
+            res = embed_main(get_args_parser().parse_args([
+                "--ckpt", npz, "--dataset_type", "fmow_rgb", "--test_path", f"{tmp}/{csv}.csv",
+                "--batch_size", str(EMBED_BATCH), "--pool", "cls",
+                "--canvas_scale", str(EMBED_CANVAS / 128), "--device", "cuda",
+                "--output_dir", f"{tmp}/{out}", *extra]))
+            counts = _counts()
+            rows = EMBED_IMAGES if csv == "val" else EMBED_TIMED
+            batches = -(-rows // EMBED_BATCH)
+            feats = np.load(f"{tmp}/{out}/features.npy")
+            got_labels = np.load(f"{tmp}/{out}/labels.npy")
+            check(res["count"] == rows and feats.shape == (rows, dim),
+                  f"embed {out}: count {res['count']}, features {feats.shape}")
+            check(res["batches"] == batches, f"embed {out}: {res['batches']} batches, "
+                  f"expected {batches}")
+            check(np.array_equal(got_labels, labels[np.arange(rows) % EMBED_IMAGES]),
+                  f"embed {out}: labels differ from the CSV's")
+            check(bool(np.isfinite(feats).all()), f"embed {out}: non-finite features")
+            want = 0 if extra else LP_ATTN * batches
+            check(counts["mha3_fwd"] == want,
+                  f"embed {out}: K1f launches {counts['mha3_fwd']} != {want} ({batches} batches)")
+            check(sum(counts.values()) == counts["mha3_fwd"], f"embed {out}: other kernels {counts}")
+            return res, feats, counts["mha3_fwd"], batches
+
+        _, plain, _, _ = run("val", "plain", "--attention_impl", "xla")
+        _, feats, launches, batches = run("val", "kernel")
+        max_err = _bf16_close(feats, plain, "embed: K1f features vs the plain attention's")
+        timed, _, timed_launches, timed_batches = run("timed", "timed")
+    log("embed", card=json.dumps(card), images=EMBED_IMAGES, batch=EMBED_BATCH,
+        batches=batches, launches=launches, max_abs_vs_plain=max_err,
+        timed_images=EMBED_TIMED, timed_batches=timed_batches, timed_launches=timed_launches,
+        imgs_per_s=timed["imgs_per_sec"])
+    return launches + timed_launches
+
+
+def phase_data_parallel(card: str, enc_npz: str) -> int:
+    """cli/serve --data_parallel over every visible card (one on the check
+    host): its answers bit-equal to the single-device server's on the same
+    weights. Returns K1f's launches of the data-parallel server."""
+    from cross_scale_mae_torch.serving import build_serving_model
+
+    n = torch.cuda.device_count()
+    batch = SERVE_BATCH * n
+    _reset_counts()
+    sent, answers, stats, info, _ = _serve_http(
+        ["--ckpt", enc_npz, "--port", "0", "--batch_size", str(batch), "--pool", "mean",
+         "--device", "cuda", "--max_delay_ms", "1", "--data_parallel"],
+        rows=(batch,), rounds=2, seed=4)
+    launches = _counts()["mha3_fwd"]
+    check(info["data_parallel"] == n, f"data_parallel {info['data_parallel']} != {n}")
+    expected = LP_ATTN * n * (stats["dispatches"] + 1)
+    check(launches == expected, f"K1f launches {launches} != 12 x {n} cards x (dispatches "
+          f"{stats['dispatches']} + 1 warm-up) = {expected}")
+    single = build_serving_model(enc_npz, pool="mean", batch_size=batch, device="cuda:0")
+    for key, arr in sent:
+        got, ref = answers[key], single.fn(arr)
+        if n == 1:
+            check(np.array_equal(got, ref), f"{key}: data-parallel output differs from one card's")
+        else:
+            _bf16_close(got, ref, f"data_parallel {key}")
+    log("data_parallel", card=json.dumps(card), devices=n, batch=batch,
+        dispatches=stats["dispatches"], launches=launches,
+        dispatch_ms_p50=stats["dispatch_ms_p50"], bit_equal_to_one_card=(n == 1))
+    return launches
+
+
+def serving_phases(card: str, work: str, pretrain_npz: str, ft_npz: str, lp_ckpt: str) -> dict:
+    """The serving and export paths: [serve_classifier], [quantize],
+    [export], [embed] and [data_parallel], each with the counts set to 0
+    just before its own calls. Returns {kernel: {path: launches}}."""
+    enc = write_serving_npz(os.path.join(work, "serving.npz"))
+    served = phase_serve_classifier(card, ft_npz, lp_ckpt)
+    quantized = phase_quantize(card, enc, ft_npz)
+    phase_export(card, enc, ft_npz, work)
+    return {"mha_fwd": {"serve_classifier": served["mha_fwd"],
+                        "quantize": quantized["mha_fwd"]},
+            "mha3_fwd": {"serve_classifier": served["mha3_fwd"],
+                         "quantize": quantized["mha3_fwd"],
+                         "embed": phase_embed(card, pretrain_npz),
+                         "data_parallel": phase_data_parallel(card, enc)}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2854,34 +3359,41 @@ def main() -> int:
     # Each path is driven with the counts set to 0 just before it and read
     # just after it: serving (forward only), pretraining, finetuning, the
     # finetuning recipe, pretraining with bf16 moments, linear probing from
-    # the pretraining's weights, temporal pretraining on pairs and
+    # the pretraining's weights, the classifiers served, int8 serving,
+    # embedding and data-parallel serving, temporal pretraining on pairs and
     # multi-band finetuning through the loader, then pretraining through a
     # fault and a relaunch (each process counts from 0).
     served = phase_serving(card)
     with tempfile.TemporaryDirectory() as work:
         npz = os.path.join(work, "pretrain.npz")
+        ft_npz = os.path.join(work, "finetune.npz")
+        lp_ckpt = os.path.join(work, "linprobe_checkpoints")
         train_fwd, train_bwd = phase_train(card, npz)
         phase_train_grads_fp64(card)
         ddp_fwd, ddp_bwd = phase_ddp(card)
-        ft_fwd, ft_bwd = phase_finetune(card)
+        ft_fwd, ft_bwd = phase_finetune(card, ft_npz)
         phase_finetune_grads_fp64(card)
         recipe_fwd, recipe_bwd = phase_finetune_recipe(card)
         moment_fwd, moment_bwd = phase_moments(card)
-        lp_fwd = phase_linprobe(card, npz)
+        lp_fwd = phase_linprobe(card, npz, lp_ckpt)
+        new_paths = serving_phases(card, work, npz, ft_npz, lp_ckpt)
     phase_native(card)
     temporal_fwd, temporal_bwd = phase_temporal(card)
     sn_fwd, sn_bwd = phase_sentinel(card)
     resume_fwd, resume_bwd = phase_resume(card)
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "train_ddp": ddp_fwd,
                             "train_resume": resume_fwd, "linprobe": lp_fwd,
-                            "train_temporal": temporal_fwd, "moments": moment_fwd},
+                            "train_temporal": temporal_fwd, "moments": moment_fwd,
+                            **new_paths["mha3_fwd"]},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
                             "train_resume": resume_bwd, "linprobe": 0,
-                            "train_temporal": temporal_bwd, "moments": moment_bwd},
+                            "train_temporal": temporal_bwd, "moments": moment_bwd,
+                            **{k: 0 for k in new_paths["mha3_fwd"]}},
                "mha_fwd": {"finetune": ft_fwd, "finetune_sentinel": sn_fwd,
-                           "finetune_recipe": recipe_fwd},
+                           "finetune_recipe": recipe_fwd, **new_paths["mha_fwd"]},
                "mha_bwd": {"finetune": ft_bwd, "finetune_sentinel": sn_bwd,
-                           "finetune_recipe": recipe_bwd},
+                           "finetune_recipe": recipe_bwd,
+                           **{k: 0 for k in new_paths["mha_fwd"]}},
                "mha2_fwd": {}, "mha2_bwd": {}}
     replaces = {"mha3_fwd": "cross_scale_mae_tpu/ops/attention.py:326",
                 "mha3_bwd": "cross_scale_mae_tpu/ops/attention.py:355",

@@ -4,12 +4,12 @@ Counterpart of ``cross_scale_mae_tpu/cli/finetune.py`` with its flag names
 for what the port runs: a ViT classifier (``--model vit_large_patch16``, 64
 px, patch 8 by default) started from a pretrained MAE encoder
 (``--finetune params.npz``, written by the port's ``cli/pretrain`` or the
-JAX package's ``save_params_npz``, or a pretrain run's checkpoint
-directory, ``<output_dir>/checkpoints``), the head re-initialised, AdamW (b2
-0.999) with layer-wise lr decay under the warmup + half-cosine schedule,
-label smoothing and drop-path, then the evaluation (loss, acc1, acc5, F1,
-mIoU) with the ragged last batch padded under a validity mask. With
-``--attention_impl pallas`` (the default) every attention forward and
+JAX package's ``save_params_npz``, a pretrain run's checkpoint directory,
+``<output_dir>/checkpoints``, or a reference ``.pth``), the head
+re-initialised, AdamW (b2 0.999) with layer-wise lr decay under the warmup +
+half-cosine schedule, label smoothing and drop-path, then the evaluation
+(loss, acc1, acc5, F1, mIoU) with the ragged last batch padded under a
+validity mask. With ``--attention_impl pallas`` (the default) every attention forward and
 backward runs in the hand-written CUDA kernels ``csrc/mha_fwd.cu`` and
 ``csrc/mha_bwd.cu``.
 
@@ -34,8 +34,8 @@ JAX CLI: Mixup/CutMix (``--mixup``, ``--cutmix``, ``--cutmix_minmax``,
 ``--mixup_prob``, ``--mixup_switch_prob``, ``--mixup_mode``), RandAugment
 (``--aa``), ColorJitter (``--color_jitter``), RandomErasing (``--reprob``,
 ``--remode``, ``--recount``) and bf16 Adam moments (``--adam_mu_dtype``,
-``--adam_nu_dtype``). TP/SP/FSDP, wandb and ``.pth`` checkpoints are not
-ported yet and refuse with a pointer to ROADMAP.md; the reference
+``--adam_nu_dtype``). TP/SP/FSDP and wandb are not ported yet and refuse
+with a pointer to ROADMAP.md; the reference
 launcher's torch-DDP flags are accepted and reported as not applicable.
 
 Usage:
@@ -77,6 +77,7 @@ from cross_scale_mae_torch.configs import (
     MAEConfig,
     TrainConfig,
     ViTClassifierConfig,
+    get_mae_config,
     get_vit_config,
 )
 from cross_scale_mae_torch.data.datasets import (
@@ -107,10 +108,7 @@ from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, finite_loss, tree_leaves
 from cross_scale_mae_torch.utils.checkpoint import (
     checkpoint_kind,
-    checkpoint_meta,
-    load_flat_npz,
-    read_config_json,
-    restore_arrays_host,
+    read_host_checkpoint,
     save_checkpoint,
     save_params_npz,
 )
@@ -122,6 +120,7 @@ from cross_scale_mae_torch.utils.params import (
     params_from_jax,
     params_to_jax,
 )
+from cross_scale_mae_torch.utils.torch_import import import_mae_checkpoint
 
 # Flags of the JAX CLI that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item.
@@ -202,32 +201,36 @@ def check_args(args) -> None:
 def load_pretrained_encoder(path: str, vcfg: ViTClassifierConfig, params: dict,
                             device: torch.device) -> dict:
     """Overlay a pretrained MAE encoder onto fresh classifier params, from
-    an npz of ``save_params_npz`` or the newest step of a pretrain run's
-    checkpoint directory (its params and sidecar config). pos_embed and the
-    head stay fresh (and fc_norm with the global-pool head); a patch_embed
-    of another shape keeps the fresh init, any other misfit raises naming
-    the parameter."""
-    if os.path.isdir(path):
+    an npz of ``save_params_npz``, a reference ``.pth``
+    (``utils/torch_import``, read at the classifier's widths) or the newest
+    step of a pretrain run's checkpoint directory (its params and sidecar
+    config). pos_embed and the head stay fresh (and fc_norm with the
+    global-pool head); a patch_embed of another shape keeps the fresh init,
+    any other misfit raises naming the parameter."""
+    if path.endswith(".pth"):
+        if not os.path.isfile(path):
+            raise SystemExit(f"--finetune {path}: no such .pth file")
+        # The reference's schema carries no config: the encoder takes the
+        # classifier's widths (the JAX package's finetune.py:141-152).
+        mae_cfg = get_mae_config(
+            "mae_vit_base", dim_model=vcfg.embed_dim, encoder_num_layers=vcfg.depth,
+            encoder_num_heads=vcfg.num_heads, input_size=vcfg.input_size,
+            patch_size=vcfg.patch_size, apply_encoder_norm=not vcfg.global_pool)
+        mae_params = import_mae_checkpoint(path, mae_cfg, device, encoder_only=True)
+    elif os.path.isdir(path) or path.endswith(".npz"):
         try:
-            tree, step = restore_arrays_host(path, subset=("params",))
-        except FileNotFoundError as e:
+            config, tree, _, _ = read_host_checkpoint(path)
+        except (FileNotFoundError, ValueError) as e:
             raise SystemExit(f"--finetune {path}: {e}") from None
-        meta = checkpoint_meta(path, step)
-        if "config" not in meta or checkpoint_kind(meta) != "mae":
-            raise SystemExit(f"--finetune {path}: step {step} is not a pretrain run's "
-                             "checkpoint with its config sidecar")
-        cfg_json, tree = json.dumps(meta["config"]), tree["params"]
-    elif not path.endswith(".npz"):
-        raise SystemExit(
-            f"--finetune {path}: the port reads save_params_npz files and its own "
-            "checkpoint directories; reference .pth import is not ported yet, see "
-            "ROADMAP.md (queue 1 item 16)")
+        if checkpoint_kind({"config": config}) != "mae":
+            raise SystemExit(f"--finetune {path}: not a pretrain run's checkpoint")
+        mae_cfg = MAEConfig.from_json(json.dumps(config)).replace(
+            apply_encoder_norm=not vcfg.global_pool)
+        mae_params = params_from_jax(tree, mae_cfg, device)
     else:
-        cfg_json, tree = read_config_json(path), load_flat_npz(path)
-        if cfg_json is None:
-            raise SystemExit(f"--finetune {path}: the npz has no model config entry")
-    mae_cfg = MAEConfig.from_json(cfg_json).replace(apply_encoder_norm=not vcfg.global_pool)
-    mae_params = params_from_jax(tree, mae_cfg, device)
+        raise SystemExit(
+            f"--finetune {path}: the port reads save_params_npz files (.npz), "
+            "reference checkpoints (.pth) and its own checkpoint directories")
     pre, missing = mae_encoder_to_classifier(mae_params, vcfg)
     if pre["patch_embed"]["kernel"].shape != params["patch_embed"]["kernel"].shape:
         rank0_print("patch_embed shape mismatch; keeping fresh init")

@@ -28,8 +28,9 @@ written by rank 0 every ``--ckpt_interval`` epochs and after the last;
 ``--resume <dir>`` restores the newest checkpoint and starts at the epoch
 after it. Data parallel as ``cli/pretrain``: one process per GPU, in the
 JAX jit's global-batch semantics (the BN head's statistics over every
-rank's rows). TP/SP/FSDP, TensorBoard/wandb (``--wandb_id`` too) and
-``.pth`` inputs are not ported yet and refuse with a pointer to ROADMAP.md.
+rank's rows). ``--finetune`` also reads a reference ``.pth``
+(``utils/torch_import``). TP/SP/FSDP and TensorBoard/wandb (``--wandb_id``
+too) are not ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.linprobe --finetune pretrain/params.npz \\

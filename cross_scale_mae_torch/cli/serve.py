@@ -1,9 +1,15 @@
-"""Online inference server: checkpoint -> HTTP, on the GPU.
+"""Online inference server: checkpoint or exported artifact -> HTTP, on
+the GPU.
 
 Counterpart of ``cross_scale_mae_tpu/cli/serve.py``: the model runs behind a
 dynamic micro-batching queue (``serving.MicroBatcher``), so concurrent
 requests are coalesced up to ``--batch_size`` rows and answered from one
-batched forward.
+batched forward. A pretrain (MAE) checkpoint serves pooled encoder
+features, a finetune or linprobe checkpoint class logits (auto-detected
+from its config); the checkpoint's ``attention_impl`` runs (``pallas_v3``:
+the K1f kernel, ``pallas``: K2f). ``--quantize int8`` serves from int8
+weights, ``--data_parallel`` from one replica per visible card, and
+``--artifact`` serves an export of ``cli/export.py``.
 
 Endpoints (stdlib ThreadingHTTPServer; one handler thread per connection,
 all funneling into the batcher):
@@ -13,8 +19,8 @@ all funneling into the batcher):
 * ``GET /stats`` — serving counters (requests, dispatches, mean batch fill,
   per-dispatch latency p50/p99, queue depth).
 * ``POST /predict`` — body = ``.npy`` bytes, uint8 ``(n, canvas, canvas,
-  C)``; response ``.npy`` float32 pooled features. ``Accept:
-  application/json`` returns a JSON list instead.
+  C)``; response ``.npy`` float32 (pooled features or class logits).
+  ``Accept: application/json`` returns a JSON list instead.
 * ``POST /predict_image`` — body = encoded image (JPEG/PNG...); decoded,
   resized to the canvas, served as a batch of one; JSON response. 3-channel
   models only.
@@ -23,8 +29,8 @@ Usage:
     python -m cross_scale_mae_torch.cli.serve --ckpt params.npz \
         --batch_size 64 --port 8901            # on the GPU
     python -m cross_scale_mae_torch.cli.serve --ckpt params.npz --device cpu
-    python -m cross_scale_mae_torch.cli.serve --ckpt out/checkpoints --step 8
-                                               # a pretrain run's checkpoint
+    python -m cross_scale_mae_torch.cli.serve --ckpt ft/checkpoints --quantize int8
+    python -m cross_scale_mae_torch.cli.serve --artifact enc.pt2
 """
 
 from __future__ import annotations
@@ -49,10 +55,12 @@ def get_args_parser():
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--ckpt", default=None,
                      help="npz parameter file with its __config__ entry (as "
-                          "written by save_params_npz), or a pretrain run's "
-                          "checkpoint directory (<output_dir>/checkpoints)")
+                          "written by save_params_npz), or a run's checkpoint "
+                          "directory (<output_dir>/checkpoints): MAE pretrain -> "
+                          "features, finetune/linprobe -> logits, auto-detected")
     src.add_argument("--artifact", default=None,
-                     help="exported artifact: not ported yet (ROADMAP.md)")
+                     help="serve an export of cli/export.py (reads its .json "
+                          "sidecar for the input contract)")
     p.add_argument("--step", default=None, type=int,
                    help="step of a checkpoint directory (default: the newest)")
     p.add_argument("--pool", default="cls", choices=["cls", "mean", "tokens"])
@@ -83,12 +91,16 @@ def get_args_parser():
                         "answered within this window get 504 and are "
                         "purged from the queue (0 = no deadline)")
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="int8 weights: not ported yet (ROADMAP.md)")
+                   help="weight-only int8 for in-process --ckpt serving "
+                        "(quant.py): half the bf16 weight bytes held on the device")
     p.add_argument("--native_kernels", action="store_true",
-                   help="accepted for compatibility: the port always runs "
-                        "the checkpoint's attention implementation")
+                   help="not applicable: the port always runs the checkpoint's "
+                        "attention implementation")
     p.add_argument("--data_parallel", action="store_true",
-                   help="data-parallel serving: not ported yet (ROADMAP.md)")
+                   help="one replica of the params per visible card; each "
+                        "dispatch's rows split evenly over them (--batch_size "
+                        "must divide by the device count) — in-process --ckpt "
+                        "serving")
     return p
 
 
@@ -102,28 +114,44 @@ def build_app(args, model=None):
         MicroBatcher,
         QueueFullError,
         build_serving_model,
+        load_artifact,
     )
 
-    if args.artifact:
+    if args.artifact and args.quantize:
         raise SystemExit(
-            "--artifact: serving an exported artifact is not ported yet "
-            "(ROADMAP.md, queue 1 item 15); serve the npz with --ckpt")
-    if args.quantize:
+            "--quantize applies to in-process --ckpt serving; quantize an "
+            "artifact at export time (cli/export.py --quantize int8)")
+    if args.artifact and args.data_parallel:
         raise SystemExit(
-            "--quantize: int8 serving is not ported yet (ROADMAP.md, queue 1 "
-            "item 15)")
-    if args.data_parallel:
+            "--data_parallel applies to in-process --ckpt serving; an "
+            "exported artifact's device is fixed at export time")
+    if args.artifact and args.batch_buckets:
         raise SystemExit(
-            "--data_parallel: data-parallel serving is not ported yet "
-            "(ROADMAP.md, queue 1 items 11 and 15)")
+            "--batch_buckets applies to in-process --ckpt serving; an "
+            "artifact's input shapes are fixed at export time (export "
+            "with --symbolic_batch for shape-flexible artifacts)")
+    if args.batch_buckets and args.data_parallel:
+        raise SystemExit(
+            "--batch_buckets and --data_parallel don't compose: the "
+            "data-parallel split takes one batch shape")
     if args.native_kernels:
-        log("--native_kernels has no effect here: the port always serves "
-            "the checkpoint's attention_impl (pallas_v3 runs the CUDA kernel)")
-    if model is None:
+        log("not applicable here: --native_kernels (the port always serves the "
+            "checkpoint's attention_impl; an artifact runs the plain attention)")
+    if model is not None:
+        pass
+    elif args.artifact:
+        model = load_artifact(args.artifact, device=args.device)
+        if model.batch_size is None:
+            # Polymorphic artifact: batch freely, cap coalescing at the
+            # CLI batch size so one giant request can't starve the queue.
+            model = model.__class__(model.fn, model.canvas, model.channels,
+                                    args.batch_size, model.kind, model.meta)
+    else:
         model = build_serving_model(
             args.ckpt, args.step, pool=args.pool,
             dataset_type=args.dataset_type, canvas_scale=args.canvas_scale,
-            batch_size=args.batch_size, device=args.device,
+            batch_size=args.batch_size, quantize=args.quantize,
+            data_parallel=args.data_parallel, device=args.device,
         )
 
     buckets = args.batch_buckets

@@ -27,6 +27,7 @@ from cross_scale_mae_torch.ops.attention import mha, mha_folded, mha_v3, mha_v3_
 from cross_scale_mae_torch.ops.numerics import accum_dtype, at_least_f32
 from cross_scale_mae_torch.parallel.collectives import all_reduce_sum
 from cross_scale_mae_torch.parallel.dist import world_size
+from cross_scale_mae_torch.quant import dequantize, is_qnode
 
 Params = dict[str, Any]
 
@@ -67,12 +68,19 @@ def block_init(gen: torch.Generator, dim: int, mlp_ratio: int = 4) -> Params:
     }
 
 
+def kernel(p: Params, dtype: torch.dtype) -> torch.Tensor:
+    """A linear's kernel in ``dtype``: cast, or, for an int8 node of
+    ``quant.py``, dequantized here, just before its one use."""
+    w = p["kernel"]
+    return dequantize(w, dtype) if is_qnode(w) else w.to(dtype)
+
+
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ W(in, out) + b, weights cast to the activation dtype. The bias is
-    added to the rounded product, as in the JAX package, not fused into the
-    product's fp32 epilogue: in bf16 the two differ by an ulp on a quarter
-    of the outputs."""
-    return x @ p["kernel"].to(x.dtype) + p["bias"].to(x.dtype)
+    """x @ W(in, out) + b, weights cast to the activation dtype (int8
+    weights dequantized to it). The bias is added to the rounded product, as
+    in the JAX package, not fused into the product's fp32 epilogue: in bf16
+    the two differ by an ulp on a quarter of the outputs."""
+    return x @ kernel(p, x.dtype) + p["bias"].to(x.dtype)
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -90,12 +98,12 @@ def _attention_pallas_t(p: Params, x: torch.Tensor, num_heads: int) -> torch.Ten
     consumes (N, H, L, hd) back."""
     n, l, d = x.shape
     hd = d // num_heads
-    wq = p["qkv"]["kernel"].to(x.dtype).reshape(d, 3, num_heads, hd)
+    wq = kernel(p["qkv"], x.dtype).reshape(d, 3, num_heads, hd)
     bq = p["qkv"]["bias"].to(x.dtype).reshape(3, num_heads, hd)
     qkv = torch.einsum("nld,dshk->nshlk", x, wq) + bq[None, :, :, None, :]
     q, k, v = (qkv[:, i].reshape(n * num_heads, l, hd) for i in range(3))
     out = mha_folded(q, k, v).reshape(n, num_heads, l, hd)
-    wp = p["proj"]["kernel"].to(x.dtype).reshape(num_heads, hd, d)
+    wp = kernel(p["proj"], x.dtype).reshape(num_heads, hd, d)
     return torch.einsum("nhlk,hkd->nld", out, wp) + p["proj"]["bias"].to(x.dtype)
 
 

@@ -93,13 +93,19 @@ def mae_init(cfg: MAEConfig, gen: torch.Generator) -> tuple[Params, Params]:
     return params, state
 
 
-@functools.lru_cache(maxsize=16)
 def _pos_table(dim: int, grid_size: int, device: torch.device) -> torch.Tensor:
     """A fixed sincos table with its zero cls row, (1+L, D) fp32. Cached per
     device so a step does not copy it to the card again; callers only read
-    it."""
-    table = get_2d_sincos_pos_embed(dim, grid_size, cls_token=True)
-    return torch.from_numpy(table).to(device)
+    it. Under ``torch.export`` (or ``torch.compile``) the table is made
+    anew, so that the tracer's tensor never enters the cache."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(get_2d_sincos_pos_embed(dim, grid_size, cls_token=True)).to(device)
+    return _cached_pos_table(dim, grid_size, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _cached_pos_table(dim: int, grid_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(get_2d_sincos_pos_embed(dim, grid_size, cls_token=True)).to(device)
 
 
 def _embed_patches(params: Params, cfg: MAEConfig, imgs: torch.Tensor

@@ -1,21 +1,23 @@
-"""Serving core: checkpoint -> callable forward + micro-batcher.
-
-Counterpart of ``cross_scale_mae_tpu/serving.py`` for the MAE kind:
+"""Serving core: checkpoint or exported artifact -> callable forward +
+micro-batcher (counterpart of ``cross_scale_mae_tpu/serving.py``).
 
 * :func:`prepare_serving` rebuilds a checkpoint (an npz of
   ``save_params_npz``, or one step of a checkpoint directory that the
   training CLIs write, rebuilt from its config sidecar) as
   ``forward(params, uint8_canvas)``: the eval preprocessing (normalize +
-  center-crop resize), the unmasked encoder and the pooling, on one
-  device. The checkpoint's ``attention_impl`` is honoured: one trained
-  with ``pallas_v3`` serves through the Hopper attention kernel.
+  center-crop resize), then for a pretrain (MAE) run the unmasked encoder
+  and the pooling, for a finetune or linprobe run the classifier's logits
+  (the BN head's running statistics in eval mode). The checkpoint's
+  ``attention_impl`` is honoured: ``pallas_v3`` serves through K1f
+  (``csrc/mha3_fwd.cu``), ``pallas`` through K2f (``csrc/mha_fwd.cu``);
+  ``portable=True`` (the export) takes the plain attention instead.
 * :func:`build_serving_model` wraps it as a numpy-in, numpy-out
-  :class:`ServingModel`.
+  :class:`ServingModel`, optionally from int8 weights (``quant.py``) and
+  data parallel over a list of devices, one replica of the params each.
+* :func:`load_artifact` serves a ``torch.export`` artifact of
+  ``cli/export.py`` with its ``.json`` sidecar.
 * :class:`MicroBatcher` coalesces concurrent requests into batches padded to
   a few fixed sizes, with backpressure and per-request deadlines.
-
-Not in this slice (``ROADMAP.md``): the classifier kind, int8 weights,
-data-parallel serving and the exported artifact.
 """
 
 from __future__ import annotations
@@ -25,24 +27,26 @@ import json
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from cross_scale_mae_torch.configs import MAEConfig
+from cross_scale_mae_torch.configs import MAEConfig, ViTClassifierConfig
 from cross_scale_mae_torch.data.datasets import DATASET_STATS, normalize_on_device_for
 from cross_scale_mae_torch.models.mae import compute_dtype, mae_encode
+from cross_scale_mae_torch.models.vit import vit_apply
 from cross_scale_mae_torch.ops.augment import make_eval_preprocess
 from cross_scale_mae_torch.parallel.dist import resolve_device
+from cross_scale_mae_torch.quant import is_qnode, quantize_params_int8, quantized_bytes
 from cross_scale_mae_torch.utils.checkpoint import (
     checkpoint_kind,
-    checkpoint_meta,
+    classifier_from_host,
     load_flat_npz,
-    read_config_json,
-    restore_arrays_host,
+    read_host_checkpoint,
 )
-from cross_scale_mae_torch.utils.params import params_from_jax
+from cross_scale_mae_torch.utils.params import params_from_jax, vit_params_from_jax
 
 POOLS = ("cls", "mean", "tokens")
 
@@ -55,67 +59,58 @@ class ServingModel:
     canvas: int
     channels: int
     batch_size: Optional[int]  # largest dispatch; None = any size
-    kind: str                  # 'mae'
+    kind: str                  # 'mae' | 'classifier'
     meta: dict
 
 
-def _cast_linears(tree: Any, dtype: torch.dtype) -> Any:
+def cast_linears(tree: Any, dtype: torch.dtype) -> Any:
     """Linear kernels and biases cast once to the compute dtype: the same
-    values ``layers.linear`` would cast them to on every call."""
+    values ``layers.linear`` would cast them to on every call. An int8
+    kernel stays int8 (``layers.linear`` dequantizes it per call)."""
     if isinstance(tree, list):
-        return [_cast_linears(t, dtype) for t in tree]
+        return [cast_linears(t, dtype) for t in tree]
     if isinstance(tree, dict):
         if "kernel" in tree:
-            return {k: v.to(dtype) for k, v in tree.items()}
-        return {k: _cast_linears(v, dtype) for k, v in tree.items()}
+            return {k: v if is_qnode(v) else v.to(dtype) for k, v in tree.items()}
+        return {k: cast_linears(v, dtype) for k, v in tree.items()}
     return tree
 
 
-def prepare_serving(
-    ckpt: str,
-    step: Optional[int] = None,
-    pool: str = "cls",
-    dataset_type: str = "fmow_rgb",
-    canvas_scale: Optional[float] = None,
-    device: torch.device | str = "cuda",
-):
-    """Checkpoint -> (forward(params, imgs), params, cfg, kind, canvas, C).
+def to_device(tree: Any, device: torch.device) -> Any:
+    """A params tree (dicts and lists of tensors) copied onto ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
 
-    ``ckpt`` is an npz of ``save_params_npz`` or a checkpoint directory,
-    whose step ``step`` (the newest by default) is read through
-    :func:`restore_arrays_host` and its sidecar config. ``forward`` takes a
-    uint8 (B, canvas, canvas, C) tensor on ``device`` and returns float32
-    pooled features: the cls token, the mean of the patch tokens, or all
-    tokens (``pool``)."""
-    dev = resolve_device(device)
+
+def params_from_host(config: dict, tree: dict, device: torch.device | str = "cpu") -> dict:
+    """A serving tree in the JAX layout (an npz sidecar's, fp32 or int8)
+    carried into the port's on ``device``: the classifier's whole tree, or
+    the MAE encoder's subtrees, by the model config ``config``."""
+    if checkpoint_kind({"config": config}) == "classifier":
+        return vit_params_from_jax(tree, ViTClassifierConfig.from_json(json.dumps(config)), device)
+    return params_from_jax(tree, MAEConfig.from_json(json.dumps(config)), device)
+
+
+def pool_features(feats: torch.Tensor, pool: str) -> torch.Tensor:
+    """Encoder tokens (N, 1+L, D) -> float32 ``pool``: the cls token, the
+    mean of the patch tokens, or all tokens."""
+    if pool == "cls":
+        out = feats[:, 0]
+    elif pool == "mean":
+        out = feats[:, 1:].mean(dim=1)
+    else:
+        out = feats
+    return out.to(torch.float32)
+
+
+def make_forward(cfg, kind: str, pool: str, dataset_type: str, model_state=None):
+    """``forward(params, imgs)``: uint8 (B, canvas, canvas, C) on a device ->
+    float32 pooled features (MAE) or logits (classifier), eval semantics."""
     if pool not in POOLS:
         raise ValueError(f"unknown pool {pool!r}; known: {POOLS}")
-    if os.path.isdir(ckpt):
-        tree, step = restore_arrays_host(ckpt, step, subset=("params",))
-        meta = checkpoint_meta(ckpt, step)
-        if "config" not in meta:
-            raise ValueError(f"{ckpt} has no config sidecar meta-{step}.json")
-        config_json = json.dumps(meta["config"])
-        tree = tree["params"]
-    else:
-        if step is not None:
-            raise ValueError(
-                f"{ckpt} is an npz, which holds one set of parameters: --step "
-                "picks a step of a checkpoint directory")
-        config_json = read_config_json(ckpt)
-        if config_json is None:
-            raise ValueError(
-                f"{ckpt} has no __config__ entry: write it with "
-                "save_params_npz(path, params, cfg.to_json())")
-        tree = load_flat_npz(ckpt)
-    if checkpoint_kind({"config": json.loads(config_json)}) == "classifier":
-        raise NotImplementedError(
-            "serving a finetune/linprobe classifier checkpoint is not ported "
-            "yet; see ROADMAP.md (queue 1 items 12 and 15)")
-    cfg = MAEConfig.from_json(config_json)
-    params = params_from_jax(tree, cfg, dev)
-    params = _cast_linears(params, compute_dtype(cfg))
-
     if dataset_type not in DATASET_STATS:
         raise ValueError(
             f"unknown dataset_type {dataset_type!r}; known: {sorted(DATASET_STATS)}")
@@ -125,25 +120,99 @@ def prepare_serving(
         raise ValueError(
             f"dataset_type {dataset_type} has {len(mean)}-channel stats but "
             f"the checkpoint expects {cfg.input_channels} channels")
-    scale = canvas_scale
-    if scale is None:
-        # The eval pipeline's Resize(input/0.875) + CenterCrop for inputs <= 224.
-        scale = 1.0 / 0.875 if cfg.input_size <= 224 else 1.0
-    canvas = int(round(cfg.input_size * scale))
     preprocess = make_eval_preprocess(
         mean, std, cfg.input_size, normalize=normalize, dtype=cfg.compute_dtype)
 
-    def forward(p, imgs: torch.Tensor) -> torch.Tensor:
-        feats = mae_encode(p, cfg, preprocess(imgs))
-        if pool == "cls":
-            out = feats[:, 0]
-        elif pool == "mean":
-            out = feats[:, 1:].mean(dim=1)
-        else:
-            out = feats
-        return out.to(torch.float32)
+    if kind == "classifier":
+        state = model_state or {}
 
-    return forward, params, cfg, "mae", canvas, cfg.input_channels
+        def forward(p, imgs: torch.Tensor) -> torch.Tensor:
+            # The BN head's running statistics ride along, eval semantics.
+            st = {k: {n: t.to(imgs.device) for n, t in v.items()} for k, v in state.items()}
+            logits, _ = vit_apply(p, st, cfg, preprocess(imgs), train=False)
+            return logits.to(torch.float32)
+        return forward
+
+    def forward(p, imgs: torch.Tensor) -> torch.Tensor:
+        return pool_features(mae_encode(p, cfg, preprocess(imgs)), pool)
+    return forward
+
+
+def canvas_of(cfg, canvas_scale: Optional[float]) -> int:
+    # The eval pipeline's Resize(input/0.875) + CenterCrop for inputs <= 224.
+    scale = canvas_scale
+    if scale is None:
+        scale = 1.0 / 0.875 if cfg.input_size <= 224 else 1.0
+    return int(round(cfg.input_size * scale))
+
+
+def prepare_serving(
+    ckpt: str,
+    step: Optional[int] = None,
+    pool: str = "cls",
+    dataset_type: str = "fmow_rgb",
+    canvas_scale: Optional[float] = None,
+    device: torch.device | str = "cuda",
+    portable: bool = False,
+):
+    """Checkpoint -> (forward(params, imgs), params, cfg, kind, canvas, C).
+
+    ``ckpt`` is an npz of ``save_params_npz`` or a checkpoint directory,
+    whose step ``step`` (the newest by default) is read with its sidecar
+    config. ``params`` are fp32 tensors on ``device`` in the port's layout:
+    a classifier's whole tree, or the MAE encoder's subtrees alone (the
+    decoder and predictors dropped). ``forward`` takes a uint8 (B, canvas,
+    canvas, C) tensor and returns float32 logits (classifier) or pooled
+    features: the cls token, the mean of the patch tokens, or all tokens
+    (``pool``). ``portable`` takes the plain attention (``'xla'``) whatever
+    the checkpoint trained with, as ``cli/export.py`` needs."""
+    dev = resolve_device(device)
+    config, tree, state, step = read_host_checkpoint(ckpt, step)
+    kind = checkpoint_kind({"config": config})
+    model_state = None
+    if kind == "classifier":
+        params, model_state, cfg = classifier_from_host(config, tree, state, dev)
+    else:
+        cfg = MAEConfig.from_json(json.dumps(config))
+        params = params_from_jax(tree, cfg, dev)
+    if portable:
+        cfg = cfg.replace(attention_impl="xla")
+    forward = make_forward(cfg, kind, pool, dataset_type, model_state)
+    return forward, params, cfg, kind, canvas_of(cfg, canvas_scale), cfg.input_channels
+
+
+def serving_devices(device: torch.device | str, data_parallel: bool,
+                    devices: Optional[list] = None) -> list[torch.device]:
+    """The devices that hold a replica: ``devices`` when given, else with
+    ``data_parallel`` every visible CUDA device (``device`` itself on a CPU
+    host), else ``device`` alone."""
+    if devices:
+        return [resolve_device(d) for d in devices]
+    dev = resolve_device(device)
+    if data_parallel and dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def replicated_fn(forward, replicas: list, devices: list[torch.device]):
+    """numpy uint8 -> numpy float32 over one replica of the params per
+    device: each call's rows split evenly (``np.array_split``), the replicas
+    run concurrently, one thread each, and the outputs gathered in row
+    order. One device runs in the calling thread."""
+    def run(i: int, rows: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(rows)).to(devices[i])
+            return forward(replicas[i], x).cpu().numpy()
+
+    if len(devices) == 1:
+        return lambda imgs: run(0, imgs)
+    pool = ThreadPoolExecutor(max_workers=len(devices), thread_name_prefix="replica")
+
+    def fn(imgs: np.ndarray) -> np.ndarray:
+        parts = np.array_split(imgs, len(devices))
+        futures = [pool.submit(run, i, part) for i, part in enumerate(parts)]
+        return np.concatenate([f.result() for f in futures], axis=0)
+    return fn
 
 
 def build_serving_model(
@@ -156,34 +225,111 @@ def build_serving_model(
     quantize: Optional[str] = None,
     data_parallel: bool = False,
     device: torch.device | str = "cuda",
+    devices: Optional[list] = None,
+    portable: bool = False,
 ) -> ServingModel:
     """In-process serving head: numpy uint8 in, numpy float32 out, computed
-    on ``device`` under ``torch.inference_mode``."""
-    if quantize is not None:
-        raise NotImplementedError(
-            "quantized serving is not ported yet; see ROADMAP.md (queue 1 item 15)")
-    if data_parallel:
-        raise NotImplementedError(
-            "data-parallel serving is not ported yet; see ROADMAP.md "
-            "(queue 1 items 11 and 15)")
-    dev = resolve_device(device)
+    under ``torch.inference_mode``.
+
+    ``quantize='int8'`` keeps every matmul kernel on the device as int8
+    codes with per-channel scales (``quant.py``); each linear dequantizes
+    its kernel just before its matmul. ``data_parallel`` keeps one replica
+    of the params on each of ``devices`` (default: every visible CUDA
+    device), splits each dispatch's rows evenly over them and gathers the
+    outputs in row order; ``batch_size`` must divide by the device count.
+    At one device it is the same program as without it. ``portable`` runs
+    the plain attention, as the exported artifact does. ``meta`` records
+    ``param_bytes``, the bytes of one replica's params on its device."""
+    devs = serving_devices(device, data_parallel, devices)
+    n_dev = len(devs) if data_parallel else None
+    if data_parallel and batch_size % len(devs):
+        raise SystemExit(
+            f"--batch_size {batch_size} must be divisible by the device "
+            f"count {len(devs)} for data-parallel serving")
     forward, params, cfg, kind, canvas, c = prepare_serving(
-        ckpt, step, pool, dataset_type, canvas_scale, device=dev)
-
-    def fn(imgs: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
-            return forward(params, x).cpu().numpy()
-
+        ckpt, step, pool, dataset_type, canvas_scale, device="cpu", portable=portable)
+    quant_info = None
+    if quantize == "int8":
+        params = quantize_params_int8(params)
+        qb, fb = quantized_bytes(params)
+        quant_info = {"scheme": "int8_weight_only", "bytes": qb, "fp32_bytes": fb}
+    elif quantize is not None:
+        raise SystemExit(f"unknown quantization scheme {quantize!r}")
+    params = cast_linears(params, compute_dtype(cfg))
+    replicas = [to_device(params, d) for d in devs]
     meta = {
-        "source": "checkpoint", "ckpt": ckpt, "kind": kind, "pool": pool,
+        "source": "checkpoint", "ckpt": ckpt, "kind": kind,
+        "pool": pool if kind == "mae" else "n/a (classifier head)",
         "dataset_type": dataset_type,
         "input": [batch_size, canvas, canvas, c],
-        "quantize": None, "data_parallel": None,
-        "device": str(dev),
+        "quantize": quant_info, "data_parallel": n_dev,
+        "device": ",".join(str(d) for d in devs),
+        "param_bytes": quantized_bytes(params)[0],
         "model_config": json.loads(cfg.to_json()),
     }
-    return ServingModel(fn, canvas, c, batch_size, kind, meta)
+    return ServingModel(replicated_fn(forward, replicas, devs), canvas, c, batch_size,
+                        kind, meta)
+
+
+def concrete_device(device: torch.device | str) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def load_artifact(path: str, device: torch.device | str = "cuda") -> ServingModel:
+    """Exported artifact of ``cli/export.py`` (``torch.export.save`` of the
+    serving forward, + its ``.json`` sidecar) -> ServingModel on ``device``.
+
+    Serves all three export forms: baked weights, ``--no_bake_weights``
+    (fp32 params in ``<path>.params.npz``) and ``--quantize int8`` (int8
+    codes in ``<path>.q8.npz``; the dequantize is part of the program). A
+    sidecar path that does not exist (exported on another host) falls back
+    to the file of that name next to the artifact. A program exported for
+    another device than ``device`` is moved onto it
+    (``torch.export.passes.move_to_device_pass``); a torch without that
+    pass refuses the mismatch."""
+    dev = concrete_device(device)
+    try:
+        with open(path + ".json") as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        raise SystemExit(
+            f"{path}.json sidecar not found next to the artifact; "
+            "cli/export.py writes it: serve from the original export") from None
+    program = torch.export.load(path)
+    exported_on = torch.device(meta["device"])
+    if exported_on != dev:
+        try:
+            from torch.export.passes import move_to_device_pass
+        except ImportError:
+            raise SystemExit(
+                f"{path} was exported for {exported_on} and this torch cannot move "
+                f"an exported program onto {dev}: export it for {dev.type}") from None
+        program = move_to_device_pass(program, dev)
+    module = program.module()
+    weights = meta.get("weights", "baked")
+    wtree = None
+    if isinstance(weights, str) and weights != "baked":
+        if not os.path.exists(weights):  # exported on another host?
+            local = path + (".q8.npz" if weights.endswith(".q8.npz") else ".params.npz")
+            if not os.path.exists(local):
+                raise SystemExit(f"weights sidecar not found: {weights} (nor {local})")
+            weights = local
+        wtree = params_from_host(meta["model_config"], load_flat_npz(weights), dev)
+    b, canvas, _, c = meta["input"]
+
+    def fn(imgs: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            x = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+            out = module(x) if wtree is None else module(wtree, x)
+            return out.cpu().numpy()
+
+    meta = dict(meta, source="artifact", artifact=path, device=str(dev))
+    return ServingModel(fn, int(canvas), int(c), b if b is None else int(b),
+                        meta["kind"], meta)
 
 
 class QueueFullError(RuntimeError):

@@ -17,6 +17,10 @@ renames the directory into place, and every rank waits for it
 directories, so a process killed during a write leaves nothing the next
 attempt restores.
 
+:func:`read_host_checkpoint` reads either form (a step directory or an npz)
+as host trees with its config, and :func:`restore_classifier_host` rebuilds
+a finetune or linprobe run from one, with the BN head's statistics.
+
 The npz file is the same on-disk format as ``save_params_npz`` /
 ``load_flat_npz`` of the JAX package: one npz whose keys are the
 '/'-joined paths of the parameter tree (block leaves stacked on a leading
@@ -202,3 +206,69 @@ def read_config_json(path: str) -> Optional[str]:
         if CONFIG_KEY not in data.files:
             return None
         return bytes(data[CONFIG_KEY]).decode()
+
+
+def read_host_checkpoint(ckpt: str, step: Optional[int] = None
+                         ) -> tuple[dict, dict, dict, Optional[int]]:
+    """(config, params, model_state, step) of a checkpoint as host numpy
+    trees in the JAX layout: a directory's step ``step`` (the newest by
+    default) with its sidecar config, or an npz of ``save_params_npz`` with
+    its ``__config__`` entry (``step`` None). An npz holds the params tree,
+    or ``params`` and ``model_state`` subtrees side by side."""
+    if os.path.isdir(ckpt):
+        tree, step = restore_arrays_host(ckpt, step)
+        meta = checkpoint_meta(ckpt, step)
+        if "config" not in meta:
+            raise ValueError(f"{ckpt} has no config sidecar meta-{step}.json")
+        return meta["config"], tree.get("params", {}), tree.get("model_state", {}), step
+    if step is not None:
+        raise ValueError(
+            f"{ckpt} is an npz, which holds one set of parameters: --step "
+            "picks a step of a checkpoint directory")
+    config_json = read_config_json(ckpt)
+    if config_json is None:
+        raise ValueError(
+            f"{ckpt} has no __config__ entry: write it with "
+            "save_params_npz(path, params, cfg.to_json())")
+    tree = load_flat_npz(ckpt)
+    if "params" in tree and set(tree) <= {"params", "model_state"}:
+        return json.loads(config_json), tree["params"], tree.get("model_state", {}), None
+    return json.loads(config_json), tree, {}, None
+
+
+def classifier_from_host(config: dict, tree: Mapping, state: Mapping,
+                         device: torch.device | str = "cpu"):
+    """(params, model_state, cfg) of a classifier from its host trees (of
+    :func:`read_host_checkpoint`): fp32 tensors on ``device`` in the port's
+    layout (``utils/params.vit_params_from_jax``), the BN head's running
+    statistics in ``model_state["head_bn"]`` when the config has the BN
+    head."""
+    from cross_scale_mae_torch.configs import ViTClassifierConfig
+    from cross_scale_mae_torch.utils.params import vit_params_from_jax
+
+    cfg = ViTClassifierConfig.from_json(json.dumps(config))
+    params = vit_params_from_jax(tree, cfg, device)
+    model_state = {}
+    if cfg.use_bn_head:
+        bn = state.get("head_bn")
+        if bn is None:
+            raise ValueError("the config has the BN head but the checkpoint holds no "
+                             "model_state/head_bn running statistics")
+        model_state["head_bn"] = {
+            k: torch.from_numpy(np.asarray(bn[k], np.float32).reshape(cfg.embed_dim)).to(device)
+            for k in ("mean", "var")}
+    return params, model_state, cfg
+
+
+def restore_classifier_host(ckpt: str, step: Optional[int] = None,
+                            device: torch.device | str = "cpu"):
+    """A finetune or linprobe run rebuilt from its config (the JAX
+    package's ``restore_classifier_host``): the port's checkpoint directory
+    (step ``step``, the newest by default) or a ``save_params_npz`` file of
+    a classifier tree, the JAX package's included; a BN-head npz holds the
+    statistics as a ``model_state`` subtree beside ``params``. Returns
+    (params, model_state, cfg) as :func:`classifier_from_host`."""
+    config, tree, state, _ = read_host_checkpoint(ckpt, step)
+    if checkpoint_kind({"config": config}) != "classifier":
+        raise ValueError(f"{ckpt} is a pretrain (MAE) checkpoint, not a classifier's")
+    return classifier_from_host(config, tree, state, device)

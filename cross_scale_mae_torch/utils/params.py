@@ -11,9 +11,12 @@ with ``full=True``, the whole tree the training step runs;
 ``train_state_from_jax`` carries a whole JAX pretrain TrainState (params,
 BatchNorm state, optax's Adam moments and count, step) into the port's;
 ``vit_params_from_jax`` carries the downstream classifier's tree;
-``params_to_jax`` is the way back for every tree. ``mae_encoder_to_classifier``
-and ``merge_pretrained`` start a classifier from a pretrained encoder, as the
-JAX package's ``utils/torch_import.py:157-221`` do.
+``params_to_jax`` is the way back for every tree. A tree quantized by the
+JAX package's ``quantize_params_int8`` (``{"__int8__", "scale"}`` kernel
+nodes, as a ``.q8.npz`` holds them) carries both ways, its codes int8.
+``mae_encoder_to_classifier`` and ``merge_pretrained`` start a classifier
+from a pretrained encoder, as the JAX package's
+``utils/torch_import.py:157-221`` do.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from cross_scale_mae_torch.configs import MAEConfig, ViTClassifierConfig
+from cross_scale_mae_torch.quant import QKEY
 from cross_scale_mae_torch.train.state import TrainState, jax_paths
 
 
@@ -110,7 +114,24 @@ def vit_param_shapes(cfg: ViTClassifierConfig) -> dict:
     return shapes
 
 
+def _checked_qnode(node: Mapping, spec: tuple, path: str) -> dict:
+    """An int8 kernel node of ``quant.py`` (a JAX ``quantize_params_int8``
+    tree's, or a ``.q8.npz``'s): int8 codes of the kernel's shape and fp32
+    scales with the ``in`` axis kept as 1."""
+    if set(node) != {QKEY, "scale"}:
+        raise KeyError(f"{path}: an int8 node holds {QKEY} and scale, got {sorted(node)}")
+    codes, scale = np.asarray(node[QKEY]), np.asarray(node["scale"])
+    want = (*spec[:-2], 1, spec[-1])
+    if codes.shape != spec or codes.dtype != np.int8:
+        raise ValueError(f"{path}/{QKEY}: {codes.dtype} {codes.shape}, expected int8 {spec}")
+    if scale.shape != want:
+        raise ValueError(f"{path}/scale: shape {scale.shape}, expected {want}")
+    return {QKEY: codes, "scale": scale.astype(np.float32)}
+
+
 def _checked(node: Any, spec: Any, path: str) -> Any:
+    if isinstance(node, Mapping) and QKEY in node and isinstance(spec, tuple):
+        return _checked_qnode(node, spec, path)
     if isinstance(spec, dict):
         if not isinstance(node, Mapping):
             raise ValueError(f"{path}: expected a subtree, got {type(node).__name__}")
@@ -248,13 +269,15 @@ def train_state_from_jax(state: Any, cfg: MAEConfig, tx,
 
 def params_to_jax(tree: Any) -> Any:
     """The inverse carry: the port's params or state (tensors, block stacks
-    as lists) -> the JAX layout as numpy arrays (fp32), block leaves stacked
-    on a leading layer axis."""
+    as lists) -> the JAX layout as numpy arrays (fp32; int8 codes stay
+    int8), block leaves stacked on a leading layer axis."""
     if isinstance(tree, Mapping):
         return {k: params_to_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         layers = [params_to_jax(v) for v in tree]
         return _stack(layers)
+    if tree.dtype == torch.int8:
+        return tree.detach().cpu().numpy()
     return tree.detach().to("cpu", torch.float32).numpy()
 
 
@@ -271,6 +294,16 @@ def random_mae_tree(cfg: MAEConfig, seed: int) -> dict[str, Any]:
     xavier-uniform as in ``mae_init``; biases, norm parameters and tokens are
     small random values, so that no parameter is a constant a wrong mapping
     could hide behind."""
+    return _random_tree(mae_param_shapes(cfg), seed)
+
+
+def random_vit_tree(cfg: ViTClassifierConfig, seed: int) -> dict[str, Any]:
+    """A seeded random classifier tree in the JAX layout (``vit_init``'s
+    keys), drawn as :func:`random_mae_tree` draws."""
+    return _random_tree(vit_param_shapes(cfg), seed)
+
+
+def _random_tree(shapes: dict, seed: int) -> dict[str, Any]:
     rng = np.random.default_rng(seed)
 
     def draw(shape, name):
@@ -286,7 +319,7 @@ def random_mae_tree(cfg: MAEConfig, seed: int) -> dict[str, Any]:
             return {k: fill(v, k) for k, v in spec.items()}
         return draw(spec, name)
 
-    return fill(mae_param_shapes(cfg))
+    return fill(shapes)
 
 
 def mae_encoder_to_classifier(mae_params: Mapping[str, Any], cfg: ViTClassifierConfig

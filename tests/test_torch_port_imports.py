@@ -52,6 +52,11 @@ TRAINING_MODULES = [
     "cross_scale_mae_torch/parallel/mesh.py", "cross_scale_mae_torch/parallel/collectives.py",
     "cross_scale_mae_torch/utils/checkpoint.py", "cross_scale_mae_torch/utils/params.py",
     "cross_scale_mae_torch/cli/launch.py", "cross_scale_mae_torch/data/native/__init__.py",
+    "cross_scale_mae_torch/serving.py", "cross_scale_mae_torch/quant.py",
+    "cross_scale_mae_torch/cli/serve.py", "cross_scale_mae_torch/cli/export.py",
+    "cross_scale_mae_torch/cli/embed.py", "cross_scale_mae_torch/cli/export_torch.py",
+    "cross_scale_mae_torch/utils/torch_export.py", "cross_scale_mae_torch/utils/torch_import.py",
+    "cross_scale_mae_torch/ops/pos_embed.py",
 ]
 
 
@@ -62,8 +67,8 @@ def test_scan_covers_the_training_modules():
 
 def test_importing_the_training_path_loads_no_jax():
     """Import every module of the pretrain, finetune and linear-probe paths
-    in a fresh interpreter and check that no JAX module was loaded along the
-    way."""
+    and of serving, export and embedding in a fresh interpreter and check
+    that no JAX module was loaded along the way."""
     import subprocess
     import sys
 

@@ -398,11 +398,12 @@ def test_linprobe_cli_refuses_unported_flags(tmp_path, extra):
 @pytest.mark.parametrize("make", [lambda p: p.mkdir() or str(p), lambda p: str(p) + ".pth"])
 def test_linprobe_cli_refuses_orbax_dirs_and_pth(tmp_path, make):
     """A directory without the port's checkpoints (an Orbax one of the JAX
-    package) is refused, and so is a .pth (ROADMAP.md queue 1 item 16)."""
+    package) is refused, and so is a .pth that is not there (a reference
+    .pth is read, tests/test_torch_port_interchange.py)."""
     from cross_scale_mae_torch.cli.linprobe import build_run
 
     path = make(tmp_path / "ckpt")
-    with pytest.raises(SystemExit, match="Orbax" if os.path.isdir(path) else "ROADMAP"):
+    with pytest.raises(SystemExit, match="Orbax" if os.path.isdir(path) else "no such"):
         build_run(_lp_args(tmp_path, _naip_dir(tmp_path), "--finetune", path))
 
 

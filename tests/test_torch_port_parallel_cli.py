@@ -720,3 +720,225 @@ def test_every_jax_classifier_flag_is_run_refused_or_not_applicable(tmp_path, ca
     for flag, argv in na.items():
         build(*argv)
         assert f"not applicable here: {flag}" in capsys.readouterr().out, flag
+
+
+# The serving and export CLIs' flags (cli/serve, cli/export, cli/embed,
+# cli/export_torch), each against its JAX parser as above: run (its check
+# on what the CLI built or returned holds), refused, or reported as not
+# applicable. The checkpoint is a tiny MAE in the port's checkpoint
+# directory (step 3), so that --step runs.
+_TINY_MAE = dict(input_size=16, patch_size=8, dim_model=32, encoder_num_layers=1,
+                 encoder_num_heads=4, decoder_embed_dim=16, decoder_num_layers=1,
+                 decoder_num_heads=4, predictor_hidden_size=16, compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def tiny_ckpt(tmp_path_factory):
+    import types
+
+    from cross_scale_mae_torch.configs import get_mae_config
+    from cross_scale_mae_torch.utils.checkpoint import save_checkpoint
+    from cross_scale_mae_torch.utils.params import random_mae_tree
+
+    cfg = get_mae_config("mae_vit_base_MsLdCeCd", **_TINY_MAE)
+    flat = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}")
+        else:
+            flat[prefix] = torch.from_numpy(node)
+
+    walk(random_mae_tree(cfg, 0), "params")
+    ckpt = str(tmp_path_factory.mktemp("serving_cli") / "checkpoints")
+    save_checkpoint(ckpt, 3, types.SimpleNamespace(state_dict=lambda: flat), cfg.to_json(),
+                    {"epoch": 2})
+    return ckpt
+
+
+def _served_info(argv):
+    """build_app on ``argv``, then its /info and /healthz."""
+    import threading
+    import urllib.request
+
+    from cross_scale_mae_torch.cli.serve import build_app, get_args_parser
+
+    server, batcher = build_app(get_args_parser().parse_args(argv))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://{server.server_address[0]}:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/info", timeout=30) as r:
+            info = json.load(r)
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            info["_health"] = json.load(r)
+        info["_buckets"] = batcher.buckets
+    finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(5)
+    return info
+
+
+_SERVE_RUN = {
+    "--ckpt": ([], lambda i: i["source"] == "checkpoint" and i["kind"] == "mae"),
+    "--artifact": (["--artifact", "{artifact}"], lambda i: i["source"] == "artifact"),
+    "--step": (["--step", "3"], lambda i: i["kind"] == "mae"),
+    "--pool": (["--pool", "mean"], lambda i: i["pool"] == "mean"),
+    "--dataset_type": (["--dataset_type", "coco"], lambda i: i["dataset_type"] == "coco"),
+    "--canvas_scale": (["--canvas_scale", "1.0"], lambda i: i["input"][1] == 16),
+    "--batch_size": (["--batch_size", "2"], lambda i: i["input"][0] == 2),
+    "--max_delay_ms": (["--max_delay_ms", "3"], lambda i: i["max_delay_ms"] == 3.0),
+    "--batch_buckets": (["--batch_buckets", "2", "4"], lambda i: i["_buckets"] == [2, 4]),
+    "--host": (["--host", "127.0.0.1"], lambda i: True),
+    "--port": ([], lambda i: True),
+    "--no_warmup": (["--no_warmup"], lambda i: i["_health"]["warm"] is False),
+    "--max_request_mb": (["--max_request_mb", "1"], lambda i: True),
+    "--max_queue_rows": (["--max_queue_rows", "7"], lambda i: i["max_queue_rows"] == 7),
+    "--deadline_ms": (["--deadline_ms", "100"], lambda i: i["deadline_ms"] == 100.0),
+    "--quantize": (["--quantize", "int8"],
+                   lambda i: i["quantize"]["scheme"] == "int8_weight_only"),
+    "--data_parallel": (["--data_parallel"], lambda i: i["data_parallel"] == 1),
+}
+_SERVE_NOT_APPLICABLE = {"--native_kernels": ["--native_kernels"]}
+
+
+def test_every_jax_serve_flag_is_run_or_not_applicable(tiny_ckpt, tmp_path, capsys):
+    from cross_scale_mae_tpu.cli.serve import get_args_parser as jparser
+    from cross_scale_mae_torch.cli import export
+    from cross_scale_mae_torch.cli.serve import get_args_parser
+
+    assert _flags(jparser()) == set(_SERVE_RUN) | set(_SERVE_NOT_APPLICABLE)
+    assert _flags(jparser()) <= _flags(get_args_parser())
+    artifact = str(tmp_path / "a.pt2")
+    export.main(export.get_args_parser().parse_args(
+        ["--ckpt", tiny_ckpt, "--output", artifact, "--platforms", "cpu", "--batch_size", "4"]))
+    base = ["--device", "cpu", "--port", "0", "--batch_size", "4", "--max_delay_ms", "1"]
+    for flag, (argv, ok) in _SERVE_RUN.items():
+        argv = [a.replace("{artifact}", artifact) for a in argv]
+        src = [] if flag == "--artifact" else ["--ckpt", tiny_ckpt]
+        assert ok(_served_info(src + base + argv)), flag
+    capsys.readouterr()
+    for flag, argv in _SERVE_NOT_APPLICABLE.items():
+        _served_info(["--ckpt", tiny_ckpt] + base + argv)
+        assert f"not applicable here: {flag}" in capsys.readouterr().out, flag
+
+
+_EXPORT_RUN = {
+    "--ckpt": ([], lambda m: m["kind"] == "mae"),
+    "--step": (["--step", "3"], lambda m: m["verified"] == "roundtrip"),
+    "--output": ([], lambda m: m["bytes"] > 0),
+    "--pool": (["--pool", "mean"], lambda m: m["pool"] == "mean"),
+    "--batch_size": (["--batch_size", "2"], lambda m: m["input"][0] == 2),
+    "--dataset_type": (["--dataset_type", "coco"], lambda m: m["dataset_type"] == "coco"),
+    "--canvas_scale": (["--canvas_scale", "1.0"], lambda m: m["input"][1] == 16),
+    "--symbolic_batch": (["--symbolic_batch"], lambda m: m["input"][0] is None),
+    "--no_bake_weights": (["--no_bake_weights"], lambda m: m["weights"].endswith(".params.npz")),
+    "--platforms": ([], lambda m: m["platforms"] == ["cpu"]),
+    "--quantize": (["--quantize", "int8"], lambda m: m["weights"].endswith(".q8.npz")),
+}
+# --platforms values the JAX package lowers for and a torch program cannot
+# target: refused, naming the port's devices.
+_EXPORT_PLATFORMS_REFUSED = ("tpu", "rocm")
+
+
+def test_every_jax_export_flag_is_run_or_refused(tiny_ckpt, tmp_path):
+    from cross_scale_mae_tpu.cli.export import get_args_parser as jparser
+    from cross_scale_mae_torch.cli import export
+
+    assert _flags(jparser()) == set(_EXPORT_RUN) <= _flags(export.get_args_parser())
+    out = str(tmp_path / "a.pt2")
+    for flag, (argv, ok) in _EXPORT_RUN.items():
+        meta = export.main(export.get_args_parser().parse_args(
+            ["--ckpt", tiny_ckpt, "--output", out, "--platforms", "cpu", "--batch_size", "4",
+             *argv]))
+        assert ok(meta), flag
+    for platform in _EXPORT_PLATFORMS_REFUSED:
+        with pytest.raises(SystemExit, match="counterpart"):
+            export.main(export.get_args_parser().parse_args(
+                ["--ckpt", tiny_ckpt, "--output", out, "--platforms", platform]))
+
+
+_EMBED_RUN = {
+    "--ckpt": ([], lambda r: r["count"] == 6),
+    "--step": (["--step", "3"], lambda r: r["count"] == 6),
+    "--batch_size": (["--batch_size", "2"], lambda r: r["batches"] == 3),
+    "--pool": (["--pool", "tokens"], lambda r: r["shape"] == (6, 5, 32)),
+    "--split": (["--split", "train"], lambda r: r["count"] == 6),
+    "--seed": (["--seed", "2"], lambda r: True),
+    "--output_dir": ([], lambda r: True),
+    "--num_workers": (["--num_workers", "3"], lambda r: True),
+    "--dataset_type": ([], lambda r: True),
+    "--train_path": ([], lambda r: True),
+    "--test_path": ([], lambda r: True),
+    "--masked_bands": ([], lambda r: True),
+    "--dropped_bands": ([], lambda r: True),
+    "--synthetic_len": (["--synthetic_len", "5"], lambda r: r["count"] == 5),
+    "--canvas_scale": (["--canvas_scale", "1.125"], lambda r: r["count"] == 6),
+    "--attention_impl": (["--attention_impl", "xla"], lambda r: True),
+    "--coordinator_address": ([], lambda r: True),
+    "--num_processes": ([], lambda r: True),
+    "--process_id": ([], lambda r: True),
+}
+_EMBED_REFUSED = {
+    "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
+    "--fsdp": ["--fsdp"], "--num_slices": ["--num_slices", "2"],
+    "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
+    "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
+    "--profile_dir": ["--profile_dir", "p"], "--jax_platforms": ["--jax_platforms", "cpu"],
+}
+_EMBED_NOT_APPLICABLE = {
+    "--resume": ["--resume", "r"], "--log_interval": ["--log_interval", "3"],
+    "--attention": ["--attention", "scaled_dot_product"], "--gelu": ["--gelu", "exact"],
+    "--compute_dtype": ["--compute_dtype", "float32"], "--log_dir": ["--log_dir", "l"],
+    "--device_batch_dtype": ["--device_batch_dtype", "f32"], "--remat": ["--remat"],
+}
+
+
+def test_every_jax_embed_flag_is_run_refused_or_not_applicable(tiny_ckpt, tmp_path, capsys):
+    from cross_scale_mae_tpu.cli.embed import get_args_parser as jparser
+    from cross_scale_mae_torch.cli import embed
+
+    jax_flags = _flags(jparser())
+    assert jax_flags == set(_EMBED_RUN) | set(_EMBED_REFUSED) | set(_EMBED_NOT_APPLICABLE)
+    assert jax_flags <= _flags(embed.get_args_parser())
+
+    def run(*extra):
+        return embed.main(embed.get_args_parser().parse_args(
+            ["--ckpt", tiny_ckpt, "--dataset_type", "synthetic", "--synthetic_len", "6",
+             "--batch_size", "4", "--num_workers", "2", "--device", "cpu",
+             "--output_dir", str(tmp_path), *extra]))
+
+    for flag, (argv, ok) in _EMBED_RUN.items():
+        assert ok(run(*argv)), flag
+    for flag, argv in _EMBED_REFUSED.items():
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            run(*argv)
+    capsys.readouterr()
+    for flag, argv in _EMBED_NOT_APPLICABLE.items():
+        run(*argv)
+        assert f"not applicable here: {flag}" in capsys.readouterr().out, flag
+
+
+_EXPORT_TORCH_RUN = {
+    "--ckpt": ([], lambda r: r["n_tensors"] > 0),
+    "--step": (["--step", "3"], lambda r: r["epoch"] == 2),
+    "--output": ([], lambda r: r["size_bytes"] > 0),
+    "--epoch": (["--epoch", "5"], lambda r: r["epoch"] == 5),
+    "--model_name": (["--model_name", "mae_vit_base_MsLdCeCd"],
+                     lambda r: r["model"] == "mae_vit_base_MsLdCeCd"),
+}
+
+
+def test_every_jax_export_torch_flag_runs(tiny_ckpt, tmp_path):
+    from cross_scale_mae_tpu.cli.export_torch import get_args_parser as jparser
+    from cross_scale_mae_torch.cli import export_torch
+
+    assert _flags(jparser()) == set(_EXPORT_TORCH_RUN) <= _flags(export_torch.get_args_parser())
+    for flag, (argv, ok) in _EXPORT_TORCH_RUN.items():
+        res = export_torch.main(export_torch.get_args_parser().parse_args(
+            ["--ckpt", tiny_ckpt, "--output", str(tmp_path / "x.pth"), "--model_name",
+             "mae_vit_base_MsLdCeCd", *argv]))
+        assert ok(res), flag

@@ -1,13 +1,18 @@
 """The PyTorch port's serving path held against the JAX package on the CPU:
-the weight carry from a JAX-written npz, the whole serving forward, the
-micro-batcher and the HTTP app (``--device cpu``).
+the weight carry from a JAX-written npz, the whole serving forward of a
+pretrain (MAE) checkpoint and of finetune and linprobe (classifier)
+checkpoints, data-parallel replicas, the micro-batcher and the HTTP app
+(``--device cpu``).
 
-The JAX side of the serving forward is the one ``cross_scale_mae_tpu/
-serving.py:123-149`` builds: eval preprocess, ``mae_encode``, pool. The
-canvas (37 px) differs from the input (32 px), so the bicubic
-center-crop resize runs. Tolerances are those of test_torch_port_model.py:
-fp32 1e-5; bf16 max error 2**-4 * max(1, max|ref|) and mean error
-2**-7 * max(1, mean|ref|) (GELU rounding differs; see that file).
+The JAX side of the MAE serving forward is the one ``cross_scale_mae_tpu/
+serving.py:123-149`` builds: eval preprocess, ``mae_encode``, pool; of the
+classifier's, JAX ``prepare_serving(..., portable=True)`` itself on an
+Orbax checkpoint of the same weights. The canvas differs from the input,
+so the bicubic center-crop resize runs. Tolerances are those of
+test_torch_port_model.py: fp32 1e-5; bf16 max error 2**-4 * max(1,
+max|ref|) and mean error 2**-7 * max(1, mean|ref|) (GELU rounding differs;
+see that file). Two CPU replicas under data parallelism are bit-equal to
+one.
 """
 
 import io
@@ -169,17 +174,21 @@ def test_directory_checkpoint_points_to_roadmap(tmp_path):
 
 
 def test_build_serving_model_refusals(npz_files, tmp_path):
+    """What is still refused: an unknown quantization, a data-parallel
+    batch the replicas do not split, --step on an npz, and a BN-head
+    classifier npz without its running statistics."""
     path = npz_files["float32"][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        psrv.build_serving_model(path, quantize="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        psrv.build_serving_model(path, data_parallel=True, device="cpu")
+    with pytest.raises(SystemExit, match="quantization"):
+        psrv.build_serving_model(path, quantize="int4", device="cpu")
+    with pytest.raises(SystemExit, match="divisible by the device count 2"):
+        psrv.build_serving_model(path, batch_size=5, data_parallel=True,
+                                 devices=["cpu", "cpu"], device="cpu")
     with pytest.raises(ValueError, match="step"):
         psrv.build_serving_model(path, step=3, device="cpu")
+    cfg = jcfg.ViTClassifierConfig(**VIT_TINY, use_bn_head=True)
     clf = str(tmp_path / "clf.npz")
-    pckpt.save_params_npz(clf, {"w": np.zeros(2)},
-                          json.dumps({"embed_dim": 64, "num_classes": 3}))
-    with pytest.raises(NotImplementedError, match="classifier"):
+    pckpt.save_params_npz(clf, _jax_vit(cfg)[0], cfg.to_json())
+    with pytest.raises(ValueError, match="head_bn"):
         psrv.build_serving_model(clf, device="cpu")
 
 
@@ -381,12 +390,201 @@ def test_http_app_rejects_bad_bodies(app):
     assert _post(url + "/nope", b"")[0] == 404
 
 
-@pytest.mark.parametrize("flag", [["--artifact", "x.stablehlo"], ["--quantize", "int8"],
-                                  ["--data_parallel"]])
+@pytest.mark.parametrize("flag", [["--quantize", "int8"], ["--data_parallel"],
+                                  ["--batch_buckets", "2", "4", "--data_parallel"]])
 def test_cli_refuses_unported_flags(flag, npz_files):
+    """The serve CLI's refusals left: --quantize and --data_parallel with
+    --artifact (fixed at export time) and buckets with data parallelism, as
+    the JAX CLI refuses them."""
     from cross_scale_mae_torch.cli.serve import build_app, get_args_parser
 
-    argv = (["--device", "cpu"] + flag if flag[0] == "--artifact"
-            else ["--ckpt", npz_files["float32"][0], "--device", "cpu"] + flag)
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    argv = (["--ckpt", npz_files["float32"][0], "--batch_size", "4"] if flag[0] == "--batch_buckets"
+            else ["--artifact", "x.pt2"]) + ["--device", "cpu"] + flag
+    with pytest.raises(SystemExit, match="applies to in-process|don't compose"):
         build_app(get_args_parser().parse_args(argv))
+
+
+# ------------------------------------------------------------ classifiers
+
+VIT_TINY = dict(input_size=16, patch_size=8, embed_dim=32, depth=2, num_heads=4,
+                num_classes=5)
+
+
+def _jax_vit(cfg, seed=1):
+    """JAX vit_init with every leaf moved off its init, and the BN head's
+    running statistics set away from (0, 1)."""
+    from cross_scale_mae_tpu.models.vit import vit_init
+
+    params, state = vit_init(jax.random.key(seed), cfg)
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(
+        lambda a: np.asarray(a) + (0.05 * rng.normal(size=a.shape)).astype(np.float32), params)
+    state = jax.tree.map(np.asarray, state)
+    if cfg.use_bn_head:
+        state = {"head_bn": {"mean": rng.normal(0, 0.3, cfg.embed_dim).astype(np.float32),
+                             "var": rng.uniform(0.5, 2.0, cfg.embed_dim).astype(np.float32)}}
+    return params, state
+
+
+def _jax_orbax(path, cfg, params, state, step=3):
+    """A JAX checkpoint directory (Orbax + the config sidecar)."""
+    import types
+
+    from cross_scale_mae_tpu.utils.checkpoint import save_checkpoint
+
+    save_checkpoint(path, step, types.SimpleNamespace(
+        params=params, model_state=state, opt_state={"count": np.zeros((), np.int32)},
+        step=np.int32(step)), cfg.to_json(), {"epoch": 0})
+    return path
+
+
+def _port_ckpt_dir(path, config_json, params, state, step=3):
+    """The port's checkpoint directory of the same trees (state.pt keyed by
+    the JAX paths, blocks stacked, and the sidecar)."""
+    import types
+
+    flat = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}")
+        else:
+            flat[prefix] = torch.from_numpy(np.asarray(node))
+
+    walk(params, "params")
+    walk(state, "model_state")
+    pckpt.save_checkpoint(path, step, types.SimpleNamespace(state_dict=lambda: flat),
+                          config_json, {"epoch": 0})
+    return path
+
+
+@pytest.fixture(scope="module")
+def classifier_ckpts(tmp_path_factory):
+    """A finetune (global pool) and a linprobe (BN head, cls token)
+    classifier per compute dtype: the JAX Orbax directory, and the port's
+    two readable forms of the same weights (its checkpoint directory, an
+    npz with params and model_state subtrees)."""
+    out = {}
+    root = tmp_path_factory.mktemp("clf")
+    for kind in ("finetune", "linprobe"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = jcfg.ViTClassifierConfig(**VIT_TINY, global_pool=kind == "finetune",
+                                           use_bn_head=kind == "linprobe", compute_dtype=dtype,
+                                           attention_impl="pallas" if kind == "finetune"
+                                           else "pallas_v3")
+            params, state = _jax_vit(cfg)
+            base = root / f"{kind}_{dtype}"
+            jdir = _jax_orbax(str(base / "jax"), cfg, params, state)
+            pdir = _port_ckpt_dir(str(base / "port"), cfg.to_json(), params, state)
+            npz = str(base / "port.npz")
+            pckpt.save_params_npz(npz, {"params": params, "model_state": state}, cfg.to_json())
+            out[kind, dtype] = (jdir, pdir, npz, cfg)
+    return out
+
+
+@pytest.mark.parametrize("form", ["dir", "npz"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["finetune", "linprobe"])
+def test_classifier_serving_matches_jax(classifier_ckpts, kind, dtype, form):
+    from cross_scale_mae_tpu.serving import prepare_serving
+
+    jdir, pdir, npz, cfg = classifier_ckpts[kind, dtype]
+    model = psrv.build_serving_model(pdir if form == "dir" else npz, batch_size=4,
+                                     device="cpu")
+    assert model.kind == "classifier" and model.canvas == 18
+    assert model.meta["pool"] == "n/a (classifier head)"
+    assert model.meta["model_config"]["attention_impl"] == cfg.attention_impl
+    u8 = np.random.default_rng(2).integers(0, 256, (3, 18, 18, 3), np.uint8)
+    got = model.fn(u8)
+    fwd, params, _, jkind, canvas, _ = prepare_serving(jdir, portable=True)
+    ref = np.asarray(fwd(params, jnp.asarray(u8)))
+    assert jkind == "classifier" and canvas == 18
+    assert got.dtype == np.float32 and got.shape == ref.shape == (3, 5)
+    err = np.abs(got - ref)
+    if dtype == "float32":
+        assert err.max() <= 1e-5, err.max()
+    else:
+        assert err.max() <= 2.0 ** -4 * max(1.0, np.abs(ref).max()), err.max()
+        assert err.mean() <= 2.0 ** -7 * max(1.0, np.abs(ref).mean()), err.mean()
+
+
+def test_restore_classifier_host_carries_the_trees(classifier_ckpts):
+    """The port's directory and npz, and a JAX save_params_npz file of the
+    params, restore the same leaves; the BN statistics come from
+    model_state."""
+    from cross_scale_mae_tpu.utils.checkpoint import save_params_npz as jax_save
+
+    _, pdir, npz, cfg = classifier_ckpts["linprobe", "float32"]
+    a = pckpt.restore_classifier_host(pdir)
+    b = pckpt.restore_classifier_host(npz)
+    assert a[2] == b[2] and a[2].use_bn_head
+    for x, y in zip(jax.tree.leaves(a[:2]), jax.tree.leaves(b[:2])):
+        assert torch.equal(x, y)
+    params, state = _jax_vit(cfg)
+    np.testing.assert_array_equal(a[1]["head_bn"]["var"].numpy(), state["head_bn"]["var"])
+    np.testing.assert_array_equal(a[0]["blocks"][1]["attn"]["proj"]["kernel"].numpy(),
+                                  params["blocks"]["attn"]["proj"]["kernel"][1])
+    _, _, _, ft_cfg = classifier_ckpts["finetune", "float32"]
+    jnpz = npz.replace("linprobe", "finetune").replace("port.npz", "jax_params.npz")
+    ft_params, _ = _jax_vit(ft_cfg)
+    jax_save(jnpz, ft_params, ft_cfg.to_json())
+    c = pckpt.restore_classifier_host(jnpz)
+    assert c[1] == {} and c[2].global_pool
+    np.testing.assert_array_equal(c[0]["fc_norm"]["scale"].numpy(), ft_params["fc_norm"]["scale"])
+    with pytest.raises(ValueError, match="pretrain"):
+        pckpt.restore_classifier_host(_mae_npz(jnpz))
+
+
+def _mae_npz(near):
+    path = near.replace(".npz", "_mae.npz")
+    cfg = jcfg.get_mae_config("mae_vit_base_MsLdCeCd", **TINY)
+    pckpt.save_params_npz(path, {"w": np.zeros(1)}, cfg.to_json())
+    return path
+
+
+@pytest.mark.parametrize("kind", ["mae", "linprobe"])
+def test_data_parallel_replicas_bit_equal_to_one(npz_files, classifier_ckpts, kind):
+    """Two CPU replicas, each batch's rows split between them and gathered
+    in order: the same bits as one device; meta records the count."""
+    path = npz_files["float32"][0] if kind == "mae" else classifier_ckpts[kind, "float32"][2]
+    one = psrv.build_serving_model(path, pool="mean", batch_size=4, device="cpu")
+    two = psrv.build_serving_model(path, pool="mean", batch_size=4, device="cpu",
+                                   data_parallel=True, devices=["cpu", "cpu"])
+    assert one.meta["data_parallel"] is None and two.meta["data_parallel"] == 2
+    assert two.meta["device"] == "cpu,cpu"
+    u8 = np.random.default_rng(6).integers(0, 256, (4, one.canvas, one.canvas, 3), np.uint8)
+    np.testing.assert_array_equal(two.fn(u8), one.fn(u8))
+    np.testing.assert_array_equal(two.fn(u8[:3]), one.fn(u8[:3]))   # an uneven split
+
+
+def test_http_app_serves_a_classifier(classifier_ckpts):
+    from cross_scale_mae_tpu.serving import prepare_serving
+    from cross_scale_mae_torch.cli.serve import build_app, get_args_parser
+
+    jdir, pdir, _, _ = classifier_ckpts["linprobe", "float32"]
+    server, batcher = build_app(get_args_parser().parse_args(
+        ["--ckpt", pdir, "--device", "cpu", "--port", "0", "--batch_size", "4",
+         "--max_delay_ms", "1", "--quantize", "int8"]))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        info = _get(url + "/info")
+        assert info["kind"] == "classifier" and info["quantize"]["scheme"] == "int8_weight_only"
+        u8 = np.random.default_rng(7).integers(0, 256, (5, 18, 18, 3), np.uint8)
+        buf = io.BytesIO()
+        np.save(buf, u8)
+        code, body = _post(url + "/predict", buf.getvalue())
+        assert code == 200
+        got = np.load(io.BytesIO(body))
+    finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(5)
+    fwd, params, _, _, _, _ = prepare_serving(jdir, portable=True)
+    ref = np.asarray(fwd(params, jnp.asarray(u8)))
+    # int8 weights: the logits within 5% of the fp32 ones' range
+    # (test_torch_port_quant.py holds them to the dequantized JAX forward).
+    assert got.shape == (5, 5) and np.abs(got - ref).max() < 0.05 * np.abs(ref).max()
