@@ -13,8 +13,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
    tensor-core instantiation (the bodies of ``csrc/mha_tc.cuh``,
    ``TC_KERNELS``) and none of them spills.
 3. kernel: each kernel against its plain PyTorch version on the card, in
-   bf16, at the shapes the serving, pretraining, finetuning and linear
-   probing paths give it (K3, which no path dispatches, at ViT-B's, the decoder's and the
+   bf16, at the shapes the serving, pretraining (128 px, and 192 px for
+   MS-SSIM), finetuning, linear probing and evaluation paths give it (K3, which no path dispatches, at ViT-B's, the decoder's and the
    longest shape), with its time, the plain version's, one PyTorch library
    call's as a yardstick (``scaled_dot_product_attention`` on (N, H, L, hd)
    head views, forward or backward), and the least time the card could
@@ -221,6 +221,29 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
 22. data_parallel: ``cli/serve --data_parallel`` at
     ``torch.cuda.device_count()`` cards, its answers bit-equal to the
     single-card server's (one card) or within the bf16 budget (more).
+23. ssim (runs after phase 17): SSIM and MS-SSIM of 16 images of 192 px
+    (one channel's SSIM below zero) and the gradient of 1 - SSIM on the
+    card, against the host's fp32 and float64 of the same functions
+    (``SSIM_TOL``, ``SSIM_GRAD_TOL``: the blur must run in IEEE fp32; a
+    blur rounded to TF32 is the control the gate must catch); the
+    device ms of the mse_ssim loss, forward and backward, at the flagship's
+    shape (both views, 768 images of 128 px) beside mse's, and its kernels.
+24. pretrain_ssim: the flagship step with ``--loss mse_ssim --loss_cd mse``
+    through ``cli/pretrain.main`` for 10 steps, checkpointed after the last;
+    ``--loss ms_ssim`` at 192 px for 3 steps; 20 + 20 K1 launches a step;
+    the mse_ssim and mse steps in turns (ms, images/s, MFU).
+25. perceptual: the flagship step with ``--use_perceptual_loss`` on a random
+    trunk and on ``--vgg_weights`` (a seeded fake torchvision ``.pth``
+    written here), 4 steps each; the perceptual and plain steps in turns;
+    the trunk's device ms at the step's shapes and its share of the step;
+    the card's loss (TF32 convolutions) and with TF32 off against the
+    host's fp32 on 4 images (``PERC_TF32_TOL``, ``PERC_IEEE_TOL``), the trunk
+    in bf16 and the TF32 reading as the controls each limit must catch.
+26. evalviz: ``cli/evalviz.main`` on phase 24's checkpoint over 8 seeded
+    JPEGs, ``--noise gaussian salt_pepper`` and 384 temporal pairs: the
+    figures, ``metrics.json`` and ``temporal_gaps.json`` as named, finite;
+    K1f 20 x 4 x 8 + 12 x 3 launches, no backward; then a 2-step
+    ``--plot_recon --val_img_path`` pretrain (its 8 figures, 20 K1f each).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -270,13 +293,18 @@ RESUME_FAULT = 5
 RESUME_TIMEOUT_S = 600
 # The kernels' shapes: (N, L, H, hd); "linprobe" is the ViT-B probe's batch
 # of 1024, train steps and padded eval batches alike; "embed" cli/embed's
-# batch of 256. The JSON line reports the forward at
+# batch of 256; "ms_ssim_enc"/"ms_ssim_dec" the flagship step at 192 px
+# (--loss ms_ssim: 36 + 1 visible tokens, 144 + 1 in the decoder, where K1
+# takes several sweeps at 32 a head); "viz_enc"/"viz_dec" evalviz's and
+# --plot_recon's single image. The JSON line reports the forward at
 # the serving shape and the backward at the decoder's training shape, the
 # one that costs the step most; each entry names its case and shape.
 SHAPES = {"serving": (64, 65, 12, 64), "train_enc": (768, 17, 12, 64),
           "train_dec": (768, 65, 16, 32), "long_seq": (8, 257, 12, 64),
-          "linprobe": (1024, 65, 12, 64), "embed": (256, 65, 12, 64)}
-BWD_SHAPES = ("train_enc", "train_dec", "long_seq")
+          "linprobe": (1024, 65, 12, 64), "embed": (256, 65, 12, 64),
+          "ms_ssim_enc": (768, 37, 12, 64), "ms_ssim_dec": (768, 145, 16, 32),
+          "viz_enc": (1, 17, 12, 64), "viz_dec": (1, 65, 16, 32)}
+BWD_SHAPES = ("train_enc", "train_dec", "long_seq", "ms_ssim_enc", "ms_ssim_dec")
 # The K2 kernels' shapes, (N, L, H, hd) folded to (N*H, L, hd): the ViT-L
 # finetune step, ViT-B's 65 tokens, and ViT-H at 224 px, the longest.
 K2_SHAPES = {"finetune": (512, 65, 16, 64), "vit_b": (64, 65, 12, 64),
@@ -517,9 +545,9 @@ def _buffers(gen, nbytes_each: int, make) -> list:
 
 
 def phase_kernel(card: str) -> dict:
-    """Each kernel against its plain version, bf16: mha3_fwd at the six
-    shapes of SHAPES, mha3_bwd at the three training and long-sequence
-    shapes."""
+    """Each kernel against its plain version, bf16: mha3_fwd at every
+    shape of SHAPES, mha3_bwd at the training (128 and 192 px) and
+    long-sequence shapes (BWD_SHAPES)."""
     import torch.nn.functional as F
 
     from cross_scale_mae_torch.ops.attention import (
@@ -3332,6 +3360,456 @@ def phase_data_parallel(card: str, enc_npz: str) -> int:
     return launches
 
 
+# ------------------------------------------------------- evaluation and viz
+
+# [ssim]: 16 images of 192 px (5 MS-SSIM levels need more than 160), one
+# channel of the pair anticorrelated so its SSIM is below zero. The card's
+# fp32 values against the same function in float64 on the host: SSIM_TOL on
+# SSIM and MS-SSIM (means over 1.6M terms summed in fp32), SSIM_GRAD_TOL on
+# the relative L2 gap of 1 - SSIM's gradient. Two controls on the same
+# inputs: the blur with its TF32 guard taken away (the process's cuDNN
+# setting, TF32 on), which must read the sound run's bits or fail the
+# gate; and a blur whose convolutions round their operands to TF32's
+# 10-bit mantissa, as a TF32 convolution does, which must fail it. Each
+# limit sits between the sound readings and that control's (PERF.md
+# section 6: sound 3.9e-8, 5.5e-8 and 9.9e-7; rounded 7.2e-4, 7.4e-4 and
+# 5.5e-3; unguarded, the sound run's bits).
+SSIM_SIZE = 192
+SSIM_BATCH = 16
+SSIM_TOL = 1e-5
+SSIM_GRAD_TOL = 1e-4
+SSIM_ARGS = ("--loss", "mse_ssim", "--loss_cd", "mse")
+SSIM_STEPS = 10
+MS_SSIM_STEPS = 3
+# [perceptual]: the flagship step with the VGG16 trunk, a few steps each on
+# a random and on an imported trunk; the card's loss (TF32 convolutions,
+# PyTorch's default for cuDNN) against the host's fp32 on PERC_IMAGES
+# images: within PERC_TF32_TOL relative, which the trunk in bf16 (autocast)
+# must exceed; with TF32 off, within PERC_IEEE_TOL, which the TF32 reading
+# must exceed (PERF.md section 6: TF32 read 1.03e-5, bf16 8.0e-4, TF32 off
+# 0.0).
+PERC_STEPS = 4
+PERC_IMAGES = 4
+PERC_TF32_TOL = 1e-4
+PERC_IEEE_TOL = 1e-6
+VGG16_CONVS = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128), (10, 128, 256),
+               (12, 256, 256), (14, 256, 256), (17, 256, 512), (19, 512, 512), (21, 512, 512))
+# [evalviz]: cli/evalviz on [pretrain_ssim]'s checkpoint over seeded JPEGs
+# and temporal pairs; then a --plot_recon --val_img_path pretrain.
+EVALVIZ_IMAGES = 8
+EVALVIZ_PAIRS = 384
+EVALVIZ_PAIR_BATCH = 128
+PLOT_STEPS = 2
+ENC_DEC_ATTN = 20   # K1f launches of one masked forward: 12 encoder + 8 decoder blocks
+
+
+def _step_ms(run, reps: int = 3) -> float:
+    """Host ms of one step of a built pretrain run, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run.step_fn(run.state, run.images, run.draws(run.state.step))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _in_turns(runs: dict, first: str, second: str) -> tuple[list, list]:
+    """Each run's first step left out, then first, second, second, first."""
+    for run in runs.values():
+        _step_ms(run, reps=1)
+    a1, b1, b2, a2 = (_step_ms(runs[first]), _step_ms(runs[second]), _step_ms(runs[second]),
+                      _step_ms(runs[first]))
+    return [a1, a2], [b1, b2]
+
+
+def _check_run(result: dict, steps: int, what: str) -> None:
+    losses = result["losses"]
+    check(result["steps"] == steps and len(losses) == steps,
+          f"{what}: {result['steps']} steps, {len(losses)} losses, expected {steps}")
+    check(all(math.isfinite(v) for v in losses), f"{what}: non-finite loss in {losses}")
+
+
+def _check_counts(counts: dict, fwd: int, bwd: int, what: str) -> None:
+    check(counts["mha3_fwd"] == fwd and counts["mha3_bwd"] == bwd,
+          f"{what}: K1 launches fwd {counts['mha3_fwd']}, bwd {counts['mha3_bwd']}, "
+          f"expected {fwd}, {bwd}")
+    check(sum(counts.values()) == fwd + bwd, f"{what}: other kernels launched {counts}")
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32's 10-bit mantissa, to nearest even."""
+    bits = x.contiguous().view(torch.int32)
+    bits = (bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+class _Tf32Blur(torch.autograd.Function):
+    """The control of the [ssim] gate: ``ops/ssim._Blur``'s separable
+    depthwise blur with every convolution operand rounded to TF32, forward
+    and backward, as a TF32 convolution rounds them."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        import torch.nn.functional as F
+
+        from cross_scale_mae_torch.ops.ssim import _kernels
+
+        ctx.save_for_backward(window)
+        ctx.shape = x.shape
+        kern_h, kern_w = (_tf32(k) for k in _kernels(window, x.shape[1]))
+        y = F.conv2d(_tf32(x), kern_h, groups=x.shape[1])
+        ctx.mid = y.shape
+        return F.conv2d(_tf32(y), kern_w, groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        from cross_scale_mae_torch.ops.ssim import _kernels
+
+        (window,) = ctx.saved_tensors
+        c = ctx.shape[1]
+        kern_h, kern_w = (_tf32(k) for k in _kernels(window, c))
+        grad = torch.nn.grad.conv2d_input(ctx.mid, kern_w, _tf32(grad), groups=c)
+        return torch.nn.grad.conv2d_input(ctx.shape, kern_h, _tf32(grad), groups=c), None
+
+
+def phase_ssim(card: str) -> None:
+    """SSIM, MS-SSIM and the gradient of 1 - SSIM on the card against the
+    host's fp32 and float64 of the same function; the blur leaves the
+    process's cuDNN TF32 setting as it found it. The gate's two controls
+    (SSIM_TOL's comment): the blur without its guard, and the blur rounded
+    to TF32. Then the device ms of the mse_ssim loss, forward and backward,
+    at the flagship step's shape (both views of 384 images of 128 px, patch
+    16, mask 0.75) beside mse's."""
+    import contextlib
+
+    from cross_scale_mae_torch.losses.recon import process_target, recon_loss
+    from cross_scale_mae_torch.ops import ssim as ssim_mod
+    from cross_scale_mae_torch.ops.ssim import ms_ssim, ssim
+
+    rng = np.random.default_rng(31)
+    x = rng.uniform(size=(SSIM_BATCH, SSIM_SIZE, SSIM_SIZE, 3)).astype(np.float32)
+    y = np.clip(x + 0.1 * rng.normal(size=x.shape), 0, 1).astype(np.float32)
+    y[..., 0] = 1.0 - x[..., 0]
+
+    def readings(device: str, dtype: torch.dtype):
+        xt = torch.from_numpy(x).to(device, dtype).requires_grad_(True)
+        yt = torch.from_numpy(y).to(device, dtype)
+        s = ssim(xt, yt)
+        (1.0 - s).backward()
+        return float(s.detach()), float(ms_ssim(xt.detach(), yt)), xt.grad.double().cpu()
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    card_r, host_r, ref = (readings("cuda", torch.float32), readings("cpu", torch.float32),
+                           readings("cpu", torch.float64))
+    check(torch.backends.cudnn.allow_tf32 == tf32, "the blur changed the process's TF32 flag")
+    guard, blur = ssim_mod._ieee_fp32_convs, ssim_mod._Blur
+    torch.backends.cudnn.allow_tf32 = True
+    ssim_mod._ieee_fp32_convs = contextlib.nullcontext
+    try:
+        unguarded_r = readings("cuda", torch.float32)
+        ssim_mod._ieee_fp32_convs, ssim_mod._Blur = guard, _Tf32Blur
+        rounded_r = readings("cuda", torch.float32)
+    finally:
+        ssim_mod._ieee_fp32_convs, ssim_mod._Blur = guard, blur
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    def gaps(r):
+        return {"ssim": abs(r[0] - ref[0]), "ms_ssim": abs(r[1] - ref[1]),
+                "grad_rel_l2": float((r[2] - ref[2]).norm() / ref[2].norm())}
+
+    def over(r):
+        """The readings of ``r`` beyond their limits."""
+        limits = {"ssim": SSIM_TOL, "ms_ssim": SSIM_TOL, "grad_rel_l2": SSIM_GRAD_TOL}
+        return [k for k, v in gaps(r).items() if not v <= limits[k]]
+
+    card_gaps, host_gaps = gaps(card_r), gaps(host_r)
+    unguarded_same = (unguarded_r[:2] == card_r[:2] and torch.equal(unguarded_r[2], card_r[2]))
+    log("ssim_control", card=json.dumps(card), card_vs_float64=json.dumps(card_gaps),
+        unguarded_vs_float64=json.dumps(gaps(unguarded_r)), unguarded_bits_equal=unguarded_same,
+        tf32_rounded_vs_float64=json.dumps(gaps(rounded_r)), tol=SSIM_TOL,
+        grad_tol=SSIM_GRAD_TOL)
+    check(not over(card_r),
+          f"card SSIM vs float64: {card_gaps} (limits {SSIM_TOL}, {SSIM_GRAD_TOL})")
+    check(abs(card_r[0] - host_r[0]) <= SSIM_TOL and abs(card_r[1] - host_r[1]) <= SSIM_TOL,
+          f"card SSIM {card_r[:2]} vs the host's fp32 {host_r[:2]}")
+    check(bool(over(rounded_r)), f"the gate passes a TF32-rounded blur: {gaps(rounded_r)}")
+    check(unguarded_same or bool(over(unguarded_r)),
+          f"the unguarded blur reads other bits within the gate: {gaps(unguarded_r)}")
+
+    n, p = TRAIN_BATCH, 16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    imgs = torch.randn((2 * n, 128, 128, 3), device="cuda", generator=gen)
+    target = process_target(imgs, p, 3, False)
+    pred = torch.randn(target.shape, device="cuda", generator=gen).requires_grad_(True)
+    mask = (torch.rand(target.shape[:2], device="cuda", generator=gen) < 0.75).float()
+
+    def loss_step(name):
+        def run(_):
+            pred.grad = None
+            loss = sum(recon_loss(name, target[v], pred[v], mask[v], p, 3)
+                       for v in (slice(0, n), slice(n, 2 * n)))
+            loss.backward()
+        return run
+
+    ms = {name: time_ms(loss_step(name), [None], reps=20) for name in ("mse", "mse_ssim", "mse")}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            loss_step("mse_ssim")(None)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total / 3e3, e.key) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    log("ssim", card=json.dumps(card), shape=json.dumps(list(x.shape)),
+        card_values=json.dumps(card_r[:2]), host_fp32=json.dumps(host_r[:2]),
+        float64=json.dumps(ref[:2]), card_vs_float64=json.dumps(card_gaps),
+        host_fp32_vs_float64=json.dumps(host_gaps), tol=SSIM_TOL, grad_tol=SSIM_GRAD_TOL,
+        loss_shape=json.dumps([2 * n, 128, 128, 3]),
+        mse_ssim_fwd_bwd_ms=ms["mse_ssim"], mse_fwd_bwd_ms=ms["mse"],
+        mse_ssim_device_ms=sum(t for t, _ in kernels),
+        mse_ssim_top_kernels_ms=json.dumps([[round(t, 3), k[:60]] for t, k in kernels[:6]]))
+
+
+def phase_pretrain_ssim(card: str, out: str) -> tuple[int, int]:
+    """The flagship step with ``--loss mse_ssim`` (``--loss_cd mse``: the
+    decoder predictor's term compares embeddings) through
+    ``cli/pretrain.main`` for SSIM_STEPS steps, checkpointed at the last
+    into ``out``; a short ``--loss ms_ssim`` run at 192 px; then the mse
+    and mse_ssim steps timed in turns. Returns K1's (forward, backward)
+    launches of the two CLI runs."""
+    from cross_scale_mae_torch.cli.pretrain import build_run
+    from cross_scale_mae_torch.cli.pretrain import main as pretrain_main
+    from cross_scale_mae_torch.utils.checkpoint import latest_step
+    from cross_scale_mae_torch.utils.flops import mae_train_flops_per_image, mfu
+
+    _reset_counts()
+    result = pretrain_main(_train_argv(out, "pallas_v3", *SSIM_ARGS, "--max_steps",
+                                       str(SSIM_STEPS), "--ckpt_interval", str(SSIM_STEPS)))
+    _check_run(result, SSIM_STEPS, "mse_ssim")
+    _check_counts(_counts(), ATTN_PER_STEP * SSIM_STEPS, ATTN_PER_STEP * SSIM_STEPS, "mse_ssim")
+    check(latest_step(os.path.join(out, "checkpoints")) == SSIM_STEPS, "no step-10 checkpoint")
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        ms192 = pretrain_main(_train_argv(tmp, "pallas_v3", "--input_size", "192", "--loss",
+                                          "ms_ssim", "--loss_cd", "mse", "--max_steps",
+                                          str(MS_SSIM_STEPS)))
+        _check_run(ms192, MS_SSIM_STEPS, "ms_ssim at 192 px")
+        _check_counts(_counts(), ATTN_PER_STEP * MS_SSIM_STEPS, ATTN_PER_STEP * MS_SSIM_STEPS,
+                      "ms_ssim")
+        torch.cuda.empty_cache()
+        runs = {"mse": build_run(_train_argv(os.path.join(tmp, "a"), "pallas_v3")),
+                "mse_ssim": build_run(_train_argv(os.path.join(tmp, "b"), "pallas_v3",
+                                                  *SSIM_ARGS))}
+        mse_ms, ssim_ms = _in_turns(runs, "mse", "mse_ssim")
+        cfg = runs["mse"].cfg
+        del runs
+        torch.cuda.empty_cache()
+    ms = result["steady_ms_per_step"]
+    flops = mae_train_flops_per_image(cfg)
+    log("pretrain_ssim", card=json.dumps(card), steps=SSIM_STEPS, batch=TRAIN_BATCH,
+        losses=json.dumps(result["losses"]), last=json.dumps(result["last_metrics"]),
+        launches_fwd=ATTN_PER_STEP * SSIM_STEPS, launches_bwd=ATTN_PER_STEP * SSIM_STEPS,
+        cli_ms_per_step_with_checkpoint=ms,
+        step_ms_mse_ssim=json.dumps(ssim_ms), step_ms_mse=json.dumps(mse_ms),
+        imgs_per_s=TRAIN_BATCH / (sum(ssim_ms) / 2e3),
+        mfu=mfu(TRAIN_BATCH / (sum(ssim_ms) / 2e3), flops),
+        ms_ssim_192_losses=json.dumps(ms192["losses"]),
+        ms_ssim_192_ms_per_step=ms192["steady_ms_per_step"])
+    return (ATTN_PER_STEP * (SSIM_STEPS + MS_SSIM_STEPS),) * 2
+
+
+def _write_vgg16_pth(path: str, seed: int) -> None:
+    """A torchvision-shaped VGG16 state dict (``features.N`` convs up to
+    conv4_3), He-normal from ``seed``: the trunk without a download."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for i, c_in, c_out in VGG16_CONVS:
+        sd[f"features.{i}.weight"] = (torch.randn((c_out, c_in, 3, 3), generator=gen)
+                                      * math.sqrt(2.0 / (9 * c_in)))
+        sd[f"features.{i}.bias"] = torch.zeros(c_out)
+    torch.save(sd, path)
+
+
+def _vgg16_flops(n: int, size: int) -> float:
+    """FLOPs of the trunk's forward over n images of ``size`` px."""
+    flops, side = 0.0, size
+    for i, c_in, c_out in VGG16_CONVS:
+        if i in (5, 10, 17):
+            side //= 2
+        flops += 2 * 9 * c_in * c_out * side * side
+    return flops * n
+
+
+def phase_perceptual(card: str) -> tuple[int, int]:
+    """The flagship step with ``--use_perceptual_loss`` through
+    ``cli/pretrain.main`` on a random trunk and on ``--vgg_weights`` (a
+    seeded fake torchvision .pth written here), PERC_STEPS steps each; the
+    perceptual and plain steps in turns; the trunk's own device ms at the
+    step's shapes (pred and target forward, pred's input gradient); the
+    card's loss against the host's. Returns K1's launches of the CLI runs."""
+    from cross_scale_mae_torch.cli.pretrain import build_run
+    from cross_scale_mae_torch.cli.pretrain import main as pretrain_main
+    from cross_scale_mae_torch.losses.perceptual import perceptual_loss
+    from cross_scale_mae_torch.utils.flops import mae_train_flops_per_image, mfu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "vgg16.pth")
+        _write_vgg16_pth(pth, 17)
+        _reset_counts()
+        runs_cli = {trunk: pretrain_main(_train_argv(
+            os.path.join(tmp, trunk), "pallas_v3", "--use_perceptual_loss", "--max_steps",
+            str(PERC_STEPS), *(("--vgg_weights", pth) if trunk == "imported" else ())))
+            for trunk in ("random", "imported")}
+        launches = ATTN_PER_STEP * PERC_STEPS * 2
+        _check_counts(_counts(), launches, launches, "perceptual")
+        for trunk, res in runs_cli.items():
+            _check_run(res, PERC_STEPS, f"perceptual ({trunk})")
+            check(res["vgg_trunk"] == ("random" if trunk == "random" else f"imported:{pth}"),
+                  f"vgg_trunk {res['vgg_trunk']}")
+            check(math.isfinite(res["last_metrics"].get("loss_perceptual", math.nan)),
+                  f"{trunk}: no finite loss_perceptual in {res['last_metrics']}")
+        torch.cuda.empty_cache()
+        runs = {"mse": build_run(_train_argv(os.path.join(tmp, "a"), "pallas_v3")),
+                "perceptual": build_run(_train_argv(os.path.join(tmp, "b"), "pallas_v3",
+                                                    "--use_perceptual_loss"))}
+        plain_ms, perc_ms = _in_turns(runs, "mse", "perceptual")
+        cfg, trunk = runs["perceptual"].cfg, runs["perceptual"].state.model_state["vgg"]
+        del runs["mse"]
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        shape = (TRAIN_BATCH, cfg.input_size, cfg.input_size, 3)
+        pred = torch.randn(shape, device="cuda", generator=gen).requires_grad_(True)
+        target = torch.randn(shape, device="cuda", generator=gen)
+
+        def vgg_step(_):
+            pred.grad = None
+            perceptual_loss(trunk, pred, target, resize_to=None).backward()
+
+        torch.cuda.reset_peak_memory_stats()
+        vgg_ms = time_ms(vgg_step, [None], reps=5)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        sub_p, sub_t = pred[:PERC_IMAGES].detach(), target[:PERC_IMAGES]
+        card_tf32 = float(perceptual_loss(trunk, sub_p, sub_t, resize_to=None))
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            card_bf16 = float(perceptual_loss(trunk, sub_p, sub_t, resize_to=None))
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            card_ieee = float(perceptual_loss(trunk, sub_p, sub_t, resize_to=None))
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        host_trunk = {k: {n: t.cpu() for n, t in v.items()} for k, v in trunk.items()}
+        host = float(perceptual_loss(host_trunk, sub_p.cpu(), sub_t.cpu(), resize_to=None))
+        del runs, pred, target
+        torch.cuda.empty_cache()
+    gap_tf32, gap_ieee, gap_bf16 = (abs(v - host) / abs(host)
+                                    for v in (card_tf32, card_ieee, card_bf16))
+    log("perceptual_control", card=json.dumps(card), rel_gap_tf32=gap_tf32,
+        rel_gap_ieee=gap_ieee, rel_gap_bf16=gap_bf16, tol_tf32=PERC_TF32_TOL,
+        tol_ieee=PERC_IEEE_TOL)
+    check(gap_tf32 <= PERC_TF32_TOL and gap_ieee <= PERC_IEEE_TOL,
+          f"perceptual loss: card TF32 {card_tf32}, card IEEE {card_ieee}, host fp32 {host}")
+    check(gap_bf16 > PERC_TF32_TOL, f"the TF32 gate passes a bf16 trunk: {gap_bf16}")
+    check(gap_tf32 > PERC_IEEE_TOL, f"the IEEE gate passes the TF32 trunk: {gap_tf32}")
+    step = sum(perc_ms) / 2
+    vgg_flops = 3 * _vgg16_flops(TRAIN_BATCH, cfg.input_size)
+    log("perceptual", card=json.dumps(card), steps=PERC_STEPS, batch=TRAIN_BATCH,
+        losses=json.dumps({k: r["losses"] for k, r in runs_cli.items()}),
+        loss_perceptual=json.dumps({k: r["last_metrics"]["loss_perceptual"]
+                                    for k, r in runs_cli.items()}),
+        launches_fwd=launches, launches_bwd=launches,
+        step_ms_perceptual=json.dumps(perc_ms), step_ms_plain=json.dumps(plain_ms),
+        imgs_per_s=TRAIN_BATCH / (step / 1e3),
+        mfu_model_flops=mfu(TRAIN_BATCH / (step / 1e3), mae_train_flops_per_image(cfg)),
+        vgg_fwd_fwd_bwd_ms=vgg_ms, vgg_share_of_step=vgg_ms / step,
+        step_share_over_plain=(step - sum(plain_ms) / 2) / step,
+        vgg_flops=vgg_flops, vgg_tflops_per_s=vgg_flops / (vgg_ms / 1e3) / 1e12,
+        vgg_timing_peak_gb=peak_gb, loss_card_tf32=card_tf32, loss_card_ieee=card_ieee,
+        loss_card_bf16=card_bf16, loss_host_fp32=host, rel_gap_tf32=gap_tf32,
+        rel_gap_ieee=gap_ieee, rel_gap_bf16=gap_bf16, tol_tf32=PERC_TF32_TOL,
+        tol_ieee=PERC_IEEE_TOL)
+    return launches, launches
+
+
+def phase_evalviz(card: str, ckpt: str) -> dict:
+    """``cli/evalviz.main`` on [pretrain_ssim]'s checkpoint over seeded
+    JPEGs (``--images``), two noise kinds and ``--temporal_csv`` pairs; then
+    a ``--plot_recon --val_img_path`` pretrain of PLOT_STEPS steps. Returns
+    {"evalviz": (fwd, bwd), "plot_recon": (fwd, bwd)} K1 launches."""
+    from PIL import Image
+
+    from cross_scale_mae_torch.cli import evalviz
+    from cross_scale_mae_torch.cli.pretrain import main as pretrain_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(43)
+        os.makedirs(f"{tmp}/val")
+        files = []
+        for i in range(EVALVIZ_IMAGES):
+            files.append(f"{tmp}/val/v{i}.jpg")
+            Image.fromarray(rng.integers(0, 256, (120, 160, 3)).astype(np.uint8)).save(
+                files[-1], quality=90)
+        csv = _write_pairs(tmp, EVALVIZ_PAIRS, 41)
+        out = f"{tmp}/viz"
+        _reset_counts()
+        t0 = time.perf_counter()
+        sweep = evalviz.main(evalviz.get_args_parser().parse_args([
+            "--ckpt", ckpt, "--images", *files, "--metrics", "mse", "ssim",
+            "--noise", "gaussian", "salt_pepper", "--temporal_csv", csv,
+            "--temporal_batch", str(EVALVIZ_PAIR_BATCH), "--out", out, "--device", "cuda"]))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        batches = -(-EVALVIZ_PAIRS // EVALVIZ_PAIR_BATCH)
+        fwd = ENC_DEC_ATTN * EVALVIZ_IMAGES * 4 + LP_ATTN * batches
+        _check_counts(_counts(), fwd, 0, "evalviz")
+        name = os.path.basename(os.path.dirname(ckpt.rstrip("/")))
+        want = {f"{name}_img{i}.png" for i in range(EVALVIZ_IMAGES)} | {
+            "metrics.json", "temporal_gaps.json"}
+        check(set(os.listdir(out)) == want, f"evalviz wrote {sorted(os.listdir(out))}")
+        for i in range(EVALVIZ_IMAGES):
+            with Image.open(f"{out}/{name}_img{i}.png") as im:
+                check(im.size == (512, 128), f"figure {i} is {im.size}")
+        scores = sweep[name]
+        check(set(scores) == {f"{m}{k}" for m in ("mse", "ssim")
+                              for k in ("", "_gaussian", "_salt_pepper")}
+              and all(math.isfinite(v) for v in scores.values()), f"sweep {scores}")
+        with open(f"{out}/temporal_gaps.json") as f:
+            report = json.load(f)[name]
+        check(report["overall"]["n"] == EVALVIZ_PAIRS
+              and -1.0 <= report["overall"]["mean_cos"] <= 1.0, f"temporal {report['overall']}")
+
+        _reset_counts()
+        plot = pretrain_main(_train_argv(f"{tmp}/plot", "pallas_v3", "--plot_recon",
+                                         "--val_img_path", f"{tmp}/val", "--max_steps",
+                                         str(PLOT_STEPS), "--ckpt_interval", str(PLOT_STEPS)))
+        _check_run(plot, PLOT_STEPS, "plot_recon")
+        plot_fwd = ATTN_PER_STEP * PLOT_STEPS + ENC_DEC_ATTN * EVALVIZ_IMAGES
+        _check_counts(_counts(), plot_fwd, ATTN_PER_STEP * PLOT_STEPS, "plot_recon")
+        check(sorted(os.path.basename(p) for p in plot["figures"]) == sorted(
+            f"epoch_{PLOT_STEPS - 1:04d}_v{i}.png" for i in range(EVALVIZ_IMAGES)),
+            f"plot_recon wrote {plot['figures']}")
+        torch.cuda.empty_cache()
+    log("evalviz", card=json.dumps(card), images=EVALVIZ_IMAGES, pairs=EVALVIZ_PAIRS,
+        sweep=json.dumps(scores), temporal=json.dumps(report["overall"]),
+        buckets=json.dumps(report["buckets"]), launches_fwd=fwd, wall_s=wall_s,
+        images_per_s=(4 * EVALVIZ_IMAGES + 2 * EVALVIZ_PAIRS) / wall_s,
+        plot_recon_figures=len(plot["figures"]), plot_recon_launches_fwd=plot_fwd,
+        plot_recon_losses=json.dumps(plot["losses"]))
+    return {"evalviz": (fwd, 0), "plot_recon": (plot_fwd, ATTN_PER_STEP * PLOT_STEPS)}
+
+
+def eval_phases(card: str, work: str) -> dict:
+    """[ssim], [pretrain_ssim], [perceptual] and [evalviz], each path with
+    the counts set to 0 just before it. Returns {path: (K1f, K1b)}."""
+    phase_ssim(card)
+    ckpt_run = os.path.join(work, "ssim")
+    paths = {"train_ssim": phase_pretrain_ssim(card, ckpt_run),
+             "perceptual": phase_perceptual(card)}
+    paths.update(phase_evalviz(card, os.path.join(ckpt_run, "checkpoints")))
+    shutil.rmtree(ckpt_run)
+    return paths
+
+
 def serving_phases(card: str, work: str, pretrain_npz: str, ft_npz: str, lp_ckpt: str) -> dict:
     """The serving and export paths: [serve_classifier], [quantize],
     [export], [embed] and [data_parallel], each with the counts set to 0
@@ -3358,7 +3836,8 @@ def main() -> int:
     rows = phase_kernel(card)
     # Each path is driven with the counts set to 0 just before it and read
     # just after it: serving (forward only), pretraining, finetuning, the
-    # finetuning recipe, pretraining with bf16 moments, linear probing from
+    # finetuning recipe, pretraining with bf16 moments, the SSIM losses, the
+    # perceptual loss, evalviz and --plot_recon, linear probing from
     # the pretraining's weights, the classifiers served, int8 serving,
     # embedding and data-parallel serving, temporal pretraining on pairs and
     # multi-band finetuning through the loader, then pretraining through a
@@ -3375,6 +3854,7 @@ def main() -> int:
         phase_finetune_grads_fp64(card)
         recipe_fwd, recipe_bwd = phase_finetune_recipe(card)
         moment_fwd, moment_bwd = phase_moments(card)
+        eval_paths = eval_phases(card, work)
         lp_fwd = phase_linprobe(card, npz, lp_ckpt)
         new_paths = serving_phases(card, work, npz, ft_npz, lp_ckpt)
     phase_native(card)
@@ -3384,11 +3864,13 @@ def main() -> int:
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "train_ddp": ddp_fwd,
                             "train_resume": resume_fwd, "linprobe": lp_fwd,
                             "train_temporal": temporal_fwd, "moments": moment_fwd,
-                            **new_paths["mha3_fwd"]},
+                            **new_paths["mha3_fwd"],
+                            **{k: v[0] for k, v in eval_paths.items()}},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
                             "train_resume": resume_bwd, "linprobe": 0,
                             "train_temporal": temporal_bwd, "moments": moment_bwd,
-                            **{k: 0 for k in new_paths["mha3_fwd"]}},
+                            **{k: 0 for k in new_paths["mha3_fwd"]},
+                            **{k: v[1] for k, v in eval_paths.items()}},
                "mha_fwd": {"finetune": ft_fwd, "finetune_sentinel": sn_fwd,
                            "finetune_recipe": recipe_fwd, **new_paths["mha_fwd"]},
                "mha_bwd": {"finetune": ft_bwd, "finetune_sentinel": sn_bwd,

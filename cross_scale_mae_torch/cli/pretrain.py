@@ -49,8 +49,17 @@ restarts a gang that loses a process from the newest checkpoint.
 
 ``--adam_mu_dtype``/``--adam_nu_dtype bfloat16`` store Adam's moments in
 bf16 (the checkpoint then holds them so, and restores only into a run with
-the same dtypes). TP/SP/ZeRO/FSDP, wandb, the perceptual loss and the
-reconstruction plots are not ported yet and refuse with a pointer to ROADMAP.md.
+the same dtypes). ``--loss`` takes the SSIM family too (``ssim``,
+``ms_ssim``, ``mse_ssim``, ``mse_ms_ssim``; ``ms_ssim`` needs an input above
+160 px); a model with latent terms then needs ``--loss_e``/``--loss_ce``/
+``--loss_cd`` naming a loss of embeddings. ``--use_perceptual_loss`` adds
+the VGG16 perceptual term (a multi-scale model only), on a random trunk or
+on ``--vgg_weights``' torchvision state dict; ``<output_dir>/config.json``
+records which as ``vgg_trunk``. ``--plot_recon`` (or ``--val_img_path``,
+an image file or a directory of them) writes rank 0's reconstruction
+figures at every checkpoint into ``<output_dir>/reconstructions/``.
+TP/SP/ZeRO/FSDP and wandb are not ported yet and refuse with a pointer to
+ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_base_MsLdCeCd \\
@@ -69,11 +78,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import signal
 import time
 from typing import Any, Callable, Iterator, Optional
 
+import numpy as np
 import torch
 
 from cross_scale_mae_torch.cli.common import (
@@ -89,9 +100,11 @@ from cross_scale_mae_torch.cli.common import (
 from cross_scale_mae_torch.configs import MAEConfig, TrainConfig, get_mae_config
 from cross_scale_mae_torch.data.datasets import DATASET_STATS, build_dataset, synthetic_images
 from cross_scale_mae_torch.data.loader import DataLoader, device_prefetch
-from cross_scale_mae_torch.losses.recon import RECON_LOSSES
+from cross_scale_mae_torch.losses.perceptual import load_torch_vgg16_features
+from cross_scale_mae_torch.losses.recon import RECON_LOSSES, SSIM_LOSSES
 from cross_scale_mae_torch.models.mae import mae_init
 from cross_scale_mae_torch.ops.augment import make_pretrain_augment
+from cross_scale_mae_torch.ops.image import center_crop_resize, normalize_images
 from cross_scale_mae_torch.parallel.dist import Runtime, barrier, shutdown
 from cross_scale_mae_torch.parallel.mesh import broadcast_params
 from cross_scale_mae_torch.train.optim import MOMENT_DTYPES, build_optimizer
@@ -111,13 +124,12 @@ from cross_scale_mae_torch.utils.checkpoint import (
 )
 from cross_scale_mae_torch.utils.logging import rank0_print
 from cross_scale_mae_torch.utils.params import params_to_jax
+from cross_scale_mae_torch.viz import plot_reconstruction, prepare_image, run_one_image
 
 # Flags of the JAX CLI that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item.
-UNPORTED_FLAGS = {
-    **UNPORTED_RUNTIME, "zero1": 11, "use_perceptual_loss": 14, "vgg_weights": 14,
-    "plot_recon": 14, "val_img_path": 14, "wandb_id": 16,
-}
+UNPORTED_FLAGS = {**UNPORTED_RUNTIME, "zero1": 11, "wandb_id": 16}
+IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".bmp")
 FAULT_EXIT_CODE = 13
 
 
@@ -138,6 +150,10 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="one shared crop box per batch (reference behavior)")
     p.add_argument("--consistent_mask", action="store_true")
     p.add_argument("--mask_seed", default=None, type=int)
+    p.add_argument("--use_perceptual_loss", action="store_true")
+    p.add_argument("--vgg_weights", default=None,
+                   help="torchvision VGG16 .pth for the perceptual trunk; without it the "
+                        "trunk is random (config.json records which as vgg_trunk)")
     p.add_argument("--apply_encoder_norm", action="store_true")
     p.add_argument("--epochs", default=400, type=int)
     p.add_argument("--warmup_epochs", default=40, type=int)
@@ -152,6 +168,12 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_interval", default=25, type=int,
                    help="write <output_dir>/checkpoints every N epochs, after the last "
                         "and on SIGTERM/SIGINT")
+    p.add_argument("--plot_recon", action="store_true",
+                   help="save reconstruction figures at checkpoint epochs")
+    p.add_argument("--val_img_path", default=None,
+                   help="image file or directory to reconstruct at each checkpoint epoch "
+                        "(main_pretrain.py:590-626); implies --plot_recon; default: the "
+                        "first dataset sample")
     p.add_argument("--max_steps", default=None, type=int, help="hard step cap")
     p.add_argument("--unroll_blocks", action="store_true",
                    help="a layout knob of the JAX package (scan or unrolled); the port "
@@ -173,10 +195,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--adam_nu_dtype", default=None, choices=list(MOMENT_DTYPES),
                    help="dtype of Adam's second moment")
     g = p.add_argument_group("not ported yet (ROADMAP.md)")
-    for flag in ("vgg_weights", "val_img_path"):
-        g.add_argument(f"--{flag}", default=None)
-    for flag in ("zero1", "use_perceptual_loss", "plot_recon"):
-        g.add_argument(f"--{flag}", action="store_true")
+    g.add_argument("--zero1", action="store_true")
     return p
 
 
@@ -207,6 +226,10 @@ class PretrainRun:
     frames: int = 1                       # frames a sample: 2 for temporal pairs
     ddp_mode: Optional[str] = None        # the step's semantics; None without a group
     start_epoch: int = 0                  # after --resume, the checkpoint's epoch + 1
+    mean: tuple = ()                      # the normalization's statistics
+    std: tuple = ()
+    vgg_trunk: str = "n/a"                # "random", "imported:<path>" or "n/a"
+    val_images: Optional[list] = None     # --val_img_path's files
 
     @property
     def device(self) -> torch.device:
@@ -259,7 +282,14 @@ def build_run(args) -> PretrainRun:
         ms_range=tuple(args.ms_range), ms_decoder_loss_reduction=args.ms_decoder_loss_reduction,
         ms_per_sample_crop=not args.batch_crop, apply_encoder_norm=args.apply_encoder_norm,
         compute_dtype=args.compute_dtype, attention_impl=args.attention_impl,
-        remat=args.remat, gelu=args.gelu, scan_blocks=not args.unroll_blocks)
+        remat=args.remat, gelu=args.gelu, scan_blocks=not args.unroll_blocks,
+        use_perceptual=args.use_perceptual_loss)
+    check_losses(cfg, ddp_mode, rt.world_size)
+    if args.vgg_weights and not cfg.use_perceptual:
+        raise SystemExit(
+            "--vgg_weights given without --use_perceptual_loss: the trunk would be loaded "
+            "for nothing — add --use_perceptual_loss or drop --vgg_weights")
+    val_images = val_image_files(args.val_img_path) if args.val_img_path else None
     tcfg = TrainConfig(
         epochs=args.epochs, warmup_epochs=args.warmup_epochs,
         batch_size=args.batch_size, accum_iter=args.accum_iter, blr=args.blr,
@@ -290,6 +320,14 @@ def build_run(args) -> PretrainRun:
     schedule = warmup_half_cosine(tcfg.resolved_lr(eff_batch), args.min_lr,
                                   args.warmup_epochs, args.epochs, steps_per_epoch)
     params, mstate = mae_init(cfg, torch.Generator(device=dev).manual_seed(args.seed))
+    vgg_trunk = "n/a"
+    if cfg.use_perceptual:
+        vgg_trunk = "random"
+        if args.vgg_weights:
+            trunk = load_torch_vgg16_features(args.vgg_weights, cfg.input_channels)
+            mstate["vgg"] = {k: {n: t.to(dev) for n, t in v.items()} for k, v in trunk.items()}
+            vgg_trunk = f"imported:{args.vgg_weights}"
+        rank0_print(f"perceptual trunk: {vgg_trunk}")
     broadcast_params([params, mstate])
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay,
                          b1=tcfg.adam_b1, b2=tcfg.adam_b2, clip_grad=args.clip_grad,
@@ -314,7 +352,90 @@ def build_run(args) -> PretrainRun:
     step_fn = make_pretrain_step(cfg, tcfg, schedule, augment=augment, ddp_mode=ddp_mode)
     frames = getattr(loader.dataset, "frames", 1) if loader else 1
     return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, rt, loader, rot90,
-                       frames, ddp_mode, start_epoch)
+                       frames, ddp_mode, start_epoch, tuple(mean), tuple(std), vgg_trunk,
+                       val_images)
+
+
+def check_losses(cfg: MAEConfig, ddp_mode: Optional[str], world_size: int) -> None:
+    """SystemExit for a loss setup that cannot train:
+    * the perceptual loss on a single-view model, which the JAX package's
+      ``mae_loss_fn`` silently leaves out (it returns before the term);
+    * an SSIM loss on a latent term: the SSIM family compares images, and
+      the JAX package fails on it at the first step;
+    * an SSIM loss under ``--ddp_mode gspmd`` beyond one rank: its [0, 1]
+      rescale takes the batch's min and max, over the global batch in the
+      JAX jit; the port takes them over each rank's rows, the shard_map
+      semantics."""
+    if cfg.use_perceptual and not cfg.multi_scale:
+        raise SystemExit(
+            "--use_perceptual_loss needs a multi-scale model (mae_vit_*_MsLd*): the JAX "
+            "package's single-view objective returns before the perceptual term, so the "
+            "run would train without it (ROADMAP.md, queue 3)")
+    terms = [t for t, on in (("e", cfg.use_le), ("ce", cfg.use_ce_pred),
+                             ("cd", cfg.use_cd_pred)) if on]
+    for term in terms:
+        if cfg.loss_name(term) in SSIM_LOSSES:
+            raise SystemExit(
+                f"the {term} latent term's loss is {cfg.loss_name(term)!r}: the SSIM losses "
+                f"compare images, not embeddings; give --loss_{term} (mse, l1, ...)")
+    if cfg.loss in SSIM_LOSSES and ddp_mode == "gspmd" and world_size > 1:
+        raise SystemExit(
+            f"--loss {cfg.loss} under --ddp_mode gspmd: the global batch's min-max rescale "
+            "is not ported; --ddp_mode shard_map takes it over each rank's rows "
+            "(ROADMAP.md, queue 1 item 11)")
+
+
+def val_image_files(path: str) -> list[str]:
+    """--val_img_path's images: the file, or the image files of the
+    directory in name order; FileNotFoundError when there is none."""
+    if not os.path.isdir(path):
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"--val_img_path {path!r}: no such file or directory")
+        return [path]
+    files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                   if f.lower().endswith(IMAGE_SUFFIXES))
+    if not files:
+        # Plotting dataset sample 0 instead of the images asked for would hide it.
+        raise FileNotFoundError(f"--val_img_path {path!r}: no image files "
+                                f"({'/'.join(IMAGE_SUFFIXES)}) found")
+    return files
+
+
+def plot_epoch_recon(run: PretrainRun, output_dir: str, epoch: int) -> list[str]:
+    """Rank 0's reconstruction figures of a checkpoint epoch
+    (main_pretrain.py:590-626): each --val_img_path image, else the
+    dataset's sample 0 (a temporal pair's first frame), center-cropped to
+    the input size when its canvas differs; the mask noise from a generator
+    seeded 0. Returns the paths written."""
+    if run.rt.rank != 0:
+        return []
+    cfg, dev = run.cfg, run.device
+    if run.val_images:
+        batches = [(prepare_image(f, cfg, run.mean, run.std),
+                    "_" + os.path.splitext(os.path.basename(f))[0]) for f in run.val_images]
+    else:
+        if run.loader is not None:
+            img, normalize = run.loader.dataset.load(0)[0], run.loader.dataset.normalize_on_device
+        else:
+            img, normalize = run.images[0].cpu().numpy(), True
+        if img.ndim == 4:
+            img = img[0]
+        x = torch.from_numpy(img.astype(np.float32) / 255.0).to(dev)
+        if normalize:
+            x = normalize_images(x, run.mean, run.std)
+        if x.shape[0] != cfg.input_size or x.shape[1] != cfg.input_size:
+            x = center_crop_resize(x[None], cfg.input_size)[0]
+        batches = [(x[None], "")]
+    paths = []
+    for batch, suffix in batches:
+        noise = torch.rand((1, cfg.num_patches), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+        result = run_one_image(run.state.params, cfg, batch.to(dev), noise)
+        path = os.path.join(output_dir, "reconstructions", f"epoch_{epoch:04d}{suffix}.png")
+        plot_reconstruction(result, path, run.mean, run.std,
+                            title=f"epoch {epoch} loss {result['loss']:.4f}")
+        paths.append(path)
+    return paths
 
 
 def fault_step(rank: int) -> int:
@@ -360,14 +481,20 @@ def main(args) -> dict[str, Any]:
     """Train; returns the step count, every step's loss, the last logged
     metrics, the steady ms per step on the GPU (the steps after the first,
     which builds the kernels), images/s per process and in total, the rank
-    and world size, and the npz path (written by rank 0)."""
+    and world size, the npz path (written by rank 0), the perceptual trunk
+    and the reconstruction figures written."""
     run = build_run(args)
     rt = run.rt
+    if rt.rank == 0 and args.output_dir:
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+            json.dump({**json.loads(run.cfg.to_json()), "vgg_trunk": run.vgg_trunk}, f, indent=2)
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
     rank0_print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
                 f"{run.steps_per_epoch} steps/epoch; {rt.world_size} process(es), "
                 f"ddp_mode {run.ddp_mode}")
     losses: list[float] = []
+    figures: list[str] = []
     last_metrics: dict[str, float] = {}
     prev_loss = prev_stop = None
     t_first = None
@@ -410,6 +537,9 @@ def main(args) -> dict[str, Any]:
                                     or epoch + 1 == args.epochs or stopping):
                 save_checkpoint(ckpt_dir, run.state.step, run.state, run.cfg.to_json(),
                                 {"epoch": epoch})
+                if args.plot_recon or args.val_img_path:
+                    # --val_img_path alone plots too (main_pretrain.py:589-626).
+                    figures += plot_epoch_recon(run, args.output_dir, epoch)
             if stopping:
                 rank0_print("preemption checkpoint written; exiting")
                 break
@@ -434,7 +564,8 @@ def main(args) -> dict[str, Any]:
     rank0_print(f"training done: {total} steps; params written to {npz}")
     return {"steps": total, "losses": losses, "last_metrics": last_metrics,
             "steady_ms_per_step": steady_ms, "imgs_per_s": imgs_per_s, "npz": npz,
-            "rank": rt.rank, "world_size": rt.world_size}
+            "rank": rt.rank, "world_size": rt.world_size, "vgg_trunk": run.vgg_trunk,
+            "figures": figures}
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ whatever the activation dtype. The masked mean is
 (MAE_ViT_Shared.py:119); with ``mask=None`` it is a plain mean, which is how
 the latent and cross-predictor terms use these functions.
 
-The SSIM family (``ssim``, ``ms_ssim``, ``mse_ssim``, ``mse_ms_ssim``) needs
-``ops/ssim.py``, which is not ported yet (ROADMAP.md queue 1 item 14).
+The SSIM family (``ssim``, ``ms_ssim``, ``mse_ssim``, ``mse_ms_ssim``)
+compares images: it rescales target and prediction to [0, 1] over the whole
+batch, unpatchifies them (so it needs ``patch_size`` and ``channels``) and
+zeroes the visible patches (MAE_ViT_Shared.py:179-267).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Callable, Optional
 import torch
 
 from cross_scale_mae_torch.ops.numerics import at_least_f32
-from cross_scale_mae_torch.ops.patchify import patchify
+from cross_scale_mae_torch.ops.patchify import patchify, unpatchify
+from cross_scale_mae_torch.ops.ssim import ms_ssim, ssim
 
 SSIM_LOSSES = ("ssim", "ms_ssim", "mse_ssim", "mse_ms_ssim")
 
@@ -46,27 +49,27 @@ def process_target(imgs: torch.Tensor, patch_size: int, channels: int,
     return target
 
 
-def loss_mse(target, pred, mask=None):
+def loss_mse(target, pred, mask=None, **kw):
     target, pred = at_least_f32(target), at_least_f32(pred)
     return _masked_mean(((pred - target) ** 2).mean(dim=-1), mask)
 
 
-def loss_l2(target, pred, mask=None):
+def loss_l2(target, pred, mask=None, **kw):
     target, pred = at_least_f32(target), at_least_f32(pred)
     return _masked_mean(((pred - target) ** 2).sum(dim=-1), mask)
 
 
-def loss_mae(target, pred, mask=None):
+def loss_mae(target, pred, mask=None, **kw):
     target, pred = at_least_f32(target), at_least_f32(pred)
     return _masked_mean((pred - target).abs().mean(dim=-1), mask)
 
 
-def loss_l1(target, pred, mask=None):
+def loss_l1(target, pred, mask=None, **kw):
     target, pred = at_least_f32(target), at_least_f32(pred)
     return _masked_mean((pred - target).abs().sum(dim=-1), mask)
 
 
-def loss_bce(target, pred, mask=None):
+def loss_bce(target, pred, mask=None, **kw):
     """BCE with logits against a 0-1 rescaled target (MAE_ViT_Shared.py:160-177)."""
     target, pred = at_least_f32(target), at_least_f32(pred)
     target = scale_01(target)
@@ -75,20 +78,53 @@ def loss_bce(target, pred, mask=None):
     return _masked_mean(per_elem.mean(dim=-1), mask)
 
 
+def _ssim_family(target, pred, mask, patch_size, channels, fn, **fn_kw):
+    """1 - fn of the [0, 1]-rescaled images, the visible patches zeroed in
+    both (MAE_ViT_Shared.py:179-267)."""
+    if patch_size is None or channels is None:
+        raise ValueError("the ssim losses compare images: they need patch_size and "
+                         "channels to unpatchify")
+    target, pred = scale_01(at_least_f32(target)), scale_01(at_least_f32(pred))
+    timg = unpatchify(target, patch_size, channels)
+    pimg = unpatchify(pred, patch_size, channels)
+    if mask is not None:
+        mimg = unpatchify(at_least_f32(mask)[:, :, None].expand(
+            *mask.shape, patch_size * patch_size * channels), patch_size, channels)
+        timg, pimg = timg * mimg, pimg * mimg
+    return 1.0 - fn(pimg, timg, data_range=1.0, size_average=True, **fn_kw)
+
+
+def loss_ssim(target, pred, mask=None, patch_size=None, channels=None):
+    return _ssim_family(target, pred, mask, patch_size, channels, ssim,
+                        nonnegative_ssim=True)
+
+
+def loss_ms_ssim(target, pred, mask=None, patch_size=None, channels=None):
+    return _ssim_family(target, pred, mask, patch_size, channels, ms_ssim)
+
+
+def loss_mse_ssim(target, pred, mask=None, weight=0.1, **kw):
+    return loss_mse(target, pred, mask) + weight * loss_ssim(target, pred, mask, **kw)
+
+
+def loss_mse_ms_ssim(target, pred, mask=None, weight=0.1, **kw):
+    return loss_mse(target, pred, mask) + weight * loss_ms_ssim(target, pred, mask, **kw)
+
+
 RECON_LOSSES: dict[str, Callable] = {
     "mse": loss_mse, "l2": loss_l2, "mae": loss_mae, "l1": loss_l1, "bce": loss_bce,
+    "ssim": loss_ssim, "ms_ssim": loss_ms_ssim, "mse_ssim": loss_mse_ssim,
+    "mse_ms_ssim": loss_mse_ms_ssim,
 }
 
 
 def recon_loss(name: str, target: torch.Tensor, pred: torch.Tensor,
-               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dispatch by name (the registry at MAE_ViT_Shared.py:19)."""
-    key = name.lower()
-    if key in SSIM_LOSSES:
-        raise NotImplementedError(
-            f"loss {name!r} needs ops/ssim.py, which is not ported yet; see "
-            "ROADMAP.md (queue 1 item 14)")
-    if key not in RECON_LOSSES:
-        raise ValueError(
-            f"unknown loss {name!r}; known: {sorted(RECON_LOSSES) + list(SSIM_LOSSES)}")
-    return RECON_LOSSES[key](target, pred, mask)
+               mask: Optional[torch.Tensor] = None, patch_size: Optional[int] = None,
+               channels: Optional[int] = None) -> torch.Tensor:
+    """Dispatch by name (the registry at MAE_ViT_Shared.py:19). The SSIM
+    family needs ``patch_size`` and ``channels``; the others ignore them."""
+    try:
+        fn = RECON_LOSSES[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown loss {name!r}; known: {sorted(RECON_LOSSES)}") from None
+    return fn(target, pred, mask, patch_size=patch_size, channels=channels)

@@ -9,10 +9,9 @@ terms; CeCd: NT-Xent). Both scale views run as one forward at batch 2N.
 Randomness is an input: the mask noise and the low-GSD view's crop boxes
 come from ``train/pretrain.py::sample_pretrain_draws`` (or, in a test, from
 the JAX package's keys). Params are the dict that ``mae_init`` or
-``utils/params.py::params_from_jax`` returns.
-
-Not ported yet (ROADMAP.md): the temporal (N, 2, H, W, C) batch and the
-perceptual loss.
+``utils/params.py::params_from_jax`` returns. The perceptual loss's frozen
+VGG16 trunk lives in the state (``state["vgg"]``), not in the params, so it
+takes no gradient and no weight decay.
 """
 
 from __future__ import annotations
@@ -24,12 +23,13 @@ import torch
 
 from cross_scale_mae_torch.configs import MAEConfig
 from cross_scale_mae_torch.losses.ntxent import ntxent_loss
+from cross_scale_mae_torch.losses.perceptual import init_vgg16_params, perceptual_loss
 from cross_scale_mae_torch.losses.recon import process_target, recon_loss
 from cross_scale_mae_torch.models import layers
 from cross_scale_mae_torch.ops.image import random_resized_crop
 from cross_scale_mae_torch.ops.masking import random_masking, restore_tokens
 from cross_scale_mae_torch.ops.numerics import at_least_f32
-from cross_scale_mae_torch.ops.patchify import patchify
+from cross_scale_mae_torch.ops.patchify import patchify, unpatchify
 from cross_scale_mae_torch.ops.pos_embed import get_2d_sincos_pos_embed
 
 Params = dict[str, Any]
@@ -55,13 +55,10 @@ class MAEOutput(NamedTuple):
 def mae_init(cfg: MAEConfig, gen: torch.Generator) -> tuple[Params, Params]:
     """(params, state) on ``gen``'s device: fp32 leaves (xavier-uniform
     kernels, zero biases, unit norms, normal(0.02) tokens), and the
-    predictors' BatchNorm statistics."""
+    predictors' BatchNorm statistics and, with ``use_perceptual``, a random
+    VGG16 trunk (drawn last)."""
     d, dd = cfg.dim_model, cfg.decoder_embed_dim
     dev = gen.device
-    if cfg.use_perceptual:
-        raise NotImplementedError(
-            "use_perceptual needs losses/perceptual.py, which is not ported "
-            "yet; see ROADMAP.md (queue 1 item 14)")
 
     def token(dim):
         return 0.02 * torch.randn((1, 1, dim), generator=gen, device=dev)
@@ -90,6 +87,8 @@ def mae_init(cfg: MAEConfig, gen: torch.Generator) -> tuple[Params, Params]:
         params["predictor_ce"] = layers.predictor_init(
             gen, d, cfg.len_keep, cfg.predictor_hidden_size)
         state["predictor_ce"] = layers.predictor_state_init(cfg.len_keep, dev)
+    if cfg.use_perceptual:
+        state["vgg"] = init_vgg16_params(gen, cfg.input_channels)
     return params, state
 
 
@@ -161,7 +160,8 @@ def mae_forward_decoder(params: Params, cfg: MAEConfig, x: torch.Tensor,
 
 def _recon_loss(cfg: MAEConfig, imgs, pred, mask):
     target = process_target(imgs, cfg.patch_size, cfg.input_channels, cfg.norm_pix_loss)
-    return recon_loss(cfg.loss, target, at_least_f32(pred), mask)
+    return recon_loss(cfg.loss, target, at_least_f32(pred), mask,
+                      patch_size=cfg.patch_size, channels=cfg.input_channels)
 
 
 def mae_apply(params: Params, cfg: MAEConfig, imgs: torch.Tensor, *,
@@ -204,11 +204,9 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
                 "temporal (N, T, H, W, C) batches need a multi-scale variant "
                 "(MsLd*): single-view MAE has no slot for the second frame")
         imgs, view2 = imgs[:, 0], imgs[:, 1]
-    if cfg.use_perceptual:
-        raise NotImplementedError(
-            "use_perceptual needs losses/perceptual.py, which is not ported "
-            "yet; see ROADMAP.md (queue 1 item 14)")
     if not cfg.multi_scale:
+        # As in the JAX package, a single-view config returns before the
+        # perceptual term (cli/pretrain.py refuses that combination).
         return mae_apply(params, cfg, imgs, noise=noise)._replace(state=state)
 
     n = imgs.shape[0]
@@ -258,5 +256,12 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
         f2 = at_least_f32(enc_c[:, 1:, :]).mean(dim=1)
         losses["loss_ce"] = ntxent_loss(f1, f2, tau=cfg.ntxent_tau, global_batch=global_batch)
         total = total + losses["loss_ce"]
+    if cfg.use_perceptual:
+        # The original view's prediction against its normalized input
+        # (JAX models/mae.py:381-391).
+        pred_img = unpatchify(at_least_f32(pred[:n]), cfg.patch_size, cfg.input_channels)
+        losses["loss_perceptual"] = perceptual_loss(state["vgg"], pred_img,
+                                                    at_least_f32(imgs), resize_to=None)
+        total = total + cfg.perceptual_weight * losses["loss_perceptual"]
     return MAEOutput(loss=total, losses=losses, pred=pred[:n], mask=mask[:n],
                      enc_emb=(enc_o, enc_c), dec_emb=(dec_o, dec_c), state=new_state)

@@ -23,12 +23,14 @@ from typing import Sequence
 
 import torch
 
+from cross_scale_mae_torch.ops.numerics import device_constant
+
 
 def normalize_images(imgs: torch.Tensor, mean: Sequence[float],
                      std: Sequence[float]) -> torch.Tensor:
     """(x - mean) / std per channel, NHWC, in the images' dtype."""
-    mean_t = torch.tensor(mean, dtype=torch.float64).to(imgs.device, imgs.dtype)
-    std_t = torch.tensor(std, dtype=torch.float64).to(imgs.device, imgs.dtype)
+    mean_t = device_constant(mean, imgs.device, imgs.dtype)
+    std_t = device_constant(std, imgs.device, imgs.dtype)
     return (imgs - mean_t) / std_t
 
 
@@ -158,6 +160,15 @@ def random_resized_crop(imgs: torch.Tensor, boxes: torch.Tensor, out_size: int,
     """Per-sample RandomResizedCrop on the training fast path
     (``exact=False``), for boxes from :func:`sample_crop_boxes`."""
     return crop_resize(imgs, boxes, out_size, method, exact=False)
+
+
+def resize(imgs: torch.Tensor, out_size: int, method: str = "cubic") -> torch.Tensor:
+    """Whole-image resize: :func:`crop_resize` with the box (0, 0, H, W)
+    for every sample, exact."""
+    n, h, w, _ = imgs.shape
+    boxes = torch.tensor([[0.0, 0.0, float(h), float(w)]], dtype=torch.float32,
+                         device=imgs.device).expand(n, 4)
+    return crop_resize(imgs, boxes, out_size, method)
 
 
 def center_crop_resize(imgs: torch.Tensor, out_size: int,

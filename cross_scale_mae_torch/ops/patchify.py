@@ -1,4 +1,4 @@
-"""Image -> patch-sequence reshape (counterpart of ``cross_scale_mae_tpu/ops/patchify.py``).
+"""Image <-> patch-sequence reshapes (counterpart of ``cross_scale_mae_tpu/ops/patchify.py``).
 
 NHWC in, per-patch features in (ph, pw, c) row-major order, so the patch
 embedding kernel of a JAX checkpoint carries over as it is.
@@ -19,3 +19,17 @@ def patchify(imgs: torch.Tensor, patch_size: int) -> torch.Tensor:
     x = imgs.reshape(n, gh, p, gw, p, c)
     x = x.permute(0, 1, 3, 2, 4, 5)  # (n, gh, gw, p, p, c)
     return x.reshape(n, gh * gw, p * p * c)
+
+
+def unpatchify(x: torch.Tensor, patch_size: int, channels: int) -> torch.Tensor:
+    """(N, L, p*p*C) -> (N, H, W, C); the inverse of :func:`patchify`."""
+    n, l, d = x.shape
+    p = patch_size
+    g = int(round(l ** 0.5))
+    if g * g != l:
+        raise ValueError(f"L={l} is not a square grid")
+    if d != p * p * channels:
+        raise ValueError(f"patch dim {d} != {p}*{p}*{channels}")
+    x = x.reshape(n, g, g, p, p, channels)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # (n, g, p, g, p, c)
+    return x.reshape(n, g * p, g * p, channels)

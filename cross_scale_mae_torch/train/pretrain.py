@@ -202,8 +202,11 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
             grads = flat.all_reduce(grads)
             # A fill, not a copy from the host: the step does not wait.
             stops["stop"] = torch.full((), float(stop), device=batch.device)
-            all_reduce_mean([loss, losses, stops,
-                             model_state if ddp_mode == "shard_map" else {}])
+            # shard_map averages the BatchNorm running state; the frozen
+            # VGG trunk is the same on every rank and stays out.
+            stats = ({k: v for k, v in model_state.items() if k != "vgg"}
+                     if ddp_mode == "shard_map" else {})
+            all_reduce_mean([loss, losses, stops, stats])
         if accum > 1:
             torch._foreach_mul_(grads, 1.0 / accum)
             loss = loss / accum

@@ -1,6 +1,7 @@
-"""Classification metrics and the training log's smoothed meters (a numpy
-copy of ``ConfusionMatrix`` and of the part of ``SmoothedValue`` /
-``MetricLogger`` that the finetune CLI uses, from
+"""Classification metrics, the training log's smoothed meters and the
+reconstruction metrics (a numpy copy of ``ConfusionMatrix`` and of the part
+of ``SmoothedValue`` / ``MetricLogger`` that the finetune CLI uses, and
+``METRICS_DICT`` / ``calc_metric`` on torch, from
 ``cross_scale_mae_tpu/utils/metrics.py``)."""
 
 from __future__ import annotations
@@ -8,6 +9,9 @@ from __future__ import annotations
 from collections import defaultdict, deque
 
 import numpy as np
+import torch
+
+from cross_scale_mae_torch.ops.ssim import ms_ssim, ssim
 
 
 class SmoothedValue:
@@ -90,3 +94,56 @@ class ConfusionMatrix:
         if not present.any():
             return 0.0
         return float((tp[present] / denom[present]).mean())
+
+
+# --------------------------------------------------------- reconstruction
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.float32)
+
+
+def _mse(x, y) -> float:
+    return float(((_f32(x) - _f32(y)) ** 2).mean())
+
+
+def _mae(x, y) -> float:
+    return float((_f32(x) - _f32(y)).abs().mean())
+
+
+def _l1(x, y) -> float:
+    return float((_f32(x) - _f32(y)).abs().sum())
+
+
+def _l2(x, y) -> float:
+    return float(((_f32(x) - _f32(y)) ** 2).sum())
+
+
+def _ssim(x, y) -> float:
+    return float(ssim(_f32(x), _f32(y), data_range=1.0))
+
+
+def _ms_ssim(x, y) -> float:
+    return float(ms_ssim(_f32(x), _f32(y), data_range=1.0))
+
+
+METRICS_DICT = {
+    # util/metrics.py:13-46, with the direction flags.
+    "mse": {"full_name": "Mean Squared Error", "is_lower_better": True, "fn": _mse},
+    "mae": {"full_name": "Mean Absolute Error", "is_lower_better": True, "fn": _mae},
+    "l1": {"full_name": "L1 Norm", "is_lower_better": True, "fn": _l1},
+    "l2": {"full_name": "L2 Norm", "is_lower_better": True, "fn": _l2},
+    "ssim": {"full_name": "Structural Similarity Index", "is_lower_better": False,
+             "fn": _ssim},
+    # Needs images larger than 160 px (util/metrics.py:39-40).
+    "ms_ssim": {"full_name": "Multi-Scale Structural Similarity Index",
+                "is_lower_better": False, "fn": _ms_ssim},
+}
+
+
+def calc_metric(x, y, metric_name: str) -> float:
+    """A metric of NHWC images in [0, 1] (numpy arrays or tensors), by
+    name; the aliases ssd -> l2 and sad -> l1 (util/metrics.py:49-56)."""
+    name = metric_name.lower()
+    name = {"ssd": "l2", "sad": "l1"}.get(name, name)
+    return METRICS_DICT[name]["fn"](x, y)

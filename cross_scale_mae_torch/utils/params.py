@@ -7,7 +7,8 @@ axis. The port keeps the (in, out) layout (``layers.linear`` computes
 leaves into a list of per-layer dicts. ``params_from_jax`` keeps only what
 the encoder runs (serving, as the JAX package's ``serving.py:94-97``) or,
 with ``full=True``, the whole tree the training step runs;
-``state_from_jax`` carries the predictors' BatchNorm statistics;
+``state_from_jax`` carries the predictors' BatchNorm statistics and the
+perceptual loss's VGG16 trunk (HWIO kernels, kept so);
 ``train_state_from_jax`` carries a whole JAX pretrain TrainState (params,
 BatchNorm state, optax's Adam moments and count, step) into the port's;
 ``vit_params_from_jax`` carries the downstream classifier's tree;
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from cross_scale_mae_torch.configs import MAEConfig, ViTClassifierConfig
+from cross_scale_mae_torch.losses.perceptual import vgg16_shapes
 from cross_scale_mae_torch.quant import QKEY
 from cross_scale_mae_torch.train.state import TrainState, jax_paths
 
@@ -90,8 +92,12 @@ def mae_param_shapes(cfg: MAEConfig) -> dict:
 
 
 def mae_state_shapes(cfg: MAEConfig) -> dict:
-    """Shapes of the JAX ``mae_init`` state: predictor BatchNorm statistics."""
+    """Shapes of the JAX ``mae_init`` state: predictor BatchNorm statistics
+    and, with ``use_perceptual``, the VGG16 trunk (HWIO kernels, the layout
+    the port keeps too)."""
     spec = {}
+    if cfg.use_perceptual:
+        spec["vgg"] = vgg16_shapes(cfg.input_channels)
     if cfg.use_cd_pred:
         spec["predictor_cd"] = {"bn": {"mean": (cfg.num_patches,),
                                        "var": (cfg.num_patches,)}}
@@ -204,8 +210,9 @@ def vit_params_from_jax(tree: Mapping[str, Any], cfg: ViTClassifierConfig,
 
 def state_from_jax(state: Mapping[str, Any], cfg: MAEConfig,
                    device: torch.device | str = "cpu") -> dict[str, Any]:
-    """The JAX ``mae_init`` state (predictor BatchNorm statistics) as fp32
-    tensors on ``device``; the same checks as :func:`params_from_jax`."""
+    """The JAX ``mae_init`` state (predictor BatchNorm statistics, the VGG16
+    trunk) as fp32 tensors on ``device``; the same checks as
+    :func:`params_from_jax`."""
     return _to_torch(_checked(state, mae_state_shapes(cfg), "state"), device)
 
 

@@ -56,7 +56,10 @@ TRAINING_MODULES = [
     "cross_scale_mae_torch/cli/serve.py", "cross_scale_mae_torch/cli/export.py",
     "cross_scale_mae_torch/cli/embed.py", "cross_scale_mae_torch/cli/export_torch.py",
     "cross_scale_mae_torch/utils/torch_export.py", "cross_scale_mae_torch/utils/torch_import.py",
-    "cross_scale_mae_torch/ops/pos_embed.py",
+    "cross_scale_mae_torch/ops/pos_embed.py", "cross_scale_mae_torch/ops/ssim.py",
+    "cross_scale_mae_torch/losses/perceptual.py", "cross_scale_mae_torch/viz/__init__.py",
+    "cross_scale_mae_torch/viz/recon.py", "cross_scale_mae_torch/viz/temporal.py",
+    "cross_scale_mae_torch/cli/evalviz.py",
 ]
 
 
@@ -66,8 +69,8 @@ def test_scan_covers_the_training_modules():
 
 
 def test_importing_the_training_path_loads_no_jax():
-    """Import every module of the pretrain, finetune and linear-probe paths
-    and of serving, export and embedding in a fresh interpreter and check
+    """Import every module of the pretrain, finetune and linear-probe paths,
+    of serving, export and embedding, and of evaluation in a fresh interpreter and check
     that no JAX module was loaded along the way."""
     import subprocess
     import sys

@@ -462,6 +462,14 @@ _RUN = {
     "--consistent_mask": (["--consistent_mask"], lambda r: r.tcfg.consistent_mask),
     "--mask_seed": (["--mask_seed", "3"], lambda r: r.tcfg.mask_seed == 3),
     "--apply_encoder_norm": (["--apply_encoder_norm"], lambda r: r.cfg.apply_encoder_norm),
+    "--use_perceptual_loss": (["--use_perceptual_loss"],
+                              lambda r: r.cfg.use_perceptual and r.vgg_trunk == "random"
+                              and "vgg" in r.state.model_state),
+    "--vgg_weights": (["--use_perceptual_loss", "--vgg_weights", "{vgg}"],
+                      lambda r: r.vgg_trunk.startswith("imported:")),
+    # The figures themselves: tests/test_torch_port_viz.py.
+    "--plot_recon": (["--plot_recon"], lambda r: True),
+    "--val_img_path": (["--val_img_path", "{img}"], lambda r: len(r.val_images) == 1),
     "--epochs": (["--epochs", "3"], lambda r: r.tcfg.epochs == 3),
     "--warmup_epochs": (["--warmup_epochs", "2"], lambda r: r.tcfg.warmup_epochs == 2),
     "--batch_size": ([], lambda r: r.tcfg.batch_size == 4),
@@ -514,8 +522,6 @@ _RUN = {
 _REFUSED = {
     "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
     "--fsdp": ["--fsdp"], "--zero1": ["--zero1"], "--num_slices": ["--num_slices", "2"],
-    "--use_perceptual_loss": ["--use_perceptual_loss"], "--vgg_weights": ["--vgg_weights", "v"],
-    "--plot_recon": ["--plot_recon"], "--val_img_path": ["--val_img_path", "x.png"],
     "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
     "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
     "--wandb_id": ["--wandb_id", "i"], "--profile_dir": ["--profile_dir", "p"],
@@ -529,6 +535,18 @@ _NOT_APPLICABLE = {
     "--use_xformers": ["--use_xformers"], "--print_level": ["--print_level", "1"],
     "--spatial_mask": ["--spatial_mask"],
 }
+
+
+def _vgg16_features_state() -> dict:
+    """A torchvision-shaped VGG16 ``features`` state dict of zeros."""
+    convs = zip((0, 2, 5, 7, 10, 12, 14, 17, 19, 21),
+                (3, 64, 64, 128, 128, 256, 256, 256, 512, 512),
+                (64, 64, 128, 128, 256, 256, 256, 512, 512, 512))
+    sd = {}
+    for i, c_in, c_out in convs:
+        sd[f"features.{i}.weight"] = torch.zeros(c_out, c_in, 3, 3)
+        sd[f"features.{i}.bias"] = torch.zeros(c_out)
+    return sd
 
 
 def _tiny_run(tmp_path, *extra):
@@ -554,8 +572,13 @@ def test_every_jax_pretrain_flag_is_run_or_refused_with_a_roadmap_item(tmp_path,
     assert not set(_RUN) & set(_REFUSED) and not set(_NOT_APPLICABLE) & (
         set(_RUN) | set(_REFUSED))
     assert jax_flags <= _flags(get_args_parser())
+    from PIL import Image
+
+    files = {"{img}": str(tmp_path / "val.png"), "{vgg}": str(tmp_path / "vgg.pth")}
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(files["{img}"])
+    torch.save(_vgg16_features_state(), files["{vgg}"])
     for flag, (argv, ok) in _RUN.items():
-        assert ok(_tiny_run(tmp_path, *argv)), flag
+        assert ok(_tiny_run(tmp_path, *[files.get(a, a) for a in argv])), flag
     for flag, argv in _REFUSED.items():
         with pytest.raises(SystemExit, match="ROADMAP"):
             _tiny_run(tmp_path, *argv)
@@ -942,3 +965,74 @@ def test_every_jax_export_torch_flag_runs(tiny_ckpt, tmp_path):
             ["--ckpt", tiny_ckpt, "--output", str(tmp_path / "x.pth"), "--model_name",
              "mae_vit_base_MsLdCeCd", *argv]))
         assert ok(res), flag
+
+
+# The evalviz CLI's flags, by what the port does with each. A check reads
+# the sweep that main returns and the output directory.
+_EVALVIZ_RUN = {
+    "--ckpt": ([], lambda s, out: set(s) == {"run"}),
+    "--step": (["--step", "3"], lambda s, out: set(s) == {"run"}),
+    "--images": (["--images", "{img}"], lambda s, out: os.path.exists(f"{out}/run_img0.png")),
+    "--dataset_type": (["--dataset_type", "naip"], lambda s, out: set(s["run"]) == {"mse", "ssim"}),
+    "--mask_ratio": (["--mask_ratio", "0.5"], lambda s, out: s["run"]["mse"] >= 0),
+    "--metrics": (["--metrics", "mae", "ssd"], lambda s, out: set(s["run"]) == {"mae", "ssd"}),
+    "--noise": (["--noise", "salt_pepper"], lambda s, out: "mse_salt_pepper" in s["run"]),
+    "--noise_amount": (["--noise", "gaussian", "--noise_amount", "0.5"],
+                       lambda s, out: "ssim_gaussian" in s["run"]),
+    "--out": ([], lambda s, out: json.load(open(f"{out}/metrics.json")) == s),
+    "--seed": (["--seed", "5"], lambda s, out: os.path.exists(f"{out}/run_img0.png")),
+    "--temporal_csv": (["--temporal_csv", "{csv}"],
+                       lambda s, out: s["temporal_consistency"]["run"]["overall"]["n"] == 3),
+    "--temporal_batch": (["--temporal_csv", "{csv}", "--temporal_batch", "2"],
+                         lambda s, out: os.path.exists(f"{out}/temporal_gaps.json")),
+    "--temporal_gap_buckets": (["--temporal_csv", "{csv}", "--temporal_gap_buckets", "12"],
+                               lambda s, out: set(s["temporal_consistency"]["run"]["buckets"])
+                               <= {"0-11mo", "12+mo"}),
+}
+_EVALVIZ_REFUSED = {"--jax_platforms": ["--jax_platforms", "cpu"]}
+
+
+def test_every_jax_evalviz_flag_is_run_refused_or_not_applicable(tmp_path, capsys):
+    """The JAX evalviz parser's flags, each run by the port's CLI on a tiny
+    pretrain checkpoint (its check on the sweep and the files holds) or
+    refused with a pointer to ROADMAP.md (none is not applicable); a new JAX
+    flag fails this test until it is sorted here."""
+    from PIL import Image
+
+    from cross_scale_mae_tpu.cli.evalviz import get_args_parser as jparser
+    from cross_scale_mae_torch.cli import evalviz
+    from cross_scale_mae_torch.configs import get_mae_config
+    from cross_scale_mae_torch.models.mae import mae_init
+    from cross_scale_mae_torch.train.optim import build_optimizer
+    from cross_scale_mae_torch.train.state import TrainState
+    from cross_scale_mae_torch.utils.checkpoint import save_checkpoint
+
+    jax_flags = _flags(jparser())
+    assert jax_flags == set(_EVALVIZ_RUN) | set(_EVALVIZ_REFUSED)
+    assert jax_flags <= _flags(evalviz.get_args_parser())
+    cfg = get_mae_config("mae_vit_base_MsLdCeCd", **_TINY_MAE)
+    params, mstate = mae_init(cfg, torch.Generator().manual_seed(0))
+    ckpt = str(tmp_path / "run" / "checkpoints")
+    save_checkpoint(ckpt, 3, TrainState.create(params, mstate, build_optimizer(
+        params, lambda s: 1e-3)), cfg.to_json(), {"epoch": 0})
+    rng = np.random.default_rng(0)
+    rows = ["category,image_path,image_path2,timestamp,timestamp2"]
+    for i in range(3):
+        for tag in "ab":
+            Image.fromarray(rng.integers(0, 256, (16, 16, 3), np.uint8)).save(
+                tmp_path / f"p{i}{tag}.png")
+        rows.append(f"0,p{i}a.png,p{i}b.png,2015-01-01,201{6 + i}-02-01")
+    (tmp_path / "pairs.csv").write_text("\n".join(rows) + "\n")
+    files = {"{img}": str(tmp_path / "p0a.png"), "{csv}": str(tmp_path / "pairs.csv")}
+
+    def run(out, *extra):
+        return evalviz.main(evalviz.get_args_parser().parse_args(
+            ["--ckpt", ckpt, "--device", "cpu", "--out", out, *extra]))
+
+    for i, (flag, (argv, ok)) in enumerate(_EVALVIZ_RUN.items()):
+        out = str(tmp_path / f"out{i}")
+        assert ok(run(out, *[files.get(a, a) for a in argv]), out), flag
+    for flag, argv in _EVALVIZ_REFUSED.items():
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            run(str(tmp_path / "refused"), *argv)
+    capsys.readouterr()
