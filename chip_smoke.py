@@ -244,6 +244,35 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
     figures, ``metrics.json`` and ``temporal_gaps.json`` as named, finite;
     K1f 20 x 4 x 8 + 12 x 3 launches, no backward; then a 2-step
     ``--plot_recon --val_img_path`` pretrain (its 8 figures, 20 K1f each).
+27. variants (runs after phase 26): the reference's attention variants
+    (``VARIANTS``), which run in stock PyTorch ops with no attention kernel.
+    Each function at the flagship's encoder and decoder shapes
+    (``VARIANT_SHAPES``), in IEEE fp32 against itself in float64 (max
+    relative error, ``VARIANT_F32_TOL``; the control it must catch: its
+    inputs narrowed to bf16; its products with TF32 allowed are printed
+    beside, cuBLAS taking TF32 for some shapes only) and in
+    bf16 against the bf16 path's own roundings done in float64
+    (``bf16_path_fp64``; mean relative error, ``VARIANT_BF16_TOL``; the
+    control: its fp32 steps left in bf16, for fourier_mix the first FFT's
+    output rounded to bf16). Then each variant through
+    ``cli/pretrain.build_run`` at the flagship's size (ViT-B MsLdCeCd, 128
+    px, batch 384, bf16): 2 warm-up and 3 timed steps, the losses finite, no
+    kernel launched, then one profiled step (device ms by kind, the idle
+    share, the top kernels); one linformer finetune step of ViT-L (64 px, patch 8,
+    batch 512) through ``cli/finetune.build_run``, no kernel launched; one
+    64-image dispatch of a linformer ViT-B encoder through
+    ``serving.build_serving_model`` on the card and on the host (gate: the
+    card's bf16 output no farther from the host's fp32 than twice the
+    host's bf16 is).
+28. observability: ``cli/pretrain.main`` on the flagship step for 32 steps
+    with ``--profile_dir``, ``--use_tensorboard``, ``--use_wandb`` (wandb
+    disabled by ``WANDB_MODE`` where it imports: no network) and
+    ``--log_interval 5``. Gates: one Chrome trace, parsed, holding 20
+    ``mha3_fwd`` and 20 ``mha3_bwd`` kernel launches for each of its 20
+    steps; K1 20 + 20 a step over the run; the TensorBoard event file
+    written where tensorboard imports. Printed: the step ms inside the
+    window and outside it, the profiler's own seconds, the trace's bytes,
+    ``device_memory_stats()``, the event file's path or the skip line.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -3798,6 +3827,338 @@ def phase_evalviz(card: str, ckpt: str) -> dict:
     return {"evalviz": (fwd, 0), "plot_recon": (plot_fwd, ATTN_PER_STEP * PLOT_STEPS)}
 
 
+VARIANTS = ("linformer", "nystrom", "orthoformer", "local", "fourier_mix")
+# (N, L, H, hd) of the flagship step's attention: both views of 384 images,
+# the masked encoder's 17 tokens and the decoder's 65.
+VARIANT_SHAPES = {"encoder": (2 * TRAIN_BATCH, 17, 12, 64),
+                  "decoder": (2 * TRAIN_BATCH, 65, 16, 32)}
+VARIANT_SEQ = 65          # the declared seq_len of linformer's E and F
+VARIANT_F32_TOL = 2.0 ** -16   # fp32: max |y32 - y64| / max |y64|
+VARIANT_BF16_TOL = 2.0 ** -16  # bf16: mean |y16 - r64| / mean |r64|
+VARIANT_WARMUP, VARIANT_TIMED = 2, 3
+VARIANT_SERVE_ROWS = 64
+# A variant step's kernels by kind: cuBLAS products, cuFFT, softmax,
+# scatter/gather (segment sums, landmark rows) and the rest.
+VARIANT_KINDS = (("matmul", MATMUL_NAMES), ("fft", ("fft",)), ("softmax", ("softmax",)),
+                 ("index", ("index", "scatter", "gather")))
+OBS_STEPS = 32
+OBS_TRACED = 20           # --profile_dir's window: steps 10-30
+
+
+def variant_fn(variant: str, q, k, v, e, f, products: bool = False):
+    """One variant of ``ops/attention.py`` on (N, L, H, hd) q, k, v (E and F
+    for linformer). ``products`` calls Nystrom's and orthoformer's products
+    past their IEEE-fp32 guard, for the TF32 control."""
+    from cross_scale_mae_torch.ops import attention as A
+
+    if variant == "linformer":
+        return A.linformer_mha(q, k, v, e, f)
+    if variant == "fourier_mix":
+        return A.fourier_mix(q)
+    if variant == "local":
+        return A.local_mha(q, k, v)
+    m = A.NYSTROM_LANDMARKS if variant == "nystrom" else A.ORTHOFORMER_LANDMARKS
+    if products and q.shape[1] > m:
+        inner = A.nystrom_products if variant == "nystrom" else A.orthoformer_products
+        return inner(q, k, v, m)
+    return (A.nystrom_mha if variant == "nystrom" else A.orthoformer_mha)(q, k, v)
+
+
+def bf16_path_fp64(variant: str, q, k, v, e, f):
+    """The bf16 version's arithmetic in float64 on float64 q, k, v holding
+    bf16 values: every cast to bf16 of the port's bf16 path (linformer's E,
+    F and projections, P, Nystrom's segment sums and means, the output)
+    rounds here too; every fp32 step runs in float64."""
+    from cross_scale_mae_torch.ops import attention as A
+
+    def rnd(x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    def probs(a, b):
+        return torch.softmax(a @ b.transpose(-1, -2) * a.shape[-1] ** -0.5, dim=-1)
+
+    n, l, h, hd = q.shape
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if variant == "fourier_mix":
+        x = q.reshape(n, l, h * hd)
+        return rnd(torch.fft.fft(torch.fft.fft(x, dim=-1), dim=-2).real.reshape(q.shape))
+    if variant == "linformer":
+        k_p = rnd(torch.einsum("nlhd,lm->nhmd", k, rnd(e[:l])))
+        v_p = rnd(torch.einsum("nlhd,lm->nhmd", v, rnd(f[:l])))
+        return rnd(rnd(probs(qh, k_p)) @ v_p).transpose(1, 2)
+    if variant == "local":
+        pos = torch.arange(l, device=q.device)
+        band = (pos[:, None] - pos[None, :]).abs() <= A.LOCAL_WINDOW // 2
+        logits = (qh @ kh.transpose(-1, -2) * hd ** -0.5).masked_fill(~band, -1e30)
+        return rnd(rnd(torch.softmax(logits, dim=-1)) @ vh).transpose(1, 2)
+    m = A.NYSTROM_LANDMARKS if variant == "nystrom" else A.ORTHOFORMER_LANDMARKS
+    if l <= m:
+        return rnd(rnd(probs(qh, kh)) @ vh).transpose(1, 2)
+    if variant == "orthoformer":
+        q_l = qh[:, :, A.landmark_rows(l, m)]
+        return rnd(probs(qh, q_l) @ (probs(q_l, kh) @ vh)).transpose(1, 2)
+    seg = A.segment_ids(l, m, q.device)
+    count = torch.zeros(m, dtype=q.dtype, device=q.device).index_add_(0, seg, q.new_ones(l))
+
+    def means(x):
+        sums = rnd(x.new_zeros((n, m, h, hd)).index_add_(1, seg, x))
+        return rnd(sums / count[None, :, None, None]).transpose(1, 2)
+
+    q_l, k_l = means(q), means(k)
+    out = probs(qh, k_l) @ A.iterative_pinv(probs(q_l, k_l)) @ (probs(q_l, kh) @ vh)
+    return rnd(out).transpose(1, 2)
+
+
+def _fourier_bf16_mid(q):
+    """fourier_mix with the first FFT's output rounded to bf16 (a control)."""
+    n, l, h, hd = q.shape
+    y = torch.fft.fft(q.reshape(n, l, h * hd).float(), dim=-1)
+    y = torch.complex(y.real.bfloat16().float(), y.imag.bfloat16().float())
+    return torch.fft.fft(y, dim=-2).real.reshape(q.shape).to(q.dtype)
+
+
+def _no_widening(fn):
+    """``fn()`` with ``ops/attention``'s fp32 steps left in the input dtype
+    (its ``accum_dtype`` the identity): the bf16 gate's control."""
+    from cross_scale_mae_torch.ops import attention as A
+
+    widen = A.accum_dtype
+    A.accum_dtype = lambda dtype: dtype
+    try:
+        return fn()
+    finally:
+        A.accum_dtype = widen
+
+
+def _with_tf32(fn):
+    """``fn()`` with fp32 matmuls allowed to run in TF32."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _max_rel(got, ref) -> float:
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def _mean_rel(got, ref) -> float:
+    return float((got.double() - ref).abs().mean() / ref.abs().mean())
+
+
+def phase_variant_gates(card: str) -> None:
+    """Each variant at the flagship's encoder and decoder shapes, fp32 and
+    bf16, against float64 on the card, with the control each gate catches."""
+    from cross_scale_mae_torch.models.layers import xavier_uniform
+
+    for where, shape in VARIANT_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(27)
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen) for _ in range(3))
+        e, f = (xavier_uniform(gen, (VARIANT_SEQ, VARIANT_SEQ // 4), VARIANT_SEQ,
+                               VARIANT_SEQ // 4) for _ in range(2))
+        wide = [t.double() for t in (q, k, v, e, f)]
+        qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+        for variant in VARIANTS:
+            y64 = variant_fn(variant, *wide)
+            f32 = _max_rel(variant_fn(variant, q, k, v, e, f), y64)
+            ctl32 = _max_rel(variant_fn(variant, qb.float(), kb.float(), vb.float(), e, f), y64)
+            tf32 = _max_rel(_with_tf32(lambda: variant_fn(variant, q, k, v, e, f, True)), y64)
+            r64 = bf16_path_fp64(variant, qb.double(), kb.double(), vb.double(), *wide[3:])
+            y16 = variant_fn(variant, qb, kb, vb, e, f)
+            check(y16.dtype == torch.bfloat16 and y16.shape == shape,
+                  f"{variant} {where}: {y16.dtype} {tuple(y16.shape)}")
+            b16 = _mean_rel(y16, r64)
+            if variant == "fourier_mix":
+                ctl16 = _mean_rel(_fourier_bf16_mid(qb), r64)
+            else:
+                ctl16 = _mean_rel(_no_widening(lambda: variant_fn(variant, qb, kb, vb, e, f)),
+                                  r64)
+            torch.cuda.synchronize()
+            log("variant_gate", card=json.dumps(card), variant=variant, where=where,
+                shape=json.dumps(list(shape)), fp32_max_rel=f32, fp32_control=ctl32,
+                fp32_tol=VARIANT_F32_TOL, tf32_max_rel=tf32, bf16_mean_rel=b16,
+                bf16_control=ctl16, bf16_tol=VARIANT_BF16_TOL,
+                fp32_control_name="inputs narrowed to bf16",
+                bf16_control_name=("first FFT rounded to bf16" if variant == "fourier_mix"
+                                   else "fp32 steps left in bf16"))
+            check(f32 <= VARIANT_F32_TOL, f"{variant} {where} fp32: {f32} > {VARIANT_F32_TOL}")
+            check(b16 <= VARIANT_BF16_TOL, f"{variant} {where} bf16: {b16} > {VARIANT_BF16_TOL}")
+            # A control that comes out NaN breaks its gate too.
+            check(not ctl32 <= VARIANT_F32_TOL, f"{variant} {where}: the fp32 gate passes "
+                  f"its control ({ctl32})")
+            check(not ctl16 <= VARIANT_BF16_TOL, f"{variant} {where}: the bf16 gate passes "
+                  f"its control ({ctl16})")
+        del q, k, v, qb, kb, vb, wide
+        torch.cuda.empty_cache()
+
+
+def phase_variants(card: str) -> dict:
+    """[variant_gate], then each variant through the pretrain CLI's run at
+    the flagship's size, a linformer ViT-L finetune step and a linformer
+    encoder served on the card and on the host. Returns {kernel: launches}
+    over these paths (all 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cross_scale_mae_torch.cli.finetune import build_run as ft_build_run
+    from cross_scale_mae_torch.cli.pretrain import build_run
+    from cross_scale_mae_torch.configs import get_mae_config
+    from cross_scale_mae_torch.serving import build_serving_model
+    from cross_scale_mae_torch.utils.checkpoint import save_params_npz
+    from cross_scale_mae_torch.utils.params import random_mae_tree
+
+    phase_variant_gates(card)
+    total = dict.fromkeys(_counts(), 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+        check(sum(counts.values()) == 0, f"an attention kernel ran behind a variant: {counts}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in VARIANTS:
+            run = build_run(_train_argv(tmp, variant))
+            check(run.cfg.attention_impl == variant, f"built {run.cfg.attention_impl}")
+            _reset_counts()
+            losses, times = [], []
+            for i in range(VARIANT_WARMUP + VARIANT_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, metrics = run.step_fn(run.state, run.images, run.draws(run.state.step))
+                losses.append(float(metrics["loss"]))
+                if i >= VARIANT_WARMUP:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            counts = _counts()
+            add(counts)
+            check(all(math.isfinite(x) for x in losses), f"{variant}: losses {losses}")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run.step_fn(run.state, run.images, run.draws(run.state.step))
+                torch.cuda.synchronize()
+            kinds = _kernel_ms_by_kind(prof, VARIANT_KINDS)
+            top = sorted(((e.self_device_time_total / 1e3, e.key[:60]) for e in
+                          prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+            ms = sum(times) / len(times)
+            busy = sum(kinds.values())
+            log("variants", card=json.dumps(card), variant=variant, batch=TRAIN_BATCH,
+                step_ms=ms, imgs_per_s=TRAIN_BATCH / (ms / 1e3), step_ms_each=json.dumps(times),
+                losses=json.dumps(losses), launches=json.dumps(counts),
+                device_ms=json.dumps(kinds), device_idle_share=1 - busy / ms,
+                top_kernels=json.dumps(top[:4]))
+            del run
+            torch.cuda.empty_cache()
+
+        ft = ft_build_run(_ft_argv(tmp, "linformer", FT_BATCH, 1))
+        imgs, labels = next(ft.train_batches(0))
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = ft.step_fn(ft.state, imgs, labels, ft.draws(ft.state.step))
+        loss = float(metrics["loss"])
+        ft_ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        add(counts)
+        e_proj = ft.state.params["blocks"][0]["attn"]["e_proj"]
+        check(math.isfinite(loss) and tuple(e_proj.shape) == (65, 16),
+              f"linformer finetune: loss {loss}, E {tuple(e_proj.shape)}")
+        log("variants", card=json.dumps(card), path="finetune_linformer", model="vit_large",
+            batch=FT_BATCH, step_ms_first=ft_ms, loss=loss, launches=json.dumps(counts))
+        del ft, imgs, labels
+        torch.cuda.empty_cache()
+
+        cfg = get_mae_config("mae_vit_base_MsLdCeCd", input_size=128, patch_size=16,
+                             compute_dtype="bfloat16", attention_impl="linformer", gelu="tanh")
+        tree = random_mae_tree(cfg, seed=0)
+        paths = {}
+        for dtype in ("bfloat16", "float32"):
+            paths[dtype] = os.path.join(tmp, f"linformer_{dtype}.npz")
+            save_params_npz(paths[dtype], tree, cfg.replace(compute_dtype=dtype).to_json())
+        card_model = build_serving_model(paths["bfloat16"], pool="mean",
+                                         batch_size=VARIANT_SERVE_ROWS, device="cuda")
+        u8 = np.random.default_rng(5).integers(
+            0, 256, (VARIANT_SERVE_ROWS, card_model.canvas, card_model.canvas, 3), np.uint8)
+        _reset_counts()
+        got = card_model.fn(u8)
+        counts = _counts()
+        add(counts)
+        host = {d: build_serving_model(paths[d], pool="mean", batch_size=VARIANT_SERVE_ROWS,
+                                       device="cpu").fn(u8) for d in paths}
+        gap_card = _rel_gap(got, host["float32"])
+        gap_host = _rel_gap(host["bfloat16"], host["float32"])
+        log("variants", card=json.dumps(card), path="serve_linformer", rows=VARIANT_SERVE_ROWS,
+            shape=json.dumps(list(got.shape)), rel_gap_card_bf16_to_host_fp32=gap_card,
+            rel_gap_host_bf16_to_host_fp32=gap_host, launches=json.dumps(counts))
+        check(got.shape == (VARIANT_SERVE_ROWS, 768) and np.isfinite(got).all(),
+              f"linformer dispatch: {got.shape}")
+        check(gap_card <= 2 * gap_host, f"linformer dispatch: card bf16 {gap_card} from the "
+              f"host's fp32, the host's bf16 {gap_host}")
+    return total
+
+
+def phase_observability(card: str) -> tuple[int, int]:
+    """The flagship step through ``cli/pretrain.main`` with the profile
+    window, TensorBoard and wandb; returns its K1 (forward, backward)
+    launches."""
+    import importlib.util
+
+    from cross_scale_mae_torch.cli.pretrain import main as pretrain_main
+    from cross_scale_mae_torch.utils.profiling import device_memory_stats
+
+    has_wandb = importlib.util.find_spec("wandb") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        if has_wandb:
+            # A disabled run makes no network call.
+            os.environ.update(WANDB_MODE="disabled", WANDB_DIR=tmp)
+        # One epoch of OBS_STEPS batches: the window is in the first epoch.
+        args = _train_argv(f"{tmp}/out", "pallas_v3", "--profile_dir", f"{tmp}/prof",
+                           "--use_tensorboard", "--use_wandb", "--log_interval", "5",
+                           "--synthetic_len", str(OBS_STEPS * TRAIN_BATCH),
+                           "--max_steps", str(OBS_STEPS))
+        _reset_counts()
+        res = pretrain_main(args)
+        counts = _counts()
+        _check_run(res, OBS_STEPS, "observability")
+        _check_counts(counts, ATTN_PER_STEP * OBS_STEPS, ATTN_PER_STEP * OBS_STEPS,
+                      "observability")
+        trace = res["trace"]
+        check(trace["steps"] == OBS_TRACED and len(trace["files"]) == 1,
+              f"trace window: {trace}")
+        t0 = time.perf_counter()
+        with open(trace["files"][0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        parse_s = time.perf_counter() - t0
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        fwd = sum("mha3_fwd" in n for n in kernels)
+        bwd = sum("mha3_bwd" in n for n in kernels)
+        check(fwd == bwd == ATTN_PER_STEP * OBS_TRACED,
+              f"trace: {fwd} mha3_fwd and {bwd} mha3_bwd launches over {OBS_TRACED} steps")
+        outside = OBS_STEPS - 1 - OBS_TRACED      # the steps timed after the first
+        all_s = res["steady_ms_per_step"] * (OBS_STEPS - 1) / 1e3
+        tb = res["tensorboard_dir"]
+        events_file = (sorted(os.path.join(tb, f) for f in os.listdir(tb)
+                              if f.startswith("events.out.tfevents")) if tb else [])
+        if importlib.util.find_spec("tensorboard") is not None:
+            check(len(events_file) == 1, f"no TensorBoard event file in {tb}")
+        log("observability", card=json.dumps(card), steps=OBS_STEPS, traced=trace["steps"],
+            step_ms_in_window=trace["window_s"] / trace["steps"] * 1e3,
+            step_ms_outside=(all_s - trace["window_s"] - trace["overhead_s"]) / outside * 1e3,
+            profiler_overhead_s=trace["overhead_s"], trace_bytes=os.path.getsize(
+                trace["files"][0]), trace_parse_s=parse_s, trace_kernels=len(kernels),
+            trace_mha3_fwd=fwd, trace_mha3_bwd=bwd, launches=json.dumps(counts),
+            device_memory_mib=json.dumps(device_memory_stats()),
+            tensorboard=events_file[0] if events_file
+            else "tensorboard unavailable; skipping TB logging",
+            wandb="disabled run (WANDB_MODE)" if has_wandb
+            else "wandb unavailable; skipping wandb logging",
+            losses=json.dumps(res["losses"]))
+        if has_wandb:
+            for key in ("WANDB_MODE", "WANDB_DIR"):
+                os.environ.pop(key, None)
+    torch.cuda.empty_cache()
+    return counts["mha3_fwd"], counts["mha3_bwd"]
+
+
 def eval_phases(card: str, work: str) -> dict:
     """[ssim], [pretrain_ssim], [perceptual] and [evalviz], each path with
     the counts set to 0 just before it. Returns {path: (K1f, K1b)}."""
@@ -3837,7 +4198,8 @@ def main() -> int:
     # Each path is driven with the counts set to 0 just before it and read
     # just after it: serving (forward only), pretraining, finetuning, the
     # finetuning recipe, pretraining with bf16 moments, the SSIM losses, the
-    # perceptual loss, evalviz and --plot_recon, linear probing from
+    # perceptual loss, evalviz and --plot_recon, the attention variants (no
+    # kernel may launch), the profiled and logged flagship step, linear probing from
     # the pretraining's weights, the classifiers served, int8 serving,
     # embedding and data-parallel serving, temporal pretraining on pairs and
     # multi-band finetuning through the loader, then pretraining through a
@@ -3855,6 +4217,8 @@ def main() -> int:
         recipe_fwd, recipe_bwd = phase_finetune_recipe(card)
         moment_fwd, moment_bwd = phase_moments(card)
         eval_paths = eval_phases(card, work)
+        variant_counts = phase_variants(card)
+        obs_fwd, obs_bwd = phase_observability(card)
         lp_fwd = phase_linprobe(card, npz, lp_ckpt)
         new_paths = serving_phases(card, work, npz, ft_npz, lp_ckpt)
     phase_native(card)
@@ -3865,18 +4229,22 @@ def main() -> int:
                             "train_resume": resume_fwd, "linprobe": lp_fwd,
                             "train_temporal": temporal_fwd, "moments": moment_fwd,
                             **new_paths["mha3_fwd"],
-                            **{k: v[0] for k, v in eval_paths.items()}},
+                            **{k: v[0] for k, v in eval_paths.items()},
+                            "observability": obs_fwd},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
                             "train_resume": resume_bwd, "linprobe": 0,
                             "train_temporal": temporal_bwd, "moments": moment_bwd,
                             **{k: 0 for k in new_paths["mha3_fwd"]},
-                            **{k: v[1] for k, v in eval_paths.items()}},
+                            **{k: v[1] for k, v in eval_paths.items()},
+                            "observability": obs_bwd},
                "mha_fwd": {"finetune": ft_fwd, "finetune_sentinel": sn_fwd,
                            "finetune_recipe": recipe_fwd, **new_paths["mha_fwd"]},
                "mha_bwd": {"finetune": ft_bwd, "finetune_sentinel": sn_bwd,
                            "finetune_recipe": recipe_bwd,
                            **{k: 0 for k in new_paths["mha_fwd"]}},
                "mha2_fwd": {}, "mha2_bwd": {}}
+    for name, n in variant_counts.items():
+        by_path[name]["variants"] = n
     replaces = {"mha3_fwd": "cross_scale_mae_tpu/ops/attention.py:326",
                 "mha3_bwd": "cross_scale_mae_tpu/ops/attention.py:355",
                 "mha_fwd": "cross_scale_mae_tpu/ops/attention.py:68",

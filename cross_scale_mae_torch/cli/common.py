@@ -9,26 +9,25 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from cross_scale_mae_torch.data.datasets import Dataset
 from cross_scale_mae_torch.data.loader import DataLoader
+from cross_scale_mae_torch.models.layers import ATTENTION_IMPLS, VARIANTS
 from cross_scale_mae_torch.parallel.dist import Runtime, initialize_distributed
 from cross_scale_mae_torch.utils.checkpoint import latest_step, restore_checkpoint
-from cross_scale_mae_torch.utils.logging import rank0_print
+from cross_scale_mae_torch.utils.logging import WANDB_PROJECT, rank0_print
 
 # Runtime flags of the JAX CLIs that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item (11 the mesh beyond its data axis: TP, SP,
-# FSDP and multi-slice layouts, 16 logging, profiling and JAX's own platform
-# pin, whose port counterpart is --device).
-UNPORTED_RUNTIME = {
-    "model_parallel": 11, "sequence_parallel": 11, "fsdp": 11,
-    "num_slices": 11, "use_tensorboard": 16, "use_wandb": 16, "wandb_project": 16,
-    "wandb_entity": 16, "profile_dir": 16, "jax_platforms": 16,
-}
+# FSDP and multi-slice layouts).
+UNPORTED_RUNTIME = {"model_parallel": 11, "sequence_parallel": 11, "fsdp": 11,
+                    "num_slices": 11}
+# The reference's name for exact attention (main_pretrain.py:101-119).
+EXACT_ATTENTION = "scaled_dot_product"
 # A flag's value that means "off" where it is not None or False.
 _OFF = {"num_slices": 1}
 
@@ -41,14 +40,16 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--num_workers", default=os.cpu_count() or 4, type=int,
                    help="decode threads of the loader (at least 2)")
     g.add_argument("--log_interval", default=20, type=int)
-    g.add_argument("--attention_impl", default=None,
-                   choices=["xla", "pallas", "pallas_t", "pallas_v3"],
+    g.add_argument("--attention_impl", default=None, choices=list(ATTENTION_IMPLS),
                    help="overrides --attention; pallas_v3 runs the K1 kernels, "
-                        "pallas and pallas_t the K2 kernels, xla the plain attention")
-    g.add_argument("--attention", default="scaled_dot_product",
-                   choices=["scaled_dot_product"],
+                        "pallas and pallas_t the K2 kernels, xla the plain attention; "
+                        "linformer, nystrom, orthoformer, local and fourier_mix the "
+                        "variant attentions")
+    g.add_argument("--attention", default=EXACT_ATTENTION,
+                   choices=[EXACT_ATTENTION, *VARIANTS],
                    help="reference-style attention name (main_pretrain.py:101-119); "
-                        "the variants are not ported yet (ROADMAP.md, queue 1 item 13)")
+                        "'shunted' maps to modules missing from the reference and is "
+                        "not carried")
     g.add_argument("--gelu", default="tanh", choices=["tanh", "exact", "exact_tanhbwd"])
     g.add_argument("--compute_dtype", default="bfloat16")
     g.add_argument("--device", default="cuda",
@@ -63,15 +64,26 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
                    help="host:port of rank 0's rendezvous (tcp://)")
     d.add_argument("--num_processes", default=None, type=int, help="the world size")
     d.add_argument("--process_id", default=None, type=int, help="this process's rank")
+    o = p.add_argument_group("logging and profiling (rank 0)")
+    o.add_argument("--use_tensorboard", action="store_true",
+                   help="TensorBoard scalars under <output_dir>/tb, where tensorboard imports")
+    o.add_argument("--use_wandb", action="store_true",
+                   help="log to wandb, where wandb imports")
+    o.add_argument("--wandb_project", default=WANDB_PROJECT)
+    o.add_argument("--wandb_entity", default=None,
+                   help="wandb team/entity (main_pretrain.py wandb flags)")
+    o.add_argument("--profile_dir", default=None,
+                   help="pretraining: a torch.profiler Chrome trace of steps 10-30 of the "
+                        "first epoch here")
+    o.add_argument("--jax_platforms", default=None,
+                   help="the JAX package's platform pin: 'cpu' runs as --device cpu")
     n = p.add_argument_group("runtime, JAX-only and accepted as not applicable")
     n.add_argument("--log_dir", default=None)
     n.add_argument("--device_batch_dtype", default=None)
     u = p.add_argument_group("runtime, not ported yet (ROADMAP.md)")
-    for flag in ("profile_dir", "jax_platforms", "wandb_project", "wandb_entity"):
-        u.add_argument(f"--{flag}", default=None)
     u.add_argument("--model_parallel", default=None, type=int)
     u.add_argument("--num_slices", default=1, type=int)
-    for flag in ("sequence_parallel", "fsdp", "use_tensorboard", "use_wandb"):
+    for flag in ("sequence_parallel", "fsdp"):
         u.add_argument(f"--{flag}", action="store_true")
 
 
@@ -141,9 +153,11 @@ def add_reference_compat_args(p: argparse.ArgumentParser, role: str) -> None:
 
 def apply_reference_compat(args, role: str) -> None:
     """Resolve the compat flags in place (cli/common.py:293-362 of the JAX
-    package): --output_dir_base, the short dataset names, the loaderless
-    dataset types, pretraining's --attn_name and --ffn_name, and the linear
-    probe's --loss; report the flags that do not apply."""
+    package): --output_dir_base, --jax_platforms, the short dataset names,
+    the loaderless dataset types, pretraining's --attn_name and --ffn_name,
+    and the linear probe's --loss; report the flags that do not apply
+    (the classifier CLIs' --profile_dir among them: they trace nothing, as
+    in the JAX package)."""
     if getattr(args, "output_dir_base", None):
         args.output_dir = os.path.join(args.output_dir_base, args.output_dir)
     aliases = {"rgb": "fmow_rgb", "sentinel": "fmow_sentinel"}
@@ -156,12 +170,17 @@ def apply_reference_compat(args, role: str) -> None:
             f"--dataset_type {args.dataset_type} is declared by the reference's "
             "classifier parsers but has no loader there either (build_fmow_dataset "
             "raises 'Invalid dataset type'); no data format to be compatible with")
+    apply_jax_platforms(args)
     attn_name = getattr(args, "attn_name", None)
     if attn_name is not None:
-        if attn_name != "scaled_dot_product":
-            raise SystemExit(
-                f"--attn_name {attn_name}: the attention variants are not ported yet; "
-                "see ROADMAP.md (queue 1 item 13)")
+        # JAX cli/common.py:315-331.
+        if attn_name == "shunted":
+            raise ValueError("--attn_name shunted maps to modules missing from the reference "
+                             "(its defect #1) and is not carried")
+        valid = (EXACT_ATTENTION, *VARIANTS)
+        if attn_name not in valid:
+            raise ValueError(f"--attn_name {attn_name!r}: invalid choice "
+                             f"(choose from {', '.join(valid)})")
         args.attention = attn_name
     if getattr(args, "ffn_name", "MLP") != "MLP":
         # The reference's own assert (MAE_ViT_Baseline.py:69-70).
@@ -176,9 +195,11 @@ def apply_reference_compat(args, role: str) -> None:
              "resplit": "resplit",
              "norm_pix_loss": "norm_pix_loss", "print_level": "print_level",
              "spatial_mask": "spatial_mask", "log_dir": "log_dir",
-             "device_batch_dtype": "device_batch_dtype"}
+             "device_batch_dtype": "device_batch_dtype", "profile_dir": "profile_dir"}
     if role != "linprobe":
         flags.pop("norm_pix_loss")   # a loss flag of pretraining
+    if role == "pretrain":
+        flags.pop("profile_dir")     # the classifier CLIs parse it and trace nothing
     ignored = [f for f, attr in flags.items()
                if getattr(args, attr, None) is not None and getattr(args, attr) is not False]
     if ignored:
@@ -195,13 +216,32 @@ def refuse_unported(args, flags: dict[str, int]) -> None:
             raise SystemExit(f"--{flag} is not ported yet; see ROADMAP.md (queue 1 item {item})")
 
 
-def resolve_attention(args, device: torch.device) -> str:
-    """--attention_impl wins; else the reference name ``scaled_dot_product``
-    maps to the K1 kernels on the GPU (``pallas_v3``, as the JAX package
-    picks its v3 kernel on its accelerator) and to the plain attention on
-    the CPU."""
+def apply_jax_platforms(args) -> None:
+    """--jax_platforms, the JAX package's platform pin: ``cpu`` runs as
+    --device cpu; any other value refuses, naming --device."""
+    value = getattr(args, "jax_platforms", None)
+    if value is None:
+        return
+    if value != "cpu":
+        raise SystemExit(f"--jax_platforms {value}: this package picks its device with "
+                         "--device (cuda, cuda:N or cpu)")
+    rank0_print("--jax_platforms cpu: running as --device cpu")
+    args.device = "cpu"
+
+
+def resolve_attention(args, device: torch.device, exact: Optional[str] = None) -> str:
+    """--attention_impl wins; else a variant name of --attention is its own
+    impl, and the reference name ``scaled_dot_product`` maps to ``exact``
+    when given (the CLI's kernels), else to the K1 kernels on the GPU
+    (``pallas_v3``, as the JAX package picks its v3 kernel on its
+    accelerator) and to the plain attention on the CPU."""
     if args.attention_impl is None:
-        args.attention_impl = "pallas_v3" if device.type == "cuda" else "xla"
+        if args.attention != EXACT_ATTENTION:
+            args.attention_impl = args.attention
+        elif exact is not None:
+            args.attention_impl = exact
+        else:
+            args.attention_impl = "pallas_v3" if device.type == "cuda" else "xla"
     return args.attention_impl
 
 

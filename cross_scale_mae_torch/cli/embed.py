@@ -3,7 +3,8 @@ GPU.
 
 Counterpart of ``cross_scale_mae_tpu/cli/embed.py``: the unmasked encoder
 (``models/mae.mae_encode``, with the checkpoint's ``attention_impl``:
-``pallas_v3`` runs the K1f kernel) over one split of any dataset family,
+``pallas_v3`` runs the K1f kernel, a variant its stock PyTorch ops;
+``--attention_impl`` swaps only among the exact attention's impls) over one split of any dataset family,
 read in dataset order through ``data/loader.DataLoader`` (the native core
 where it applies). The ragged last batch is padded to the static batch and
 its padded rows dropped. Writes ``features.npy`` (count x dim float32, or
@@ -36,14 +37,17 @@ from cross_scale_mae_torch.cli.common import (
     UNPORTED_RUNTIME,
     add_data_args,
     add_runtime_args,
+    apply_jax_platforms,
     refuse_unported,
 )
+from cross_scale_mae_torch.models.layers import VARIANTS
 from cross_scale_mae_torch.utils.logging import rank0_print
 
 # Flags of the shared runtime group that embedding has no use for: the
-# checkpoint's config fixes the model, nothing trains, nothing resumes.
+# checkpoint's config fixes the model, nothing trains, resumes or logs.
 NOT_APPLICABLE = ("resume", "log_interval", "attention", "gelu", "compute_dtype",
-                  "log_dir", "device_batch_dtype", "remat")
+                  "log_dir", "device_batch_dtype", "remat", "use_tensorboard", "use_wandb",
+                  "wandb_project", "wandb_entity", "profile_dir")
 
 
 def get_args_parser():
@@ -63,8 +67,21 @@ def get_args_parser():
     add_runtime_args(p)
     add_data_args(p, pretrain=True)
     # None = not given, so that a given one is reported as not applicable.
-    p.set_defaults(gelu=None, compute_dtype=None, attention=None, log_interval=None)
+    p.set_defaults(gelu=None, compute_dtype=None, attention=None, log_interval=None,
+                   wandb_project=None)
     return p
+
+
+def check_attention_swap(trained: str, asked: str) -> None:
+    """SystemExit unless --attention_impl swaps one way of computing exact
+    attention for another (xla, the K1 or the K2 kernels): a variant
+    attention is another model, so a variant checkpoint cannot run exact
+    attention, nor an exact one a variant, nor one variant another."""
+    if trained != asked and (trained in VARIANTS or asked in VARIANTS):
+        raise SystemExit(
+            f"--attention_impl {asked}: the checkpoint was trained with attention_impl "
+            f"{trained}; only the exact attention's impls (xla, pallas, pallas_t, "
+            "pallas_v3) swap for one another")
 
 
 def main(args) -> dict:
@@ -86,6 +103,7 @@ def main(args) -> dict:
     from cross_scale_mae_torch.utils.params import params_from_jax
 
     refuse_unported(args, UNPORTED_RUNTIME)
+    apply_jax_platforms(args)
     ignored = [f for f in NOT_APPLICABLE if getattr(args, f, None) not in (None, False, "")]
     if ignored:
         rank0_print("flags accepted but not applicable here: "
@@ -100,6 +118,7 @@ def main(args) -> dict:
             "featurizes with a pretrain run's encoder: serve a classifier with cli/serve")
     cfg = MAEConfig.from_json(json.dumps(config))
     if args.attention_impl is not None:
+        check_attention_swap(cfg.attention_impl, args.attention_impl)
         cfg = cfg.replace(attention_impl=args.attention_impl)
     ds = build_dataset(
         args.dataset_type, args.split == "train",

@@ -9,7 +9,9 @@ is its run directory's (the parent of ``checkpoints``). The mask noise and
 the injected noise come from ``torch.Generator`` draws seeded from
 ``--seed`` (``viz/recon.torch_draws``), so the sweep's numbers differ from
 the JAX CLI's for the same seed. The checkpoint's ``attention_impl``
-(``pallas_v3``: the K1f kernel) runs the encoder and the decoder.
+(``pallas_v3``: the K1f kernel; a variant attention its stock PyTorch ops)
+runs the encoder and the decoder. ``--jax_platforms cpu`` runs as
+``--device cpu``.
 
 Usage:
     python -m cross_scale_mae_torch.cli.evalviz --ckpt <run>/checkpoints \\
@@ -27,7 +29,7 @@ import os
 import numpy as np
 import torch
 
-from cross_scale_mae_torch.cli.common import refuse_unported
+from cross_scale_mae_torch.cli.common import apply_jax_platforms
 from cross_scale_mae_torch.data.datasets import DATASET_STATS, FmowTemporalDataset
 from cross_scale_mae_torch.utils.logging import rank0_print
 from cross_scale_mae_torch.viz import (
@@ -38,10 +40,6 @@ from cross_scale_mae_torch.viz import (
     run_one_image,
     temporal_consistency_by_gap,
 )
-
-# JAX's own platform pin; the port's counterpart is --device (ROADMAP.md
-# queue 1 item 16).
-UNPORTED_FLAGS = {"jax_platforms": 16}
 
 
 def get_args_parser():
@@ -67,12 +65,12 @@ def get_args_parser():
                    help="month edges for the gap buckets")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     p.add_argument("--jax_platforms", default=None,
-                   help="the JAX package's platform pin: not ported (use --device)")
+                   help="the JAX package's platform pin: 'cpu' runs as --device cpu")
     return p
 
 
 def main(args) -> dict:
-    refuse_unported(args, UNPORTED_FLAGS)
+    apply_jax_platforms(args)
     device = torch.device(args.device)
     mean, std = DATASET_STATS[args.dataset_type]
     models = {}

@@ -12,8 +12,11 @@ linprobe run), auto-detected from the checkpoint's config.
   the loader-normalized families skip the on-device normalize.
 * The input is the eval canvas (input_size/0.875 for inputs <= 224);
   ``--canvas_scale`` overrides it.
-* The attention is the plain version (``attention_impl="xla"``), so the
-  program holds no call into a CUDA kernel library.
+* The attention is the plain version (``attention_impl="xla"``) in place
+  of the K1 or K2 kernels, so the program holds no call into a CUDA kernel
+  library; a variant attention (linformer, nystrom, orthoformer, local,
+  fourier_mix) is exported as itself, its stock PyTorch ops (fourier_mix's
+  complex FFT included) traced by ``torch.export``.
 * Weights are baked into the program, cast once to the compute dtype, by
   default. ``--no_bake_weights`` exports ``fn(params, imgs)`` and writes the
   fp32 params to ``<output>.params.npz``; ``--quantize int8`` exports

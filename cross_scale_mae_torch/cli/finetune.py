@@ -9,9 +9,12 @@ JAX package's ``save_params_npz``, a pretrain run's checkpoint directory,
 re-initialised, AdamW (b2 0.999) with layer-wise lr decay under the warmup +
 half-cosine schedule, label smoothing and drop-path, then the evaluation
 (loss, acc1, acc5, F1, mIoU) with the ragged last batch padded under a
-validity mask. With ``--attention_impl pallas`` (the default) every attention forward and
+validity mask. With ``--attention_impl pallas`` (what ``--attention
+scaled_dot_product``, the default, resolves to) every attention forward and
 backward runs in the hand-written CUDA kernels ``csrc/mha_fwd.cu`` and
-``csrc/mha_bwd.cu``.
+``csrc/mha_bwd.cu``; a variant attention (``--attention linformer`` ...)
+runs in stock PyTorch ops, a linformer encoder's E and F carried over from
+a linformer MAE.
 
 Data: ``--dataset_type synthetic`` (the default: seeded uint8 images and
 labels, made as the JAX package's ``SyntheticDataset`` makes them and held
@@ -34,8 +37,13 @@ JAX CLI: Mixup/CutMix (``--mixup``, ``--cutmix``, ``--cutmix_minmax``,
 ``--mixup_prob``, ``--mixup_switch_prob``, ``--mixup_mode``), RandAugment
 (``--aa``), ColorJitter (``--color_jitter``), RandomErasing (``--reprob``,
 ``--remode``, ``--recount``) and bf16 Adam moments (``--adam_mu_dtype``,
-``--adam_nu_dtype``). TP/SP/FSDP and wandb are not ported yet and refuse
-with a pointer to ROADMAP.md; the reference
+``--adam_nu_dtype``). ``<output_dir>/log.jsonl`` gets one record per
+evaluation; ``--use_tensorboard`` and ``--use_wandb`` (``--wandb_project``,
+``--wandb_entity``, ``--wandb_id``) set up and close their loggers as the JAX
+CLI does, which logs no step there; ``--profile_dir`` is parsed and
+reported as not applicable (the JAX CLI traces nothing here either);
+``--jax_platforms cpu`` runs as ``--device cpu``. TP/SP/FSDP are not ported
+yet and refuse with a pointer to ROADMAP.md; the reference
 launcher's torch-DDP flags are accepted and reported as not applicable.
 
 Usage:
@@ -68,8 +76,10 @@ from cross_scale_mae_torch.cli.common import (
     add_reference_compat_args,
     add_runtime_args,
     apply_reference_compat,
+    encode_run_name,
     make_loader,
     refuse_unported,
+    resolve_attention,
     restore_classifier_run,
     setup_runtime,
 )
@@ -112,7 +122,7 @@ from cross_scale_mae_torch.utils.checkpoint import (
     save_checkpoint,
     save_params_npz,
 )
-from cross_scale_mae_torch.utils.logging import rank0_print
+from cross_scale_mae_torch.utils.logging import LogOptions, RunLogger, rank0_print
 from cross_scale_mae_torch.utils.metrics import ConfusionMatrix, MetricLogger
 from cross_scale_mae_torch.utils.params import (
     mae_encoder_to_classifier,
@@ -124,7 +134,10 @@ from cross_scale_mae_torch.utils.torch_import import import_mae_checkpoint
 
 # Flags of the JAX CLI that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item.
-UNPORTED_FLAGS = {**UNPORTED_RUNTIME, "wandb_id": 16}
+UNPORTED_FLAGS = UNPORTED_RUNTIME
+# What --attention scaled_dot_product runs: the K2 kernels, as the JAX
+# finetune step runs them.
+EXACT_IMPL = "pallas"
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -186,16 +199,15 @@ def get_args_parser() -> argparse.ArgumentParser:
     add_data_args(p, pretrain=False, default="synthetic")
     add_runtime_args(p)
     add_reference_compat_args(p, "finetune")
-    # The K2 kernels, as the JAX finetune step runs them.
-    p.set_defaults(attention_impl="pallas")
     return p
 
 
 def check_args(args) -> None:
-    """Resolve the compat flags and the dataset aliases; SystemExit for a
-    flag not ported yet."""
+    """Resolve the compat flags, the dataset aliases and the attention;
+    SystemExit for a flag not ported yet."""
     apply_reference_compat(args, "finetune")
     refuse_unported(args, UNPORTED_FLAGS)
+    resolve_attention(args, torch.device(args.device), EXACT_IMPL)
 
 
 def load_pretrained_encoder(path: str, vcfg: ViTClassifierConfig, params: dict,
@@ -265,6 +277,7 @@ class FinetuneRun:
     max_acc: float = 0.0                        # the best acc1 so far, from the checkpoint
     extras: Optional[AugmentExtras] = None      # RandAugment, ColorJitter, RandomErasing
     mixup: Optional[MixupConfig] = None         # Mixup/CutMix
+    log: LogOptions = LogOptions()              # TensorBoard and wandb
 
     @property
     def device(self) -> torch.device:
@@ -417,7 +430,7 @@ def build_run(args) -> FinetuneRun:
                                                 data_parallel=rt.distributed),
                        make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
                        canvas, rot90, **data, start_epoch=start_epoch, max_acc=max_acc,
-                       extras=augment.extras, mixup=mixup)
+                       extras=augment.extras, mixup=mixup, log=LogOptions.from_args(args))
 
 
 def evaluate(eval_fn: Callable, state: TrainState, batches: Iterable, num_classes: int,
@@ -554,7 +567,13 @@ def main(args) -> dict[str, Any]:
         stats, batches = evaluate_run(run, args.batch_size)
         rank0_print(f"eval: {eval_line(stats)}")
         return {"eval": stats, "eval_batches": batches}
-    result = fit(run, args, ckpt_dir=os.path.join(args.output_dir, "checkpoints"))
+    run_name = encode_run_name(ft=args.model, in_sz=args.input_size,
+                               lr=run.tcfg.resolved_lr(args.batch_size * args.accum_iter),
+                               ld=args.layer_decay, ds=args.dataset_type)
+    with RunLogger.from_options(args.output_dir, run.log, run_name) as logger:
+        result = fit(run, args, ckpt_dir=os.path.join(args.output_dir, "checkpoints"),
+                     on_eval=epoch_logger(logger))
+        tb_dir = logger.tensorboard_dir
     npz = os.path.join(args.output_dir, "params.npz")
     if run.rt.rank == 0:
         os.makedirs(args.output_dir, exist_ok=True)
@@ -562,7 +581,16 @@ def main(args) -> dict[str, Any]:
     if run.rt.distributed:
         barrier()
     rank0_print(f"finetuning done: {result['steps']} steps; params written to {npz}")
-    return {**result, "npz": npz}
+    return {**result, "npz": npz, "tensorboard_dir": tb_dir}
+
+
+def epoch_logger(logger: RunLogger) -> Callable[[int, dict, float], None]:
+    """``fit``'s ``on_eval``: one log.jsonl record per evaluation, the
+    confusion matrix left out (JAX cli/finetune.py:428)."""
+    def log_eval(epoch: int, stats: dict, max_acc: float) -> None:
+        logger.log_epoch({"epoch": epoch, **{k: v for k, v in stats.items() if k != "cm"},
+                          "max_acc": max_acc})
+    return log_eval
 
 
 def eval_line(stats: dict) -> str:

@@ -29,8 +29,13 @@ written by rank 0 every ``--ckpt_interval`` epochs and after the last;
 after it. Data parallel as ``cli/pretrain``: one process per GPU, in the
 JAX jit's global-batch semantics (the BN head's statistics over every
 rank's rows). ``--finetune`` also reads a reference ``.pth``
-(``utils/torch_import``). TP/SP/FSDP and TensorBoard/wandb (``--wandb_id``
-too) are not ported yet and refuse with a pointer to ROADMAP.md.
+(``utils/torch_import``). ``--use_tensorboard`` and ``--use_wandb``
+(``--wandb_project``, ``--wandb_entity``, ``--wandb_id``) set up and close
+their loggers in the run directory as the JAX CLI does, which logs no step
+there; ``--profile_dir`` is reported as not applicable; ``--jax_platforms
+cpu`` runs as ``--device cpu``; ``--attention`` takes the variant
+attentions. TP/SP/FSDP are not ported yet and refuse with a pointer to
+ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.linprobe --finetune pretrain/params.npz \\
@@ -66,6 +71,7 @@ from cross_scale_mae_torch.cli.common import (
 from cross_scale_mae_torch.cli.finetune import (
     FinetuneRun,
     classifier_datasets,
+    epoch_logger,
     eval_line,
     evaluate_run,
     fit,
@@ -81,13 +87,18 @@ from cross_scale_mae_torch.train.optim import build_optimizer
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, tree_leaves
 from cross_scale_mae_torch.utils.checkpoint import save_params_npz
-from cross_scale_mae_torch.utils.logging import RunLogger, auto_output_dir, rank0_print
+from cross_scale_mae_torch.utils.logging import (
+    LogOptions,
+    RunLogger,
+    auto_output_dir,
+    rank0_print,
+)
 from cross_scale_mae_torch.utils.params import params_to_jax
 
 
 # Flags of the JAX CLI that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item.
-UNPORTED_FLAGS = {**UNPORTED_RUNTIME, "wandb_id": 16}
+UNPORTED_FLAGS = UNPORTED_RUNTIME
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -207,7 +218,7 @@ def build_run(args) -> FinetuneRun:
                                  data_parallel=rt.distributed),
         make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
         train_ds.canvas_size, rot90, train_loader=train_loader, eval_loader=eval_loader,
-        start_epoch=start_epoch, max_acc=max_acc)
+        start_epoch=start_epoch, max_acc=max_acc, log=LogOptions.from_args(args))
 
 
 def main(args) -> dict[str, Any]:
@@ -228,28 +239,23 @@ def main(args) -> dict[str, Any]:
     # One directory for all ranks: rank 0 claims it and tells the others.
     output_dir = broadcast_object(
         auto_output_dir(args.output_dir, run=run_name) if main_rank else None)
-    logger = RunLogger(output_dir) if main_rank else None
     npz = os.path.join(output_dir, "params.npz")
-
-    def log_eval(epoch: int, stats: dict, max_acc: float) -> None:
-        if logger is not None:
-            logger.log_epoch({"epoch": epoch, **{k: v for k, v in stats.items() if k != "cm"},
-                              "max_acc": max_acc})
 
     def save(epoch: int, last: bool) -> None:
         if main_rank and ((epoch + 1) % args.ckpt_interval == 0 or last):
             save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
 
-    result = fit(run, args, os.path.join(output_dir, "checkpoints"), on_eval=log_eval,
-                 on_epoch_end=save)
-    if logger is not None:
-        logger.close()
+    with RunLogger.from_options(output_dir, run.log, run_name) as logger:
+        result = fit(run, args, os.path.join(output_dir, "checkpoints"),
+                     on_eval=epoch_logger(logger), on_epoch_end=save)
+        tb_dir = logger.tensorboard_dir
     if run.rt.distributed:
         barrier()
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
     rank0_print(f"linear probe done: {result['steps']} steps, {n_params / 1e6:.1f}M params; "
                 f"params written to {npz}")
-    return {**result, "output_dir": output_dir, "npz": npz, "run": run}
+    return {**result, "output_dir": output_dir, "npz": npz, "run": run,
+            "tensorboard_dir": tb_dir}
 
 
 if __name__ == "__main__":

@@ -5,8 +5,11 @@ for what the port runs: the model registry (``--model
 mae_vit_base_MsLdCeCd``), the loss flags, the lr rule lr = blr * eff_batch
 / 256, AdamW under the warmup + half-cosine schedule, and the whole step
 (augment, two-view forward, losses, backward, AdamW) with the attention in
-the hand-written CUDA kernels when ``--attention_impl pallas_v3`` (the
-default).
+the hand-written CUDA kernels when ``--attention_impl pallas_v3`` (what
+``--attention scaled_dot_product``, the default, resolves to). The
+reference's variant attentions (``--attention`` or ``--attn_name``
+linformer, nystrom, orthoformer, local or fourier_mix) run in stock PyTorch
+ops in the encoder and the decoder, with no attention kernel.
 
 Data parallel: one process per GPU over ``torch.distributed`` (NCCL on the
 card, gloo with ``--device cpu``), launched by torchrun or given
@@ -58,8 +61,16 @@ on ``--vgg_weights``' torchvision state dict; ``<output_dir>/config.json``
 records which as ``vgg_trunk``. ``--plot_recon`` (or ``--val_img_path``,
 an image file or a directory of them) writes rank 0's reconstruction
 figures at every checkpoint into ``<output_dir>/reconstructions/``.
-TP/SP/ZeRO/FSDP and wandb are not ported yet and refuse with a pointer to
-ROADMAP.md.
+Logging, as the JAX CLI: ``<output_dir>/log.jsonl`` (one record an epoch)
+and ``config.json``; every ``--log_interval`` steps the metrics (with
+``--watch_gradients`` the gradient norms too) go to TensorBoard
+(``--use_tensorboard``: ``<output_dir>/tb``) and wandb (``--use_wandb``,
+``--wandb_project``, ``--wandb_entity``, ``--wandb_id``) on the epoch_1000x
+axis, each where its package imports. ``--profile_dir`` writes a
+torch.profiler Chrome trace of steps 10-30 of the first epoch
+(``utils/profiling.TraceWindow``), closed when the run ends sooner.
+``--jax_platforms cpu`` runs as ``--device cpu``. TP/SP/ZeRO/FSDP are not
+ported yet and refuse with a pointer to ROADMAP.md.
 
 Usage:
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_base_MsLdCeCd \\
@@ -93,8 +104,10 @@ from cross_scale_mae_torch.cli.common import (
     add_reference_compat_args,
     add_runtime_args,
     apply_reference_compat,
+    encode_run_name,
     make_loader,
     refuse_unported,
+    resolve_attention,
     setup_runtime,
 )
 from cross_scale_mae_torch.configs import MAEConfig, TrainConfig, get_mae_config
@@ -122,13 +135,17 @@ from cross_scale_mae_torch.utils.checkpoint import (
     save_checkpoint,
     save_params_npz,
 )
-from cross_scale_mae_torch.utils.logging import rank0_print
+from cross_scale_mae_torch.utils.logging import LogOptions, RunLogger, epoch_1000x, rank0_print
 from cross_scale_mae_torch.utils.params import params_to_jax
+from cross_scale_mae_torch.utils.profiling import TraceWindow
 from cross_scale_mae_torch.viz import plot_reconstruction, prepare_image, run_one_image
 
 # Flags of the JAX CLI that the port parses but does not run yet:
 # flag -> ROADMAP.md queue 1 item.
-UNPORTED_FLAGS = {**UNPORTED_RUNTIME, "zero1": 11, "wandb_id": 16}
+UNPORTED_FLAGS = {**UNPORTED_RUNTIME, "zero1": 11}
+# What --attention scaled_dot_product runs: the K1 kernels, as the flagship
+# step runs them (bench.py).
+EXACT_IMPL = "pallas_v3"
 IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".bmp")
 FAULT_EXIT_CODE = 13
 
@@ -188,8 +205,6 @@ def get_args_parser() -> argparse.ArgumentParser:
     add_data_args(p, pretrain=True, default="synthetic")
     add_runtime_args(p)
     add_reference_compat_args(p, "pretrain")
-    # The K1 kernels, as the flagship step runs them (bench.py).
-    p.set_defaults(attention_impl="pallas_v3")
     p.add_argument("--adam_mu_dtype", default=None, choices=list(MOMENT_DTYPES),
                    help="dtype of Adam's first moment (bfloat16 halves its memory)")
     p.add_argument("--adam_nu_dtype", default=None, choices=list(MOMENT_DTYPES),
@@ -200,10 +215,11 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def check_args(args) -> None:
-    """Resolve the compat flags and --reference_semantics in place;
-    SystemExit for a flag not ported yet."""
+    """Resolve the compat flags, the attention and --reference_semantics in
+    place; SystemExit for a flag not ported yet."""
     apply_reference_compat(args, "pretrain")
     refuse_unported(args, UNPORTED_FLAGS)
+    resolve_attention(args, torch.device(args.device), EXACT_IMPL)
     if args.reference_semantics:
         # JAX cli/pretrain.py:136-160: exact GELU, the reference's batch-shared
         # crop box, and the per-rank NT-Xent and BatchNorm of its DDP.
@@ -230,6 +246,8 @@ class PretrainRun:
     std: tuple = ()
     vgg_trunk: str = "n/a"                # "random", "imported:<path>" or "n/a"
     val_images: Optional[list] = None     # --val_img_path's files
+    log: LogOptions = LogOptions()        # TensorBoard and wandb
+    profile_dir: Optional[str] = None     # --profile_dir's trace window
 
     @property
     def device(self) -> torch.device:
@@ -353,7 +371,7 @@ def build_run(args) -> PretrainRun:
     frames = getattr(loader.dataset, "frames", 1) if loader else 1
     return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, rt, loader, rot90,
                        frames, ddp_mode, start_epoch, tuple(mean), tuple(std), vgg_trunk,
-                       val_images)
+                       val_images, LogOptions.from_args(args), args.profile_dir)
 
 
 def check_losses(cfg: MAEConfig, ddp_mode: Optional[str], world_size: int) -> None:
@@ -481,14 +499,16 @@ def main(args) -> dict[str, Any]:
     """Train; returns the step count, every step's loss, the last logged
     metrics, the steady ms per step on the GPU (the steps after the first,
     which builds the kernels), images/s per process and in total, the rank
-    and world size, the npz path (written by rank 0), the perceptual trunk
-    and the reconstruction figures written."""
+    and world size, the npz path (written by rank 0), the perceptual trunk,
+    the reconstruction figures written, the TensorBoard directory (None
+    without one) and the trace window's files, traced steps and seconds
+    (``trace``)."""
     run = build_run(args)
     rt = run.rt
-    if rt.rank == 0 and args.output_dir:
-        os.makedirs(args.output_dir, exist_ok=True)
-        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
-            json.dump({**json.loads(run.cfg.to_json()), "vgg_trunk": run.vgg_trunk}, f, indent=2)
+    config = {**json.loads(run.cfg.to_json()), "vgg_trunk": run.vgg_trunk}
+    run_name = encode_run_name(
+        model=args.model, loss=args.loss, in_sz=args.input_size, p_sz=args.patch_size,
+        lr=run.tcfg.resolved_lr(args.batch_size * args.accum_iter), ds=args.dataset_type)
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
     rank0_print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
                 f"{run.steps_per_epoch} steps/epoch; {rt.world_size} process(es), "
@@ -502,9 +522,13 @@ def main(args) -> dict[str, Any]:
     stopping = False
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     fault = fault_step(rt.rank)
-    with StopRequest() as stop:
+    logger = RunLogger.from_options(args.output_dir, run.log, run_name, config)
+    tb_dir = logger.tensorboard_dir
+    window = TraceWindow(run.profile_dir, device=run.device)
+    with StopRequest() as stop, logger, window:
         for epoch in range(run.start_epoch, args.epochs):
-            for imgs in run.batches(epoch):
+            for it, imgs in enumerate(run.batches(epoch)):
+                window.before_step(total, epoch == run.start_epoch)
                 _, metrics = run.step_fn(run.state, imgs, run.draws(run.state.step),
                                          stop=stop.requested)
                 # NaN abort (engine_pretrain.py:57-59) one step behind, so the
@@ -527,12 +551,16 @@ def main(args) -> dict[str, Any]:
                     last_metrics = {k: float(v) for k, v in metrics.items()}
                     rank0_print(f"epoch {epoch} step {total} " + " ".join(
                         f"{k}={v:.5g}" for k, v in last_metrics.items()))
+                    logger.log_step(epoch_1000x(epoch + it / run.steps_per_epoch),
+                                    last_metrics)
                 if fault and total >= fault:
                     print(f"[fault-injection] killing process {rt.rank} at step {total}",
                           flush=True)
                     os._exit(FAULT_EXIT_CODE)
                 if stopping or (args.max_steps and total >= args.max_steps):
                     break
+            logger.log_epoch({"epoch": epoch, **{f"train_{k}": v
+                                                 for k, v in last_metrics.items()}})
             if args.output_dir and ((epoch + 1) % args.ckpt_interval == 0
                                     or epoch + 1 == args.epochs or stopping):
                 save_checkpoint(ckpt_dir, run.state.step, run.state, run.cfg.to_json(),
@@ -562,10 +590,12 @@ def main(args) -> dict[str, Any]:
     if rt.distributed:
         barrier()
     rank0_print(f"training done: {total} steps; params written to {npz}")
+    trace = {"files": window.files, "steps": window.steps, "window_s": window.window_s,
+             "overhead_s": window.overhead_s}
     return {"steps": total, "losses": losses, "last_metrics": last_metrics,
             "steady_ms_per_step": steady_ms, "imgs_per_s": imgs_per_s, "npz": npz,
             "rank": rt.rank, "world_size": rt.world_size, "vgg_trunk": run.vgg_trunk,
-            "figures": figures}
+            "figures": figures, "tensorboard_dir": tb_dir, "trace": trace}
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ requests are coalesced up to ``--batch_size`` rows and answered from one
 batched forward. A pretrain (MAE) checkpoint serves pooled encoder
 features, a finetune or linprobe checkpoint class logits (auto-detected
 from its config); the checkpoint's ``attention_impl`` runs (``pallas_v3``:
-the K1f kernel, ``pallas``: K2f). ``--quantize int8`` serves from int8
+the K1f kernel, ``pallas``: K2f; a variant attention its stock PyTorch
+ops). ``--quantize int8`` serves from int8
 weights, ``--data_parallel`` from one replica per visible card, and
 ``--artifact`` serves an export of ``cli/export.py``.
 
@@ -136,7 +137,8 @@ def build_app(args, model=None):
             "data-parallel split takes one batch shape")
     if args.native_kernels:
         log("not applicable here: --native_kernels (the port always serves the "
-            "checkpoint's attention_impl; an artifact runs the plain attention)")
+            "checkpoint's attention_impl; an artifact runs the plain attention in "
+            "place of a kernel)")
     if model is not None:
         pass
     elif args.artifact:

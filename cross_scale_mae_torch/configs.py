@@ -18,6 +18,8 @@ from typing import Any, Mapping
 # 'exact' = erf GELU; 'exact_tanhbwd' = exact forward with the tanh-GELU
 # derivative as backward (the forward is what serving runs).
 GELU_MODES = ("tanh", "exact", "exact_tanhbwd")
+# attention_impl values the JAX package's flat-carry block stack runs.
+FLAT_BLOCKS_IMPLS = ("xla", "pallas", "pallas_v3")
 
 
 @dataclass(frozen=True)
@@ -94,12 +96,22 @@ class MAEConfig:
     attention_impl: str = "xla"
     # Layout knobs of the JAX package (jax.checkpoint, flat carry, scan vs
     # unrolled). They change how the work is laid out, not the math, so the
-    # port's forward runs the same loop for every setting.
+    # port's forward runs the same loop for every setting. The flat carry
+    # is wired for FLAT_BLOCKS_IMPLS only, in the JAX package as here.
     remat: bool = False
     gelu: str = "tanh"
     flat_blocks: bool = False
     sequence_parallel: bool = False
     scan_blocks: bool = True
+
+    def __post_init__(self) -> None:
+        if self.flat_blocks and self.attention_impl not in FLAT_BLOCKS_IMPLS:
+            # JAX layers.py:364-377: a variant on the flat path would train
+            # another model than asked (linformer's E and F unused).
+            raise NotImplementedError(
+                f"flat_blocks supports attention_impl {FLAT_BLOCKS_IMPLS}, got "
+                f"{self.attention_impl!r}: use the default (non-flat) block path for "
+                "variant attentions")
 
     @property
     def grid_size(self) -> int:

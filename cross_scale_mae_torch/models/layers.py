@@ -23,7 +23,17 @@ import torch
 import torch.nn.functional as F
 
 from cross_scale_mae_torch.configs import GELU_MODES
-from cross_scale_mae_torch.ops.attention import mha, mha_folded, mha_v3, mha_v3_reference
+from cross_scale_mae_torch.ops.attention import (
+    fourier_mix,
+    linformer_mha,
+    local_mha,
+    mha,
+    mha_folded,
+    mha_v3,
+    mha_v3_reference,
+    nystrom_mha,
+    orthoformer_mha,
+)
 from cross_scale_mae_torch.ops.numerics import accum_dtype, at_least_f32
 from cross_scale_mae_torch.parallel.collectives import all_reduce_sum
 from cross_scale_mae_torch.parallel.dist import world_size
@@ -31,9 +41,12 @@ from cross_scale_mae_torch.quant import dequantize, is_qnode
 
 Params = dict[str, Any]
 
-# attention_impl values the port runs. The JAX package's variant attentions
-# are queued in ROADMAP.md.
-ATTENTION_IMPLS = ("xla", "pallas_v3", "pallas", "pallas_t")
+# attention_impl values: the exact attention (the plain version, or the K1
+# or K2 kernels), then the reference's variant attentions, which change the
+# model (ops/attention.py; linformer adds parameters).
+KERNEL_IMPLS = ("pallas_v3", "pallas", "pallas_t")
+VARIANTS = ("linformer", "nystrom", "orthoformer", "local", "fourier_mix")
+ATTENTION_IMPLS = ("xla", *KERNEL_IMPLS, *VARIANTS)
 
 
 def xavier_uniform(gen: torch.Generator, shape: tuple[int, ...], fan_in: int,
@@ -54,11 +67,15 @@ def layer_norm_init(dim: int, device: torch.device | str) -> Params:
             "bias": torch.zeros(dim, device=device)}
 
 
-def block_init(gen: torch.Generator, dim: int, mlp_ratio: int = 4) -> Params:
+def block_init(gen: torch.Generator, dim: int, mlp_ratio: int = 4,
+               attn_variant: str | None = None, seq_len: int | None = None) -> Params:
     """One pre-LN transformer block (timm Block layout, qkv fused and
-    initialised as one Linear(dim, 3*dim))."""
+    initialised as one Linear(dim, 3*dim)). ``attn_variant='linformer'``
+    adds the sequence projections E and F, (seq_len, max(seq_len // 4, 1))
+    xavier-uniform each, ``seq_len`` the declared num_patches + 1
+    (MAE_ViT_Baseline.py:110)."""
     hidden = dim * mlp_ratio
-    return {
+    block = {
         "norm1": layer_norm_init(dim, gen.device),
         "attn": {"qkv": linear_init(gen, dim, 3 * dim),
                  "proj": linear_init(gen, dim, dim)},
@@ -66,6 +83,20 @@ def block_init(gen: torch.Generator, dim: int, mlp_ratio: int = 4) -> Params:
         "mlp": {"fc1": linear_init(gen, dim, hidden),
                 "fc2": linear_init(gen, hidden, dim)},
     }
+    if attn_variant == "linformer":
+        if seq_len is None:
+            raise ValueError("linformer needs seq_len at init")
+        proj_k = max(seq_len // 4, 1)
+        for name in ("e_proj", "f_proj"):
+            block["attn"][name] = xavier_uniform(gen, (seq_len, proj_k), seq_len, proj_k)
+    return block
+
+
+def stacked_blocks_init(gen: torch.Generator, num_layers: int, dim: int, mlp_ratio: int = 4,
+                        attn_variant: str | None = None,
+                        seq_len: int | None = None) -> list[Params]:
+    """``num_layers`` blocks of :func:`block_init`, drawn in order."""
+    return [block_init(gen, dim, mlp_ratio, attn_variant, seq_len) for _ in range(num_layers)]
 
 
 def kernel(p: Params, dtype: torch.dtype) -> torch.Tensor:
@@ -115,22 +146,35 @@ def attention(p: Params, x: torch.Tensor, num_heads: int,
     'pallas_t' the K2 kernels on head-folded q, k, v (``ops/attention.py``);
     on a CPU tensor each runs its kernels' plain versions. 'xla' runs the
     plain v3 version, which computes the JAX package's einsum attention in
-    the same op order."""
+    the same op order. The :data:`VARIANTS` run their stock PyTorch ops on
+    q, k and v (linformer with the block's ``e_proj`` and ``f_proj``)."""
     if impl not in ATTENTION_IMPLS:
         raise NotImplementedError(
-            f"attention_impl {impl!r} is not ported yet (this package runs "
-            f"{ATTENTION_IMPLS}); see ROADMAP.md for the queue")
+            f"attention_impl {impl!r} is unknown: this package runs {ATTENTION_IMPLS} "
+            "('shunted' maps to modules missing from the reference and is not carried)")
     if impl == "pallas_t":
         return _attention_pallas_t(p, x, num_heads)
     qkv = linear(p["qkv"], x)
+    if impl in ("pallas_v3", "xla"):
+        attend = mha_v3 if impl == "pallas_v3" else mha_v3_reference
+        return linear(p["proj"], attend(qkv, num_heads))
+    n, l, d = x.shape
+    # JAX slices qkv[:, :, i]; unbind is the same views, and its backward
+    # stacks the three gradients in one copy.
+    q, k, v = qkv.reshape(n, l, 3, num_heads, d // num_heads).unbind(2)
     if impl == "pallas":
-        n, l, d = x.shape
-        # JAX slices qkv[:, :, i]; unbind is the same views, and its
-        # backward stacks the three gradients in one copy.
-        q, k, v = qkv.reshape(n, l, 3, num_heads, d // num_heads).unbind(2)
-        return linear(p["proj"], mha(q, k, v).reshape(n, l, d))
-    attend = mha_v3 if impl == "pallas_v3" else mha_v3_reference
-    return linear(p["proj"], attend(qkv, num_heads))
+        out = mha(q, k, v)
+    elif impl == "linformer":
+        out = linformer_mha(q, k, v, p["e_proj"], p["f_proj"])
+    elif impl == "nystrom":
+        out = nystrom_mha(q, k, v)
+    elif impl == "orthoformer":
+        out = orthoformer_mha(q, k, v)
+    elif impl == "local":
+        out = local_mha(q, k, v)
+    else:
+        out = fourier_mix(q)
+    return linear(p["proj"], out.reshape(n, l, d))
 
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)

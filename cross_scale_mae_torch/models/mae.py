@@ -54,7 +54,8 @@ class MAEOutput(NamedTuple):
 
 def mae_init(cfg: MAEConfig, gen: torch.Generator) -> tuple[Params, Params]:
     """(params, state) on ``gen``'s device: fp32 leaves (xavier-uniform
-    kernels, zero biases, unit norms, normal(0.02) tokens), and the
+    kernels, zero biases, unit norms, normal(0.02) tokens; linformer's E
+    and F in every block), and the
     predictors' BatchNorm statistics and, with ``use_perceptual``, a random
     VGG16 trunk (drawn last)."""
     d, dd = cfg.dim_model, cfg.decoder_embed_dim
@@ -67,12 +68,16 @@ def mae_init(cfg: MAEConfig, gen: torch.Generator) -> tuple[Params, Params]:
         "patch_embed": layers.linear_init(gen, cfg.patch_dim, d),
         "cls_token": token(d),
         "mask_token": token(dd),
-        "encoder_blocks": [layers.block_init(gen, d, cfg.ffn_ratio)
-                           for _ in range(cfg.encoder_num_layers)],
+        # seq_len = num_patches + 1 for both stacks (the reference passes one
+        # seq_len to the encoder and the decoder, MAE_ViT_Baseline.py:110,143).
+        "encoder_blocks": layers.stacked_blocks_init(
+            gen, cfg.encoder_num_layers, d, cfg.ffn_ratio, cfg.attention_impl,
+            cfg.num_patches + 1),
         "encoder_norm": layers.layer_norm_init(d, dev),
         "decoder_embed": layers.linear_init(gen, d, dd),
-        "decoder_blocks": [layers.block_init(gen, dd, cfg.ffn_ratio)
-                           for _ in range(cfg.decoder_num_layers)],
+        "decoder_blocks": layers.stacked_blocks_init(
+            gen, cfg.decoder_num_layers, dd, cfg.ffn_ratio, cfg.attention_impl,
+            cfg.num_patches + 1),
         "decoder_norm": layers.layer_norm_init(dd, dev),
         "decoder_pred": layers.linear_init(gen, dd, cfg.patch_dim),
     }

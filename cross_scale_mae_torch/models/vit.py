@@ -54,7 +54,8 @@ def vit_init(cfg: ViTClassifierConfig, gen: torch.Generator) -> tuple[Params, Pa
         "cls_token": 0.02 * torch.randn((1, 1, d), generator=gen, device=dev),
         "pos_embed": torch.from_numpy(
             get_2d_sincos_pos_embed(d, cfg.grid_size, cls_token=True)[None]).to(dev),
-        "blocks": [layers.block_init(gen, d, cfg.mlp_ratio) for _ in range(cfg.depth)],
+        "blocks": layers.stacked_blocks_init(gen, cfg.depth, d, cfg.mlp_ratio,
+                                             cfg.attention_impl, cfg.num_patches + 1),
         "head": {"kernel": trunc_normal(gen, (d, cfg.num_classes), 0.02),
                  "bias": torch.zeros(cfg.num_classes, device=dev)},
     }

@@ -34,6 +34,10 @@ Counterpart of the Pallas paths of ``cross_scale_mae_tpu/ops/attention.py``:
   ``mha_qkv.launches`` and ``mha_qkv.bwd_launches``; on a CPU tensor ``mha_qkv_reference`` and
   ``mha_qkv_bwd_reference``. No path of the model dispatches it, as in the
   JAX package.
+* The attention variants of the reference's ``--attn_name``
+  (``linformer_mha``, ``nystrom_mha``, ``orthoformer_mha``, ``local_mha``,
+  ``fourier_mix``): plain XLA in the JAX package, so stock PyTorch ops
+  here (cuBLAS and cuFFT on the card), with no kernel behind them.
 
 A CUDA tensor goes to a kernel or raises; there is no fallback.
 """
@@ -43,8 +47,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.utils.checkpoint
 
-from cross_scale_mae_torch.ops.numerics import accum_dtype
+from cross_scale_mae_torch.ops.numerics import (
+    accum_dtype,
+    device_constant,
+    require_ieee_fp32,
+)
 
 # Head widths the kernels are instantiated for (csrc/mha_common.cuh `dispatch`):
 # those of every ViT size in configs.VIT_SIZES, encoder and decoder.
@@ -630,3 +639,172 @@ def pallas_mha_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 mha_qkv = pallas_mha_qkv
 mha_qkv.launches = 0
 mha_qkv.bwd_launches = 0
+
+
+# --------------------------------------------------------------------------
+# The attention variants behind the reference's --attn_name
+# (main_pretrain.py:101-119): linformer, nystrom, orthoformer, local and
+# fourier_mix. The JAX package computes them in plain XLA, outside any
+# Pallas kernel (ops/attention.py:587-728 there), so here they are stock
+# PyTorch ops with the JAX op order and dtypes. Each takes (N, L, H, hd)
+# q, k, v and returns (N, L, H, hd) in q's dtype; what JAX computes in fp32
+# runs in ``accum_dtype`` (fp32, or fp64 for a float64 input).
+# --------------------------------------------------------------------------
+
+NYSTROM_LANDMARKS = 64
+ORTHOFORMER_LANDMARKS = 32
+LOCAL_WINDOW = 5
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(1, 2)   # (N, L, H, hd) -> (N, H, L, hd)
+
+
+def _softmax_logits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """softmax(a bᵀ / √hd) over the last axis for head-major (N, H, ., hd)
+    operands: logits and softmax in ``accum_dtype``."""
+    acc = accum_dtype(a.dtype)
+    logits = torch.matmul(a.to(acc), b.to(acc).transpose(-1, -2)) * (a.shape[-1] ** -0.5)
+    return torch.softmax(logits, dim=-1)
+
+
+def linformer_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  e_proj: torch.Tensor, f_proj: torch.Tensor) -> torch.Tensor:
+    """Linformer (xFormers 'linformer'): K and V projected along the
+    sequence by the learned (seq_len, m) E and F, their first L rows (the
+    masked encoder is shorter than the declared seq_len), cast to q's dtype;
+    the projections in that dtype, the logits and softmax in fp32, P cast
+    to q's dtype before P V."""
+    l = q.shape[1]
+    e, f = e_proj[:l].to(q.dtype), f_proj[:l].to(q.dtype)
+    k_p = torch.einsum("nlhd,lm->nhmd", k, e)
+    v_p = torch.einsum("nlhd,lm->nhmd", v, f)
+    probs = _softmax_logits(_heads_first(q), k_p).to(q.dtype)
+    return torch.matmul(probs, v_p).transpose(1, 2)
+
+
+def iterative_pinv(s: torch.Tensor, iters: int = 6) -> torch.Tensor:
+    """Newton-Schulz Moore-Penrose pseudo-inverse of a row-stochastic
+    (..., m, m) matrix (the Nystromformer recipe), in ``s``'s dtype:
+    z0 = sᵀ / (max row sum * max column sum), then
+    z <- 0.25 z (13 I - s z (15 I - s z (7 I - s z))). Under autograd the
+    backward recomputes the iterations from ``s`` (``torch.utils.checkpoint``)
+    instead of keeping them: saved, their some 40 (m, m) products a head take
+    8 GB a decoder layer at the flagship's batch of 384."""
+    if torch.is_grad_enabled() and s.requires_grad:
+        return torch.utils.checkpoint.checkpoint(_newton_schulz, s, iters,
+                                                 use_reentrant=False)
+    return _newton_schulz(s, iters)
+
+
+def _newton_schulz(s: torch.Tensor, iters: int) -> torch.Tensor:
+    eye = torch.eye(s.shape[-1], dtype=s.dtype, device=s.device)
+    a = s.abs()
+    denom = (a.sum(dim=-1).amax(dim=-1, keepdim=True)
+             * a.sum(dim=-2).amax(dim=-1, keepdim=True))[..., None]
+    z = s.transpose(-1, -2) / denom
+    for _ in range(iters):
+        sz = s @ z
+        z = (0.25 * z) @ (13 * eye - sz @ (15 * eye - sz @ (7 * eye - sz)))
+    return z
+
+
+def segment_ids(l: int, m: int, device: torch.device) -> torch.Tensor:
+    """The landmark segment of each of ``l`` rows: ``m`` contiguous
+    segments, the first ``l % m`` of them one row longer."""
+    base, rem = divmod(l, m)
+    row = torch.arange(l, device=device)
+    cut = rem * (base + 1)
+    rest = rem + (row - cut) // max(base, 1) if base > 0 else torch.zeros_like(row)
+    return torch.where(row < cut, row // (base + 1), rest)
+
+
+def segment_means(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(N, L, H, hd) -> (N, m, H, hd) means of the :func:`segment_ids`
+    segments. The counts and sums are scatter-adds (``index_add_``) in x's
+    dtype, as JAX's ``.at[].add`` sums; an empty segment divides by 1."""
+    n, l, h, hd = x.shape
+    seg = segment_ids(l, m, x.device)
+    counts = x.new_zeros(m).index_add_(0, seg, x.new_ones(l))
+    sums = x.new_zeros((n, m, h, hd)).index_add_(1, seg, x)
+    return sums / counts.clamp(min=1.0)[None, :, None, None]
+
+
+def nystrom_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                num_landmarks: int = NYSTROM_LANDMARKS) -> torch.Tensor:
+    """Nystromformer (xFormers 'nystrom'):
+    softmax(Q K̃ᵀ) pinv(softmax(Q̃ K̃ᵀ)) softmax(Q̃ Kᵀ) V, the landmarks Q̃, K̃
+    the segment means, the pseudo-inverse iterative; the three products
+    after the softmaxes in fp32, which on the card must be IEEE fp32
+    (:func:`require_ieee_fp32`). Exact attention when L <= the landmarks."""
+    if q.shape[1] <= num_landmarks:
+        return xla_mha(q, k, v)
+    require_ieee_fp32(q.device, "nystrom attention")
+    return nystrom_products(q, k, v, num_landmarks)
+
+
+def nystrom_products(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     num_landmarks: int) -> torch.Tensor:
+    """:func:`nystrom_mha` for L > the landmarks, in whatever matmul
+    precision the process sets."""
+    q_l, k_l = segment_means(q, num_landmarks), segment_means(k, num_landmarks)
+    qh, kh, ql, kl = (_heads_first(t) for t in (q, k, q_l, k_l))
+    f1, f2, f3 = _softmax_logits(qh, kl), _softmax_logits(ql, kl), _softmax_logits(ql, kh)
+    out = f1 @ iterative_pinv(f2) @ (f3 @ _heads_first(v).to(f3.dtype))
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def landmark_rows(l: int, m: int) -> list[int]:
+    """Orthoformer's m strided landmark rows of 0..l-1: floor(i (l-1) /
+    (m-1)), the JAX package's ``linspace(0, l-1, m).astype(int32)``."""
+    return [i * (l - 1) // (m - 1) for i in range(m)]
+
+
+def orthoformer_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_landmarks: int = ORTHOFORMER_LANDMARKS) -> torch.Tensor:
+    """Orthoformer-style landmark attention (xFormers 'orthoformer', its
+    OMP selection replaced by strided query rows, as the JAX package does):
+    queries attend to the landmarks, the landmarks to all of K and V; both
+    products in fp32 (IEEE on the card). Exact attention when L <= the
+    landmarks."""
+    if q.shape[1] <= num_landmarks:
+        return xla_mha(q, k, v)
+    require_ieee_fp32(q.device, "orthoformer attention")
+    return orthoformer_products(q, k, v, num_landmarks)
+
+
+def orthoformer_products(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_landmarks: int) -> torch.Tensor:
+    """:func:`orthoformer_mha` for L > the landmarks, in whatever matmul
+    precision the process sets."""
+    idx = device_constant(landmark_rows(q.shape[1], num_landmarks), q.device, torch.long)
+    qh = _heads_first(q)
+    q_l = qh.index_select(2, idx)
+    attn1, attn2 = _softmax_logits(qh, q_l), _softmax_logits(q_l, _heads_first(k))
+    out = attn1 @ (attn2 @ _heads_first(v).to(attn2.dtype))
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def local_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: int = LOCAL_WINDOW) -> torch.Tensor:
+    """Sliding-window attention: token i attends to the tokens j with
+    |i - j| <= window // 2; the logits outside the band are -1e30, the
+    softmax in fp32, P cast to q's dtype before P V."""
+    l = q.shape[1]
+    acc = accum_dtype(q.dtype)
+    qh, kh = _heads_first(q).to(acc), _heads_first(k).to(acc)
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    pos = torch.arange(l, device=q.device)
+    band = (pos[:, None] - pos[None, :]).abs() <= window // 2
+    probs = torch.softmax(logits.masked_fill(~band, -1e30), dim=-1).to(q.dtype)
+    return torch.matmul(probs, _heads_first(v)).transpose(1, 2)
+
+
+def fourier_mix(q: torch.Tensor) -> torch.Tensor:
+    """FNet-style token mixing (xFormers FourierMix): the real part of an
+    FFT over the features, then over the sequence, in fp32; k and v are
+    unused, as in the xFormers block."""
+    n, l, h, hd = q.shape
+    x = q.reshape(n, l, h * hd).to(accum_dtype(q.dtype))
+    out = torch.fft.fft(torch.fft.fft(x, dim=-1), dim=-2).real
+    return out.reshape(n, l, h, hd).to(q.dtype)

@@ -23,7 +23,7 @@ from typing import Sequence
 
 import torch
 
-from cross_scale_mae_torch.ops.numerics import device_constant
+from cross_scale_mae_torch.ops.numerics import device_constant, require_ieee_fp32
 
 
 def normalize_images(imgs: torch.Tensor, mean: Sequence[float],
@@ -72,17 +72,6 @@ def _resample_matrix(src_len: int, out_len: int, start: torch.Tensor,
     return mat.scatter_add_(-1, idx, weights.to(torch.float32))
 
 
-def _require_ieee_fp32(device: torch.device) -> None:
-    if device.type == "cuda" and (
-            torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError(
-            "exact crop_resize needs IEEE fp32 matrix products, but this "
-            "process enabled TF32 for fp32 matmuls "
-            "(torch.backends.cuda.matmul.allow_tf32 / "
-            "torch.set_float32_matmul_precision)")
-
-
 def _bf16_operand(x: torch.Tensor) -> torch.Tensor:
     """A matmul operand at the TPU's DEFAULT precision on the GPU: rounded
     to bf16 and held in fp32, so the fp32 product of two of them is exact
@@ -107,7 +96,7 @@ def crop_resize(imgs: torch.Tensor, boxes: torch.Tensor, out_size: int,
     col_mat = _resample_matrix(w, out_size, boxes[:, 1], boxes[:, 3], method)
     acc = torch.promote_types(imgs.dtype, torch.float32)
     if exact:
-        _require_ieee_fp32(imgs.device)
+        require_ieee_fp32(imgs.device, "exact crop_resize")
         operand = (lambda x: x)
     else:
         operand = _bf16_operand

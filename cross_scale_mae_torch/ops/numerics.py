@@ -41,3 +41,16 @@ def device_constant(values: Sequence[float], device: torch.device, dtype: torch.
     if torch.compiler.is_compiling():
         return _make_constant(key, device, dtype, source_dtype)
     return _cached_constant(key, torch.device(device), dtype, source_dtype)
+
+
+def require_ieee_fp32(device: torch.device, what: str) -> None:
+    """RuntimeError where the process lets fp32 matmuls on the card run in
+    TF32 (PyTorch's default is IEEE fp32): ``what``'s fp32 products would
+    silently lose 13 mantissa bits."""
+    if device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{what} needs IEEE fp32 matrix products, but this process enabled TF32 for "
+            "fp32 matmuls (torch.backends.cuda.matmul.allow_tf32 / "
+            "torch.set_float32_matmul_precision)")

@@ -10,7 +10,8 @@ micro-batcher (counterpart of ``cross_scale_mae_tpu/serving.py``).
   (the BN head's running statistics in eval mode). The checkpoint's
   ``attention_impl`` is honoured: ``pallas_v3`` serves through K1f
   (``csrc/mha3_fwd.cu``), ``pallas`` through K2f (``csrc/mha_fwd.cu``);
-  ``portable=True`` (the export) takes the plain attention instead.
+  ``portable=True`` (the export) takes the plain attention instead, and a
+  variant attention (linformer, ...) serves as itself either way.
 * :func:`build_serving_model` wraps it as a numpy-in, numpy-out
   :class:`ServingModel`, optionally from int8 weights (``quant.py``) and
   data parallel over a list of devices, one replica of the params each.
@@ -35,6 +36,7 @@ import torch
 
 from cross_scale_mae_torch.configs import MAEConfig, ViTClassifierConfig
 from cross_scale_mae_torch.data.datasets import DATASET_STATS, normalize_on_device_for
+from cross_scale_mae_torch.models.layers import KERNEL_IMPLS
 from cross_scale_mae_torch.models.mae import compute_dtype, mae_encode
 from cross_scale_mae_torch.models.vit import vit_apply
 from cross_scale_mae_torch.ops.augment import make_eval_preprocess
@@ -164,8 +166,9 @@ def prepare_serving(
     decoder and predictors dropped). ``forward`` takes a uint8 (B, canvas,
     canvas, C) tensor and returns float32 logits (classifier) or pooled
     features: the cls token, the mean of the patch tokens, or all tokens
-    (``pool``). ``portable`` takes the plain attention (``'xla'``) whatever
-    the checkpoint trained with, as ``cli/export.py`` needs."""
+    (``pool``). ``portable`` takes the plain attention (``'xla'``) in place
+    of a kernel impl, as ``cli/export.py`` needs; a variant attention stays
+    what the checkpoint trained with."""
     dev = resolve_device(device)
     config, tree, state, step = read_host_checkpoint(ckpt, step)
     kind = checkpoint_kind({"config": config})
@@ -175,7 +178,10 @@ def prepare_serving(
     else:
         cfg = MAEConfig.from_json(json.dumps(config))
         params = params_from_jax(tree, cfg, dev)
-    if portable:
+    if portable and cfg.attention_impl in KERNEL_IMPLS:
+        # Only a kernel gives way to its plain version: a variant is another
+        # model (JAX serving.py:98-99 exports every checkpoint as exact
+        # attention, linformer's E and F unused).
         cfg = cfg.replace(attention_impl="xla")
     forward = make_forward(cfg, kind, pool, dataset_type, model_state)
     return forward, params, cfg, kind, canvas_of(cfg, canvas_scale), cfg.input_channels

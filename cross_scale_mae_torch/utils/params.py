@@ -41,12 +41,17 @@ def _norm_shapes(dim: int, lead: tuple = ()) -> dict:
     return {"scale": (*lead, dim), "bias": (*lead, dim)}
 
 
-def _block_shapes(dim: int, hidden: int, layers: int) -> dict:
+def _block_shapes(dim: int, hidden: int, layers: int, attn_variant: str = "xla",
+                  seq_len: int = 0) -> dict:
+    """A block stack's shapes; a linformer stack's attention also holds E
+    and F, (seq_len, max(seq_len // 4, 1)) each (``layers.block_init``)."""
     lead = (layers,)
+    attn = {"qkv": _linear_shapes(dim, 3 * dim, lead), "proj": _linear_shapes(dim, dim, lead)}
+    if attn_variant == "linformer":
+        attn["e_proj"] = attn["f_proj"] = (layers, seq_len, max(seq_len // 4, 1))
     return {
         "norm1": _norm_shapes(dim, lead),
-        "attn": {"qkv": _linear_shapes(dim, 3 * dim, lead),
-                 "proj": _linear_shapes(dim, dim, lead)},
+        "attn": attn,
         "norm2": _norm_shapes(dim, lead),
         "mlp": {"fc1": _linear_shapes(dim, hidden, lead),
                 "fc2": _linear_shapes(hidden, dim, lead)},
@@ -59,8 +64,8 @@ def encoder_param_shapes(cfg: MAEConfig) -> dict:
     shapes = {
         "patch_embed": _linear_shapes(cfg.patch_dim, d),
         "cls_token": (1, 1, d),
-        "encoder_blocks": _block_shapes(d, d * cfg.ffn_ratio,
-                                        cfg.encoder_num_layers),
+        "encoder_blocks": _block_shapes(d, d * cfg.ffn_ratio, cfg.encoder_num_layers,
+                                        cfg.attention_impl, cfg.num_patches + 1),
     }
     if cfg.apply_encoder_norm:
         shapes["encoder_norm"] = _norm_shapes(d)
@@ -75,7 +80,8 @@ def mae_param_shapes(cfg: MAEConfig) -> dict:
     spec.update({
         "mask_token": (1, 1, dd),
         "decoder_embed": _linear_shapes(d, dd),
-        "decoder_blocks": _block_shapes(dd, dd * cfg.ffn_ratio, cfg.decoder_num_layers),
+        "decoder_blocks": _block_shapes(dd, dd * cfg.ffn_ratio, cfg.decoder_num_layers,
+                                        cfg.attention_impl, cfg.num_patches + 1),
         "decoder_norm": _norm_shapes(dd),
         "decoder_pred": _linear_shapes(dd, cfg.patch_dim),
     })
@@ -113,7 +119,8 @@ def vit_param_shapes(cfg: ViTClassifierConfig) -> dict:
         "patch_embed": _linear_shapes(cfg.patch_size ** 2 * cfg.input_channels, d),
         "cls_token": (1, 1, d),
         "pos_embed": (1, cfg.num_patches + 1, d),
-        "blocks": _block_shapes(d, d * cfg.mlp_ratio, cfg.depth),
+        "blocks": _block_shapes(d, d * cfg.mlp_ratio, cfg.depth, cfg.attention_impl,
+                                cfg.num_patches + 1),
         "head": _linear_shapes(d, cfg.num_classes),
     }
     shapes["fc_norm" if cfg.global_pool else "norm"] = _norm_shapes(d)
@@ -333,7 +340,8 @@ def mae_encoder_to_classifier(mae_params: Mapping[str, Any], cfg: ViTClassifierC
                               ) -> tuple[dict[str, Any], list[str]]:
     """The classifier subtrees a pretrained MAE encoder provides, and the
     top-level keys it leaves fresh: pos_embed and head always, fc_norm with
-    the global-pool head (else ``norm`` comes from the encoder norm)."""
+    the global-pool head (else ``norm`` comes from the encoder norm). A
+    linformer encoder's blocks bring their E and F along."""
     out = {"patch_embed": mae_params["patch_embed"],
            "cls_token": mae_params["cls_token"],
            "blocks": mae_params["encoder_blocks"]}

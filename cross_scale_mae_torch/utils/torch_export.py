@@ -16,6 +16,8 @@
 * The predictor MLP is ``predictor.{0,1,3}.*``, its BatchNorm's running
   statistics from the model state when given.
 * ``args.patch_size`` is a ``str``, as the reference parser declares it.
+* Linformer's E and F (``e_proj``, ``f_proj``) have no key in that schema:
+  a tree that holds them refuses, naming the keys, rather than lose them.
 * A classifier exports in ``models_vit`` naming (``blocks.N.*``, trainable
   ``pos_embed``, ``head``, ``fc_norm`` or ``norm``); a linear probe's BN head
   as ``head.0`` (the running statistics) and ``head.1`` (the Linear).
@@ -50,6 +52,19 @@ def _linear_out(sd: dict, prefix: str, p: Params) -> None:
 def _norm_out(sd: dict, prefix: str, p: Params) -> None:
     sd[f"{prefix}.weight"] = _np(p["scale"])
     sd[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _refuse_projections(stacks: dict[str, list]) -> None:
+    """ValueError naming every linformer E and F key of the ``{prefix:
+    blocks}`` stacks: the reference's timm blocks have no place for them,
+    and the JAX package's ``_blocks_out`` drops them silently."""
+    lost = [f"{prefix}.{i}.attn.{name}" for prefix, blocks in stacks.items()
+            for i, b in enumerate(blocks) for name in ("e_proj", "f_proj")
+            if name in b["attn"]]
+    if lost:
+        raise ValueError(
+            "the reference .pth schema has no key for linformer's sequence projections; "
+            f"writing it would drop {', '.join(lost)}")
 
 
 def _blocks_out(sd: dict, prefix: str, blocks: list) -> None:
@@ -96,6 +111,8 @@ def mae_state_dict(params: Params, cfg: MAEConfig,
     """The port's whole MAE params (``mae_init``'s tree, or
     ``params_from_jax(..., full=True)``) -> the reference state_dict (numpy
     fp32; ``num_batches_tracked`` int64)."""
+    _refuse_projections({"encoder": params["encoder_blocks"],
+                         "decoder": params["decoder_blocks"]})
     sd: dict[str, np.ndarray] = {}
     d, dd, g = cfg.dim_model, cfg.decoder_embed_dim, cfg.grid_size
     _patch_embed_out(sd, params["patch_embed"], cfg.patch_size, cfg.input_channels, d)
@@ -134,6 +151,7 @@ def classifier_state_dict(params: Params, cfg,
     """The port's classifier params -> the ``models_vit`` state_dict; a BN
     head needs ``model_state["head_bn"]`` (its running statistics are part
     of the reference's ``head.0``)."""
+    _refuse_projections({"blocks": params["blocks"]})
     sd: dict[str, np.ndarray] = {}
     _patch_embed_out(sd, params["patch_embed"], cfg.patch_size, cfg.input_channels,
                      cfg.embed_dim)

@@ -916,7 +916,7 @@ def test_finetune_cli_pads_the_ragged_eval_batch(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",),
-    ("--num_slices", "2"), ("--jax_platforms", "cpu"), ("--use_tensorboard",),
+    ("--num_slices", "2"),
 ])
 def test_finetune_cli_refuses_unported_flags(tmp_path, extra):
     from cross_scale_mae_torch.cli.finetune import build_run
@@ -947,9 +947,10 @@ def test_finetune_cli_refuses_orbax_dirs_and_pth(tmp_path, make):
 
 
 def test_finetune_cli_defaults_to_the_gpu_and_the_k2_kernels():
-    from cross_scale_mae_torch.cli.finetune import get_args_parser
+    from cross_scale_mae_torch.cli.finetune import check_args, get_args_parser
 
     args = get_args_parser().parse_args([])
+    check_args(args)   # --attention scaled_dot_product resolves to the K2 kernels
     assert args.device == "cuda" and args.attention_impl == "pallas"
     assert (args.model, args.input_size, args.patch_size, args.batch_size) == (
         "vit_large_patch16", 64, 8, 512)

@@ -59,7 +59,7 @@ TRAINING_MODULES = [
     "cross_scale_mae_torch/ops/pos_embed.py", "cross_scale_mae_torch/ops/ssim.py",
     "cross_scale_mae_torch/losses/perceptual.py", "cross_scale_mae_torch/viz/__init__.py",
     "cross_scale_mae_torch/viz/recon.py", "cross_scale_mae_torch/viz/temporal.py",
-    "cross_scale_mae_torch/cli/evalviz.py",
+    "cross_scale_mae_torch/cli/evalviz.py", "cross_scale_mae_torch/utils/profiling.py",
 ]
 
 

@@ -228,9 +228,13 @@ def test_post_norm_block_matches_jax(dtype):
 
 
 def test_unported_attention_impl_raises():
+    """Every variant of the JAX package runs (tests/test_torch_port_variants.py);
+    'shunted', which the JAX package does not carry either, and an unknown
+    name still raise."""
     p = _to_torch(_block_params(np.random.default_rng(0), 64, 256))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        players.attention(p["attn"], torch.zeros(1, 4, 64), 4, "linformer")
+    for impl in ("shunted", "flash"):
+        with pytest.raises(NotImplementedError, match="shunted"):
+            players.attention(p["attn"], torch.zeros(1, 4, 64), 4, impl)
 
 
 # ---------------------------------------------------------------- encoder

@@ -441,6 +441,10 @@ def _flags(parser) -> set[str]:
     return {s for a in parser._actions for s in a.option_strings if s.startswith("--")}
 
 
+def _choices(parser, flag: str) -> list:
+    return next(a.choices for a in parser._actions if flag in a.option_strings)
+
+
 # Every flag of the JAX pretrain parser, by what the port does with it.
 # Run: (argv, check of the built run). Refused: argv that must raise
 # SystemExit naming ROADMAP.md. Not applicable: accepted and reported, as
@@ -503,8 +507,11 @@ _RUN = {
     "--num_workers": (["--num_workers", "2"], lambda r: True),
     "--log_interval": (["--log_interval", "3"], lambda r: r.tcfg.log_interval == 3),
     "--attention_impl": (["--attention_impl", "xla"], lambda r: r.cfg.attention_impl == "xla"),
-    "--attention": (["--attention", "scaled_dot_product"], lambda r: True),
-    "--attn_name": (["--attn_name", "scaled_dot_product"], lambda r: True),
+    # Every JAX choice: test_every_jax_pretrain_flag_is_run_or_refused_with_a_roadmap_item.
+    "--attention": (["--attention", "linformer"],
+                    lambda r: r.cfg.attention_impl == "linformer"
+                    and "e_proj" in r.state.params["decoder_blocks"][0]["attn"]),
+    "--attn_name": (["--attn_name", "local"], lambda r: r.cfg.attention_impl == "local"),
     "--ffn_name": (["--ffn_name", "MLP"], lambda r: True),
     "--gelu": (["--gelu", "exact"], lambda r: r.cfg.gelu == "exact"),
     "--compute_dtype": (["--compute_dtype", "float32"],
@@ -518,14 +525,19 @@ _RUN = {
     "--coordinator_address": ([], lambda r: not r.rt.distributed),
     "--num_processes": ([], lambda r: r.rt.world_size == 1),
     "--process_id": ([], lambda r: r.rt.rank == 0),
+    # What main does with these: tests/test_torch_port_observability.py.
+    "--use_tensorboard": (["--use_tensorboard"], lambda r: r.log.use_tensorboard),
+    "--use_wandb": (["--use_wandb"], lambda r: r.log.use_wandb),
+    "--wandb_project": (["--wandb_project", "p"], lambda r: r.log.wandb_project == "p"),
+    "--wandb_entity": (["--wandb_entity", "e"], lambda r: r.log.wandb_entity == "e"),
+    "--wandb_id": (["--wandb_id", "i"], lambda r: r.log.wandb_id == "i"),
+    "--profile_dir": (["--profile_dir", "p"], lambda r: r.profile_dir == "p"),
+    "--jax_platforms": (["--device", "cuda", "--jax_platforms", "cpu"],
+                        lambda r: r.device == torch.device("cpu")),
 }
 _REFUSED = {
     "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
     "--fsdp": ["--fsdp"], "--zero1": ["--zero1"], "--num_slices": ["--num_slices", "2"],
-    "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
-    "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
-    "--wandb_id": ["--wandb_id", "i"], "--profile_dir": ["--profile_dir", "p"],
-    "--jax_platforms": ["--jax_platforms", "cpu"],
 }
 _NOT_APPLICABLE = {
     "--log_dir": ["--log_dir", "logs"], "--device_batch_dtype": ["--device_batch_dtype", "f32"],
@@ -579,6 +591,9 @@ def test_every_jax_pretrain_flag_is_run_or_refused_with_a_roadmap_item(tmp_path,
     torch.save(_vgg16_features_state(), files["{vgg}"])
     for flag, (argv, ok) in _RUN.items():
         assert ok(_tiny_run(tmp_path, *[files.get(a, a) for a in argv])), flag
+    for name in _choices(jparser(), "--attention"):
+        want = "pallas_v3" if name == "scaled_dot_product" else name
+        assert _tiny_run(tmp_path, "--attention", name).cfg.attention_impl == want, name
     for flag, argv in _REFUSED.items():
         with pytest.raises(SystemExit, match="ROADMAP"):
             _tiny_run(tmp_path, *argv)
@@ -626,7 +641,10 @@ _CLASSIFIER_RUN = {
     "--num_workers": (["--num_workers", "2"], lambda r: True),
     "--log_interval": (["--log_interval", "3"], lambda r: r.tcfg.log_interval == 3),
     "--attention_impl": (["--attention_impl", "xla"], lambda r: r.cfg.attention_impl == "xla"),
-    "--attention": (["--attention", "scaled_dot_product"], lambda r: True),
+    # Every JAX choice: test_every_jax_classifier_flag_is_run_refused_or_not_applicable.
+    "--attention": (["--attention", "linformer"],
+                    lambda r: r.cfg.attention_impl == "linformer"
+                    and r.state.params["blocks"][0]["attn"]["e_proj"].shape == (5, 1)),
     "--gelu": (["--gelu", "exact"], lambda r: r.cfg.gelu == "exact"),
     "--compute_dtype": (["--compute_dtype", "bfloat16"],
                         lambda r: r.cfg.compute_dtype == "bfloat16"),
@@ -638,6 +656,14 @@ _CLASSIFIER_RUN = {
     "--output_dir_base": (["--output_dir_base", "base"], lambda r: True),
     "--start_epoch": (["--start_epoch", "1"], lambda r: r.start_epoch == 1),
     "--resume": (["--resume", "{ckpt}"], lambda r: r.start_epoch == 3 and r.max_acc == 7.0),
+    # What main does with these: tests/test_torch_port_observability.py.
+    "--use_tensorboard": (["--use_tensorboard"], lambda r: r.log.use_tensorboard),
+    "--use_wandb": (["--use_wandb"], lambda r: r.log.use_wandb),
+    "--wandb_project": (["--wandb_project", "p"], lambda r: r.log.wandb_project == "p"),
+    "--wandb_entity": (["--wandb_entity", "e"], lambda r: r.log.wandb_entity == "e"),
+    "--wandb_id": (["--wandb_id", "i"], lambda r: r.log.wandb_id == "i"),
+    "--jax_platforms": (["--device", "cuda", "--jax_platforms", "cpu"],
+                        lambda r: r.device == torch.device("cpu")),
 }
 _CLASSIFIER_ROLE_RUN = {
     "finetune": {
@@ -682,12 +708,10 @@ _CLASSIFIER_ROLE_RUN = {
 _CLASSIFIER_REFUSED = {
     "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
     "--fsdp": ["--fsdp"], "--num_slices": ["--num_slices", "2"],
-    "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
-    "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
-    "--wandb_id": ["--wandb_id", "i"], "--profile_dir": ["--profile_dir", "p"],
-    "--jax_platforms": ["--jax_platforms", "cpu"],
 }
 _CLASSIFIER_NOT_APPLICABLE = {
+    # Parsed and unused by the JAX classifier CLIs too: only pretraining traces.
+    "--profile_dir": ["--profile_dir", "p"],
     "--log_dir": ["--log_dir", "logs"], "--device_batch_dtype": ["--device_batch_dtype", "f32"],
     "--pin_mem": ["--pin_mem"], "--no_pin_mem": ["--no_pin_mem"],
     "--world_size": ["--world_size", "2"], "--local_rank": ["--local_rank", "0"],
@@ -736,6 +760,10 @@ def test_every_jax_classifier_flag_is_run_refused_or_not_applicable(tmp_path, ca
     save_checkpoint(ckpt, 0, first.state, first.cfg.to_json(), {"epoch": 2, "max_acc": 7.0})
     for flag, (argv, ok) in run_table.items():
         assert ok(build(*(a.replace("{ckpt}", ckpt) for a in argv))), flag
+    exact = "pallas" if cli == "finetune" else "xla"   # linprobe: pallas_v3 on a card
+    for name in _choices(jmod.get_args_parser(), "--attention"):
+        want = exact if name == "scaled_dot_product" else name
+        assert build("--attention", name).cfg.attention_impl == want, name
     for flag, argv in _CLASSIFIER_REFUSED.items():
         with pytest.raises(SystemExit, match="ROADMAP"):
             build(*argv)
@@ -904,15 +932,17 @@ _EMBED_RUN = {
     "--coordinator_address": ([], lambda r: True),
     "--num_processes": ([], lambda r: True),
     "--process_id": ([], lambda r: True),
+    "--jax_platforms": (["--device", "cuda", "--jax_platforms", "cpu"],
+                        lambda r: r["count"] == 6),
 }
 _EMBED_REFUSED = {
     "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
     "--fsdp": ["--fsdp"], "--num_slices": ["--num_slices", "2"],
-    "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
-    "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
-    "--profile_dir": ["--profile_dir", "p"], "--jax_platforms": ["--jax_platforms", "cpu"],
 }
 _EMBED_NOT_APPLICABLE = {
+    "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
+    "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
+    "--profile_dir": ["--profile_dir", "p"],
     "--resume": ["--resume", "r"], "--log_interval": ["--log_interval", "3"],
     "--attention": ["--attention", "scaled_dot_product"], "--gelu": ["--gelu", "exact"],
     "--compute_dtype": ["--compute_dtype", "float32"], "--log_dir": ["--log_dir", "l"],
@@ -988,15 +1018,16 @@ _EVALVIZ_RUN = {
     "--temporal_gap_buckets": (["--temporal_csv", "{csv}", "--temporal_gap_buckets", "12"],
                                lambda s, out: set(s["temporal_consistency"]["run"]["buckets"])
                                <= {"0-11mo", "12+mo"}),
+    "--jax_platforms": (["--device", "cuda", "--jax_platforms", "cpu"],
+                        lambda s, out: set(s) == {"run"}),
 }
-_EVALVIZ_REFUSED = {"--jax_platforms": ["--jax_platforms", "cpu"]}
 
 
 def test_every_jax_evalviz_flag_is_run_refused_or_not_applicable(tmp_path, capsys):
     """The JAX evalviz parser's flags, each run by the port's CLI on a tiny
-    pretrain checkpoint (its check on the sweep and the files holds) or
-    refused with a pointer to ROADMAP.md (none is not applicable); a new JAX
-    flag fails this test until it is sorted here."""
+    pretrain checkpoint (its check on the sweep and the files holds; none
+    is refused or not applicable); a new JAX flag fails this test until it
+    is sorted here."""
     from PIL import Image
 
     from cross_scale_mae_tpu.cli.evalviz import get_args_parser as jparser
@@ -1008,7 +1039,7 @@ def test_every_jax_evalviz_flag_is_run_refused_or_not_applicable(tmp_path, capsy
     from cross_scale_mae_torch.utils.checkpoint import save_checkpoint
 
     jax_flags = _flags(jparser())
-    assert jax_flags == set(_EVALVIZ_RUN) | set(_EVALVIZ_REFUSED)
+    assert jax_flags == set(_EVALVIZ_RUN)
     assert jax_flags <= _flags(evalviz.get_args_parser())
     cfg = get_mae_config("mae_vit_base_MsLdCeCd", **_TINY_MAE)
     params, mstate = mae_init(cfg, torch.Generator().manual_seed(0))
@@ -1032,7 +1063,4 @@ def test_every_jax_evalviz_flag_is_run_refused_or_not_applicable(tmp_path, capsy
     for i, (flag, (argv, ok)) in enumerate(_EVALVIZ_RUN.items()):
         out = str(tmp_path / f"out{i}")
         assert ok(run(out, *[files.get(a, a) for a in argv]), out), flag
-    for flag, argv in _EVALVIZ_REFUSED.items():
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            run(str(tmp_path / "refused"), *argv)
     capsys.readouterr()

@@ -658,8 +658,7 @@ def test_pretrain_cli_synthetic_images_match_jax_dataset():
 
 
 @pytest.mark.parametrize("extra", [
-    ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",), ("--use_wandb",),
-    ("--zero1",), ("--wandb_id", "i"),
+    ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",), ("--zero1",),
     # Ported now, but not on a single-view model (ROADMAP.md queue 3).
     ("--use_perceptual_loss", "--model", "mae_vit_tiny"),
 ])
@@ -723,8 +722,9 @@ def test_pretrain_cli_resume_and_ckpt_interval_run(tmp_path, capsys, one_thread)
 
 
 def test_pretrain_cli_runs_on_the_gpu_by_default():
-    from cross_scale_mae_torch.cli.pretrain import get_args_parser
+    from cross_scale_mae_torch.cli.pretrain import check_args, get_args_parser
 
     args = get_args_parser().parse_args([])
+    check_args(args)   # --attention scaled_dot_product resolves to the K1 kernels
     assert args.device == "cuda" and args.attention_impl == "pallas_v3"
     assert json.loads(pcfg.get_mae_config(args.model).to_json())["use_ce_ntxent"]

@@ -256,8 +256,10 @@ def test_evalviz_cli_refusals(checkpoints, tmp_path):
     _, pdir = checkpoints
     parse = evalviz.get_args_parser().parse_args
     assert parse(["--ckpt", pdir]).device == "cuda"
-    with pytest.raises(SystemExit, match="queue 1 item 16"):
-        evalviz.main(parse(["--ckpt", pdir, "--jax_platforms", "cpu"]))
+    # --jax_platforms cpu runs as --device cpu (tests/test_torch_port_parallel_cli.py);
+    # any other JAX platform refuses, naming --device.
+    with pytest.raises(SystemExit, match="--device"):
+        evalviz.main(parse(["--ckpt", pdir, "--jax_platforms", "tpu"]))
     empty = tmp_path / "empty.csv"
     empty.write_text("category,image_path,image_path2,timestamp,timestamp2\n")
     with pytest.raises(SystemExit, match="no pair rows"):
