@@ -280,6 +280,7 @@ script exits with code 1 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import math
@@ -332,12 +333,17 @@ SHAPES = {"serving": (64, 65, 12, 64), "train_enc": (768, 17, 12, 64),
           "train_dec": (768, 65, 16, 32), "long_seq": (8, 257, 12, 64),
           "linprobe": (1024, 65, 12, 64), "embed": (256, 65, 12, 64),
           "ms_ssim_enc": (768, 37, 12, 64), "ms_ssim_dec": (768, 145, 16, 32),
-          "viz_enc": (1, 17, 12, 64), "viz_dec": (1, 65, 16, 32)}
-BWD_SHAPES = ("train_enc", "train_dec", "long_seq", "ms_ssim_enc", "ms_ssim_dec")
+          "viz_enc": (1, 17, 12, 64), "viz_dec": (1, 65, 16, 32),
+          # One rank's head group of the flagship step at --model_parallel 2.
+          "tp2_enc": (768, 17, 6, 64), "tp2_dec": (768, 65, 8, 32)}
+BWD_SHAPES = ("train_enc", "train_dec", "long_seq", "ms_ssim_enc", "ms_ssim_dec",
+              "tp2_enc", "tp2_dec")
 # The K2 kernels' shapes, (N, L, H, hd) folded to (N*H, L, hd): the ViT-L
 # finetune step, ViT-B's 65 tokens, and ViT-H at 224 px, the longest.
 K2_SHAPES = {"finetune": (512, 65, 16, 64), "vit_b": (64, 65, 12, 64),
-             "long_seq": (8, 257, 16, 80)}
+             "long_seq": (8, 257, 16, 80),
+             # One rank's heads of the ViT-L finetune step at --model_parallel 2.
+             "tp2_finetune": (512, 65, 8, 64)}
 # The K3 kernels' shapes, (N, L, H, hd) on the (N, L, 3H, hd) layout: ViT-B,
 # the decoder, and ViT-H at 224 px, the longest. No path dispatches K3.
 K3_SHAPES = {"vit_b": (64, 65, 12, 64), "decoder": (768, 65, 16, 32),
@@ -1658,7 +1664,8 @@ def phase_resume(card: str) -> tuple[int, int]:
                   f"{proc.stderr[-3000:]}")
             runs[name] = {"result": _tagged(proc.stdout, "RESULT")[-1],
                           "done": _tagged(proc.stdout, "DONE")[-1]}
-            shutil.rmtree(os.path.join(out, "checkpoints"))
+            shutil.rmtree(os.path.join(os.path.dirname(runs[name]["result"]["npz"]),
+                                       "checkpoints"))
         work = os.path.join(tmp, "B")
         fault = {"CSM_FAULT_STEP": str(RESUME_FAULT), "CSM_FAULT_ATTEMPT": "1"}
         saved = {k: os.environ.get(k) for k in fault}
@@ -1680,9 +1687,13 @@ def phase_resume(card: str) -> tuple[int, int]:
               f"launcher {res}:\n{logs[0][-2000:]}\n{logs[1][-3000:]}")
         with open(os.path.join(work, "launcher", "state.json")) as f:
             state = json.load(f)
-        ckpt = os.path.join(work, "out", "checkpoints")
-        check(state["attempt"] == 2 and state["cmd"][-2:] == ["--resume", ckpt],
+        # Each attempt writes its own run directory; attempt 2 resumes attempt 1's.
+        first_run = os.path.join(work, "out", sorted(os.listdir(os.path.join(work, "out")),
+                                                     key=len)[0])
+        check(state["attempt"] == 2
+              and state["cmd"][-2:] == ["--resume", os.path.join(first_run, "checkpoints")],
               f"attempt 2 was not given --resume: {state}")
+        ckpt = launch.find_latest_checkpoints(work)
         check(f"[fault-injection] killing process 0 at step {RESUME_FAULT}" in logs[0],
               "attempt 1 was not ended by the fault drill")
         resumed = [ln for ln in logs[1].splitlines() if ln.startswith("resumed from")]
@@ -2918,7 +2929,7 @@ def phase_moments(card: str) -> tuple[int, int]:
         check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
         check(fwd == bwd == ATTN_PER_STEP * steps,
               f"kernel launches fwd {fwd}, bwd {bwd} != {ATTN_PER_STEP} x {steps} steps")
-        ckpt = os.path.join(out, "checkpoints")
+        ckpt = os.path.join(result["output_dir"], "checkpoints")
         step = latest_step(ckpt)
         check(step == MOMENT_STEPS, f"checkpoint at step {step}, expected {MOMENT_STEPS}")
         flat = torch.load(os.path.join(ckpt, str(step), STATE_FILE), map_location="cpu",
@@ -3616,7 +3627,8 @@ def phase_pretrain_ssim(card: str, out: str) -> tuple[int, int]:
                                        str(SSIM_STEPS), "--ckpt_interval", str(SSIM_STEPS)))
     _check_run(result, SSIM_STEPS, "mse_ssim")
     _check_counts(_counts(), ATTN_PER_STEP * SSIM_STEPS, ATTN_PER_STEP * SSIM_STEPS, "mse_ssim")
-    check(latest_step(os.path.join(out, "checkpoints")) == SSIM_STEPS, "no step-10 checkpoint")
+    check(latest_step(os.path.join(result["output_dir"], "checkpoints")) == SSIM_STEPS,
+          "no step-10 checkpoint")
     with tempfile.TemporaryDirectory() as tmp:
         _reset_counts()
         ms192 = pretrain_main(_train_argv(tmp, "pallas_v3", "--input_size", "192", "--loss",
@@ -4159,14 +4171,282 @@ def phase_observability(card: str) -> tuple[int, int]:
     return counts["mha3_fwd"], counts["mha3_bwd"]
 
 
+# [mesh]: the flagship step through cli/pretrain.main under each layout flag
+# at world size torch.cuda.device_count() (1 on a one-card machine: an NCCL
+# group of one, where every layout holds whole leaves and the step is the
+# plain one's arithmetic), held to the plain run of the same draws; on two
+# or more cards also tensor and sequence parallelism over 2 model ranks,
+# held to the one-card run.
+MESH_STEPS = 4
+MESH_LAYOUTS = {"zero1": ("--zero1",), "fsdp": ("--fsdp",), "num_slices": ("--num_slices", "1")}
+MESH_MODEL_LAYOUTS = {"tp2": ("--model_parallel", "2"),
+                      "tp2_sp": ("--model_parallel", "2", "--sequence_parallel")}
+MESH_LOSS_RTOL = 1e-5       # one card: the same arithmetic as the plain run
+MESH_PARAMS_ATOL = 0.0      # one card: the same params, bit for bit
+# Across cards: the partial sums in other orders. Four cards read at most
+# 6.2e-6; the contiguous qkv control reads far above (its first loss is
+# another function's).
+MESH_TP_LOSS_RTOL = 1e-4
+# Faults the multi-card gate must see, each run as tp2 with the fault put
+# into the rank processes before cli/pretrain.main: JAX's contiguous slice
+# of the 3D qkv columns (gated: must miss MESH_TP_LOSS_RTOL), and the
+# predictor's BatchNorm statistics without the model group's sum (logged).
+MESH_CONTROLS = {
+    "contiguous_qkv": (True, """
+import dataclasses
+from cross_scale_mae_torch.parallel import mesh as pmesh
+specs_of = pmesh.leaf_specs
+pmesh.leaf_specs = lambda p, l: [s if s is None else dataclasses.replace(s, qkv=False)
+                                 for s in specs_of(p, l)]
+"""),
+    "bn_without_model_sum": (False, """
+import torch.distributed as tdist
+from cross_scale_mae_torch.models import layers
+stats = layers.batch_stats
+layers.batch_stats = lambda x, dims, g=False, group="data": stats(
+    x, dims, g, "data" if group is tdist.group.WORLD else group)
+"""),
+}
+FSDP_FT_STEPS = 3
+TP_PARTITION_TOL = 2.0 ** -7   # relative L2 gap of the summed head groups, bf16
+
+
+def _mesh_worker_runs(tmp: str, world: int, layouts: dict,
+                      faults: dict | None = None) -> dict:
+    """Each layout's run at ``world`` ranks, one process per card through
+    the [resume] worker, run after the code ``faults[name]`` where there is
+    one; {name: rank 0's RESULT and DONE}."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, flags in layouts.items():
+        script = "import sys\nsys.path.insert(0, sys.argv[1])\n" \
+            + (faults or {}).get(name, "") + _RESUME_WORKER
+        address = f"localhost:{_free_port()}"
+        argv = [*_resume_argv(os.path.join(tmp, name))[:-2], "--output_dir",
+                os.path.join(tmp, name), "--synthetic_len", str(TRAIN_BATCH),
+                "--epochs", "100000", "--warmup_epochs", "0", "--max_steps", str(MESH_STEPS),
+                "--ckpt_interval", "100000", *flags, "--coordinator_address", address,
+                "--num_processes", str(world)]
+        procs = [subprocess.Popen([sys.executable, "-c", script, repo, *argv,
+                                   "--process_id", str(r)], cwd=repo, text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  env=dict(os.environ, LOCAL_RANK=str(r)))
+                 for r in range(world)]
+        texts = [p.communicate(timeout=RESUME_TIMEOUT_S)[0] for p in procs]
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            check(p.returncode == 0, f"[mesh] {name} rank {r} failed:\n{text[-3000:]}")
+        out[name] = {"result": _tagged(texts[0], "RESULT")[-1],
+                     "done": _tagged(texts[0], "DONE")[-1]}
+    return out
+
+
+def phase_mesh(card: str) -> tuple[int, int]:
+    """[mesh]: --zero1, --fsdp and --num_slices 1 at world size
+    torch.cuda.device_count() through cli/pretrain.main at the flagship's
+    width (on two or more cards also --model_parallel 2 and with
+    --sequence_parallel), each held to the plain run of the same draws, K1's
+    20 + 20 launches a step; the per-rank step time, peak memory and
+    optimizer-state bytes. Returns the K1 launches of the layout runs."""
+    from cross_scale_mae_torch.cli.pretrain import build_run
+    from cross_scale_mae_torch.cli.pretrain import main as pretrain_main
+    from cross_scale_mae_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    fwd = bwd = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        def argv(name, *flags):
+            return _train_argv(os.path.join(tmp, name), "pallas_v3", "--max_steps",
+                               str(MESH_STEPS), *flags)
+
+        # The one-card plain run, no group: the reference.
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ref = pretrain_main(argv("plain"))
+        ref_peak = torch.cuda.max_memory_allocated()
+        _check_run(ref, MESH_STEPS, "mesh plain")
+        if world == 1:
+            address = f"localhost:{_free_port()}"
+            group = ("--coordinator_address", address, "--num_processes", "1",
+                     "--process_id", "0")
+            dist.initialize_distributed(address, 1, 0, "cuda")
+            try:
+                for name, flags in MESH_LAYOUTS.items():
+                    _reset_counts()
+                    torch.cuda.reset_peak_memory_stats()
+                    res = pretrain_main(argv(name, *group, *flags))
+                    counts = _counts()
+                    peak = torch.cuda.max_memory_allocated()
+                    _check_run(res, MESH_STEPS, f"mesh {name}")
+                    _check_counts(counts, ATTN_PER_STEP * MESH_STEPS, ATTN_PER_STEP * MESH_STEPS,
+                                  f"mesh {name}")
+                    fwd, bwd = fwd + counts["mha3_fwd"], bwd + counts["mha3_bwd"]
+                    gap = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], ref["losses"]))
+                    params_gap = _npz_gap(res["npz"], ref["npz"])
+                    check(gap <= MESH_LOSS_RTOL, f"mesh {name}: losses {res['losses']} against "
+                          f"the plain run's {ref['losses']}")
+                    check(params_gap <= MESH_PARAMS_ATOL,
+                          f"mesh {name}: params {params_gap} from the plain run's")
+                    run = build_run(argv(name + "_bytes", *group, *flags))
+                    opt = _opt_bytes(run.state)
+                    del run
+                    log("mesh", card=json.dumps(card), layout=name, world_size=1,
+                        flags=json.dumps(flags), steps=res["steps"],
+                        loss_rel_gap_to_plain=gap, params_gap_to_plain=params_gap,
+                        ms_per_step=res["steady_ms_per_step"],
+                        plain_ms_per_step=ref["steady_ms_per_step"],
+                        peak_mib=peak / 2**20, plain_peak_mib=ref_peak / 2**20,
+                        optimizer_state_bytes=opt, launches=json.dumps(counts))
+                    torch.cuda.empty_cache()
+            finally:
+                dist.shutdown()
+        else:
+            layouts = dict(MESH_LAYOUTS)
+            if world % 2 == 0:
+                layouts.update(MESH_MODEL_LAYOUTS)
+            for name, r in _mesh_worker_runs(tmp, world, layouts).items():
+                res, done = r["result"], r["done"]
+                n = res["steps"]
+                check(done["fwd"] == done["bwd"] == ATTN_PER_STEP * n,
+                      f"mesh {name}: rank 0's K1 launches {done}")
+                fwd, bwd = fwd + done["fwd"], bwd + done["bwd"]
+                gap = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], ref["losses"]))
+                log("mesh", card=json.dumps(card), layout=name, world_size=world,
+                    loss_rel_gap_to_one_card=gap, tol=MESH_TP_LOSS_RTOL,
+                    losses=json.dumps(res["losses"]), plain_losses=json.dumps(ref["losses"]))
+                check(len(res["losses"]) == MESH_STEPS and gap <= MESH_TP_LOSS_RTOL,
+                      f"mesh {name} at {world} cards: losses {res['losses']} against the "
+                      f"one-card run's {ref['losses']}")
+            if world % 2 == 0:
+                # The controls compare a fault with the sound run: not counted.
+                faults = {name: code for name, (_, code) in MESH_CONTROLS.items()}
+                runs = _mesh_worker_runs(tmp, world, {name: MESH_MODEL_LAYOUTS["tp2"]
+                                                      for name in MESH_CONTROLS}, faults)
+                for name, r in runs.items():
+                    losses = r["result"]["losses"]
+                    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+                    log("mesh_control", card=json.dumps(card), control=name, layout="tp2",
+                        world_size=world, loss_rel_gap_to_one_card=gap,
+                        tol=MESH_TP_LOSS_RTOL, gated=MESH_CONTROLS[name][0],
+                        losses=json.dumps(losses))
+                    check(not MESH_CONTROLS[name][0] or gap > MESH_TP_LOSS_RTOL,
+                          f"mesh control {name} at {world} cards passed the gate: {gap}")
+    log("mesh_time", card=json.dumps(card), seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_tp_partition(card: str) -> None:
+    """[tp_partition]: the flagship's first encoder and decoder blocks
+    split into tp = 2 head groups by the layout rules
+    (``parallel/mesh.leaf_specs``/``local_part``: each group qkv's columns
+    of its heads in q, k and v, and its proj rows), each group run through
+    K1f and K1b on the card, the proj and fc2 partials summed and their
+    biases added once; held against the unsplit block, forward and the
+    input's gradient. These launches compare a kernel path with its plain
+    whole and are not counted."""
+    from cross_scale_mae_torch.configs import get_mae_config
+    from cross_scale_mae_torch.models import layers
+    from cross_scale_mae_torch.models.mae import mae_init
+    from cross_scale_mae_torch.parallel.mesh import Layout, leaf_specs, local_part
+    from cross_scale_mae_torch.train.state import tree_items, tree_like
+
+    t0 = time.perf_counter()
+    cfg = get_mae_config("mae_vit_base_MsLdCeCd", input_size=128, patch_size=16)
+    params, _ = mae_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    readings = {}
+    for stack, heads, tokens, control in (("encoder_blocks", cfg.encoder_num_heads, 17, False),
+                                          ("decoder_blocks", cfg.decoder_num_heads, 65, False),
+                                          ("decoder_blocks", cfg.decoder_num_heads, 65, True)):
+        whole = params[stack][0]
+        specs = leaf_specs({"blocks": [whole]}, Layout(1, 2))
+        if control:
+            # The control: a contiguous slice of the 3D qkv columns (the JAX
+            # split), which hands rank 0 all of q and half of k.
+            specs = [s if s is None else dataclasses.replace(s, qkv=False) for s in specs]
+        groups = []
+        for m in range(2):
+            leaves = [local_part(leaf.detach(), spec, 0, m, 1, 2)
+                      for (_, leaf), spec in zip(tree_items(whole), specs)]
+            part = tree_like(whole, leaves)
+            for sub in (part["attn"]["proj"], part["mlp"]["fc2"]):
+                sub["bias"] = torch.zeros_like(sub["bias"])   # added once, after the sum
+            groups.append(part)
+        d = whole["norm1"]["scale"].shape[0]
+        x0 = torch.randn(2 * TRAIN_BATCH, tokens, d, device="cuda", generator=gen).bfloat16()
+        do = torch.randn(x0.shape, device="cuda", generator=gen).bfloat16()
+
+        def split_block(x):
+            h = layers.layer_norm(whole["norm1"], x)
+            attn = sum(layers.attention(g["attn"], h, heads, "pallas_v3") for g in groups)
+            x = x + attn + whole["attn"]["proj"]["bias"].to(x.dtype)
+            h = layers.layer_norm(whole["norm2"], x)
+            mlp = sum(layers.mlp(g["mlp"], h, cfg.gelu, split=True) for g in groups)
+            return x + mlp + whole["mlp"]["fc2"]["bias"].to(x.dtype)
+
+        outs = {}
+        for name, fn in (("split", split_block),
+                         ("whole", lambda x: layers.block(whole, x, heads, "pallas_v3",
+                                                          gelu=cfg.gelu))):
+            x = x0.clone().requires_grad_(True)
+            y = fn(x)
+            (dx,) = torch.autograd.grad(y, x, do)
+            outs[name] = (y.detach().float(), dx.float())
+        y_gap = float((outs["split"][0] - outs["whole"][0]).norm() / outs["whole"][0].norm())
+        dx_gap = float((outs["split"][1] - outs["whole"][1]).norm() / outs["whole"][1].norm())
+        key = stack + ("_contiguous_control" if control else "")
+        readings[key] = {"out_rel_l2": y_gap, "dx_rel_l2": dx_gap,
+                         "group_qkv": list(groups[0]["attn"]["qkv"]["kernel"].shape)}
+        if control:
+            check(y_gap > 8 * TP_PARTITION_TOL, f"tp_partition: the control passed {readings}")
+        else:
+            check(y_gap <= TP_PARTITION_TOL and dx_gap <= TP_PARTITION_TOL,
+                  f"tp_partition {stack}: head groups against the whole block {readings[key]}")
+    log("tp_partition", card=json.dumps(card), tol=TP_PARTITION_TOL,
+        readings=json.dumps(readings), seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_finetune_fsdp(card: str) -> tuple[int, int]:
+    """ViT-L finetuning through cli/finetune.main with --fsdp for a few
+    steps and its eval (K2f/K2b 24 + 24 a step, 24 per eval batch); the
+    per-rank step time and peak memory. Returns its K2 launches."""
+    from cross_scale_mae_torch.cli.finetune import main as finetune_main
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = finetune_main(_ft_argv(tmp, "pallas", FSDP_FT_STEPS * FT_BATCH, FSDP_FT_STEPS,
+                                     "--fsdp"))
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+    _check_run(res, FSDP_FT_STEPS, "finetune --fsdp")
+    evals = res["eval_batches"]
+    want = FT_ATTN * (FSDP_FT_STEPS + evals)
+    check(counts["mha_fwd"] == want and counts["mha_bwd"] == FT_ATTN * FSDP_FT_STEPS,
+          f"finetune --fsdp: K2 launches {counts}, expected {want} and "
+          f"{FT_ATTN * FSDP_FT_STEPS}")
+    check(counts["mha3_fwd"] == counts["mha3_bwd"] == 0, f"finetune --fsdp: K1 ran {counts}")
+    log("finetune_fsdp", card=json.dumps(card), steps=res["steps"], eval_batches=evals,
+        losses=json.dumps(res["losses"]), peak_mib=peak / 2**20,
+        launches=json.dumps(counts), seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return counts["mha_fwd"], counts["mha_bwd"]
+
+
 def eval_phases(card: str, work: str) -> dict:
     """[ssim], [pretrain_ssim], [perceptual] and [evalviz], each path with
     the counts set to 0 just before it. Returns {path: (K1f, K1b)}."""
+    from cross_scale_mae_torch.cli.launch import find_latest_checkpoints
+
     phase_ssim(card)
     ckpt_run = os.path.join(work, "ssim")
     paths = {"train_ssim": phase_pretrain_ssim(card, ckpt_run),
              "perceptual": phase_perceptual(card)}
-    paths.update(phase_evalviz(card, os.path.join(ckpt_run, "checkpoints")))
+    paths.update(phase_evalviz(card, find_latest_checkpoints(ckpt_run)))
     shutil.rmtree(ckpt_run)
     return paths
 
@@ -4211,8 +4491,11 @@ def main() -> int:
         lp_ckpt = os.path.join(work, "linprobe_checkpoints")
         train_fwd, train_bwd = phase_train(card, npz)
         phase_train_grads_fp64(card)
+        phase_tp_partition(card)
         ddp_fwd, ddp_bwd = phase_ddp(card)
+        mesh_fwd, mesh_bwd = phase_mesh(card)
         ft_fwd, ft_bwd = phase_finetune(card, ft_npz)
+        fsdp_ft_fwd, fsdp_ft_bwd = phase_finetune_fsdp(card)
         phase_finetune_grads_fp64(card)
         recipe_fwd, recipe_bwd = phase_finetune_recipe(card)
         moment_fwd, moment_bwd = phase_moments(card)
@@ -4226,20 +4509,24 @@ def main() -> int:
     sn_fwd, sn_bwd = phase_sentinel(card)
     resume_fwd, resume_bwd = phase_resume(card)
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "train_ddp": ddp_fwd,
+                            "train_mesh": mesh_fwd,
                             "train_resume": resume_fwd, "linprobe": lp_fwd,
                             "train_temporal": temporal_fwd, "moments": moment_fwd,
                             **new_paths["mha3_fwd"],
                             **{k: v[0] for k, v in eval_paths.items()},
                             "observability": obs_fwd},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
+                            "train_mesh": mesh_bwd,
                             "train_resume": resume_bwd, "linprobe": 0,
                             "train_temporal": temporal_bwd, "moments": moment_bwd,
                             **{k: 0 for k in new_paths["mha3_fwd"]},
                             **{k: v[1] for k, v in eval_paths.items()},
                             "observability": obs_bwd},
-               "mha_fwd": {"finetune": ft_fwd, "finetune_sentinel": sn_fwd,
+               "mha_fwd": {"finetune": ft_fwd, "finetune_fsdp": fsdp_ft_fwd,
+                           "finetune_sentinel": sn_fwd,
                            "finetune_recipe": recipe_fwd, **new_paths["mha_fwd"]},
-               "mha_bwd": {"finetune": ft_bwd, "finetune_sentinel": sn_bwd,
+               "mha_bwd": {"finetune": ft_bwd, "finetune_fsdp": fsdp_ft_bwd,
+                           "finetune_sentinel": sn_bwd,
                            "finetune_recipe": recipe_bwd,
                            **{k: 0 for k in new_paths["mha_fwd"]}},
                "mha2_fwd": {}, "mha2_bwd": {}}

@@ -1,9 +1,10 @@
 """What the port's CLIs share (counterpart of
 ``cross_scale_mae_tpu/cli/common.py``): the data and runtime flags, the
 reference-compat flags and their resolution, the process runtime (one
-process per GPU, ``parallel/dist.py``), the attention choice, the loader
-factory, run names, the classifier CLIs' ``--resume``, and the refusal of
-flags not ported yet."""
+process per GPU, ``parallel/dist.py``) and its mesh (``--model_parallel``,
+``--sequence_parallel``, ``--fsdp``, ``--num_slices``; ``parallel/mesh.py``)
+with the JAX package's guards, the attention choice, the loader factory,
+run names and the classifier CLIs' ``--resume``."""
 
 from __future__ import annotations
 
@@ -16,20 +17,21 @@ import torch
 
 from cross_scale_mae_torch.data.datasets import Dataset
 from cross_scale_mae_torch.data.loader import DataLoader
-from cross_scale_mae_torch.models.layers import ATTENTION_IMPLS, VARIANTS
-from cross_scale_mae_torch.parallel.dist import Runtime, initialize_distributed
+from cross_scale_mae_torch.models.layers import ATTENTION_IMPLS, TP_IMPLS, VARIANTS
+from cross_scale_mae_torch.parallel.dist import (
+    Runtime,
+    broadcast_object,
+    init_mesh,
+    initialize_distributed,
+    is_main_process,
+    mesh,
+)
+from cross_scale_mae_torch.parallel.mesh import MESH_ITEM, Layout
 from cross_scale_mae_torch.utils.checkpoint import latest_step, restore_checkpoint
-from cross_scale_mae_torch.utils.logging import WANDB_PROJECT, rank0_print
+from cross_scale_mae_torch.utils.logging import WANDB_PROJECT, auto_output_dir, rank0_print
 
-# Runtime flags of the JAX CLIs that the port parses but does not run yet:
-# flag -> ROADMAP.md queue 1 item (11 the mesh beyond its data axis: TP, SP,
-# FSDP and multi-slice layouts).
-UNPORTED_RUNTIME = {"model_parallel": 11, "sequence_parallel": 11, "fsdp": 11,
-                    "num_slices": 11}
 # The reference's name for exact attention (main_pretrain.py:101-119).
 EXACT_ATTENTION = "scaled_dot_product"
-# A flag's value that means "off" where it is not None or False.
-_OFF = {"num_slices": 1}
 
 
 def add_runtime_args(p: argparse.ArgumentParser) -> None:
@@ -80,11 +82,21 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     n = p.add_argument_group("runtime, JAX-only and accepted as not applicable")
     n.add_argument("--log_dir", default=None)
     n.add_argument("--device_batch_dtype", default=None)
-    u = p.add_argument_group("runtime, not ported yet (ROADMAP.md)")
-    u.add_argument("--model_parallel", default=None, type=int)
-    u.add_argument("--num_slices", default=1, type=int)
-    for flag in ("sequence_parallel", "fsdp"):
-        u.add_argument(f"--{flag}", action="store_true")
+    m = p.add_argument_group("the mesh: world = (data, model), rank = d * tp + m "
+                             "(parallel/dist.py)")
+    m.add_argument("--model_parallel", default=1, type=int,
+                   help="tensor-parallel mesh axis size (1 = pure DP): Megatron's split, "
+                        "each rank running H/tp heads through the attention kernels")
+    m.add_argument("--sequence_parallel", action="store_true",
+                   help="the residual stream (LayerNorms, adds) sharded over the model "
+                        "group between blocks: reduce-scatter and all-gather at the joins; "
+                        "needs --model_parallel > 1 and the gspmd step")
+    m.add_argument("--fsdp", action="store_true",
+                   help="params and optimizer state sharded over the data group, each "
+                        "block's gathered just before it runs, gradients reduce-scattered")
+    m.add_argument("--num_slices", default=1, type=int,
+                   help="the JAX package's multi-slice count: the world must split into "
+                        "model_parallel x num_slices; nothing else changes off a TPU")
 
 
 def add_data_args(p: argparse.ArgumentParser, pretrain: bool,
@@ -207,13 +219,48 @@ def apply_reference_compat(args, role: str) -> None:
                     + ", ".join(f"--{n}" for n in ignored) + " (see docs/MIGRATION.md)")
 
 
-def refuse_unported(args, flags: dict[str, int]) -> None:
-    """SystemExit naming the ROADMAP.md item for the first flag of ``flags``
-    (flag -> queue 1 item) that is set."""
-    for flag, item in flags.items():
-        value = getattr(args, flag, None)
-        if value is not None and value is not False and value != _OFF.get(flag):
-            raise SystemExit(f"--{flag} is not ported yet; see ROADMAP.md (queue 1 item {item})")
+def validate_parallel_args(args) -> None:
+    """The JAX package's cross-flag checks, before any device work:
+    --sequence_parallel needs --model_parallel > 1, and --fsdp and --zero1
+    do not go together (:class:`Layout`'s check)."""
+    if getattr(args, "sequence_parallel", False) and args.model_parallel <= 1:
+        raise SystemExit("--sequence_parallel shards the token axis over the model mesh "
+                         "axis — it needs --model_parallel > 1")
+    try:
+        Layout(zero1=bool(getattr(args, "zero1", False)), fsdp=bool(getattr(args, "fsdp", False)))
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def check_model_parallel(tp: int, attention_impl: str, widths: dict[str, int]) -> None:
+    """SystemExit when tensor parallelism cannot split the model: ``tp``
+    must divide each attention's heads and each MLP's hidden width
+    (``widths``: name -> size), and the attention must split by heads."""
+    if tp <= 1:
+        return
+    for name, size in widths.items():
+        if size % tp:
+            raise SystemExit(f"--model_parallel {tp} does not divide the {name} ({size}): "
+                             "each rank holds a whole 1/tp of the heads and MLP columns")
+    if attention_impl not in TP_IMPLS:
+        raise SystemExit(f"--model_parallel with attention {attention_impl!r}: its math "
+                         "does not split by heads; tensor parallelism runs "
+                         f"{', '.join(TP_IMPLS)} (ROADMAP.md, queue 1 item {MESH_ITEM})")
+
+
+def run_layout(args) -> Layout:
+    """The params' layout the flags ask for, on this run's mesh."""
+    mh = mesh()
+    return Layout(mh.dp, mh.tp, bool(getattr(args, "zero1", False)),
+                  bool(getattr(args, "fsdp", False)))
+
+
+def run_output_dir(args, run_name: str) -> str:
+    """The run directory ``<output_dir>/run_<name>``, ``+N`` when it
+    exists (the JAX CLIs' ``auto_output_dir``), chosen by rank 0 and the
+    same on every rank."""
+    return broadcast_object(auto_output_dir(args.output_dir, run=run_name)
+                            if is_main_process() else None)
 
 
 def apply_jax_platforms(args) -> None:
@@ -250,27 +297,31 @@ def setup_runtime(args) -> Runtime:
     ``setup_runtime``): the process group that --coordinator_address,
     --num_processes and --process_id or the torchrun environment name, on
     NCCL for --device cuda (this rank's card) and gloo for --device cpu;
-    without them one process and no group. numpy is seeded per rank (JAX
-    cli/common.py:162), and --batch_size, the global batch, must split
-    evenly over the ranks."""
+    without them one process and no group. Then the (data, model) mesh of
+    --model_parallel and --num_slices (``parallel/dist.init_mesh``). numpy
+    is seeded per rank (JAX cli/common.py:162), and --batch_size, the
+    global batch, must split evenly over the data ranks."""
     rt = initialize_distributed(args.coordinator_address, args.num_processes,
                                 args.process_id, args.device)
-    if args.batch_size % rt.world_size:
+    mh = init_mesh(getattr(args, "model_parallel", 1), getattr(args, "num_slices", 1), rt)
+    if args.batch_size % mh.dp:
         raise SystemExit(f"--batch_size {args.batch_size} does not split over "
-                         f"{rt.world_size} processes")
+                         f"{mh.dp} data rank(s)")
     np.random.seed(args.seed + rt.rank)
     return rt
 
 
 def make_loader(args, dataset: Dataset, batch_size: int, rt: Runtime, *,
                 is_train: bool = True, seed: int = 0) -> DataLoader:
-    """``batch_size`` rows per rank from this rank's strided shard of the
-    epoch order (the JAX loader's ``shard_id``/``num_shards``); shuffled
-    with drop_last for training, in order and whole for eval; decoded by the
-    native core where it applies (``DataLoader.backend``)."""
+    """``batch_size`` rows per rank from its data index's strided shard of
+    the epoch order (the JAX loader's ``shard_id``/``num_shards``; the ranks
+    of one model group read the same rows); shuffled with drop_last for
+    training, in order and whole for eval; decoded by the native core where
+    it applies (``DataLoader.backend``)."""
+    tp = mesh().tp   # rank = d * tp + m
     return DataLoader(dataset, batch_size, shuffle=is_train, seed=seed, drop_last=is_train,
-                      num_threads=max(2, args.num_workers), shard_id=rt.rank,
-                      num_shards=rt.world_size)
+                      num_threads=max(2, args.num_workers), shard_id=rt.rank // tp,
+                      num_shards=rt.world_size // tp)
 
 
 def restore_classifier_run(args, state) -> tuple[Any, int, float]:

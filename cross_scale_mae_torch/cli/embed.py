@@ -34,11 +34,9 @@ import time
 import numpy as np
 
 from cross_scale_mae_torch.cli.common import (
-    UNPORTED_RUNTIME,
     add_data_args,
     add_runtime_args,
     apply_jax_platforms,
-    refuse_unported,
 )
 from cross_scale_mae_torch.models.layers import VARIANTS
 from cross_scale_mae_torch.utils.logging import rank0_print
@@ -91,7 +89,11 @@ def main(args) -> dict:
     from cross_scale_mae_torch.data import DataLoader, build_dataset
     from cross_scale_mae_torch.models.mae import compute_dtype, mae_encode
     from cross_scale_mae_torch.ops.augment import make_eval_preprocess
-    from cross_scale_mae_torch.parallel.dist import initialize_distributed, is_main_process
+    from cross_scale_mae_torch.parallel.dist import (
+        init_mesh,
+        initialize_distributed,
+        is_main_process,
+    )
     from cross_scale_mae_torch.serving import (
         cast_linears,
         pool_features,
@@ -102,7 +104,6 @@ def main(args) -> dict:
     from cross_scale_mae_torch.utils.checkpoint import checkpoint_kind, read_host_checkpoint
     from cross_scale_mae_torch.utils.params import params_from_jax
 
-    refuse_unported(args, UNPORTED_RUNTIME)
     apply_jax_platforms(args)
     ignored = [f for f in NOT_APPLICABLE if getattr(args, f, None) not in (None, False, "")]
     if ignored:
@@ -111,6 +112,9 @@ def main(args) -> dict:
                     + " (the checkpoint's config fixes the model)")
     initialize_distributed(args.coordinator_address, args.num_processes,
                            args.process_id, args.device)
+    # The JAX CLI's mesh: its check, and nothing else (the encoder's params
+    # are replicated there, each process featurizing the whole split).
+    init_mesh(args.model_parallel, args.num_slices)
     config, tree, _state, _ = read_host_checkpoint(args.ckpt, args.step)
     if checkpoint_kind({"config": config}) != "mae":
         raise SystemExit(

@@ -25,8 +25,9 @@ on the device), or ``fmow_rgb``, ``coco``, ``naip``, ``euro_sat`` or
 families take ``--masked_bands`` and ``--dropped_bands`` (raw band
 indices), are normalized by the loader (SentinelNormalize), and give the
 classifier the channels left (``input_channels``). At the end the
-params are written as the JAX package's npz (``<output_dir>/params.npz``).
-Checkpoints (``utils/checkpoint.py``) go to ``<output_dir>/checkpoints``
+params are written as the JAX package's npz (``<run dir>/params.npz``, the
+run directory ``<output_dir>/run_<name>``, ``+N`` when it exists).
+Checkpoints (``utils/checkpoint.py``) go to ``<run dir>/checkpoints``
 every ``--ckpt_interval`` (``--save_every``) epochs and after the last,
 with the epoch and the best acc1 in the sidecar; ``--resume <dir>``
 restores the newest and starts at the epoch after it, the best acc1
@@ -37,13 +38,14 @@ JAX CLI: Mixup/CutMix (``--mixup``, ``--cutmix``, ``--cutmix_minmax``,
 ``--mixup_prob``, ``--mixup_switch_prob``, ``--mixup_mode``), RandAugment
 (``--aa``), ColorJitter (``--color_jitter``), RandomErasing (``--reprob``,
 ``--remode``, ``--recount``) and bf16 Adam moments (``--adam_mu_dtype``,
-``--adam_nu_dtype``). ``<output_dir>/log.jsonl`` gets one record per
+``--adam_nu_dtype``). ``<run dir>/log.jsonl`` gets one record per
 evaluation; ``--use_tensorboard`` and ``--use_wandb`` (``--wandb_project``,
 ``--wandb_entity``, ``--wandb_id``) set up and close their loggers as the JAX
 CLI does, which logs no step there; ``--profile_dir`` is parsed and
 reported as not applicable (the JAX CLI traces nothing here either);
-``--jax_platforms cpu`` runs as ``--device cpu``. TP/SP/FSDP are not ported
-yet and refuse with a pointer to ROADMAP.md; the reference
+``--jax_platforms cpu`` runs as ``--device cpu``. The mesh flags
+(``--model_parallel``, ``--sequence_parallel``, ``--fsdp``, ``--num_slices``)
+lay the classifier out as ``cli/pretrain.py`` does; the reference
 launcher's torch-DDP flags are accepted and reported as not applicable.
 
 Usage:
@@ -71,17 +73,19 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 import torch
 
 from cross_scale_mae_torch.cli.common import (
-    UNPORTED_RUNTIME,
     add_data_args,
     add_reference_compat_args,
     add_runtime_args,
     apply_reference_compat,
+    check_model_parallel,
     encode_run_name,
     make_loader,
-    refuse_unported,
     resolve_attention,
     restore_classifier_run,
+    run_layout,
+    run_output_dir,
     setup_runtime,
+    validate_parallel_args,
 )
 from cross_scale_mae_torch.configs import (
     MAEConfig,
@@ -104,8 +108,14 @@ from cross_scale_mae_torch.ops.augment import (
     make_eval_preprocess,
     make_finetune_augment,
 )
-from cross_scale_mae_torch.parallel.dist import Runtime, barrier, shutdown
-from cross_scale_mae_torch.parallel.mesh import all_reduce_total, broadcast_params
+from cross_scale_mae_torch.parallel.dist import Runtime, barrier, mesh, shutdown
+from cross_scale_mae_torch.parallel.mesh import (
+    Layout,
+    all_reduce_total,
+    broadcast_params,
+    full_params,
+    shard_params,
+)
 from cross_scale_mae_torch.train.classify import (
     make_classify_train_step,
     make_eval_step,
@@ -132,9 +142,6 @@ from cross_scale_mae_torch.utils.params import (
 )
 from cross_scale_mae_torch.utils.torch_import import import_mae_checkpoint
 
-# Flags of the JAX CLI that the port parses but does not run yet:
-# flag -> ROADMAP.md queue 1 item.
-UNPORTED_FLAGS = UNPORTED_RUNTIME
 # What --attention scaled_dot_product runs: the K2 kernels, as the JAX
 # finetune step runs them.
 EXACT_IMPL = "pallas"
@@ -187,7 +194,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--remode", default="pixel", choices=["pixel", "const"])
     p.add_argument("--recount", default=1, type=int)
     p.add_argument("--ckpt_interval", default=20, type=int,
-                   help="write <output_dir>/checkpoints every N epochs and after the last")
+                   help="write <run dir>/checkpoints every N epochs and after the last")
     p.add_argument("--save_every", dest="ckpt_interval", type=int,
                    default=argparse.SUPPRESS, help="reference alias for --ckpt_interval")
     p.add_argument("--eval_interval", default=1, type=int,
@@ -204,9 +211,9 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 def check_args(args) -> None:
     """Resolve the compat flags, the dataset aliases and the attention;
-    SystemExit for a flag not ported yet."""
+    SystemExit for a mesh flag combination the JAX CLI refuses."""
     apply_reference_compat(args, "finetune")
-    refuse_unported(args, UNPORTED_FLAGS)
+    validate_parallel_args(args)
     resolve_attention(args, torch.device(args.device), EXACT_IMPL)
 
 
@@ -278,6 +285,7 @@ class FinetuneRun:
     extras: Optional[AugmentExtras] = None      # RandAugment, ColorJitter, RandomErasing
     mixup: Optional[MixupConfig] = None         # Mixup/CutMix
     log: LogOptions = LogOptions()              # TensorBoard and wandb
+    layout: Layout = Layout()                   # what each rank holds of the params
 
     @property
     def device(self) -> torch.device:
@@ -289,12 +297,13 @@ class FinetuneRun:
         gen = _step_rng(self.tcfg, self.tcfg.seed + 1, step, self.device)
         return [sample_finetune_draws(gen, self.tcfg.batch_size, self.cfg, self.canvas,
                                       self.rot90, self.extras, self.mixup
-                                      ).shard(self.rt.rank, self.rt.world_size)
+                                      ).shard(mesh().d, mesh().dp)
                 for _ in range(self.tcfg.accum_iter)]
 
     def train_batches(self, epoch: int) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
         """The epoch's (uint8 images, int64 labels) step batches on the
-        device, this rank's rows (rank::world of each global batch)."""
+        device, this rank's rows (d::dp of each global batch for data index
+        d)."""
         if self.train_loader is not None:
             for imgs, labels in device_prefetch(self.train_loader.epoch(epoch), self.device):
                 yield imgs, labels.long()
@@ -304,17 +313,17 @@ class FinetuneRun:
                                generator=torch.Generator(device=self.device)
                                .manual_seed(self.tcfg.seed * 1_000_003 + epoch))
         for it in range(self.steps_per_epoch):
-            idx = order[it * batch:(it + 1) * batch][self.rt.rank::self.rt.world_size]
+            idx = order[it * batch:(it + 1) * batch][mesh().d::mesh().dp]
             yield self.images[idx], self.labels[idx]
 
     def eval_batches(self, batch_size: int) -> Iterable:
-        """This rank's shard of the eval set in order (rank::world), in
-        batches of ``batch_size`` (the last one ragged), then batches of no
-        sample up to the largest shard's count: host batches from the
-        loader, or device slices."""
+        """This rank's shard of the eval set in order (d::dp), in batches of
+        ``batch_size`` (the last one ragged), then batches of no sample up to
+        the largest shard's count: host batches from the loader, or device
+        slices."""
         if self.eval_loader is not None:
             return self.eval_loader.padded_epoch(0)
-        rank, world = self.rt.rank, self.rt.world_size
+        rank, world = mesh().d, mesh().dp
         images, labels = self.eval_images[rank::world], self.eval_labels[rank::world]
         largest = -(-len(self.eval_labels) // world)
         return ((images[i:i + batch_size], labels[i:i + batch_size])
@@ -353,7 +362,7 @@ def build_run(args) -> FinetuneRun:
         num_classes = args.nb_classes
     else:
         train_loader, eval_loader = classifier_datasets(
-            args, eff_batch // rt.world_size, args.batch_size // rt.world_size, rt)
+            args, eff_batch // mesh().dp, args.batch_size // mesh().dp, rt)
         data = {"train_loader": train_loader, "eval_loader": eval_loader}
         num_classes = args.nb_classes or train_loader.dataset.num_classes
     overrides = {k: v for k, v in dict(embed_dim=args.embed_dim, depth=args.depth,
@@ -365,7 +374,10 @@ def build_run(args) -> FinetuneRun:
         drop_path_rate=args.drop_path, compute_dtype=args.compute_dtype,
         attention_impl=args.attention_impl, gelu=args.gelu, remat=args.remat,
         scan_blocks=not args.unroll_blocks,
-        input_channels=train_ds.in_c if train_ds else 3, **overrides)
+        input_channels=train_ds.in_c if train_ds else 3,
+        sequence_parallel=args.sequence_parallel, **overrides)
+    check_model_parallel(args.model_parallel, vcfg.attention_impl,
+                         {"heads": vcfg.num_heads, "MLP": vcfg.embed_dim * vcfg.mlp_ratio})
     tcfg = TrainConfig(
         epochs=args.epochs, warmup_epochs=args.warmup_epochs, batch_size=args.batch_size,
         accum_iter=args.accum_iter, blr=args.blr, lr=args.lr, min_lr=args.min_lr,
@@ -404,6 +416,8 @@ def build_run(args) -> FinetuneRun:
             torch.Generator(device=dev).manual_seed(args.seed + 2),
             tuple(params["head"]["kernel"].shape), 2e-5)
     broadcast_params([params, mstate])
+    layout = run_layout(args)
+    params = shard_params(params, layout)
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay, b1=0.9, b2=0.999,
                          clip_grad=args.clip_grad, layer_decay=args.layer_decay,
                          depth=vcfg.depth, no_decay_names=("pos_embed", "cls_token"),
@@ -430,7 +444,8 @@ def build_run(args) -> FinetuneRun:
                                                 data_parallel=rt.distributed),
                        make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
                        canvas, rot90, **data, start_epoch=start_epoch, max_acc=max_acc,
-                       extras=augment.extras, mixup=mixup, log=LogOptions.from_args(args))
+                       extras=augment.extras, mixup=mixup, log=LogOptions.from_args(args),
+                       layout=layout)
 
 
 def evaluate(eval_fn: Callable, state: TrainState, batches: Iterable, num_classes: int,
@@ -475,8 +490,8 @@ def evaluate(eval_fn: Callable, state: TrainState, batches: Iterable, num_classe
 
 def evaluate_run(run: FinetuneRun, batch_size: int) -> tuple[dict, int]:
     """:func:`evaluate` over the run's eval set, ``batch_size`` the global
-    eval batch (each rank runs its 1/world of it)."""
-    local = batch_size // run.rt.world_size
+    eval batch (each data rank runs its 1/dp of it)."""
+    local = batch_size // mesh().dp
     return evaluate(run.eval_fn, run.state, run.eval_batches(local), run.cfg.num_classes,
                     local, run.device, run.rt.distributed)
 
@@ -557,8 +572,10 @@ def fit(run: FinetuneRun, args, ckpt_dir: Optional[str] = None,
 
 
 def main(args) -> dict[str, Any]:
-    """Finetune, then evaluate; returns :func:`fit`'s results and the npz
-    path (written by rank 0)."""
+    """Finetune, then evaluate, in a run directory of its own
+    (``<output_dir>/run_<name>``, ``+N`` when it exists, as the JAX CLI);
+    returns :func:`fit`'s results, the run directory (``output_dir``) and
+    its npz path (written by rank 0)."""
     run = build_run(args)
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
     rank0_print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
@@ -570,18 +587,21 @@ def main(args) -> dict[str, Any]:
     run_name = encode_run_name(ft=args.model, in_sz=args.input_size,
                                lr=run.tcfg.resolved_lr(args.batch_size * args.accum_iter),
                                ld=args.layer_decay, ds=args.dataset_type)
-    with RunLogger.from_options(args.output_dir, run.log, run_name) as logger:
-        result = fit(run, args, ckpt_dir=os.path.join(args.output_dir, "checkpoints"),
+    # JAX cli/finetune.py:385-388.
+    output_dir = run_output_dir(args, run_name)
+    rank0_print(f"output dir: {output_dir}")
+    with RunLogger.from_options(output_dir, run.log, run_name) as logger:
+        result = fit(run, args, ckpt_dir=os.path.join(output_dir, "checkpoints"),
                      on_eval=epoch_logger(logger))
         tb_dir = logger.tensorboard_dir
-    npz = os.path.join(args.output_dir, "params.npz")
+    npz = os.path.join(output_dir, "params.npz")
+    whole = full_params(run.state.params) if run.rt.distributed else run.state.params
     if run.rt.rank == 0:
-        os.makedirs(args.output_dir, exist_ok=True)
-        save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
+        save_params_npz(npz, params_to_jax(whole), run.cfg.to_json())
     if run.rt.distributed:
         barrier()
     rank0_print(f"finetuning done: {result['steps']} steps; params written to {npz}")
-    return {**result, "npz": npz, "tensorboard_dir": tb_dir}
+    return {**result, "output_dir": output_dir, "npz": npz, "tensorboard_dir": tb_dir}
 
 
 def epoch_logger(logger: RunLogger) -> Callable[[int, dict, float], None]:

@@ -16,7 +16,10 @@
   the default ``gspmd`` semantics the port's step computes the same global
   step at any world size (each rank takes rows rank::W of the global
   batch, and accumulation's microbatch k holds the same rows at any W), so
-  the shrunk gang carries on the same run.
+  the shrunk gang carries on the same run. A checkpoint holds whole leaves
+  whatever the mesh layout (``--fsdp``, ``--zero1``, ``--model_parallel``),
+  so the shrunk gang restores it into its own layout; its world must still
+  split into ``--model_parallel`` x ``--num_slices``.
 
 ``<workdir>/launcher/state.json`` holds the current attempt, world size,
 coordinator address, worker pids and command (rewritten atomically per
@@ -91,11 +94,10 @@ def _write_state(workdir: str, state: dict) -> None:
 
 def find_latest_checkpoints(workdir: str):
     """The ``*/checkpoints`` directory under ``workdir`` with the newest
-    complete step (then the newest mtime), or None. A pretrain or finetune
-    run keeps them at ``<output_dir>/checkpoints``, a linear probe at
-    ``<output_dir>/<run name>/checkpoints`` (a fresh ``+N`` directory each
-    attempt), so the newest step anywhere under the workdir is the one to
-    resume from."""
+    complete step (then the newest mtime), or None. Every training CLI
+    keeps them at ``<output_dir>/<run name>/checkpoints`` (a fresh ``+N``
+    directory each attempt), so the newest step anywhere under the workdir
+    is the one to resume from."""
     best = None   # (step, mtime, path)
     for root, dirs, _files in os.walk(workdir):
         if "launcher" in dirs:

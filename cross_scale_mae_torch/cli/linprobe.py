@@ -34,8 +34,10 @@ rank's rows). ``--finetune`` also reads a reference ``.pth``
 their loggers in the run directory as the JAX CLI does, which logs no step
 there; ``--profile_dir`` is reported as not applicable; ``--jax_platforms
 cpu`` runs as ``--device cpu``; ``--attention`` takes the variant
-attentions. TP/SP/FSDP are not ported yet and refuse with a pointer to
-ROADMAP.md.
+attentions. The mesh flags (``--model_parallel``, ``--sequence_parallel``,
+``--fsdp``, ``--num_slices``) lay the backbone and the head out as
+``cli/pretrain.py`` does; under ``--fsdp`` LARS's trust ratio takes the
+head's norms over its shards.
 
 Usage:
     python -m cross_scale_mae_torch.cli.linprobe --finetune pretrain/params.npz \\
@@ -57,16 +59,18 @@ from typing import Any
 import torch
 
 from cross_scale_mae_torch.cli.common import (
-    UNPORTED_RUNTIME,
     add_data_args,
     add_reference_compat_args,
     add_runtime_args,
     apply_reference_compat,
+    check_model_parallel,
     encode_run_name,
-    refuse_unported,
     resolve_attention,
     restore_classifier_run,
+    run_layout,
+    run_output_dir,
     setup_runtime,
+    validate_parallel_args,
 )
 from cross_scale_mae_torch.cli.finetune import (
     FinetuneRun,
@@ -80,25 +84,15 @@ from cross_scale_mae_torch.cli.finetune import (
 from cross_scale_mae_torch.configs import TrainConfig, get_vit_config
 from cross_scale_mae_torch.models.vit import trunc_normal, vit_init
 from cross_scale_mae_torch.ops.augment import make_eval_preprocess, make_pretrain_augment
-from cross_scale_mae_torch.parallel.dist import barrier, broadcast_object, shutdown
-from cross_scale_mae_torch.parallel.mesh import broadcast_params
+from cross_scale_mae_torch.parallel.dist import barrier, mesh, shutdown
+from cross_scale_mae_torch.parallel.mesh import broadcast_params, full_params, shard_params
 from cross_scale_mae_torch.train.classify import make_classify_train_step, make_eval_step
 from cross_scale_mae_torch.train.optim import build_optimizer
 from cross_scale_mae_torch.train.schedule import warmup_half_cosine
 from cross_scale_mae_torch.train.state import TrainState, tree_leaves
 from cross_scale_mae_torch.utils.checkpoint import save_params_npz
-from cross_scale_mae_torch.utils.logging import (
-    LogOptions,
-    RunLogger,
-    auto_output_dir,
-    rank0_print,
-)
+from cross_scale_mae_torch.utils.logging import LogOptions, RunLogger, rank0_print
 from cross_scale_mae_torch.utils.params import params_to_jax
-
-
-# Flags of the JAX CLI that the port parses but does not run yet:
-# flag -> ROADMAP.md queue 1 item.
-UNPORTED_FLAGS = UNPORTED_RUNTIME
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -162,14 +156,14 @@ def build_run(args) -> FinetuneRun:
     """Config, loaders, the pretrained encoder under a fresh head, LARS on
     the head alone, and the train and eval steps, on ``args.device``."""
     apply_reference_compat(args, "linprobe")
-    refuse_unported(args, UNPORTED_FLAGS)
+    validate_parallel_args(args)
     rt = setup_runtime(args)
     dev = rt.device
     resolve_attention(args, dev)
     eff_batch = args.batch_size * args.accum_iter
     # accum_iter loader batches per optimizer step keep lr = blr * eff_batch / 256.
     train_loader, eval_loader = classifier_datasets(
-        args, eff_batch // rt.world_size, args.batch_size // rt.world_size, rt)
+        args, eff_batch // mesh().dp, args.batch_size // mesh().dp, rt)
     train_ds = train_loader.dataset
     num_classes = args.nb_classes or train_ds.num_classes
     overrides = {k: v for k, v in dict(embed_dim=args.embed_dim, depth=args.depth,
@@ -179,7 +173,9 @@ def build_run(args) -> FinetuneRun:
         num_classes=num_classes, global_pool=args.global_pool, use_bn_head=True,
         compute_dtype=args.compute_dtype, attention_impl=args.attention_impl,
         gelu=args.gelu, remat=args.remat, scan_blocks=not args.unroll_blocks,
-        input_channels=train_ds.in_c, **overrides)
+        input_channels=train_ds.in_c, sequence_parallel=args.sequence_parallel, **overrides)
+    check_model_parallel(args.model_parallel, vcfg.attention_impl,
+                         {"heads": vcfg.num_heads, "MLP": vcfg.embed_dim * vcfg.mlp_ratio})
     # Plain CE on minimal augmentation (main_linprobe.py:562-565).
     tcfg = TrainConfig(
         epochs=args.epochs, warmup_epochs=args.warmup_epochs, batch_size=args.batch_size,
@@ -198,6 +194,8 @@ def build_run(args) -> FinetuneRun:
             torch.Generator(device=dev).manual_seed(args.seed + 2),
             tuple(params["head"]["kernel"].shape), 0.01)
     broadcast_params([params, mstate])
+    layout = run_layout(args)
+    params = shard_params(params, layout)
     tx = build_optimizer(params, schedule, optimizer="lars", weight_decay=0.0,
                          frozen_mask=head_only_mask(params))
     state = TrainState.create(params, mstate, tx)
@@ -218,7 +216,8 @@ def build_run(args) -> FinetuneRun:
                                  data_parallel=rt.distributed),
         make_eval_step(vcfg, preprocess=preprocess), steps_per_epoch, rt,
         train_ds.canvas_size, rot90, train_loader=train_loader, eval_loader=eval_loader,
-        start_epoch=start_epoch, max_acc=max_acc, log=LogOptions.from_args(args))
+        start_epoch=start_epoch, max_acc=max_acc, log=LogOptions.from_args(args),
+        layout=layout)
 
 
 def main(args) -> dict[str, Any]:
@@ -237,13 +236,14 @@ def main(args) -> dict[str, Any]:
                                ds=args.dataset_type)
     main_rank = run.rt.rank == 0
     # One directory for all ranks: rank 0 claims it and tells the others.
-    output_dir = broadcast_object(
-        auto_output_dir(args.output_dir, run=run_name) if main_rank else None)
+    output_dir = run_output_dir(args, run_name)
     npz = os.path.join(output_dir, "params.npz")
 
     def save(epoch: int, last: bool) -> None:
-        if main_rank and ((epoch + 1) % args.ckpt_interval == 0 or last):
-            save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
+        if (epoch + 1) % args.ckpt_interval == 0 or last:
+            whole = full_params(run.state.params) if run.rt.distributed else run.state.params
+            if main_rank:
+                save_params_npz(npz, params_to_jax(whole), run.cfg.to_json())
 
     with RunLogger.from_options(output_dir, run.log, run_name) as logger:
         result = fit(run, args, os.path.join(output_dir, "checkpoints"),

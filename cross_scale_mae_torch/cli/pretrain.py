@@ -32,9 +32,9 @@ by the loader). ``fmow_temporal`` reads pairs of captures of one site and
 needs a multi-scale model: each frame is augmented with its own draws, and
 the later frame stands in for the low-GSD crop as the second view. At the
 end the params are written as the JAX package's npz
-(``<output_dir>/params.npz``), which ``cli/serve.py`` serves.
+(``<run dir>/params.npz``), which ``cli/serve.py`` serves.
 
-Checkpoints and recovery, as the JAX CLI: ``<output_dir>/checkpoints/``
+Checkpoints and recovery, as the JAX CLI: ``<run dir>/checkpoints/``
 (``utils/checkpoint.py``) every ``--ckpt_interval`` epochs, after the last
 and on a stop request; ``--resume <dir>`` restores its newest step and
 starts at the epoch after the checkpoint's (a directory with no checkpoint
@@ -57,20 +57,33 @@ the same dtypes). ``--loss`` takes the SSIM family too (``ssim``,
 160 px); a model with latent terms then needs ``--loss_e``/``--loss_ce``/
 ``--loss_cd`` naming a loss of embeddings. ``--use_perceptual_loss`` adds
 the VGG16 perceptual term (a multi-scale model only), on a random trunk or
-on ``--vgg_weights``' torchvision state dict; ``<output_dir>/config.json``
+on ``--vgg_weights``' torchvision state dict; ``<run dir>/config.json``
 records which as ``vgg_trunk``. ``--plot_recon`` (or ``--val_img_path``,
 an image file or a directory of them) writes rank 0's reconstruction
-figures at every checkpoint into ``<output_dir>/reconstructions/``.
-Logging, as the JAX CLI: ``<output_dir>/log.jsonl`` (one record an epoch)
-and ``config.json``; every ``--log_interval`` steps the metrics (with
-``--watch_gradients`` the gradient norms too) go to TensorBoard
-(``--use_tensorboard``: ``<output_dir>/tb``) and wandb (``--use_wandb``,
+figures at every checkpoint into ``<run dir>/reconstructions/``.
+Logging, as the JAX CLI: ``log.jsonl`` in the run directory (one record an
+epoch, with ``epoch_time_s`` and ``imgs_per_sec_per_host``) and
+``config.json``; at every ``--log_interval``-th step of an epoch the
+metrics (with ``--watch_gradients`` the gradient norms too) go to
+TensorBoard (``--use_tensorboard``: ``<run dir>/tb``) and wandb (``--use_wandb``,
 ``--wandb_project``, ``--wandb_entity``, ``--wandb_id``) on the epoch_1000x
 axis, each where its package imports. ``--profile_dir`` writes a
 torch.profiler Chrome trace of steps 10-30 of the first epoch
 (``utils/profiling.TraceWindow``), closed when the run ends sooner.
-``--jax_platforms cpu`` runs as ``--device cpu``. TP/SP/ZeRO/FSDP are not
-ported yet and refuse with a pointer to ROADMAP.md.
+``--jax_platforms cpu`` runs as ``--device cpu``.
+
+The mesh beyond the data axis (``parallel/mesh.py``), under the gspmd step:
+``--model_parallel tp`` (Megatron's split; rank = d * tp + m, the ranks of
+one model group reading the same rows), ``--sequence_parallel`` (with tp >
+1), ``--fsdp`` (params and moments split over the data group), ``--zero1``
+(Adam's moments split over it), ``--num_slices`` (the world must split into
+tp x slices). As in the JAX CLI, ``--fsdp`` with ``--zero1``, any of them
+with ``--reference_semantics`` and each with ``--ddp_mode shard_map``
+refuse. Checkpoints hold whole leaves, so a run resumes in any layout.
+
+Every run writes into its own directory, ``<output_dir>/run_<name>`` (a
+``+N`` suffix when it exists; the JAX CLI's ``auto_output_dir``), which
+``main`` returns as ``output_dir``.
 
 Usage:
     python -m cross_scale_mae_torch.cli.pretrain --model mae_vit_base_MsLdCeCd \\
@@ -99,16 +112,18 @@ import numpy as np
 import torch
 
 from cross_scale_mae_torch.cli.common import (
-    UNPORTED_RUNTIME,
     add_data_args,
     add_reference_compat_args,
     add_runtime_args,
     apply_reference_compat,
+    check_model_parallel,
     encode_run_name,
     make_loader,
-    refuse_unported,
     resolve_attention,
+    run_layout,
+    run_output_dir,
     setup_runtime,
+    validate_parallel_args,
 )
 from cross_scale_mae_torch.configs import MAEConfig, TrainConfig, get_mae_config
 from cross_scale_mae_torch.data.datasets import DATASET_STATS, build_dataset, synthetic_images
@@ -118,8 +133,13 @@ from cross_scale_mae_torch.losses.recon import RECON_LOSSES, SSIM_LOSSES
 from cross_scale_mae_torch.models.mae import mae_init
 from cross_scale_mae_torch.ops.augment import make_pretrain_augment
 from cross_scale_mae_torch.ops.image import center_crop_resize, normalize_images
-from cross_scale_mae_torch.parallel.dist import Runtime, barrier, shutdown
-from cross_scale_mae_torch.parallel.mesh import broadcast_params
+from cross_scale_mae_torch.parallel.dist import Runtime, barrier, mesh, shutdown
+from cross_scale_mae_torch.parallel.mesh import (
+    Layout,
+    broadcast_params,
+    full_params,
+    shard_params,
+)
 from cross_scale_mae_torch.train.optim import MOMENT_DTYPES, build_optimizer
 from cross_scale_mae_torch.train.pretrain import (
     DDP_MODES,
@@ -140,9 +160,6 @@ from cross_scale_mae_torch.utils.params import params_to_jax
 from cross_scale_mae_torch.utils.profiling import TraceWindow
 from cross_scale_mae_torch.viz import plot_reconstruction, prepare_image, run_one_image
 
-# Flags of the JAX CLI that the port parses but does not run yet:
-# flag -> ROADMAP.md queue 1 item.
-UNPORTED_FLAGS = {**UNPORTED_RUNTIME, "zero1": 11}
 # What --attention scaled_dot_product runs: the K1 kernels, as the flagship
 # step runs them (bench.py).
 EXACT_IMPL = "pallas_v3"
@@ -183,7 +200,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", default=0.05, type=float)
     p.add_argument("--clip_grad", default=None, type=float)
     p.add_argument("--ckpt_interval", default=25, type=int,
-                   help="write <output_dir>/checkpoints every N epochs, after the last "
+                   help="write <run dir>/checkpoints every N epochs, after the last "
                         "and on SIGTERM/SIGINT")
     p.add_argument("--plot_recon", action="store_true",
                    help="save reconstruction figures at checkpoint epochs")
@@ -209,21 +226,33 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="dtype of Adam's first moment (bfloat16 halves its memory)")
     p.add_argument("--adam_nu_dtype", default=None, choices=list(MOMENT_DTYPES),
                    help="dtype of Adam's second moment")
-    g = p.add_argument_group("not ported yet (ROADMAP.md)")
-    g.add_argument("--zero1", action="store_true")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard Adam's moments over the data group (ZeRO-1)")
     return p
 
 
 def check_args(args) -> None:
     """Resolve the compat flags, the attention and --reference_semantics in
-    place; SystemExit for a flag not ported yet."""
+    place; SystemExit for a combination the JAX CLI refuses."""
     apply_reference_compat(args, "pretrain")
-    refuse_unported(args, UNPORTED_FLAGS)
     resolve_attention(args, torch.device(args.device), EXACT_IMPL)
+    layouts = (args.model_parallel > 1 or args.zero1 or args.fsdp or args.sequence_parallel)
     if args.reference_semantics:
         # JAX cli/pretrain.py:136-160: exact GELU, the reference's batch-shared
         # crop box, and the per-rank NT-Xent and BatchNorm of its DDP.
+        if layouts:
+            raise SystemExit(
+                "--reference_semantics forces --ddp_mode shard_map (pure data-parallel, "
+                "per-device NT-Xent/BN like DDP) and is incompatible with "
+                "--model_parallel/--zero1/--fsdp/--sequence_parallel — the reference has no "
+                "TP/ZeRO to be faithful to")
         args.gelu, args.batch_crop, args.ddp_mode = "exact", True, "shard_map"
+    validate_parallel_args(args)
+    if args.ddp_mode == "shard_map" and layouts:
+        # JAX cli/pretrain.py:300-309.
+        raise SystemExit(
+            "--ddp_mode shard_map is pure data-parallel: --sequence_parallel needs the gspmd "
+            "step, and --model_parallel, --zero1 and --fsdp run under it")
 
 
 @dataclasses.dataclass
@@ -248,6 +277,7 @@ class PretrainRun:
     val_images: Optional[list] = None     # --val_img_path's files
     log: LogOptions = LogOptions()        # TensorBoard and wandb
     profile_dir: Optional[str] = None     # --profile_dir's trace window
+    layout: Layout = Layout()             # what each rank holds of the params
 
     @property
     def device(self) -> torch.device:
@@ -257,8 +287,8 @@ class PretrainRun:
         """The draws of ``step``, this rank's rows: one set per microbatch,
         on the device. Under shard_map each rank draws its own rows from its
         own generator; else every rank draws the global batch and keeps its
-        rows."""
-        rank, world = self.rt.rank, self.rt.world_size
+        data index's rows."""
+        rank, world = mesh().d, mesh().dp
         own = self.ddp_mode == "shard_map"
         gen = _step_rng(self.tcfg, self.tcfg.seed + 1, step, self.device,
                         rank=rank if own else None)
@@ -271,12 +301,13 @@ class PretrainRun:
 
     def batches(self, epoch: int) -> Iterator[torch.Tensor]:
         """The epoch's uint8 step batches on the device, this rank's rows
-        (rank::world of each global batch, as the loader's shard holds)."""
+        (d::dp of each global batch for data index d, as the loader's shard
+        holds)."""
         if self.loader is not None:
             for imgs, _ in device_prefetch(self.loader.epoch(epoch), self.device):
                 yield imgs
             return
-        rank, world = self.rt.rank, self.rt.world_size
+        rank, world = mesh().d, mesh().dp
         batch = self.tcfg.batch_size * self.tcfg.accum_iter
         order = torch.randperm(len(self.images), device=self.device,
                                generator=torch.Generator(device=self.device)
@@ -290,9 +321,6 @@ def build_run(args) -> PretrainRun:
     and the step, on this rank's device; with --resume, the newest
     checkpoint restored into the state (on every rank, from the file)."""
     check_args(args)
-    rt = setup_runtime(args)
-    dev = rt.device
-    ddp_mode = args.ddp_mode if rt.distributed else None
     cfg = get_mae_config(
         args.model, input_size=args.input_size, patch_size=args.patch_size,
         mask_ratio=args.mask_ratio, loss=args.loss, norm_pix_loss=args.norm_pix_loss,
@@ -301,8 +329,17 @@ def build_run(args) -> PretrainRun:
         ms_per_sample_crop=not args.batch_crop, apply_encoder_norm=args.apply_encoder_norm,
         compute_dtype=args.compute_dtype, attention_impl=args.attention_impl,
         remat=args.remat, gelu=args.gelu, scan_blocks=not args.unroll_blocks,
-        use_perceptual=args.use_perceptual_loss)
-    check_losses(cfg, ddp_mode, rt.world_size)
+        use_perceptual=args.use_perceptual_loss, sequence_parallel=args.sequence_parallel)
+    widths = {"encoder heads": cfg.encoder_num_heads, "decoder heads": cfg.decoder_num_heads,
+              "encoder MLP": cfg.dim_model * cfg.ffn_ratio,
+              "decoder MLP": cfg.decoder_embed_dim * cfg.ffn_ratio}
+    if cfg.use_ce_pred or cfg.use_cd_pred:
+        widths["predictor hidden"] = cfg.predictor_hidden_size
+    check_model_parallel(args.model_parallel, cfg.attention_impl, widths)
+    rt = setup_runtime(args)
+    dev = rt.device
+    ddp_mode = args.ddp_mode if rt.distributed else None
+    check_losses(cfg)
     if args.vgg_weights and not cfg.use_perceptual:
         raise SystemExit(
             "--vgg_weights given without --use_perceptual_loss: the trunk would be loaded "
@@ -331,7 +368,7 @@ def build_run(args) -> PretrainRun:
                                 input_size=args.input_size, canvas_scale=args.canvas_scale,
                                 masked_bands=args.masked_bands,
                                 dropped_bands=args.dropped_bands)
-        loader = make_loader(args, dataset, eff_batch // rt.world_size, rt, seed=args.seed)
+        loader = make_loader(args, dataset, eff_batch // mesh().dp, rt, seed=args.seed)
         n_train, steps_per_epoch = len(dataset), loader.steps_per_epoch()
     if steps_per_epoch < 1:
         raise SystemExit(f"{n_train} train images are fewer than one step's {eff_batch}")
@@ -347,9 +384,12 @@ def build_run(args) -> PretrainRun:
             vgg_trunk = f"imported:{args.vgg_weights}"
         rank0_print(f"perceptual trunk: {vgg_trunk}")
     broadcast_params([params, mstate])
+    layout = run_layout(args)
+    params = shard_params(params, layout)
     tx = build_optimizer(params, schedule, weight_decay=args.weight_decay,
                          b1=tcfg.adam_b1, b2=tcfg.adam_b2, clip_grad=args.clip_grad,
-                         mu_dtype=args.adam_mu_dtype, nu_dtype=args.adam_nu_dtype)
+                         mu_dtype=args.adam_mu_dtype, nu_dtype=args.adam_nu_dtype,
+                         zero1=args.zero1)
     state = TrainState.create(params, mstate, tx)
     start_epoch = 0
     if args.resume and latest_step(args.resume) is not None:
@@ -371,19 +411,15 @@ def build_run(args) -> PretrainRun:
     frames = getattr(loader.dataset, "frames", 1) if loader else 1
     return PretrainRun(cfg, tcfg, state, step_fn, images, steps_per_epoch, rt, loader, rot90,
                        frames, ddp_mode, start_epoch, tuple(mean), tuple(std), vgg_trunk,
-                       val_images, LogOptions.from_args(args), args.profile_dir)
+                       val_images, LogOptions.from_args(args), args.profile_dir, layout)
 
 
-def check_losses(cfg: MAEConfig, ddp_mode: Optional[str], world_size: int) -> None:
+def check_losses(cfg: MAEConfig) -> None:
     """SystemExit for a loss setup that cannot train:
     * the perceptual loss on a single-view model, which the JAX package's
       ``mae_loss_fn`` silently leaves out (it returns before the term);
     * an SSIM loss on a latent term: the SSIM family compares images, and
-      the JAX package fails on it at the first step;
-    * an SSIM loss under ``--ddp_mode gspmd`` beyond one rank: its [0, 1]
-      rescale takes the batch's min and max, over the global batch in the
-      JAX jit; the port takes them over each rank's rows, the shard_map
-      semantics."""
+      the JAX package fails on it at the first step."""
     if cfg.use_perceptual and not cfg.multi_scale:
         raise SystemExit(
             "--use_perceptual_loss needs a multi-scale model (mae_vit_*_MsLd*): the JAX "
@@ -396,11 +432,6 @@ def check_losses(cfg: MAEConfig, ddp_mode: Optional[str], world_size: int) -> No
             raise SystemExit(
                 f"the {term} latent term's loss is {cfg.loss_name(term)!r}: the SSIM losses "
                 f"compare images, not embeddings; give --loss_{term} (mse, l1, ...)")
-    if cfg.loss in SSIM_LOSSES and ddp_mode == "gspmd" and world_size > 1:
-        raise SystemExit(
-            f"--loss {cfg.loss} under --ddp_mode gspmd: the global batch's min-max rescale "
-            "is not ported; --ddp_mode shard_map takes it over each rank's rows "
-            "(ROADMAP.md, queue 1 item 11)")
 
 
 def val_image_files(path: str) -> list[str]:
@@ -424,7 +455,9 @@ def plot_epoch_recon(run: PretrainRun, output_dir: str, epoch: int) -> list[str]
     (main_pretrain.py:590-626): each --val_img_path image, else the
     dataset's sample 0 (a temporal pair's first frame), center-cropped to
     the input size when its canvas differs; the mask noise from a generator
-    seeded 0. Returns the paths written."""
+    seeded 0. Returns the paths written. Every rank calls it: a layout's
+    split leaves are gathered whole first."""
+    params = full_params(run.state.params) if run.rt.distributed else run.state.params
     if run.rt.rank != 0:
         return []
     cfg, dev = run.cfg, run.device
@@ -448,7 +481,7 @@ def plot_epoch_recon(run: PretrainRun, output_dir: str, epoch: int) -> list[str]
     for batch, suffix in batches:
         noise = torch.rand((1, cfg.num_patches), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(0))
-        result = run_one_image(run.state.params, cfg, batch.to(dev), noise)
+        result = run_one_image(params, cfg, batch.to(dev), noise)
         path = os.path.join(output_dir, "reconstructions", f"epoch_{epoch:04d}{suffix}.png")
         plot_reconstruction(result, path, run.mean, run.std,
                             title=f"epoch {epoch} loss {result['loss']:.4f}")
@@ -499,10 +532,10 @@ def main(args) -> dict[str, Any]:
     """Train; returns the step count, every step's loss, the last logged
     metrics, the steady ms per step on the GPU (the steps after the first,
     which builds the kernels), images/s per process and in total, the rank
-    and world size, the npz path (written by rank 0), the perceptual trunk,
-    the reconstruction figures written, the TensorBoard directory (None
-    without one) and the trace window's files, traced steps and seconds
-    (``trace``)."""
+    and world size, the run directory (``output_dir``) and its npz (written
+    by rank 0), the perceptual trunk, the reconstruction figures written,
+    the TensorBoard directory (None without one) and the trace window's
+    files, traced steps and seconds (``trace``)."""
     run = build_run(args)
     rt = run.rt
     config = {**json.loads(run.cfg.to_json()), "vgg_trunk": run.vgg_trunk}
@@ -510,9 +543,13 @@ def main(args) -> dict[str, Any]:
         model=args.model, loss=args.loss, in_sz=args.input_size, p_sz=args.patch_size,
         lr=run.tcfg.resolved_lr(args.batch_size * args.accum_iter), ds=args.dataset_type)
     n_params = sum(p.numel() for p in tree_leaves(run.state.params))
-    rank0_print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device}; "
-                f"{run.steps_per_epoch} steps/epoch; {rt.world_size} process(es), "
-                f"ddp_mode {run.ddp_mode}")
+    mh = mesh()
+    rank0_print(f"model {args.model}: {n_params / 1e6:.1f}M params on {run.device} (this "
+                f"rank's part); {run.steps_per_epoch} steps/epoch; {rt.world_size} "
+                f"process(es), mesh (data {mh.dp}, model {mh.tp}), ddp_mode {run.ddp_mode}")
+    # A directory of its own per run (+N), chosen by rank 0 (JAX cli/pretrain.py:325-328).
+    output_dir = run_output_dir(args, run_name)
+    rank0_print(f"output dir: {output_dir}")
     losses: list[float] = []
     figures: list[str] = []
     last_metrics: dict[str, float] = {}
@@ -520,13 +557,15 @@ def main(args) -> dict[str, Any]:
     t_first = None
     total = 0
     stopping = False
-    ckpt_dir = os.path.join(args.output_dir, "checkpoints")
+    ckpt_dir = os.path.join(output_dir, "checkpoints")
     fault = fault_step(rt.rank)
-    logger = RunLogger.from_options(args.output_dir, run.log, run_name, config)
+    logger = RunLogger.from_options(output_dir, run.log, run_name, config)
     tb_dir = logger.tensorboard_dir
     window = TraceWindow(run.profile_dir, device=run.device)
+    per_host_batch = args.batch_size // mh.dp
     with StopRequest() as stop, logger, window:
         for epoch in range(run.start_epoch, args.epochs):
+            epoch_t0 = time.time()
             for it, imgs in enumerate(run.batches(epoch)):
                 window.before_step(total, epoch == run.start_epoch)
                 _, metrics = run.step_fn(run.state, imgs, run.draws(run.state.step),
@@ -546,8 +585,8 @@ def main(args) -> dict[str, Any]:
                 if total == 1 and run.device.type == "cuda":
                     torch.cuda.synchronize(run.device)
                     t_first = time.perf_counter()
-                # On the global step: an epoch may be a single step.
-                if (total - 1) % args.log_interval == 0:
+                # On the in-epoch index, as the JAX CLI (cli/pretrain.py:400-407).
+                if it % args.log_interval == 0:
                     last_metrics = {k: float(v) for k, v in metrics.items()}
                     rank0_print(f"epoch {epoch} step {total} " + " ".join(
                         f"{k}={v:.5g}" for k, v in last_metrics.items()))
@@ -559,15 +598,19 @@ def main(args) -> dict[str, Any]:
                     os._exit(FAULT_EXIT_CODE)
                 if stopping or (args.max_steps and total >= args.max_steps):
                     break
-            logger.log_epoch({"epoch": epoch, **{f"train_{k}": v
-                                                 for k, v in last_metrics.items()}})
+            epoch_time = time.time() - epoch_t0
+            logger.log_epoch({
+                "epoch": epoch, "epoch_time_s": epoch_time,
+                "imgs_per_sec_per_host": run.steps_per_epoch * per_host_batch * args.accum_iter
+                / max(epoch_time, 1e-9),
+                **{f"train_{k}": v for k, v in last_metrics.items()}})
             if args.output_dir and ((epoch + 1) % args.ckpt_interval == 0
                                     or epoch + 1 == args.epochs or stopping):
                 save_checkpoint(ckpt_dir, run.state.step, run.state, run.cfg.to_json(),
                                 {"epoch": epoch})
                 if args.plot_recon or args.val_img_path:
                     # --val_img_path alone plots too (main_pretrain.py:589-626).
-                    figures += plot_epoch_recon(run, args.output_dir, epoch)
+                    figures += plot_epoch_recon(run, output_dir, epoch)
             if stopping:
                 rank0_print("preemption checkpoint written; exiting")
                 break
@@ -583,10 +626,10 @@ def main(args) -> dict[str, Any]:
             imgs_per_s = args.batch_size * args.accum_iter / (steady_ms / 1e3)
             rank0_print(f"{steady_ms:.2f} ms per step: {imgs_per_s / rt.world_size:.1f} "
                         f"images/s per process, {imgs_per_s:.1f} in total")
-    npz = os.path.join(args.output_dir, "params.npz")
+    npz = os.path.join(output_dir, "params.npz")
+    whole = full_params(run.state.params) if rt.distributed else run.state.params
     if rt.rank == 0:
-        os.makedirs(args.output_dir, exist_ok=True)
-        save_params_npz(npz, params_to_jax(run.state.params), run.cfg.to_json())
+        save_params_npz(npz, params_to_jax(whole), run.cfg.to_json())
     if rt.distributed:
         barrier()
     rank0_print(f"training done: {total} steps; params written to {npz}")
@@ -594,8 +637,9 @@ def main(args) -> dict[str, Any]:
              "overhead_s": window.overhead_s}
     return {"steps": total, "losses": losses, "last_metrics": last_metrics,
             "steady_ms_per_step": steady_ms, "imgs_per_s": imgs_per_s, "npz": npz,
-            "rank": rt.rank, "world_size": rt.world_size, "vgg_trunk": run.vgg_trunk,
-            "figures": figures, "tensorboard_dir": tb_dir, "trace": trace}
+            "output_dir": output_dir, "rank": rt.rank, "world_size": rt.world_size,
+            "vgg_trunk": run.vgg_trunk, "figures": figures, "tensorboard_dir": tb_dir,
+            "trace": trace}
 
 
 if __name__ == "__main__":

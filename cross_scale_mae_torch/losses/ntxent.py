@@ -4,9 +4,9 @@
 The reference's form (util/contrast_loss.py:44-101): rows normalized first,
 a 2B x 2B similarity matrix in fp32, and a denominator of the negatives only
 (the positive is not added back), with an ``eps`` guard. With
-``global_batch`` the rows of every data-parallel rank are gathered first, so
-each row's negatives are the whole global batch, as under the JAX package's
-jit over a batch-sharded array.
+``global_batch`` the rows of every data rank (the mesh's data group) are
+gathered first, so each row's negatives are the whole global batch, as
+under the JAX package's jit over a batch-sharded array.
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ from cross_scale_mae_torch.ops.masking import random_masking, restore_tokens
 from cross_scale_mae_torch.ops.numerics import at_least_f32
 from cross_scale_mae_torch.ops.patchify import patchify, unpatchify
 from cross_scale_mae_torch.ops.pos_embed import get_2d_sincos_pos_embed
+from cross_scale_mae_torch.parallel.collectives import fsdp_gathered
 
 Params = dict[str, Any]
 
@@ -129,7 +130,7 @@ def _encoder_trunk(params: Params, cfg: MAEConfig, x: torch.Tensor,
     x = torch.cat([cls.expand(x.shape[0], 1, x.shape[2]), x], dim=1)
     x = layers.run_blocks(
         params["encoder_blocks"], x, cfg.encoder_num_heads,
-        cfg.attention_impl, cfg.residual_norm_style, cfg.gelu,
+        cfg.attention_impl, cfg.residual_norm_style, cfg.gelu, cfg.sequence_parallel,
     )
     if cfg.apply_encoder_norm:
         # The reference computes and discards this norm (MAE_ViT_Baseline.py:264).
@@ -157,33 +158,42 @@ def mae_forward_decoder(params: Params, cfg: MAEConfig, x: torch.Tensor,
     dec_pos = _pos_table(cfg.decoder_embed_dim, cfg.grid_size, y.device)
     y = y + dec_pos[None].to(y.dtype)
     y = layers.run_blocks(params["decoder_blocks"], y, cfg.decoder_num_heads,
-                          cfg.attention_impl, cfg.residual_norm_style, cfg.gelu)
+                          cfg.attention_impl, cfg.residual_norm_style, cfg.gelu,
+                          cfg.sequence_parallel)
     y = layers.layer_norm(params["decoder_norm"], y)
     pred = layers.linear(params["decoder_pred"], y)[:, 1:, :]
     return pred, y
 
 
-def _recon_loss(cfg: MAEConfig, imgs, pred, mask):
+def _recon_loss(cfg: MAEConfig, imgs, pred, mask, global_batch: bool = False):
     target = process_target(imgs, cfg.patch_size, cfg.input_channels, cfg.norm_pix_loss)
     return recon_loss(cfg.loss, target, at_least_f32(pred), mask,
-                      patch_size=cfg.patch_size, channels=cfg.input_channels)
+                      patch_size=cfg.patch_size, channels=cfg.input_channels,
+                      global_batch=global_batch)
 
 
 def mae_apply(params: Params, cfg: MAEConfig, imgs: torch.Tensor, *,
-              noise: torch.Tensor) -> MAEOutput:
+              noise: torch.Tensor, global_batch: bool = False) -> MAEOutput:
     """Single-view forward: loss, prediction, mask and embeddings
     (MAE_ViT_Baseline.py:299-320)."""
-    enc, mask, ids_restore = mae_forward_encoder(params, cfg, imgs, noise=noise)
-    pred, dec = mae_forward_decoder(params, cfg, enc, ids_restore)
-    loss = _recon_loss(cfg, imgs, pred, mask)
+    with fsdp_gathered(params, compute_dtype(cfg)) as params:
+        enc, mask, ids_restore = mae_forward_encoder(params, cfg, imgs, noise=noise)
+        pred, dec = mae_forward_decoder(params, cfg, enc, ids_restore)
+        loss = _recon_loss(cfg, imgs, pred, mask, global_batch)
     return MAEOutput(loss=loss, losses={"loss_d": loss}, pred=pred, mask=mask,
                      enc_emb=(enc,), dec_emb=(dec,))
 
 
 def mae_encode(params: Params, cfg: MAEConfig, imgs: torch.Tensor) -> torch.Tensor:
     """Unmasked encoder features (N, 1+L, D) of NHWC images."""
-    x, enc_pos = _embed_patches(params, cfg, imgs)
-    return _encoder_trunk(params, cfg, x, enc_pos)
+    with fsdp_gathered(params, compute_dtype(cfg)) as params:
+        x, enc_pos = _embed_patches(params, cfg, imgs)
+        return _encoder_trunk(params, cfg, x, enc_pos)
+
+
+def _split_predictor(p: Params, cfg: MAEConfig) -> bool:
+    """Whether a predictor's fc1 holds a part of its hidden columns (TP)."""
+    return p["fc1"]["kernel"].shape[-1] != cfg.predictor_hidden_size
 
 
 def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tensor, *,
@@ -199,9 +209,17 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
     rows first; equal halves give the consistent mask). ms_boxes: (N, 4)
     crop boxes of the low-GSD view (equal rows give the batch-shared crop),
     unused for a pair. ``global_batch`` (the gspmd data-parallel semantics)
-    takes NT-Xent's negatives and the predictors' BatchNorm statistics over
-    every rank's rows; the per-sample terms stay means over this rank's N,
-    which the step averages over the ranks."""
+    takes NT-Xent's negatives, the predictors' BatchNorm statistics and the
+    SSIM losses' rescale over every data rank's rows; the per-sample terms
+    stay means over this rank's N, which the step averages over the data
+    ranks. Under a mesh layout ``params`` are this rank's parts
+    (``parallel/mesh.py``): FSDP's are gathered here (the top level) and in
+    each block."""
+    with fsdp_gathered(params, compute_dtype(cfg)) as params:
+        return _mae_loss(params, state, cfg, imgs, noise, ms_boxes, train, global_batch)
+
+
+def _mae_loss(params, state, cfg, imgs, noise, ms_boxes, train, global_batch) -> MAEOutput:
     view2 = None
     if imgs.dim() == 5:
         if not cfg.multi_scale:
@@ -212,7 +230,8 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
     if not cfg.multi_scale:
         # As in the JAX package, a single-view config returns before the
         # perceptual term (cli/pretrain.py refuses that combination).
-        return mae_apply(params, cfg, imgs, noise=noise)._replace(state=state)
+        return mae_apply(params, cfg, imgs, noise=noise,
+                         global_batch=global_batch)._replace(state=state)
 
     n = imgs.shape[0]
     # The second view: the pair's later frame, or the low-GSD per-sample
@@ -224,8 +243,8 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
     pred, dec = mae_forward_decoder(params, cfg, enc, ids_restore)
 
     losses: dict[str, torch.Tensor] = {}
-    loss_d = (_recon_loss(cfg, imgs, pred[:n], mask[:n])
-              + _recon_loss(cfg, imgs_crop, pred[n:], mask[n:]))
+    loss_d = (_recon_loss(cfg, imgs, pred[:n], mask[:n], global_batch)
+              + _recon_loss(cfg, imgs_crop, pred[n:], mask[n:], global_batch))
     if cfg.ms_decoder_loss_reduction == "mean":
         loss_d = loss_d / 2
     losses["loss_d"] = loss_d
@@ -237,23 +256,25 @@ def mae_loss_fn(params: Params, state: Params, cfg: MAEConfig, imgs: torch.Tenso
     if cfg.use_le:
         # Latent distance between full encoder embeddings (MAE_ViT_MsLdLe.py:44).
         losses["loss_e"] = recon_loss(cfg.loss_name("e"), at_least_f32(enc_o),
-                                      at_least_f32(enc_c))
+                                      at_least_f32(enc_c), global_batch=global_batch)
         total = total + losses["loss_e"]
     if cfg.use_ce_pred:
         # Crop encoder tokens -> original encoder tokens (MAE_ViT_MsLdCe.py:46-48).
         pred_ce, new_state["predictor_ce"] = layers.predictor_apply(
             params["predictor_ce"], state["predictor_ce"], enc_c[:, 1:, :], train,
-            global_stats=global_batch)
+            global_stats=global_batch, split=_split_predictor(params["predictor_ce"], cfg))
         losses["loss_ce_pred"] = recon_loss(
-            cfg.loss_name("ce"), at_least_f32(enc_o[:, 1:, :]), at_least_f32(pred_ce))
+            cfg.loss_name("ce"), at_least_f32(enc_o[:, 1:, :]), at_least_f32(pred_ce),
+            global_batch=global_batch)
         total = total + losses["loss_ce_pred"]
     if cfg.use_cd_pred:
         # The same on decoder embeddings (MAE_ViT_MsLdCd.py:49-51).
         pred_cd, new_state["predictor_cd"] = layers.predictor_apply(
             params["predictor_cd"], state["predictor_cd"], dec_c[:, 1:, :], train,
-            global_stats=global_batch)
+            global_stats=global_batch, split=_split_predictor(params["predictor_cd"], cfg))
         losses["loss_cd"] = recon_loss(
-            cfg.loss_name("cd"), at_least_f32(dec_o[:, 1:, :]), at_least_f32(pred_cd))
+            cfg.loss_name("cd"), at_least_f32(dec_o[:, 1:, :]), at_least_f32(pred_cd),
+            global_batch=global_batch)
         total = total + losses["loss_cd"]
     if cfg.use_ce_ntxent:
         # NT-Xent between mean-pooled patch tokens (MAE_ViT_MsLdCeCd.py:62-69).

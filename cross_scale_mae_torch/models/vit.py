@@ -31,6 +31,7 @@ from cross_scale_mae_torch.models.mae import compute_dtype
 from cross_scale_mae_torch.ops.numerics import at_least_f32
 from cross_scale_mae_torch.ops.patchify import patchify
 from cross_scale_mae_torch.ops.pos_embed import get_2d_sincos_pos_embed
+from cross_scale_mae_torch.parallel.collectives import fsdp_gathered, gather_seq_full, split_seq
 
 Params = dict[str, Any]
 
@@ -77,8 +78,16 @@ def vit_forward_features(params: Params, cfg: ViTClassifierConfig, imgs: torch.T
                          drop_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """imgs NHWC -> (N, D) pooled features. In training with
     ``drop_path_rate > 0``, ``drop_masks`` (depth, N) bool says which
-    samples keep each block's delta."""
+    samples keep each block's delta. Under a mesh layout ``params`` are
+    this rank's parts (``parallel/mesh.py``): FSDP's are gathered here and
+    in each block, and with ``cfg.sequence_parallel`` the blocks run on
+    this rank's token chunk."""
     dtype = compute_dtype(cfg)
+    with fsdp_gathered(params, dtype) as params:
+        return _features(params, cfg, imgs, train, drop_masks, dtype)
+
+
+def _features(params, cfg, imgs, train, drop_masks, dtype) -> torch.Tensor:
     x = layers.linear(params["patch_embed"], patchify(imgs, cfg.patch_size).to(dtype))
     cls = params["cls_token"].to(dtype).expand(x.shape[0], 1, x.shape[2])
     x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(dtype)
@@ -87,13 +96,19 @@ def vit_forward_features(params: Params, cfg: ViTClassifierConfig, imgs: torch.T
             raise ValueError(f"drop_path needs (depth, N) = {(cfg.depth, x.shape[0])} "
                              "keep masks in train mode")
         keeps = 1.0 - torch.from_numpy(drop_path_rates(cfg)).to(x.device)
+        sp, seq_len = cfg.sequence_parallel, x.shape[1]
+        if sp:
+            x = split_seq(x)
         for p, mask, keep in zip(params["blocks"], drop_masks, keeps):
-            out = layers.block(p, x, cfg.num_heads, cfg.attention_impl, gelu=cfg.gelu)
+            out = layers.block(p, x, cfg.num_heads, cfg.attention_impl, gelu=cfg.gelu,
+                               sp=sp, seq_len=seq_len)
             scale = (mask.to(torch.float32) / keep).to(dtype)
             x = x + (out - x) * scale[:, None, None]
+        if sp:
+            x = gather_seq_full(x, seq_len)
     else:
         x = layers.run_blocks(params["blocks"], x, cfg.num_heads, cfg.attention_impl,
-                              gelu=cfg.gelu)
+                              gelu=cfg.gelu, sp=cfg.sequence_parallel)
     if cfg.global_pool:
         return layers.layer_norm(params["fc_norm"], x[:, 1:, :].mean(dim=1))
     return layers.layer_norm(params["norm"], x)[:, 0]
@@ -130,4 +145,5 @@ def vit_apply(params: Params, state: Params, cfg: ViTClassifierConfig, imgs: tor
             mean, var = state["head_bn"]["mean"], state["head_bn"]["var"]
         # affine=False (main_linprobe.py:517-520): no scale or bias.
         feat = ((f32 - mean) * torch.rsqrt(var + 1e-6)).to(feat.dtype)
-    return at_least_f32(layers.linear(params["head"], feat)), new_state
+    with fsdp_gathered({"head": params["head"]}, feat.dtype) as top:
+        return at_least_f32(layers.linear(top["head"], feat)), new_state

@@ -14,6 +14,13 @@ cards.
 
 A collective that waits longer than ``timeout_s`` raises (a peer that died
 or took another path), so a desynchronised run fails instead of hanging.
+
+The mesh (:func:`init_mesh`, the JAX package's ``make_mesh``): the world of
+n = dp x tp ranks as a (data, model) grid, rank = d * tp + m, the model axis
+the fast one (``np.asarray(devices).reshape(n // tp, tp)``). The data group
+holds the ranks of one m (the gradient average, the global batch's
+collectives), the model group those of one d (tensor and sequence
+parallelism). Without :func:`init_mesh` the mesh is (world, 1).
 """
 
 from __future__ import annotations
@@ -110,6 +117,79 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place on the (data, model) grid and the groups of its
+    row and column: None without a process group, and the model group None
+    at tp 1 (no model collective)."""
+
+    dp: int
+    tp: int
+    d: int
+    m: int
+    data: Any = None
+    model: Any = None
+
+
+_MESH: Optional[Mesh] = None
+
+
+def init_mesh(model_parallel: int = 1, num_slices: int = 1,
+              rt: Optional[Runtime] = None) -> Mesh:
+    """The (data, model) mesh over the process group (of ``rt``, by
+    default the one this process joined): the JAX package's ``make_mesh``
+    check ``n % (model_parallel * num_slices) == 0`` (off a TPU the slices
+    change nothing else), then one data group per m and one model group per
+    d (``dist.new_group``, made in the same order on every rank).
+    SystemExit when the world does not split."""
+    global _MESH
+    n = rt.world_size if rt is not None else world_size()
+    tp = int(model_parallel or 1)
+    if tp < 1 or num_slices < 1 or n % (tp * num_slices):
+        raise SystemExit(f"{n} process(es) do not split into --model_parallel {tp} x "
+                         f"--num_slices {num_slices} (the JAX make_mesh check "
+                         f"n % (model_parallel * num_slices) == 0)")
+    dp, r = n // tp, rt.rank if rt is not None else rank()
+    data = model = None
+    if dist.is_initialized():
+        data = dist.group.WORLD
+        if tp > 1:
+            for m in range(tp):
+                g = dist.new_group([d * tp + m for d in range(dp)])
+                if m == r % tp:
+                    data = g
+            for d in range(dp):
+                g = dist.new_group([d * tp + m for m in range(tp)])
+                if d == r // tp:
+                    model = g
+    _MESH = Mesh(dp, tp, r // tp, r % tp, data, model)
+    return _MESH
+
+
+def mesh() -> Mesh:
+    """This rank's :class:`Mesh`: the one :func:`init_mesh` made, else
+    (world, 1) with the world as the data group."""
+    if _MESH is not None:
+        return _MESH
+    return Mesh(world_size(), 1, rank(), 0,
+                dist.group.WORLD if dist.is_initialized() else None, None)
+
+
+def data_group():
+    """The ranks that share this rank's model index (None: no collective)."""
+    return mesh().data
+
+
+def model_group():
+    """The ranks that share this rank's data index (None: no collective)."""
+    return mesh().model
+
+
+def reset_mesh() -> None:
+    global _MESH
+    _MESH = None
+
+
 def barrier() -> None:
     """Every rank waits here for the others; nothing without a group."""
     if dist.is_initialized():
@@ -130,5 +210,6 @@ def broadcast_object(obj: Any) -> Any:
 
 def shutdown() -> None:
     """Leave the process group, if any; a second call does nothing."""
+    reset_mesh()
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -13,7 +13,9 @@ takes its own rows (:meth:`FinetuneDraws.shard`), the BN head's statistics
 are the global batch's, Mixup/CutMix mixes each row with its partner in
 the reversed global (micro)batch (rank W-1-r's rows, reversed:
 ``parallel/collectives.mirror_rank_rows``), and the gradients are averaged
-over the ranks once per step.
+over the ranks once per step. On a (data, model) mesh a rank's rows and
+draws are those of its data index, and the params are this rank's parts
+of a layout (``parallel/mesh.py``), as in ``train/pretrain.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ from cross_scale_mae_torch.ops.augment import PRETRAIN_CROP_SCALE, AugmentExtras
 from cross_scale_mae_torch.ops.image import sample_crop_boxes
 from cross_scale_mae_torch.ops.randaug import EraseDraws, RandAugDraws
 from cross_scale_mae_torch.parallel.collectives import mirror_rank_rows
-from cross_scale_mae_torch.parallel.mesh import FlatGrads, all_reduce_mean
+from cross_scale_mae_torch.parallel.mesh import (
+    FlatGrads,
+    all_reduce_mean,
+    average_gradients,
+    spec_of,
+)
 from cross_scale_mae_torch.train.mixup import (
     MixupConfig,
     MixupDraws,
@@ -206,17 +213,18 @@ def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
         grads = [p.grad if p.grad is not None or freeze_backbone else torch.zeros_like(p)
                  for p in leaves]
         reached = [g for g in grads if g is not None]
+        specs = [spec_of(p) for p, g in zip(leaves, grads) if g is not None]
         if data_parallel:
-            flat = flat or FlatGrads(reached)
-            averaged = iter(flat.all_reduce(reached))
+            flat, averaged = average_gradients(flat, reached, specs)
+            averaged = iter(averaged)
             grads = [None if g is None else next(averaged) for g in grads]
             reached = [g for g in grads if g is not None]
             all_reduce_mean([loss, acc1])
         if accum > 1:
             torch._foreach_mul_(reached, 1.0 / accum)
             loss, acc1 = loss / accum, acc1 / accum
-        metrics = dict(loss=loss, grad_norm=global_norm(reached), lr=schedule(state.step),
-                       acc1=acc1)
+        metrics = dict(loss=loss, grad_norm=global_norm(reached, specs),
+                       lr=schedule(state.step), acc1=acc1)
         state.apply_gradients(grads, model_state)
         for p in leaves:
             p.grad = None

@@ -27,6 +27,14 @@ Either way the update is computed in fp32 and the new moments are rounded
 to their dtype for storage. Everything runs as PyTorch multi-tensor
 (``torch._foreach_*``) ops over the trainable leaves at once.
 
+Under a mesh layout (``parallel/mesh.py``) the leaves are this rank's
+parts: the clip's global norm and LARS's per-leaf norms sum a split leaf's
+squares over its groups and count a replicated leaf once. With ``zero1``
+(AdamW; ZeRO-1) the params and gradients are whole, each rank keeps its
+1/dp of the moments of each large leaf (a chunk on the leaf's ZeRO-1 axis),
+updates its chunk of the param, and the chunks are all-gathered into the
+whole param after the update.
+
 LARS (:class:`Lars`) has MoCo-v3 semantics (util/lars.py:27-57), as the
 JAX package's ``lars``; SGD (:class:`Sgd`) is ``optax.sgd`` with momentum
 0.9. Each optimizer's state goes to a flat path -> tensor dict and back in
@@ -43,6 +51,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from cross_scale_mae_torch.parallel.collectives import gather_parts
+from cross_scale_mae_torch.parallel.dist import data_group, mesh
+from cross_scale_mae_torch.parallel.mesh import is_split, moment_spec, reduce_leaf_squares, \
+    spec_of, tag
 from cross_scale_mae_torch.train.state import (
     flat_state,
     global_norm,
@@ -110,7 +122,8 @@ class _Masked:
         ps = [params[i] for i in self.idx]
         gs = [torch.zeros_like(params[i]) if grads[i] is None else grads[i] for i in self.idx]
         if self.clip_grad is not None:
-            factor = torch.clamp(self.clip_grad / global_norm(gs), max=1.0)
+            norm = global_norm(gs, [spec_of(p) for p in ps])
+            factor = torch.clamp(self.clip_grad / norm, max=1.0)
             gs = torch._foreach_mul(gs, factor)
         return ps, gs
 
@@ -170,8 +183,9 @@ class AdamW(_Masked):
                  b1: float, b2: float, eps: float, weight_decay: float,
                  clip_grad: Optional[float], scales: Optional[list[float]],
                  trainable: list[bool], mu_dtype: Optional[torch.dtype],
-                 nu_dtype: Optional[torch.dtype]):
+                 nu_dtype: Optional[torch.dtype], zero1: bool = False):
         super().__init__(schedule, trainable, clip_grad, scales)
+        self.zero1 = zero1
         self.decay = [decay[i] for i in self.idx]
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
         self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
@@ -179,8 +193,16 @@ class AdamW(_Masked):
         # set, else optax.adamw's scale_by_adam.
         self.upcast_first = nu_dtype is not None
 
+    def _chunk(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """ZeRO-1: this rank's chunk (a view) of a whole leaf of ``spec``."""
+        if not self.zero1 or spec is None or spec.zero1_axis is None:
+            return t
+        return t.chunk(mesh().dp, spec.zero1_axis)[mesh().d]
+
     def init(self, params: Params) -> AdamWState:
-        leaves = self._check(params)
+        full = self._check(params)
+        specs = [spec_of(p) for p in full]
+        leaves = [self._chunk(p, s) for p, s in zip(full, specs)]
 
         def zeros(dtype):
             if dtype is None or all(p.dtype == dtype for p in leaves):
@@ -191,6 +213,9 @@ class AdamW(_Masked):
             return _views(flat, leaves), flat
 
         (mu, mu_flat), (nu, nu_flat) = zeros(self.mu_dtype), zeros(self.nu_dtype)
+        for moments in (mu, nu):
+            for t, s in zip(moments, specs):
+                tag(t, moment_spec(s, self.zero1))
         return AdamWState(0, mu, nu, mu_flat, nu_flat)
 
     def _moments(self, state: AdamWState, gs: list[torch.Tensor]):
@@ -233,6 +258,11 @@ class AdamW(_Masked):
     def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
                state: AdamWState) -> None:
         ps, gs = self._select(params, grads)
+        whole = ps
+        if self.zero1:
+            specs = [spec_of(p) for p in ps]
+            ps = [self._chunk(p, sp) for p, sp in zip(ps, specs)]
+            gs = [self._chunk(g, sp) for g, sp in zip(gs, specs)]
         lr = self.schedule(state.count)
         t = state.count + 1
         mu, nu, casts = self._moments(state, gs)
@@ -248,7 +278,24 @@ class AdamW(_Masked):
         for flat, new in casts:
             flat.copy_(new)   # the new moment, rounded to its stored dtype
         self._apply(ps, upd, lr)
+        if self.zero1:
+            self._gather_chunks(whole, ps)
         state.count = t
+
+    @staticmethod
+    def _gather_chunks(whole: list[torch.Tensor], chunks: list[torch.Tensor]) -> None:
+        """ZeRO-1: every rank's updated chunks into the whole params, one
+        all-gather a dtype."""
+        group = data_group()
+        by_dtype: dict[torch.dtype, list[int]] = {}
+        for i, (p, c) in enumerate(zip(whole, chunks)):
+            if c is not p and group is not None:
+                by_dtype.setdefault(c.dtype, []).append(i)
+        for idx in by_dtype.values():
+            parts = gather_parts([chunks[i] for i in idx], group)
+            torch._foreach_copy_([whole[i] for i in idx],
+                                 [torch.cat(ps, spec_of(whole[i]).zero1_axis)
+                                  for i, ps in zip(idx, parts)])
 
     def state_dict(self, state: AdamWState, params: Params) -> dict[str, torch.Tensor]:
         return self._state_dict(state.count, params, mu=state.mu, nu=state.nu)
@@ -298,8 +345,8 @@ class Lars(_Masked):
         self.wd, self.momentum, self.tc = weight_decay, momentum, trust_coefficient
 
     def init(self, params: Params) -> LarsState:
-        return LarsState(0, [torch.zeros_like(p, memory_format=torch.contiguous_format)
-                                 for p in self._check(params)])
+        return LarsState(0, [tag(torch.zeros_like(p, memory_format=torch.contiguous_format),
+                                 spec_of(p)) for p in self._check(params)])
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
@@ -314,6 +361,11 @@ class Lars(_Masked):
                 dw = torch._foreach_add(dw, pw, alpha=self.wd)
             p_norm = torch._foreach_norm(pw)
             u_norm = torch._foreach_norm(dw)
+            specs = [spec_of(p) for p in pw]
+            if is_split(specs):
+                # A split leaf's norms are those of the whole leaf.
+                p_norm = list(reduce_leaf_squares(torch.stack(p_norm) ** 2, specs).sqrt())
+                u_norm = list(reduce_leaf_squares(torch.stack(u_norm) ** 2, specs).sqrt())
             trust = [torch.where((pn > 0) & (un > 0), self.tc * pn / un, torch.ones_like(pn))
                      for pn, un in zip(p_norm, u_norm)]
             dw = torch._foreach_mul(dw, trust)
@@ -386,6 +438,7 @@ def build_optimizer(
     frozen_mask: Optional[Params] = None,
     mu_dtype: Optional[str] = None,
     nu_dtype: Optional[str] = None,
+    zero1: bool = False,
 ) -> AdamW | Lars | Sgd:
     """The JAX ``build_optimizer``: optional global-norm clipping, then
     ``optimizer`` ("adamw": AdamW, eps 1e-8, with :func:`wd_mask` minus
@@ -396,7 +449,8 @@ def build_optimizer(
     linear probe's freeze-all-but-head (main_linprobe.py:521-525).
     ``mu_dtype`` / ``nu_dtype`` (a float dtype's name: "float32",
     "bfloat16") store AdamW's moments; LARS and SGD ignore them, as the JAX
-    package does."""
+    package does. ``zero1`` splits AdamW's moments over the data group
+    (the params' ``parallel/mesh`` tags say how)."""
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}")
     dtypes = {name: _float_dtype(name, value)
@@ -417,4 +471,4 @@ def build_optimizer(
         return Sgd(schedule, trainable, clip_grad=clip_grad, scales=scales)
     return AdamW(schedule, wd_mask(params, no_decay_names), b1=b1, b2=b2, eps=1e-8,
                  weight_decay=weight_decay, clip_grad=clip_grad, scales=scales,
-                 trainable=trainable, **dtypes)
+                 trainable=trainable, zero1=zero1, **dtypes)

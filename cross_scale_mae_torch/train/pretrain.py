@@ -20,9 +20,16 @@ loss sees the global batch (NT-Xent's negatives gathered, the predictors'
 BatchNorm statistics summed over the ranks). ``shard_map`` (the JAX
 package's ``make_pretrain_step_shard_map``): each rank draws for its own rows from
 its own generator, the loss is the rank's own, and the BatchNorm running
-state is averaged. Either way the gradients are averaged over the ranks
-once, after the last microbatch, before the norm and the clipping; the
-metrics are the ranks' means.
+state is averaged. Either way the gradients are averaged over the data
+ranks once, after the last microbatch, before the norm and the clipping;
+the metrics are the ranks' means.
+
+On a (data, model) mesh (``parallel/dist.init_mesh``) "rank" above is the
+data index d of dp: the ranks of one model group hold the same rows and
+the same draws, and the params are this rank's parts of a layout
+(``parallel/mesh.py``): FSDP's gradients come out of the backward summed
+over the data group and are divided by dp, the others are averaged; the
+gradient norm is that of the whole leaves.
 """
 
 from __future__ import annotations
@@ -36,7 +43,12 @@ from cross_scale_mae_torch.configs import MAEConfig, TrainConfig
 from cross_scale_mae_torch.models.mae import mae_loss_fn
 from cross_scale_mae_torch.ops.augment import PRETRAIN_CROP_SCALE
 from cross_scale_mae_torch.ops.image import sample_crop_boxes
-from cross_scale_mae_torch.parallel.mesh import FlatGrads, all_reduce_mean
+from cross_scale_mae_torch.parallel.mesh import (
+    FlatGrads,
+    all_reduce_mean,
+    average_gradients,
+    spec_of,
+)
 from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_items, tree_leaves
 
 DDP_MODES = ("gspmd", "shard_map")
@@ -196,29 +208,30 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
         # A parameter the objective does not reach (encoder_norm while
         # apply_encoder_norm is False) has a zero gradient, as in JAX.
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        specs = [spec_of(p) for p in leaves]
         stops = {}
         if ddp_mode is not None:
-            flat = flat or FlatGrads(grads)
-            grads = flat.all_reduce(grads)
+            flat, grads = average_gradients(flat, grads, specs)
             # A fill, not a copy from the host: the step does not wait.
             stops["stop"] = torch.full((), float(stop), device=batch.device)
             # shard_map averages the BatchNorm running state; the frozen
             # VGG trunk is the same on every rank and stays out.
             stats = ({k: v for k, v in model_state.items() if k != "vgg"}
                      if ddp_mode == "shard_map" else {})
-            all_reduce_mean([loss, losses, stops, stats])
+            all_reduce_mean([loss, losses, stops, stats], world=True)
         if accum > 1:
             torch._foreach_mul_(grads, 1.0 / accum)
             loss = loss / accum
             losses = {k: v / accum for k, v in losses.items()}
-        metrics = dict(losses, loss=loss, grad_norm=global_norm(grads),
+        metrics = dict(losses, loss=loss, grad_norm=global_norm(grads, specs),
                        lr=schedule(state.step), **stops)
         if tcfg.watch_gradients:
             # wandb.watch's per-subtree gradient norms (main_pretrain.py:537).
             names = [path[0] for path, _ in tree_items(state.params)]
             for name in dict.fromkeys(names):
-                metrics[f"gnorm/{name}"] = global_norm(
-                    [g for g, owner in zip(grads, names) if owner == name])
+                mine = [i for i, owner in enumerate(names) if owner == name]
+                metrics[f"gnorm/{name}"] = global_norm([grads[i] for i in mine],
+                                                       [specs[i] for i in mine])
         state.apply_gradients(grads, model_state)
         for p in leaves:
             p.grad = None

@@ -71,9 +71,16 @@ def jax_paths(tree: Any, prefix: str = "") -> dict[str, Any]:
 
 def flat_state(tree: Any, prefix: str) -> dict[str, torch.Tensor]:
     """``tree`` as a flat dict in the JAX layout: '/'-joined paths under
-    ``prefix``, each block stack's leaves stacked on a leading layer axis."""
-    return {k: (torch.stack(v) if isinstance(v, list) else v).detach()
-            for k, v in jax_paths(tree, prefix).items()}
+    ``prefix``, each block stack's leaves stacked on a leading layer axis,
+    every leaf whole (a leaf a mesh layout splits is gathered: every rank
+    of its groups calls this)."""
+    from cross_scale_mae_torch.parallel.mesh import full_leaf
+
+    def whole(v):
+        return (torch.stack([full_leaf(t) for t in v]) if isinstance(v, list)
+                else full_leaf(v)).detach()
+
+    return {k: whole(v) for k, v in jax_paths(tree, prefix).items()}
 
 
 @torch.no_grad()
@@ -82,14 +89,19 @@ def load_flat_state(tree: Any, prefix: str, flat: Mapping[str, torch.Tensor]) ->
     place (a block stack's entry into its layers' leaves), so every holder
     of a leaf sees the restored values; returns the keys it read. A missing
     entry, a shape that does not fit or another dtype (``copy_`` would cast:
-    bf16 Adam moments into an fp32 state) raises."""
+    bf16 Adam moments into an fp32 state) raises. A leaf a mesh layout
+    splits takes this rank's part of the whole entry."""
+    from cross_scale_mae_torch.parallel.mesh import spec_of, this_part
+
     used = set()
     for key, dst in jax_paths(tree, prefix).items():
         if key not in flat:
             raise KeyError(f"the checkpoint lacks {key}")
         src, stacked = flat[key], isinstance(dst, list)
         layers = dst if stacked else [dst]
-        want = (len(layers), *layers[0].shape) if stacked else tuple(dst.shape)
+        spec = spec_of(layers[0])
+        shape = spec.full if spec is not None else tuple(layers[0].shape)
+        want = (len(layers), *shape) if stacked else shape
         if tuple(src.shape) != want:
             raise ValueError(f"{key}: shape {tuple(src.shape)} in the checkpoint, "
                              f"{want} in the run")
@@ -97,7 +109,7 @@ def load_flat_state(tree: Any, prefix: str, flat: Mapping[str, torch.Tensor]) ->
             raise ValueError(f"{key}: dtype {src.dtype} in the checkpoint, "
                              f"{layers[0].dtype} in the run")
         for d, s in zip(layers, src.unbind(0) if stacked else [src]):
-            d.copy_(s)
+            d.copy_(this_part(s, spec_of(d)))
         used.add(key)
     return used
 
@@ -111,10 +123,17 @@ def finite_loss(loss: torch.Tensor) -> float:
     return value
 
 
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, as a 0-d fp32 tensor."""
+def global_norm(tensors: list[torch.Tensor], specs: list | None = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, as a 0-d fp32 tensor.
+    ``specs`` (``parallel/mesh.LeafSpec`` per tensor) make it the norm of
+    the whole leaves of which ``tensors`` are this rank's parts: the squares
+    of a split leaf summed over its groups, a replicated one counted once."""
+    from cross_scale_mae_torch.parallel.mesh import is_split, reduce_leaf_squares
+
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if not specs or not is_split(specs):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.sqrt(reduce_leaf_squares(torch.stack(norms) ** 2, specs).sum())
 
 
 @dataclasses.dataclass

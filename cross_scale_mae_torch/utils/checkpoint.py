@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from cross_scale_mae_torch.parallel.dist import barrier, is_main_process
+from cross_scale_mae_torch.parallel.mesh import spec_of
 from cross_scale_mae_torch.train.state import tree_leaves
 
 CONFIG_KEY = "__config__"
@@ -61,16 +62,22 @@ def _write_json(path: str, obj: Any) -> None:
 def save_checkpoint(ckpt_dir: str, step: int, state, config_json: Optional[str] = None,
                     extra: Optional[dict[str, Any]] = None) -> None:
     """Write ``state`` (a ``train/state.TrainState``) as step ``step`` of
-    ``ckpt_dir``, with the sidecar. Rank 0 writes; every rank of a process
-    group must call it, and waits until the step is in place."""
+    ``ckpt_dir``, with the sidecar. Every rank of a process group must call
+    it: the leaves a mesh layout splits are gathered whole (the same file
+    for every layout); rank 0 writes, and every rank waits until the step
+    is in place."""
     ckpt_dir = _abs(ckpt_dir)
+    # Gathering a split leaf is a collective: then every rank builds the
+    # dict, else only rank 0.
+    if is_main_process() or any(spec_of(t) is not None for t in tree_leaves(state.params)):
+        state_dict = state.state_dict()
     if is_main_process():
         os.makedirs(ckpt_dir, exist_ok=True)
         tmp = os.path.join(ckpt_dir, f"{step}.tmp")
         final = os.path.join(ckpt_dir, str(step))
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        flat = {k: v.cpu() for k, v in state.state_dict().items()}
+        flat = {k: v.cpu() for k, v in state_dict.items()}
         with open(os.path.join(tmp, STATE_FILE), "wb") as f:
             torch.save(flat, f)
             f.flush()
@@ -109,8 +116,9 @@ def _state_file(ckpt_dir: str, step: Optional[int]) -> tuple[str, int]:
 
 def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
     """Restore step ``step`` (the newest by default) into ``state`` in
-    place, on the device of its params; returns (state, meta). A missing or
-    unreadable file raises."""
+    place, on the device of its params, each split leaf taking this rank's
+    part (any layout reads any other's checkpoint); returns (state, meta).
+    A missing or unreadable file raises."""
     path, step = _state_file(ckpt_dir, step)
     device = tree_leaves(state.params)[0].device
     flat = torch.load(path, map_location=device, weights_only=True)

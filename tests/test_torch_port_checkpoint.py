@@ -413,7 +413,7 @@ def _run_cli(cli: str, argv: list[str]) -> dict:
 
 
 def _ckpt_dir(cli: str, out: str, result: dict) -> str:
-    return os.path.join(result["output_dir"] if cli == "linprobe" else out, "checkpoints")
+    return os.path.join(result["output_dir"], "checkpoints")
 
 
 @pytest.mark.parametrize("cli", ["finetune", "linprobe"])
@@ -482,7 +482,7 @@ def pretrained(tmp_path_factory):
         "--model", "mae_vit_tiny_MsLdCeCd", "--input_size", "32", "--patch_size", "8",
         "--batch_size", "4", "--synthetic_len", "4", "--epochs", "2", "--warmup_epochs", "1",
         "--ckpt_interval", "1", "--device", "cpu", "--output_dir", str(out)]))
-    return {"ckpt": str(out / "checkpoints"), "npz": result["npz"]}
+    return {"ckpt": os.path.join(result["output_dir"], "checkpoints"), "npz": result["npz"]}
 
 
 def test_serving_a_checkpoint_directory_at_a_step(pretrained):

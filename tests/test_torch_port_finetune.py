@@ -919,9 +919,17 @@ def test_finetune_cli_pads_the_ragged_eval_batch(tmp_path):
     ("--num_slices", "2"),
 ])
 def test_finetune_cli_refuses_unported_flags(tmp_path, extra):
+    """The mesh flags run (--fsdp builds its layout) or, at one process,
+    refuse as the JAX CLI does: --sequence_parallel needs --model_parallel >
+    1, and one process does not split into 2 model ranks or 2 slices."""
     from cross_scale_mae_torch.cli.finetune import build_run
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    want = {"--sequence_parallel": "needs --model_parallel > 1",
+            "--model_parallel": "do not split", "--num_slices": "do not split"}.get(extra[0])
+    if want is None:
+        assert build_run(_ft_args(tmp_path, *extra)).layout.fsdp
+        return
+    with pytest.raises(SystemExit, match=want):
         build_run(_ft_args(tmp_path, *extra))
 
 

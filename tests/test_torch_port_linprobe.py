@@ -387,10 +387,18 @@ def test_linprobe_cli_eval_only_evaluates(tmp_path, capsys):
     ("--model_parallel", "2"), ("--fsdp",), ("--sequence_parallel",), ("--num_slices", "2"),
 ])
 def test_linprobe_cli_refuses_unported_flags(tmp_path, extra):
+    """The mesh flags run (--fsdp builds its layout) or, at one process,
+    refuse as the JAX CLI does (see tests/test_torch_port_finetune.py)."""
     from cross_scale_mae_torch.cli.linprobe import build_run
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        build_run(_lp_args(tmp_path, _naip_dir(tmp_path), *extra))
+    want = {"--sequence_parallel": "needs --model_parallel > 1",
+            "--model_parallel": "do not split", "--num_slices": "do not split"}.get(extra[0])
+    args = _lp_args(tmp_path, _naip_dir(tmp_path), *extra)
+    if want is None:
+        assert build_run(args).layout.fsdp
+        return
+    with pytest.raises(SystemExit, match=want):
+        build_run(args)
 
 
 @pytest.mark.parametrize("make", [lambda p: p.mkdir() or str(p), lambda p: str(p) + ".pth"])

@@ -236,29 +236,99 @@ def test_device_memory_stats_and_step_timer():
 # ---------------------------------------------------------------- the CLIs
 
 
-def test_pretrain_cli_logs_steps_to_tensorboard_and_wandb(tmp_path, fake_wandb):
-    """Every --log_interval steps the metrics (with --watch_gradients the
-    subtree norms) reach TensorBoard and wandb on the epoch_1000x axis, as
-    the JAX CLI logs them (cli/pretrain.py:402-407); wandb gets the config
-    and the run name and is finished; log.jsonl gets one record an epoch."""
-    res = _pretrain(tmp_path, "--synthetic_len", "6", "--epochs", "2", "--log_interval", "2",
-                    "--watch_gradients", "--use_tensorboard", "--use_wandb",
-                    "--wandb_project", "p", "--wandb_entity", "e", "--wandb_id", "i")
+# The logged run of both CLIs: 2 epochs of 3 steps (24 images in batches of
+# 8, one a device of the JAX CPU mesh), logged every 2nd step of an epoch.
+LOGGED = ["--model", "mae_vit_tiny_MsLdCeCd", "--input_size", "16", "--patch_size", "8",
+          "--batch_size", "8", "--warmup_epochs", "0", "--dataset_type", "synthetic",
+          "--synthetic_len", "24", "--epochs", "2", "--log_interval", "2", "--num_workers", "2",
+          "--watch_gradients", "--use_tensorboard", "--use_wandb", "--wandb_project", "p",
+          "--wandb_entity", "e", "--wandb_id", "i"]
+# A second, shorter run into the same --output_dir.
+AGAIN = ["--model", "mae_vit_tiny_MsLdCeCd", "--input_size", "16", "--patch_size", "8",
+         "--batch_size", "8", "--warmup_epochs", "0", "--dataset_type", "synthetic",
+         "--synthetic_len", "24", "--epochs", "1", "--max_steps", "1", "--num_workers", "2"]
+
+
+@pytest.fixture(scope="module")
+def jax_runs(tmp_path_factory):
+    """The JAX pretrain CLI's logged run under the stand-in wandb, then a
+    second run into the same --output_dir: (the first run's result, the
+    wandb calls, the --output_dir)."""
+    from cross_scale_mae_tpu.cli import pretrain as jcli
+
+    out = str(tmp_path_factory.mktemp("jax_out"))
+    saved, fake = sys.modules.get("wandb"), FakeWandb()
+    sys.modules["wandb"] = fake
+    try:
+        first = jcli.main(jcli.get_args_parser().parse_args(LOGGED + ["--output_dir", out]))
+    finally:
+        if saved is None:
+            sys.modules.pop("wandb", None)
+        else:
+            sys.modules["wandb"] = saved
+    jcli.main(jcli.get_args_parser().parse_args(AGAIN + ["--output_dir", out]))
+    return first, list(fake.calls), out
+
+
+def test_pretrain_cli_logs_steps_to_tensorboard_and_wandb(tmp_path, fake_wandb, jax_runs):
+    """At every --log_interval-th step of an epoch the metrics (with
+    --watch_gradients the subtree norms) reach TensorBoard and wandb on the
+    epoch_1000x axis at the JAX CLI's x positions (its cli/pretrain.py:400-
+    407, run here with the same stand-in wandb); wandb gets the config and
+    the run name and is finished; log.jsonl gets one record an epoch with
+    the JAX CLI's keys."""
+    jres, jcalls, _ = jax_runs
+    res = _pretrain(tmp_path, *LOGGED[LOGGED.index("--synthetic_len"):], "--batch_size", "8")
     assert res["steps"] == 6
-    # Global steps 1, 3 and 5: epoch 0 at it 0 and 2, epoch 1 at it 1.
-    want_x = [0, 666, 1333]
+    # Epoch 0 at it 0 and 2, epoch 1 at it 0 and 2, as the JAX CLI logs.
+    want_x = [p["step_1000x"] for kind, *rest in jcalls if kind == "log" for p in rest]
+    assert want_x == [0, 666, 1000, 1666]
     scalars = _scalars(res["tensorboard_dir"])
     assert [s for s, _ in scalars["loss"]] == want_x
+    assert sorted(scalars) == sorted(_scalars(os.path.join(jres["output_dir"], "tb")))
     assert "gnorm/encoder_blocks" in scalars and "grad_norm" in scalars
     np.testing.assert_allclose(scalars["loss"][-1][1], res["last_metrics"]["loss"], rtol=1e-6)
     init, *logs, finish = fake_wandb.calls
     assert init[0] == "init" and finish == ("finish",)
     assert init[1]["project"] == "p" and init[1]["entity"] == "e" and init[1]["id"] == "i"
     assert init[1]["resume"] == "allow" and init[1]["config"]["attention_impl"] == "pallas_v3"
-    assert init[1]["name"].startswith("model_mae_vit_tiny_MsLdCeCd-loss_mse")
+    assert init[1]["name"] == jcalls[0][1]["name"]
     assert [p["step_1000x"] for _, p in logs] == want_x
-    lines = (tmp_path / "out" / "log.jsonl").read_text().splitlines()
+    assert [sorted(p) for _, p in logs] == [sorted(p) for kind, *rest in jcalls
+                                            if kind == "log" for p in rest]
+    lines = open(os.path.join(res["output_dir"], "log.jsonl")).read().splitlines()
+    jlines = open(os.path.join(jres["output_dir"], "log.jsonl")).read().splitlines()
     assert [json.loads(x)["epoch"] for x in lines] == [0, 1]
+    assert [sorted(json.loads(x)) for x in lines] == [sorted(json.loads(x)) for x in jlines]
+
+
+def test_two_runs_into_one_output_dir_make_the_jax_clis_tree(tmp_path, jax_runs):
+    """Two pretrain runs into one --output_dir: each in its own run
+    directory, the second with the +1 suffix, named as the JAX CLI names
+    its two (auto_output_dir); a resume finds the newest checkpoint of
+    either through cli/launch.find_latest_checkpoints. The finetune CLI
+    names its runs the same way."""
+    from cross_scale_mae_torch.cli import finetune
+    from cross_scale_mae_torch.cli.pretrain import get_args_parser, main
+
+    _, _, jax_out = jax_runs
+    out = tmp_path / "out"
+    first = main(get_args_parser().parse_args(
+        AGAIN + ["--ckpt_interval", "1", "--device", "cpu", "--output_dir", str(out)]))
+    second = main(get_args_parser().parse_args(AGAIN + ["--device", "cpu",
+                                                        "--output_dir", str(out)]))
+    assert sorted(os.listdir(out)) == sorted(os.listdir(jax_out))
+    assert second["output_dir"] == first["output_dir"] + "+1"
+    for res in (first, second):
+        assert os.path.dirname(res["npz"]) == res["output_dir"]
+        assert {"log.jsonl", "config.json"} <= set(os.listdir(res["output_dir"]))
+    ft = [finetune.main(finetune.get_args_parser().parse_args(
+        TINY_CLASSIFIER + ["--max_steps", "1", "--output_dir", str(tmp_path / "ft")]))
+        for _ in range(2)]
+    assert ft[1]["output_dir"] == ft[0]["output_dir"] + "+1"
+    assert os.path.basename(ft[0]["output_dir"]).startswith("run_ft_vit_base_patch16-in_sz_16")
+    assert sorted(os.listdir(tmp_path / "ft")) == sorted(
+        os.path.basename(r["output_dir"]) for r in ft)
 
 
 @pytest.mark.parametrize("cli", ["finetune", "linprobe"])

@@ -335,8 +335,9 @@ PRETRAIN = ["--model", "mae_vit_tiny_MsLdCeCd", "--input_size", "32", "--patch_s
 
 def test_pretrain_cli_trains_across_two_gloo_processes(tmp_path):
     """gspmd and --reference_semantics (shard_map) at 2 ranks, each rank
-    with its own --output_dir: rank 0 alone writes params.npz; the gspmd
-    run equals one process on the same global batch."""
+    with its own --output_dir: rank 0 alone writes params.npz, into the run
+    directory it chose under its --output_dir; the gspmd run equals one
+    process on the same global batch."""
     from cross_scale_mae_torch.cli.pretrain import get_args_parser, main
     from cross_scale_mae_torch.utils.checkpoint import load_flat_npz
 
@@ -352,12 +353,12 @@ def test_pretrain_cli_trains_across_two_gloo_processes(tmp_path):
                                      ("shard_map", results[2:], outs[2:])):
         assert (r0["rank"], r1["rank"], r0["world_size"]) == (0, 1, 2)
         assert r0["steps"] == r1["steps"] == 3 and r0["losses"] == r1["losses"]
-        assert os.path.exists(os.path.join(dirs[name][0], "params.npz"))
+        assert os.path.exists(r0["npz"]) and r0["npz"].startswith(dirs[name][0])
         assert not os.path.exists(dirs[name][1])
         assert f"ddp_mode {name}" in o0 and "params written" not in o1
     np.testing.assert_allclose(results[0]["losses"], single["losses"], rtol=1e-5)
     ref = dict(_leaves(load_flat_npz(single["npz"])))
-    for k, v in _leaves(load_flat_npz(os.path.join(dirs["gspmd"][0], "params.npz"))):
+    for k, v in _leaves(load_flat_npz(results[0]["npz"])):
         np.testing.assert_allclose(v, ref[k], rtol=0, atol=1e-4, err_msg=k)
 
 
@@ -376,7 +377,7 @@ def test_pretrain_cli_accumulates_across_two_processes(tmp_path):
     assert got["steps"] == single["steps"] == 3
     np.testing.assert_allclose(got["losses"], single["losses"], rtol=1e-5)
     ref = dict(_leaves(load_flat_npz(single["npz"])))
-    for k, v in _leaves(load_flat_npz(os.path.join(tmp_path, "r0", "params.npz"))):
+    for k, v in _leaves(load_flat_npz(got["npz"])):
         np.testing.assert_allclose(v, ref[k], rtol=0, atol=1e-4, err_msg=k)
 
 
@@ -446,9 +447,11 @@ def _choices(parser, flag: str) -> list:
 
 
 # Every flag of the JAX pretrain parser, by what the port does with it.
-# Run: (argv, check of the built run). Refused: argv that must raise
-# SystemExit naming ROADMAP.md. Not applicable: accepted and reported, as
-# the JAX package reports the reference's own dead flags.
+# Run: (argv, check of the built run). Refused: (argv, the reason of the
+# SystemExit it must raise at one process, the JAX CLI's own). Not
+# applicable: accepted and reported, as the JAX package reports the
+# reference's own dead flags. The mesh flags' runs beyond one process:
+# tests/test_torch_port_mesh_*.py.
 _RUN = {
     "--model": (["--model", "mae_vit_tiny_MsLd"], lambda r: not r.cfg.use_cd_pred),
     "--input_size": ([], lambda r: r.cfg.input_size == 32),
@@ -534,10 +537,14 @@ _RUN = {
     "--profile_dir": (["--profile_dir", "p"], lambda r: r.profile_dir == "p"),
     "--jax_platforms": (["--device", "cuda", "--jax_platforms", "cpu"],
                         lambda r: r.device == torch.device("cpu")),
+    "--model_parallel": (["--model_parallel", "1"], lambda r: r.layout.tp == 1),
+    "--fsdp": (["--fsdp"], lambda r: r.layout.fsdp),
+    "--zero1": (["--zero1"], lambda r: r.layout.zero1 and r.state.tx.zero1),
+    "--num_slices": (["--num_slices", "1"], lambda r: r.layout.dp == 1),
 }
 _REFUSED = {
-    "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
-    "--fsdp": ["--fsdp"], "--zero1": ["--zero1"], "--num_slices": ["--num_slices", "2"],
+    # validate_parallel_args, before any device work.
+    "--sequence_parallel": (["--sequence_parallel"], "needs --model_parallel > 1"),
 }
 _NOT_APPLICABLE = {
     "--log_dir": ["--log_dir", "logs"], "--device_batch_dtype": ["--device_batch_dtype", "f32"],
@@ -572,8 +579,8 @@ def _tiny_run(tmp_path, *extra):
 
 def test_every_jax_pretrain_flag_is_run_or_refused_with_a_roadmap_item(tmp_path, capsys):
     """The JAX pretrain parser's flags, each parsed by the port and either
-    run (it reaches the run's config, or its check holds), refused with a
-    pointer to ROADMAP.md, or reported as not applicable as the JAX package
+    run (it reaches the run's config, or its check holds), refused for the
+    JAX CLI's own reason, or reported as not applicable as the JAX package
     reports the reference's dead flags; a new JAX flag fails this test
     until it is sorted here."""
     from cross_scale_mae_tpu.cli.pretrain import get_args_parser as jparser
@@ -594,8 +601,8 @@ def test_every_jax_pretrain_flag_is_run_or_refused_with_a_roadmap_item(tmp_path,
     for name in _choices(jparser(), "--attention"):
         want = "pallas_v3" if name == "scaled_dot_product" else name
         assert _tiny_run(tmp_path, "--attention", name).cfg.attention_impl == want, name
-    for flag, argv in _REFUSED.items():
-        with pytest.raises(SystemExit, match="ROADMAP"):
+    for flag, (argv, reason) in _REFUSED.items():
+        with pytest.raises(SystemExit, match=reason):
             _tiny_run(tmp_path, *argv)
     capsys.readouterr()
     for flag, argv in _NOT_APPLICABLE.items():
@@ -664,6 +671,9 @@ _CLASSIFIER_RUN = {
     "--wandb_id": (["--wandb_id", "i"], lambda r: r.log.wandb_id == "i"),
     "--jax_platforms": (["--device", "cuda", "--jax_platforms", "cpu"],
                         lambda r: r.device == torch.device("cpu")),
+    "--model_parallel": (["--model_parallel", "1"], lambda r: r.layout.tp == 1),
+    "--fsdp": (["--fsdp"], lambda r: r.layout.fsdp),
+    "--num_slices": (["--num_slices", "1"], lambda r: r.layout.dp == 1),
 }
 _CLASSIFIER_ROLE_RUN = {
     "finetune": {
@@ -706,8 +716,7 @@ _CLASSIFIER_ROLE_RUN = {
     },
 }
 _CLASSIFIER_REFUSED = {
-    "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
-    "--fsdp": ["--fsdp"], "--num_slices": ["--num_slices", "2"],
+    "--sequence_parallel": (["--sequence_parallel"], "needs --model_parallel > 1"),
 }
 _CLASSIFIER_NOT_APPLICABLE = {
     # Parsed and unused by the JAX classifier CLIs too: only pretraining traces.
@@ -731,7 +740,7 @@ _CLASSIFIER_ROLE_NOT_APPLICABLE = {
 def test_every_jax_classifier_flag_is_run_refused_or_not_applicable(tmp_path, capsys, cli):
     """The JAX finetune and linprobe parsers' flags, each parsed by the
     port's CLI and either run (its check on the built run holds), refused
-    naming a ROADMAP.md item, or reported as not applicable as the JAX
+    for the JAX CLI's own reason, or reported as not applicable as the JAX
     package reports the reference's dead flags; a new JAX flag fails this
     test until it is sorted here."""
     import importlib
@@ -764,8 +773,8 @@ def test_every_jax_classifier_flag_is_run_refused_or_not_applicable(tmp_path, ca
     for name in _choices(jmod.get_args_parser(), "--attention"):
         want = exact if name == "scaled_dot_product" else name
         assert build("--attention", name).cfg.attention_impl == want, name
-    for flag, argv in _CLASSIFIER_REFUSED.items():
-        with pytest.raises(SystemExit, match="ROADMAP"):
+    for flag, (argv, reason) in _CLASSIFIER_REFUSED.items():
+        with pytest.raises(SystemExit, match=reason):
             build(*argv)
     capsys.readouterr()
     for flag, argv in na.items():
@@ -934,11 +943,15 @@ _EMBED_RUN = {
     "--process_id": ([], lambda r: True),
     "--jax_platforms": (["--device", "cuda", "--jax_platforms", "cpu"],
                         lambda r: r["count"] == 6),
+    # The JAX CLI builds its mesh from these and keeps the encoder's params
+    # replicated: the same features.
+    "--model_parallel": (["--model_parallel", "1"], lambda r: r["count"] == 6),
+    "--sequence_parallel": (["--sequence_parallel"], lambda r: r["count"] == 6),
+    "--fsdp": (["--fsdp"], lambda r: r["count"] == 6),
+    "--num_slices": (["--num_slices", "1"], lambda r: r["count"] == 6),
 }
-_EMBED_REFUSED = {
-    "--model_parallel": ["--model_parallel", "2"], "--sequence_parallel": ["--sequence_parallel"],
-    "--fsdp": ["--fsdp"], "--num_slices": ["--num_slices", "2"],
-}
+# The one process does not split into 2 model ranks (make_mesh's check).
+_EMBED_REFUSED = {"--model_parallel": (["--model_parallel", "2"], "do not split")}
 _EMBED_NOT_APPLICABLE = {
     "--use_tensorboard": ["--use_tensorboard"], "--use_wandb": ["--use_wandb"],
     "--wandb_project": ["--wandb_project", "p"], "--wandb_entity": ["--wandb_entity", "e"],
@@ -955,7 +968,7 @@ def test_every_jax_embed_flag_is_run_refused_or_not_applicable(tiny_ckpt, tmp_pa
     from cross_scale_mae_torch.cli import embed
 
     jax_flags = _flags(jparser())
-    assert jax_flags == set(_EMBED_RUN) | set(_EMBED_REFUSED) | set(_EMBED_NOT_APPLICABLE)
+    assert jax_flags == set(_EMBED_RUN) | set(_EMBED_NOT_APPLICABLE)
     assert jax_flags <= _flags(embed.get_args_parser())
 
     def run(*extra):
@@ -966,8 +979,8 @@ def test_every_jax_embed_flag_is_run_refused_or_not_applicable(tiny_ckpt, tmp_pa
 
     for flag, (argv, ok) in _EMBED_RUN.items():
         assert ok(run(*argv)), flag
-    for flag, argv in _EMBED_REFUSED.items():
-        with pytest.raises(SystemExit, match="ROADMAP"):
+    for flag, (argv, reason) in _EMBED_REFUSED.items():
+        with pytest.raises(SystemExit, match=reason):
             run(*argv)
     capsys.readouterr()
     for flag, argv in _EMBED_NOT_APPLICABLE.items():

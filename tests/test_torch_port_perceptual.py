@@ -21,6 +21,8 @@ Tolerances, each with its reason:
   3e-4, gradient norms rtol 1e-3, params atol 5e-4).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -305,10 +307,15 @@ def test_perceptual_checkpoint_resumes_bit_equal(tmp_path, one_thread):
             "--warmup_epochs", "1", "--ckpt_interval", "1", "--device", "cpu",
             "--use_perceptual_loss", "--output_dir", str(tmp_path / out), *extra]))
 
-    assert run("a")["vgg_trunk"] == "random"
-    assert run("b", "--max_steps", "2")["steps"] == 2
-    assert run("b", "--resume", str(tmp_path / "b" / "checkpoints"))["steps"] == 2
-    a, step_a = restore_arrays_host(str(tmp_path / "a" / "checkpoints"), subset=None)
-    b, step_b = restore_arrays_host(str(tmp_path / "b" / "checkpoints"), subset=None)
+    whole = run("a")
+    assert whole["vgg_trunk"] == "random"
+    first = run("b", "--max_steps", "2")
+    assert first["steps"] == 2
+    resumed = run("b", "--resume", os.path.join(first["output_dir"], "checkpoints"))
+    assert resumed["steps"] == 2
+    a, step_a = restore_arrays_host(os.path.join(whole["output_dir"], "checkpoints"),
+                                    subset=None)
+    b, step_b = restore_arrays_host(os.path.join(resumed["output_dir"], "checkpoints"),
+                                    subset=None)
     assert step_a == step_b == 4 and "vgg" in a["model_state"]
     _assert_tree_close(b, a, 0.0)

@@ -102,8 +102,22 @@ def _launch(workdir: str, mode: str, *extra: str) -> dict:
         return {"error": str(e)}
 
 
+def _ckpts(out_dir) -> str:
+    """The checkpoint directory with the newest step of the runs under
+    ``out_dir`` (each run writes into ``<out_dir>/run_<name>[+N]``)."""
+    from cross_scale_mae_torch.cli.launch import find_latest_checkpoints
+
+    return find_latest_checkpoints(str(out_dir))
+
+
+def _run_dirs(out_dir) -> list[str]:
+    """The run directories under ``out_dir``, oldest first (``+N`` order)."""
+    names = os.listdir(out_dir)
+    return [os.path.join(str(out_dir), n) for n in sorted(names, key=lambda n: (len(n), n))]
+
+
 def _final_state(out_dir: str) -> dict:
-    ckpt = os.path.join(out_dir, "checkpoints")
+    ckpt = _ckpts(out_dir)
     step = pckpt.latest_step(ckpt)
     assert step == EPOCHS * STEPS_PER_EPOCH, (ckpt, step)
     return torch.load(os.path.join(ckpt, str(step), pckpt.STATE_FILE), weights_only=True)
@@ -139,7 +153,7 @@ def drills(tmp_path_factory):
         t.join(timeout=2 * TIMEOUT_S)
         assert not t.is_alive(), "a launcher drill did not end"
     resumed = _run([[*_env(), sys.executable, *PRETRAIN, "--output_dir", str(root / "one_fault"),
-                     "--resume", str(root / "one_fault" / "checkpoints")]])
+                     "--resume", _ckpts(root / "one_fault")]])
     return {"root": root, "plain": plain, "resumed": resumed[0], "launched": launched}
 
 
@@ -174,7 +188,8 @@ def test_pretrain_resumed_after_a_fault_is_bit_equal_over_two_ranks(drills, mode
     assert "[fault-injection] killing process 1 at step 3" in log
     state = json.loads((work / "launcher" / "state.json").read_text())
     assert state["attempt"] == 2 and state["nprocs"] == 2
-    assert state["cmd"][-2:] == ["--resume", str(work / "out" / "checkpoints")]
+    first_run = _run_dirs(work / "out")[0]
+    assert state["cmd"][-2:] == ["--resume", os.path.join(first_run, "checkpoints")]
     assert "at epoch 1 (step 2" in (work / "launcher" / "attempt2.worker0.log").read_text()
     assert _bit_equal(_final_state(str(work / "out")),
                       _final_state(str(root / f"two_{mode}"))) == []
@@ -194,7 +209,8 @@ def test_elastic_launcher_shrinks_to_one_process_and_resumes(drills):
     assert "at epoch 1 (step 2" in log and "1 process(es)" in log
     from cross_scale_mae_torch.cli.launch import find_latest_checkpoints
 
-    assert find_latest_checkpoints(str(work)) == str(work / "out" / "checkpoints")
+    assert find_latest_checkpoints(str(work)) == os.path.join(_run_dirs(work / "out")[1],
+                                                              "checkpoints")
     got, want = _final_state(str(work / "out")), _final_state(str(root / "two_gspmd"))
     assert sorted(got) == sorted(want) and int(got["step"]) == EPOCHS * STEPS_PER_EPOCH
     assert torch.equal(got["opt_state/count"], want["opt_state/count"])
@@ -207,7 +223,7 @@ def test_elastic_launcher_shrinks_to_one_process_and_resumes(drills):
     assert worst(got, want, "model_state/") <= 1e-6
     # The control: the run one epoch short misses the BatchNorm state's
     # limit by far, so a lost or doubled epoch would show.
-    short = torch.load(os.path.join(work, "out", "checkpoints",
+    short = torch.load(os.path.join(_run_dirs(work / "out")[1], "checkpoints",
                                     str((EPOCHS - 1) * STEPS_PER_EPOCH), pckpt.STATE_FILE),
                        weights_only=True)
     assert worst(short, want, "model_state/") > 1e3 * 1e-6
@@ -251,7 +267,7 @@ def test_sigterm_checkpoints_and_exits_zero(tmp_path):
     text = "".join(lines) + _finish([proc])[0]
     assert proc.returncode == 0, text[-3000:]
     assert "checkpoint-and-exit" in text and "preemption checkpoint written" in text
-    ckpt = str(out / "checkpoints")
+    ckpt = _ckpts(out)
     step = pckpt.latest_step(ckpt)
     epoch = pckpt.checkpoint_meta(ckpt, step)["epoch"]
     assert step >= 5 and epoch == (step - 1) // STEPS_PER_EPOCH
@@ -281,8 +297,7 @@ def test_ranks_agree_on_the_step_to_stop_after(tmp_path):
     outs[0] = "".join(lines) + outs[0]
     assert [p.returncode for p in procs] == [0, 0], [o[-2000:] for o in outs]
     assert "preemption checkpoint written" in outs[0]
-    ckpt = str(tmp_path / "run" / "checkpoints")
-    assert pckpt.latest_step(ckpt) >= 5
+    assert pckpt.latest_step(_ckpts(tmp_path / "run")) >= 5
 
 
 _WEDGED_WORKER = r"""

@@ -22,6 +22,7 @@ Tolerances, each with its reason:
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -657,16 +658,34 @@ def test_pretrain_cli_synthetic_images_match_jax_dataset():
         np.testing.assert_array_equal(got[i], ds.load(i)[0])
 
 
+# What each flag does at one process: a layout that builds (the mesh's runs:
+# tests/test_torch_port_mesh_*.py), or the JAX CLI's own refusal.
+MESH_AT_ONE_PROCESS = {
+    "--sequence_parallel": "needs --model_parallel > 1",   # validate_parallel_args
+    "--model_parallel": "do not split",                   # make_mesh's n % tp
+    "--num_slices": "do not split",
+    "--fsdp": lambda r: r.layout.fsdp and r.layout.dp == 1,
+    "--zero1": lambda r: r.layout.zero1 and r.state.tx.zero1,
+    # Not on a single-view model (ROADMAP.md queue 3).
+    "--use_perceptual_loss": "ROADMAP",
+}
+
+
 @pytest.mark.parametrize("extra", [
     ("--sequence_parallel",), ("--model_parallel", "2"), ("--fsdp",), ("--zero1",),
-    # Ported now, but not on a single-view model (ROADMAP.md queue 3).
     ("--use_perceptual_loss", "--model", "mae_vit_tiny"),
 ])
 def test_pretrain_cli_refuses_unported_flags(tmp_path, extra):
+    """The mesh flags run (or refuse as the JAX CLI does at one process);
+    the perceptual loss still refuses on a single-view model."""
     from cross_scale_mae_torch.cli.pretrain import build_run
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        build_run(_cli_args(tmp_path, *extra))
+    want = MESH_AT_ONE_PROCESS[extra[0]]
+    if isinstance(want, str):
+        with pytest.raises(SystemExit, match=want):
+            build_run(_cli_args(tmp_path, *extra))
+    else:
+        assert want(build_run(_cli_args(tmp_path, *extra)))
 
 
 @pytest.fixture
@@ -712,8 +731,8 @@ def test_pretrain_cli_resume_and_ckpt_interval_run(tmp_path, capsys, one_thread)
     fresh = build_run(_cli_args(tmp_path, "--resume", str(empty)))
     assert fresh.start_epoch == 0 and fresh.state.step == 0
     out = tmp_path / "run"
-    main(_cli_args(out, "--ckpt_interval", "1", "--synthetic_len", "4"))   # 1 step an epoch
-    ckpt = str(out / "checkpoints")
+    res = main(_cli_args(out, "--ckpt_interval", "1", "--synthetic_len", "4"))   # 1 step an epoch
+    ckpt = os.path.join(res["output_dir"], "checkpoints")
     assert latest_step(ckpt) == 2 and checkpoint_meta(ckpt, 1)["epoch"] == 0
     run = build_run(_cli_args(out, "--resume", ckpt))
     assert run.start_epoch == 2 and run.state.step == 2 and run.state.opt_state.count == 2

@@ -490,8 +490,7 @@ def test_pretrain_cli_resumes_linformer_projections(tmp_path, capsys):
             "--batch_size", "2", "--synthetic_len", "4", "--epochs", "1",
             "--warmup_epochs", "0", "--device", "cpu", "--attention", "linformer",
             "--output_dir", str(tmp_path / "a")]
-    main(get_args_parser().parse_args(argv))
-    ckpt = str(tmp_path / "a" / "checkpoints")
+    ckpt = os.path.join(main(get_args_parser().parse_args(argv))["output_dir"], "checkpoints")
     _, tree, _, _ = read_host_checkpoint(ckpt)
     run = build_run(get_args_parser().parse_args(argv + ["--resume", ckpt, "--seed", "5"]))
     assert run.start_epoch == 1 and run.state.step == 2
@@ -709,8 +708,9 @@ def test_variant_runs_through_every_cli(tmp_path, variant, capsys):
         "--batch_size", "4", "--synthetic_len", "8", "--epochs", "1", "--warmup_epochs", "0",
         "--device", "cpu", "--attn_name", variant, "--output_dir", str(out)]))
     assert res["steps"] == 2 and all(np.isfinite(res["losses"]))
-    ckpt = str(out / "checkpoints")
-    assert json.load(open(out / "config.json"))["attention_impl"] == variant
+    ckpt = os.path.join(res["output_dir"], "checkpoints")
+    assert json.load(open(os.path.join(res["output_dir"], "config.json"))
+                     )["attention_impl"] == variant
     small = ["--model", "vit_base_patch16", "--embed_dim", "128", "--depth", "4",
              "--num_heads", "8", "--input_size", "40", "--patch_size", "8", "--device", "cpu",
              "--attention", variant, "--finetune", ckpt]
@@ -751,6 +751,7 @@ def test_variant_runs_through_every_cli(tmp_path, variant, capsys):
                                rtol=3e-2, atol=3e-2)   # bf16, the CLI's own bound
     sweep = evalviz.main(evalviz.get_args_parser().parse_args(
         ["--ckpt", ckpt, "--device", "cpu", "--out", str(tmp_path / "viz")]))
-    assert all(np.isfinite(v) for v in sweep["pre"].values())
-    assert os.path.exists(tmp_path / "viz" / "pre_img0.png")
+    run_name = os.path.basename(res["output_dir"])   # evalviz names a model by its run
+    assert all(np.isfinite(v) for v in sweep[run_name].values())
+    assert os.path.exists(tmp_path / "viz" / f"{run_name}_img0.png")
     capsys.readouterr()

@@ -293,7 +293,8 @@ def test_pretrain_plot_recon_writes_a_figure_per_checkpoint(tmp_path):
     for p in result["figures"]:
         with Image.open(p) as im:
             assert im.size == (64, 16) and im.text["Title"].startswith("epoch")
-    assert json.load(open(tmp_path / "out" / "config.json"))["vgg_trunk"] == "n/a"
+    config = os.path.join(result["output_dir"], "config.json")
+    assert json.load(open(config))["vgg_trunk"] == "n/a"
 
 
 def test_pretrain_val_img_path_file_directory_and_empty_directory(tmp_path):
@@ -333,5 +334,5 @@ def test_pretrain_perceptual_flags(tmp_path):
     assert build_run(_pretrain_args(tmp_path, "--loss", "ssim", "--loss_cd", "l1")).cfg.loss == "ssim"
     result = main(_pretrain_args(tmp_path, "--use_perceptual_loss", "--max_steps", "1"))
     assert result["vgg_trunk"] == "random" and "loss_perceptual" in result["last_metrics"]
-    with open(tmp_path / "out" / "config.json") as f:
+    with open(os.path.join(result["output_dir"], "config.json")) as f:
         assert json.load(f)["vgg_trunk"] == "random"
