@@ -1606,7 +1606,8 @@ try:
     res = pretrain.main(pretrain.get_args_parser().parse_args(sys.argv[2:]))
     report("DONE")
     print("RESULT " + json.dumps({"steps": res["steps"], "losses": res["losses"],
-                                  "npz": res["npz"]}), flush=True)
+                                  "npz": res["npz"],
+                                  "steady_ms_per_step": res["steady_ms_per_step"]}), flush=True)
 finally:
     dist.shutdown()
 """
@@ -3005,6 +3006,9 @@ EMBED_TIMED = 5000
 # The export's tolerance (rtol = atol) in bf16, the JAX export's
 # (cli/export.py).
 EXPORT_TOL = 3e-2
+# [export]'s Fourier-mix encoder: ViT-B's widths at this depth (a check of
+# the exported FFTs on the card, not a speed figure).
+EXPORT_FOURIER_DEPTH = 2
 
 
 def _serve_cfg():
@@ -3302,7 +3306,47 @@ def phase_export(card: str, enc_npz: str, ft_ckpt: str, work: str) -> None:
             if f != "baked" and os.path.exists(f):
                 os.remove(f)
         torch.cuda.empty_cache()
+    rows["encoder_fourier_mix"] = _export_fourier_mix(work)
     log("export", card=json.dumps(card), rows=json.dumps(rows))
+
+
+def _export_fourier_mix(work: str) -> dict:
+    """cli/export.main on a Fourier-mix ViT-B encoder of EXPORT_FOURIER_DEPTH
+    blocks (its complex FFTs in the exported program), reloaded on the card
+    and held to the checkpoint server's output at EXPORT_TOL."""
+    from cross_scale_mae_torch.cli.export import get_args_parser as export_parser
+    from cross_scale_mae_torch.cli.export import main as export_main
+    from cross_scale_mae_torch.serving import build_serving_model, load_artifact
+    from cross_scale_mae_torch.utils.checkpoint import save_params_npz
+    from cross_scale_mae_torch.utils.params import random_mae_tree
+
+    cfg = _serve_cfg().replace(attention_impl="fourier_mix",
+                               encoder_num_layers=EXPORT_FOURIER_DEPTH)
+    npz, out = os.path.join(work, "fourier_mix.npz"), os.path.join(work, "fourier_mix.pt2")
+    save_params_npz(npz, random_mae_tree(cfg, seed=0), cfg.to_json())
+    t0 = time.perf_counter()
+    meta = export_main(export_parser().parse_args(
+        ["--ckpt", npz, "--output", out, "--batch_size", str(SERVE_BATCH), "--platforms",
+         "cuda", "--pool", "mean"]))
+    export_s = time.perf_counter() - t0
+    check(meta["verified"] == "roundtrip", f"fourier_mix export: {meta['verified']}")
+    served = load_artifact(out, device="cuda")
+    ref = build_serving_model(npz, pool="mean", batch_size=SERVE_BATCH, device="cuda")
+    batch = np.random.default_rng(7).integers(0, 256, (SERVE_BATCH, ref.canvas, ref.canvas, 3),
+                                              np.uint8)
+    got, want = served.fn(batch), ref.fn(batch)
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"fourier_mix export: {got.shape} against {want.shape}")
+    np.testing.assert_allclose(got, want, rtol=EXPORT_TOL, atol=EXPORT_TOL,
+                               err_msg="fourier_mix export against the checkpoint server")
+    row = {"depth": EXPORT_FOURIER_DEPTH, "artifact_bytes": meta["bytes"], "export_s": export_s,
+           "max_abs_vs_checkpoint_server": float(np.abs(got - want).max()),
+           "shape": list(got.shape)}
+    del served, ref
+    for f in (npz, out):
+        os.remove(f)
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_embed(card: str, npz: str) -> int:
@@ -4181,30 +4225,40 @@ MESH_STEPS = 4
 MESH_LAYOUTS = {"zero1": ("--zero1",), "fsdp": ("--fsdp",), "num_slices": ("--num_slices", "1")}
 MESH_MODEL_LAYOUTS = {"tp2": ("--model_parallel", "2"),
                       "tp2_sp": ("--model_parallel", "2", "--sequence_parallel")}
+# The variants under tp 2 (no kernel launches), each held to a one-card
+# run of the same variant.
+MESH_VARIANT_LAYOUTS = {f"tp2_{v}": ("--model_parallel", "2", "--attention_impl", v)
+                        for v in ("nystrom", "orthoformer", "fourier_mix")}
 MESH_LOSS_RTOL = 1e-5       # one card: the same arithmetic as the plain run
 MESH_PARAMS_ATOL = 0.0      # one card: the same params, bit for bit
 # Across cards: the partial sums in other orders. Four cards read at most
 # 6.2e-6; the contiguous qkv control reads far above (its first loss is
 # another function's).
 MESH_TP_LOSS_RTOL = 1e-4
-# Faults the multi-card gate must see, each run as tp2 with the fault put
-# into the rank processes before cli/pretrain.main: JAX's contiguous slice
-# of the 3D qkv columns (gated: must miss MESH_TP_LOSS_RTOL), and the
-# predictor's BatchNorm statistics without the model group's sum (logged).
+# Faults the multi-card gate must see, each run as a layout with the fault
+# put into the rank processes before cli/pretrain.main: JAX's contiguous
+# slice of the 3D qkv columns (gated: must miss MESH_TP_LOSS_RTOL), the
+# predictor's BatchNorm statistics without the model group's sum (logged),
+# and Fourier mixing over each rank's own heads, without gathering q
+# (gated). name -> (gated, layout, code).
 MESH_CONTROLS = {
-    "contiguous_qkv": (True, """
+    "contiguous_qkv": (True, "tp2", """
 import dataclasses
 from cross_scale_mae_torch.parallel import mesh as pmesh
 specs_of = pmesh.leaf_specs
 pmesh.leaf_specs = lambda p, l: [s if s is None else dataclasses.replace(s, qkv=False)
                                  for s in specs_of(p, l)]
 """),
-    "bn_without_model_sum": (False, """
+    "bn_without_model_sum": (False, "tp2", """
 import torch.distributed as tdist
 from cross_scale_mae_torch.models import layers
 stats = layers.batch_stats
 layers.batch_stats = lambda x, dims, g=False, group="data": stats(
     x, dims, g, "data" if group is tdist.group.WORLD else group)
+"""),
+    "fourier_mix_no_gather": (True, "tp2_fourier_mix", """
+from cross_scale_mae_torch.models import layers
+layers._fourier_mix_heads = lambda q, num_heads: layers.fourier_mix(q)
 """),
 }
 FSDP_FT_STEPS = 3
@@ -4301,35 +4355,47 @@ def phase_mesh(card: str) -> tuple[int, int]:
             finally:
                 dist.shutdown()
         else:
-            layouts = dict(MESH_LAYOUTS)
+            layouts, refs = dict(MESH_LAYOUTS), dict.fromkeys(MESH_LAYOUTS, ref)
             if world % 2 == 0:
                 layouts.update(MESH_MODEL_LAYOUTS)
+                refs.update(dict.fromkeys(MESH_MODEL_LAYOUTS, ref))
+                layouts.update(MESH_VARIANT_LAYOUTS)
+                for name, flags in MESH_VARIANT_LAYOUTS.items():
+                    # The one-card run of the variant, no group: its reference.
+                    refs[name] = pretrain_main(_train_argv(
+                        os.path.join(tmp, "plain_" + name), flags[-1], "--max_steps",
+                        str(MESH_STEPS)))
+                    _check_run(refs[name], MESH_STEPS, f"mesh plain {flags[-1]}")
             for name, r in _mesh_worker_runs(tmp, world, layouts).items():
                 res, done = r["result"], r["done"]
                 n = res["steps"]
-                check(done["fwd"] == done["bwd"] == ATTN_PER_STEP * n,
-                      f"mesh {name}: rank 0's K1 launches {done}")
+                want = 0 if name in MESH_VARIANT_LAYOUTS else ATTN_PER_STEP * n
+                check(done["fwd"] == done["bwd"] == want,
+                      f"mesh {name}: rank 0's K1 launches {done}, expected {want}")
                 fwd, bwd = fwd + done["fwd"], bwd + done["bwd"]
-                gap = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], ref["losses"]))
+                plain = refs[name]["losses"]
+                gap = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], plain))
                 log("mesh", card=json.dumps(card), layout=name, world_size=world,
                     loss_rel_gap_to_one_card=gap, tol=MESH_TP_LOSS_RTOL,
-                    losses=json.dumps(res["losses"]), plain_losses=json.dumps(ref["losses"]))
+                    losses=json.dumps(res["losses"]), plain_losses=json.dumps(plain),
+                    ms_per_step=res["steady_ms_per_step"],
+                    plain_ms_per_step=refs[name]["steady_ms_per_step"])
                 check(len(res["losses"]) == MESH_STEPS and gap <= MESH_TP_LOSS_RTOL,
                       f"mesh {name} at {world} cards: losses {res['losses']} against the "
-                      f"one-card run's {ref['losses']}")
+                      f"one-card run's {plain}")
             if world % 2 == 0:
                 # The controls compare a fault with the sound run: not counted.
-                faults = {name: code for name, (_, code) in MESH_CONTROLS.items()}
-                runs = _mesh_worker_runs(tmp, world, {name: MESH_MODEL_LAYOUTS["tp2"]
-                                                      for name in MESH_CONTROLS}, faults)
+                faults = {name: code for name, (_, _, code) in MESH_CONTROLS.items()}
+                runs = _mesh_worker_runs(tmp, world, {name: layouts[layout] for name, (
+                    _, layout, _) in MESH_CONTROLS.items()}, faults)
                 for name, r in runs.items():
+                    gated, layout, _ = MESH_CONTROLS[name]
                     losses = r["result"]["losses"]
-                    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
-                    log("mesh_control", card=json.dumps(card), control=name, layout="tp2",
+                    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, refs[layout]["losses"]))
+                    log("mesh_control", card=json.dumps(card), control=name, layout=layout,
                         world_size=world, loss_rel_gap_to_one_card=gap,
-                        tol=MESH_TP_LOSS_RTOL, gated=MESH_CONTROLS[name][0],
-                        losses=json.dumps(losses))
-                    check(not MESH_CONTROLS[name][0] or gap > MESH_TP_LOSS_RTOL,
+                        tol=MESH_TP_LOSS_RTOL, gated=gated, losses=json.dumps(losses))
+                    check(not gated or gap > MESH_TP_LOSS_RTOL,
                           f"mesh control {name} at {world} cards passed the gate: {gap}")
     log("mesh_time", card=json.dumps(card), seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
@@ -4343,8 +4409,13 @@ def phase_tp_partition(card: str) -> None:
     of its heads in q, k and v, and its proj rows), each group run through
     K1f and K1b on the card, the proj and fc2 partials summed and their
     biases added once; held against the unsplit block, forward and the
-    input's gradient. These launches compare a kernel path with its plain
-    whole and are not counted."""
+    input's gradient. The decoder block also with Nystrom and orthoformer
+    (65 tokens: both approximate), each head group through the variant.
+    These launches compare a kernel path with its plain whole and are not
+    counted. Fourier mixing has no row: its head groups gather every
+    rank's q (``collectives.gather_heads``), which needs a model group of
+    two ranks, and NCCL puts no two ranks on one card; [mesh]'s multi-card
+    branch runs it."""
     from cross_scale_mae_torch.configs import get_mae_config
     from cross_scale_mae_torch.models import layers
     from cross_scale_mae_torch.models.mae import mae_init
@@ -4356,9 +4427,12 @@ def phase_tp_partition(card: str) -> None:
     params, _ = mae_init(cfg, torch.Generator(device="cuda").manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
     readings = {}
-    for stack, heads, tokens, control in (("encoder_blocks", cfg.encoder_num_heads, 17, False),
-                                          ("decoder_blocks", cfg.decoder_num_heads, 65, False),
-                                          ("decoder_blocks", cfg.decoder_num_heads, 65, True)):
+    for stack, heads, tokens, impl, control in (
+            ("encoder_blocks", cfg.encoder_num_heads, 17, "pallas_v3", False),
+            ("decoder_blocks", cfg.decoder_num_heads, 65, "pallas_v3", False),
+            ("decoder_blocks", cfg.decoder_num_heads, 65, "pallas_v3", True),
+            ("decoder_blocks", cfg.decoder_num_heads, 65, "nystrom", False),
+            ("decoder_blocks", cfg.decoder_num_heads, 65, "orthoformer", False)):
         whole = params[stack][0]
         specs = leaf_specs({"blocks": [whole]}, Layout(1, 2))
         if control:
@@ -4379,7 +4453,7 @@ def phase_tp_partition(card: str) -> None:
 
         def split_block(x):
             h = layers.layer_norm(whole["norm1"], x)
-            attn = sum(layers.attention(g["attn"], h, heads, "pallas_v3") for g in groups)
+            attn = sum(layers.attention(g["attn"], h, heads, impl) for g in groups)
             x = x + attn + whole["attn"]["proj"]["bias"].to(x.dtype)
             h = layers.layer_norm(whole["norm2"], x)
             mlp = sum(layers.mlp(g["mlp"], h, cfg.gelu, split=True) for g in groups)
@@ -4387,7 +4461,7 @@ def phase_tp_partition(card: str) -> None:
 
         outs = {}
         for name, fn in (("split", split_block),
-                         ("whole", lambda x: layers.block(whole, x, heads, "pallas_v3",
+                         ("whole", lambda x: layers.block(whole, x, heads, impl,
                                                           gelu=cfg.gelu))):
             x = x0.clone().requires_grad_(True)
             y = fn(x)
@@ -4395,7 +4469,8 @@ def phase_tp_partition(card: str) -> None:
             outs[name] = (y.detach().float(), dx.float())
         y_gap = float((outs["split"][0] - outs["whole"][0]).norm() / outs["whole"][0].norm())
         dx_gap = float((outs["split"][1] - outs["whole"][1]).norm() / outs["whole"][1].norm())
-        key = stack + ("_contiguous_control" if control else "")
+        key = (stack + ("" if impl == "pallas_v3" else "_" + impl)
+               + ("_contiguous_control" if control else ""))
         readings[key] = {"out_rel_l2": y_gap, "dx_rel_l2": dx_gap,
                          "group_qkv": list(groups[0]["attn"]["qkv"]["kernel"].shape)}
         if control:
@@ -4404,7 +4479,9 @@ def phase_tp_partition(card: str) -> None:
             check(y_gap <= TP_PARTITION_TOL and dx_gap <= TP_PARTITION_TOL,
                   f"tp_partition {stack}: head groups against the whole block {readings[key]}")
     log("tp_partition", card=json.dumps(card), tol=TP_PARTITION_TOL,
-        readings=json.dumps(readings), seconds=time.perf_counter() - t0)
+        readings=json.dumps(readings), seconds=time.perf_counter() - t0,
+        fourier_mix="absent: its head groups gather every rank's q, which needs a model "
+                    "group of two ranks, and NCCL puts no two ranks on one card")
     del params
     torch.cuda.empty_cache()
 

@@ -17,7 +17,7 @@ import torch
 
 from cross_scale_mae_torch.data.datasets import Dataset
 from cross_scale_mae_torch.data.loader import DataLoader
-from cross_scale_mae_torch.models.layers import ATTENTION_IMPLS, TP_IMPLS, VARIANTS
+from cross_scale_mae_torch.models.layers import ATTENTION_IMPLS, VARIANTS
 from cross_scale_mae_torch.parallel.dist import (
     Runtime,
     broadcast_object,
@@ -26,7 +26,7 @@ from cross_scale_mae_torch.parallel.dist import (
     is_main_process,
     mesh,
 )
-from cross_scale_mae_torch.parallel.mesh import MESH_ITEM, Layout
+from cross_scale_mae_torch.parallel.mesh import Layout
 from cross_scale_mae_torch.utils.checkpoint import latest_step, restore_checkpoint
 from cross_scale_mae_torch.utils.logging import WANDB_PROJECT, auto_output_dir, rank0_print
 
@@ -232,20 +232,16 @@ def validate_parallel_args(args) -> None:
         raise SystemExit(str(e)) from None
 
 
-def check_model_parallel(tp: int, attention_impl: str, widths: dict[str, int]) -> None:
+def check_model_parallel(tp: int, widths: dict[str, int]) -> None:
     """SystemExit when tensor parallelism cannot split the model: ``tp``
     must divide each attention's heads and each MLP's hidden width
-    (``widths``: name -> size), and the attention must split by heads."""
+    (``widths``: name -> size)."""
     if tp <= 1:
         return
     for name, size in widths.items():
         if size % tp:
             raise SystemExit(f"--model_parallel {tp} does not divide the {name} ({size}): "
                              "each rank holds a whole 1/tp of the heads and MLP columns")
-    if attention_impl not in TP_IMPLS:
-        raise SystemExit(f"--model_parallel with attention {attention_impl!r}: its math "
-                         "does not split by heads; tensor parallelism runs "
-                         f"{', '.join(TP_IMPLS)} (ROADMAP.md, queue 1 item {MESH_ITEM})")
 
 
 def run_layout(args) -> Layout:

@@ -376,7 +376,7 @@ def build_run(args) -> FinetuneRun:
         scan_blocks=not args.unroll_blocks,
         input_channels=train_ds.in_c if train_ds else 3,
         sequence_parallel=args.sequence_parallel, **overrides)
-    check_model_parallel(args.model_parallel, vcfg.attention_impl,
+    check_model_parallel(args.model_parallel,
                          {"heads": vcfg.num_heads, "MLP": vcfg.embed_dim * vcfg.mlp_ratio})
     tcfg = TrainConfig(
         epochs=args.epochs, warmup_epochs=args.warmup_epochs, batch_size=args.batch_size,

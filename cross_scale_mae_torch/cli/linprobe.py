@@ -174,7 +174,7 @@ def build_run(args) -> FinetuneRun:
         compute_dtype=args.compute_dtype, attention_impl=args.attention_impl,
         gelu=args.gelu, remat=args.remat, scan_blocks=not args.unroll_blocks,
         input_channels=train_ds.in_c, sequence_parallel=args.sequence_parallel, **overrides)
-    check_model_parallel(args.model_parallel, vcfg.attention_impl,
+    check_model_parallel(args.model_parallel,
                          {"heads": vcfg.num_heads, "MLP": vcfg.embed_dim * vcfg.mlp_ratio})
     # Plain CE on minimal augmentation (main_linprobe.py:562-565).
     tcfg = TrainConfig(

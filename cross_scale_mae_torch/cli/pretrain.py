@@ -335,7 +335,7 @@ def build_run(args) -> PretrainRun:
               "decoder MLP": cfg.decoder_embed_dim * cfg.ffn_ratio}
     if cfg.use_ce_pred or cfg.use_cd_pred:
         widths["predictor hidden"] = cfg.predictor_hidden_size
-    check_model_parallel(args.model_parallel, cfg.attention_impl, widths)
+    check_model_parallel(args.model_parallel, widths)
     rt = setup_runtime(args)
     dev = rt.device
     ddp_mode = args.ddp_mode if rt.distributed else None

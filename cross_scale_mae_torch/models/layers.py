@@ -15,7 +15,8 @@ device: the same distributions as the JAX package's, not the same bits.
 
 Under a mesh layout (``parallel/mesh.py``) a block runs on this rank's
 parts. Tensor parallelism: a block whose qkv holds H/tp heads' columns
-runs them (the kernels unchanged, on its heads) and its fc1 columns, with
+runs them (the kernels and the variants unchanged, on its heads; Fourier
+mixing on every rank's q, gathered) and its fc1 columns, with
 Megatron's f before qkv and fc1 and g after proj and fc2, whose biases are
 added once, after the sum; the predictor's fc1/fc2 split the same way and
 its BatchNorm sums its statistics over the model group too. Sequence
@@ -53,8 +54,10 @@ from cross_scale_mae_torch.parallel.collectives import (
     all_reduce_sum,
     copy_to_model,
     fsdp_gathered,
+    gather_heads,
     gather_seq,
     gather_seq_full,
+    group_rank,
     group_size,
     reduce_from_model,
     reduce_scatter_seq,
@@ -71,10 +74,6 @@ Params = dict[str, Any]
 KERNEL_IMPLS = ("pallas_v3", "pallas", "pallas_t")
 VARIANTS = ("linformer", "nystrom", "orthoformer", "local", "fourier_mix")
 ATTENTION_IMPLS = ("xla", *KERNEL_IMPLS, *VARIANTS)
-# What runs on each rank's heads under tensor parallelism: per-head math.
-# Nystrom's and orthoformer's landmark pseudo-inverses and Fourier mixing's
-# FFT over the whole feature axis do not split by heads.
-TP_IMPLS = ("xla", *KERNEL_IMPLS, "linformer", "local")
 
 
 def xavier_uniform(gen: torch.Generator, shape: tuple[int, ...], fan_in: int,
@@ -178,6 +177,14 @@ def _into_split(x: torch.Tensor, split: bool, sp: bool, seq_len: int) -> torch.T
     return copy_to_model(x) if split else x
 
 
+def _fourier_mix_heads(q: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Under tensor parallelism: :func:`fourier_mix` of the whole q
+    gathered from the model group, this rank's heads of the result."""
+    heads = q.shape[2]
+    out = fourier_mix(gather_heads(q, num_heads))
+    return out.narrow(2, group_rank(model_group()) * heads, heads)
+
+
 def _out_of_split(y: torch.Tensor, bias: torch.Tensor, split: bool, sp: bool) -> torch.Tensor:
     """After a row-parallel product: SP's reduce-scatter or TP's g, then
     the bias, once (under SP on this rank's tokens, its gradient summed
@@ -202,8 +209,16 @@ def attention(p: Params, x: torch.Tensor, num_heads: int, impl: str = "xla",
 
     A qkv of fewer than 3D columns holds a head group (tensor parallelism,
     ``parallel/mesh.py``): the heads it holds run, and proj's partial
-    products are summed over the model group. With ``sp``, ``x`` is this
-    rank's chunk of the ``seq_len`` tokens."""
+    products are summed over the model group. Every impl but 'fourier_mix'
+    computes each head from that head's q, k and v alone (Nystrom's
+    pseudo-inverse scale and segment means and orthoformer's landmark rows
+    are taken per head), so a rank's heads are its rows of the whole
+    result. Fourier mixing's FFT runs over the whole h*hd feature axis: it
+    takes every rank's q (:func:`gather_heads`) and keeps this rank's
+    heads' columns (:func:`_fourier_mix_heads`). With ``sp``, ``x`` is this
+    rank's chunk of the ``seq_len`` tokens, gathered whole (unpadded)
+    before qkv: the FFT over tokens, the segments and the landmark rows see
+    exactly the ``seq_len`` tokens."""
     if impl not in ATTENTION_IMPLS:
         raise NotImplementedError(
             f"attention_impl {impl!r} is unknown: this package runs {ATTENTION_IMPLS} "
@@ -213,10 +228,6 @@ def attention(p: Params, x: torch.Tensor, num_heads: int, impl: str = "xla",
     w = kernel(p["qkv"], x.dtype)
     heads = w.shape[1] // (3 * hd)
     split = heads != num_heads
-    if split and impl not in TP_IMPLS:
-        raise NotImplementedError(
-            f"attention_impl {impl!r} does not split by heads: tensor parallelism runs "
-            f"{TP_IMPLS} (ROADMAP.md, queue 1 item 11)")
     x = _into_split(x, split, sp, seq_len)
     if impl == "pallas_t":
         y = _attention_pallas_t(p, x, heads, hd)
@@ -243,7 +254,7 @@ def attention(p: Params, x: torch.Tensor, num_heads: int, impl: str = "xla",
         elif impl == "local":
             out = local_mha(q, k, v)
         else:
-            out = fourier_mix(q)
+            out = _fourier_mix_heads(q, num_heads) if split else fourier_mix(q)
         out = out.reshape(n, l, heads * hd)
     y = out @ kernel(p["proj"], out.dtype)
     return _out_of_split(y, p["proj"]["bias"], split, sp)

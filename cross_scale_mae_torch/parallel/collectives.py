@@ -19,11 +19,13 @@ Tensor parallelism (Megatron's f and g, over the model group):
 :func:`copy_to_model` before a column-parallel product (identity forward,
 the gradient summed over the model group), :func:`reduce_from_model` after
 a row-parallel one (the partial products summed forward, identity
-backward). Sequence parallelism replaces them at a block's joins by
-:func:`gather_seq` (all-gather of the token chunks, reduce-scatter
-backward) and :func:`reduce_scatter_seq` (reduce-scatter forward,
-all-gather backward); :func:`split_seq` and :func:`gather_seq_full` enter
-and leave the token-sharded region. The token axis is padded to a multiple
+backward). :func:`gather_heads` hands an attention that mixes every
+head's features (Fourier mixing) the whole of q: an all-gather of the
+head groups, a reduce-scatter backward. Sequence parallelism replaces f
+and g at a block's joins by :func:`gather_seq` (all-gather of the token
+chunks, reduce-scatter backward) and :func:`reduce_scatter_seq`
+(reduce-scatter forward, all-gather backward); :func:`split_seq` and
+:func:`gather_seq_full` enter and leave the token-sharded region. The token axis is padded to a multiple
 of tp for the collective and the pad dropped after it: a pad row's
 gradient is zero, so no pad row enters a reduction.
 
@@ -213,6 +215,34 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """Megatron's g: the model group's sum of the partial products."""
     group = model_group()
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+class _GatherHeads(torch.autograd.Function):
+    """Head groups (N, L, H/tp, hd) -> (N, L, H, hd) in rank order; the
+    backward sums the ranks' gradients of the whole and keeps this rank's
+    heads (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, q, group):
+        ctx.group = group
+        return _all_gather(q, 2, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, 2, ctx.group), None
+
+
+def gather_heads(q: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Every model rank's heads of ``q`` (N, L, H/tp, hd), concatenated in
+    rank order into the ``num_heads`` of the whole; the identity without a
+    model group, where a q of fewer heads is a fault."""
+    group = model_group()
+    if group is None:
+        if q.shape[2] != num_heads:
+            raise RuntimeError(f"a q of {q.shape[2]} of {num_heads} heads and no model "
+                               "group to gather the rest from")
+        return q
+    return _GatherHeads.apply(q, group)
 
 
 # ------------------------------------------------ sequence parallelism

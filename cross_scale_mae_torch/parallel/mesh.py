@@ -50,8 +50,6 @@ from cross_scale_mae_torch.parallel.collectives import gather_parts
 from cross_scale_mae_torch.parallel.dist import data_group, mesh, model_group
 from cross_scale_mae_torch.train.state import tree_items, tree_leaves, tree_like
 
-# ROADMAP.md's item for what the mesh's layouts do not run.
-MESH_ITEM = 11
 # Leaves of at most this many elements stay replicated under FSDP and ZeRO-1.
 SMALL_LEAF = 1024
 _COL_PARALLEL = ("qkv", "fc1")   # split output features

@@ -4,7 +4,9 @@
   AdamW with layer decay and --clip_grad) and the linear probe's step (a
   frozen backbone, the BatchNorm head on the global batch's statistics,
   LARS on the head alone) under FSDP on a (2, 1) mesh and under TP on
-  (1, 2), held against JAX ``train/classify.make_classify_train_step``
+  (1, 2), and the finetune step with Fourier mixing (each rank's q
+  gathered over the model group) under TP on (1, 2), held against JAX
+  ``train/classify.make_classify_train_step``
   with ``shard_train_state`` on the same mesh, and against the port's one
   process, with the tolerances of ``tests/test_torch_port_mesh_data.py``.
   The probe's head (64 x 20 weights) is large enough for FSDP to split, so
@@ -30,6 +32,9 @@ import jax.numpy as jnp
 from cross_scale_mae_tpu import configs as jcfg
 from tests import torch_mesh_driver as md
 
+# name -> (source, mesh); a source is the step's kind and the attention.
+SRCS = {"finetune": ("finetune", "pallas"), "probe": ("probe", "pallas"),
+        "finetune_fourier_mix": ("finetune", "fourier_mix")}
 RUNS = {
     "ft_fsdp": ("finetune", dict(dp=2, fsdp=True)),
     "ft_tp": ("finetune", dict(tp=2)),
@@ -37,6 +42,8 @@ RUNS = {
     "probe_fsdp": ("probe", dict(dp=2, fsdp=True)),
     "probe_tp": ("probe", dict(tp=2)),
     "probe_one": ("probe", dict()),
+    "ft_tp_fourier_mix": ("finetune_fourier_mix", dict(tp=2)),
+    "ft_one_fourier_mix": ("finetune_fourier_mix", dict()),
 }
 
 
@@ -85,40 +92,42 @@ def mesh_runs(tmp_path_factory):
     labels = rng.integers(0, md.VIT["num_classes"], md.N).astype(np.int32)
     tcfg = jcfg.TrainConfig(batch_size=md.N, clip_grad=0.5, layer_decay=0.75)
     setups = {}
-    for kind in ("finetune", "probe"):
-        jc = jcfg.get_vit_config("vit_base_patch16", use_bn_head=kind == "probe", **md.VIT)
+    for name, (kind, attention) in SRCS.items():
+        jc = jcfg.get_vit_config("vit_base_patch16", use_bn_head=kind == "probe",
+                                 **{**md.VIT, "attention_impl": attention})
         params, mstate = vit_init(jax.random.key(5), jc)
-        src = root / f"src_{kind}"
+        src = root / f"src_{name}"
         os.makedirs(src)
         save_params_npz(str(src / "weights.npz"),
                         jax.tree.map(md.t32, {"params": params, "state": mstate}))
         (src / "meta.json").write_text(json.dumps(
             {"cfg": jc.to_json(), "tcfg": tcfg.to_json(), "sched": list(md.SCHED)}))
         np.savez(src / "data.npz", batch=batch, labels=labels, steps=md.STEPS)
-        setups[kind] = (jc, params, mstate)
+        setups[name] = (jc, params, mstate)
     jobs = []
-    for name, (kind, spec) in RUNS.items():
-        jobs += md.rank_jobs(name, {"kind": kind, "src": str(root / f"src_{kind}"), **spec},
-                             root)
+    for name, (src, spec) in RUNS.items():
+        jobs += md.rank_jobs(name, {"kind": SRCS[src][0], "src": str(root / f"src_{src}"),
+                                    **spec}, root)
     procs = md.run_procs_async(jobs)
     jax_runs = {}
-    for name, (kind, spec) in RUNS.items():
+    for name, (src, spec) in RUNS.items():
         if "one" in name:
             continue
-        jc, params, mstate = setups[kind]
-        jax_runs[name] = _jax_classify(jc, tcfg, params, mstate, batch, labels, kind,
+        jc, params, mstate = setups[src]
+        jax_runs[name] = _jax_classify(jc, tcfg, params, mstate, batch, labels, SRCS[src][0],
                                        spec.get("dp", 1), spec.get("tp", 1),
                                        spec.get("fsdp", False))
     md.wait(procs)
     return {"port": {name: md.read_run(root, name) for name in RUNS}, "jax": jax_runs}
 
 
-@pytest.mark.parametrize("name", ["ft_fsdp", "ft_tp", "probe_fsdp", "probe_tp"])
+@pytest.mark.parametrize("name", ["ft_fsdp", "ft_tp", "probe_fsdp", "probe_tp",
+                                  "ft_tp_fourier_mix"])
 def test_classifier_step_matches_the_jax_step_on_its_mesh(mesh_runs, name):
     got = mesh_runs["port"][name]
     gaps = md.misses(got, mesh_runs["jax"][name])
     assert max(gaps.values()) <= 1.0, gaps
-    one = "ft_one" if name.startswith("ft") else "probe_one"
+    one = name.replace("_fsdp", "_one").replace("_tp", "_one")
     own = md.misses(got, mesh_runs["port"][one], loss_rtol=1e-6, norm_rtol=1e-5,
                     params_atol=1e-4, state_atol=1e-6)
     assert max(own.values()) <= 1.0, own

@@ -2,10 +2,11 @@
 """``chip_smoke.py``'s [mesh] phase on every card of one host: with two or
 more cards its multi-card branch runs --zero1, --fsdp and --num_slices 1
 (and, at an even count, --model_parallel 2 with and without
---sequence_parallel) through ``cli/pretrain.main`` at the flagship's width,
-one process per card, each held to the one-card run of the same draws, and
-the tp 2 controls, one of which must miss the gate. The kernels are built
-first, as the script builds them.
+--sequence_parallel, and with the Nystrom, orthoformer and Fourier-mix
+attentions) through ``cli/pretrain.main`` at the flagship's width, one
+process per card, each held to the one-card run of the same draws and
+attention, and the tp 2 controls, two of which must miss the gate. The
+kernels are built first, as the script builds them.
 
     python3 tools/mesh_cards.py          # a host with 2 or more GPUs
 """
