@@ -156,8 +156,15 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
     Printed: the checkpoint's bytes, the save and restore ms of the full
     state on one rank, the restore ms in the CLI, the recovery seconds (from
     attempt 1's exit to attempt 2's first step done on the card) and the
-    steps redone.
-    It runs last, so that its checkpoint writes (15 of 1.37 GB) touch no
+    steps redone. Then [orbax] (b) and (c): run A's step-4 state written in
+    the JAX package's Orbax form by ``utils/checkpoint.save_orbax_checkpoint``
+    and restored, its write and read seconds and GB/s beside the
+    ``state.pt`` times (the restore bit-equal to the ``state.pt`` one);
+    then run C, ``cli/pretrain.main --resume <that directory>`` to the end.
+    Gates: C's params no farther from A's than A''s are, its losses at
+    steps 5-8 within the A-A' spread, 20 + 20 K1 launches a step (counted
+    as ``train_resume_orbax``).
+    It runs last, so that its checkpoint writes (19 of 1.37 GB) touch no
     other phase's timing.
 16. finetune_recipe (runs after phase 10): ``cli/finetune.main`` on the
     finetuning cell's ViT-L (64 px, patch 8, 62 classes, batch 512, bf16,
@@ -273,6 +280,19 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
     written where tensorboard imports. Printed: the step ms inside the
     window and outside it, the profiler's own seconds, the trace's bytes,
     ``device_memory_stats()``, the event file's path or the skip line.
+29. orbax (runs after phase 3): the JAX package's golden Orbax checkpoint
+    (``tests/golden/ckpt_v1``) decoded by the port's reader
+    (``utils/orbax.py``: OCDBT and zarr in numpy, zstd through
+    ``libzstd.so.1``; no JAX, orbax or tensorstore on this host). Gates:
+    every leaf's dtype, shape and sha256 equal to
+    ``tests/torch_orbax_golden.json`` (taken from the JAX package's own
+    restore, held to it by a CPU test); the golden loss on the card, from
+    the decoded state on the recorded batch with the file's draws and the
+    crop view resized at fp32 (the JAX CPU arithmetic the golden value
+    holds), within 1e-5 of ``golden_values.json``'s; the same loss with the
+    card's training crop (bf16 operands, as a TPU's) logged as the control
+    (the golden is ``attention_impl`` "xla": the decoder's check, not a
+    kernel's). Parts (b) and (c) run in phase 15.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -321,6 +341,10 @@ RESUME_EPOCHS = 4
 RESUME_LEN = 2 * TRAIN_BATCH
 RESUME_FAULT = 5
 RESUME_TIMEOUT_S = 600
+# [orbax]: the golden loss's bound (tests/test_torch_port_checkpoint.py's),
+# and the Orbax write and read of the flagship state, each this many times.
+ORBAX_LOSS_TOL = 1e-5
+ORBAX_REPS = 2
 # The kernels' shapes: (N, L, H, hd); "linprobe" is the ViT-B probe's batch
 # of 1024, train steps and padded eval batches alike; "embed" cli/embed's
 # batch of 256; "ms_ssim_enc"/"ms_ssim_dec" the flagship step at 192 px
@@ -1635,14 +1659,15 @@ def _npz_gap(a: str, b: str) -> float:
                    for k in x.files if k != "__config__")
 
 
-def phase_resume(card: str) -> tuple[int, int]:
+def phase_resume(card: str) -> tuple[tuple[int, int], tuple[int, int]]:
     """The flagship pretrain run through a lost process and a relaunch:
     run A unbroken (twice, A and A': their gap is the control), run B
     through ``cli/launch.main`` with one rank over NCCL, ended by the fault
     drill after step 5 and resumed from its step-4 checkpoint; then the
     save and restore times of the full state, and a truncated checkpoint
-    refused. Returns the K1 (forward, backward) launches of B's two
-    attempts."""
+    refused; then [orbax]: A's step-4 state in the JAX package's Orbax
+    form, written and read in turns, and run C resumed from it. Returns
+    the K1 (forward, backward) launches of B's two attempts and of C."""
     from cross_scale_mae_torch.cli import launch
     from cross_scale_mae_torch.cli.pretrain import build_run
     from cross_scale_mae_torch.utils.checkpoint import (
@@ -1665,8 +1690,9 @@ def phase_resume(card: str) -> tuple[int, int]:
                   f"{proc.stderr[-3000:]}")
             runs[name] = {"result": _tagged(proc.stdout, "RESULT")[-1],
                           "done": _tagged(proc.stdout, "DONE")[-1]}
-            shutil.rmtree(os.path.join(os.path.dirname(runs[name]["result"]["npz"]),
-                                       "checkpoints"))
+            if name == "A_prime":   # A's step 4 is [orbax]'s source
+                shutil.rmtree(os.path.join(os.path.dirname(runs[name]["result"]["npz"]),
+                                           "checkpoints"))
         work = os.path.join(tmp, "B")
         fault = {"CSM_FAULT_STEP": str(RESUME_FAULT), "CSM_FAULT_ATTEMPT": "1"}
         saved = {k: os.environ.get(k) for k in fault}
@@ -1748,8 +1774,11 @@ def phase_resume(card: str) -> tuple[int, int]:
             restore_checkpoint(timed, run.state)
             torch.cuda.synchronize()
             restore_ms.append((time.perf_counter() - t0) * 1e3)
+        shutil.rmtree(timed)
+        orbax_run = orbax_resume(card, tmp, repo, run, a, steps, save_ms, restore_ms)
         del run
         torch.cuda.empty_cache()
+        c, done_c = orbax_run()
     log("resume", card=json.dumps(card), steps=steps, fault_after_step=RESUME_FAULT,
         params_gap_b_to_a=gap, params_gap_a_prime_to_a=control, bit_equal=gap == 0.0,
         loss_gap_redone_steps=loss_gap, loss_spread_a_prime=loss_spread,
@@ -1762,7 +1791,156 @@ def phase_resume(card: str) -> tuple[int, int]:
     check(gap <= control, f"B's params {gap} from A's, farther than A' ({control})")
     check(loss_gap <= loss_spread, f"B's losses at steps 5-{steps} {b['losses']} against "
           f"A's {a['losses'][4:]} (A' spread {loss_spread})")
-    return exit1["fwd"] + done2["fwd"], exit1["bwd"] + done2["bwd"]
+    gap_c = c["params_gap_c_to_a"]
+    check(gap_c <= control, f"C's params {gap_c} from A's, farther than A' ({control})")
+    check(c["loss_gap"] <= loss_spread, f"C's losses at steps 5-{steps} {c['losses']} "
+          f"against A's {a['losses'][4:]} (A' spread {loss_spread})")
+    return ((exit1["fwd"] + done2["fwd"], exit1["bwd"] + done2["bwd"]),
+            (done_c["fwd"], done_c["bwd"]))
+
+
+def orbax_resume(card: str, tmp: str, repo: str, run, a: dict, steps: int,
+                 save_ms: list, restore_ms: list):
+    """[orbax] (b) and (c), on run A of [resume]: its step-4 state restored
+    into ``run`` (the flagship state on the card) from its ``state.pt``,
+    written in the JAX package's Orbax form by ``save_orbax_checkpoint``
+    and restored from it, in turns, ORBAX_REPS times (the write: the state
+    to the host, zstd level 1 on 8 threads, the files synced; the read: the
+    files decoded, the optax state placed, the leaves copied to the card),
+    each restore bit-equal to the ``state.pt`` one. Returns a function that
+    runs C, ``cli/pretrain.main --resume <that directory>`` to the end, in a
+    process of its own once ``run`` is freed, and returns (C's result, its
+    K1 counts)."""
+    from cross_scale_mae_torch.utils import orbax
+    from cross_scale_mae_torch.utils.checkpoint import (
+        checkpoint_meta,
+        restore_checkpoint,
+        save_orbax_checkpoint,
+    )
+
+    a_ckpt = os.path.join(os.path.dirname(a["npz"]), "checkpoints")
+    restore_checkpoint(a_ckpt, run.state, step=4)
+    want = {k: v.clone() for k, v in run.state.state_dict().items()}
+    nbytes = sum(v.numel() * v.element_size() for v in want.values())
+    meta = checkpoint_meta(a_ckpt, 4)
+    extra = {k: v for k, v in meta.items() if k not in ("step", "config")}
+    src = os.path.join(tmp, "orbax")
+    write_s, read_s, decode_s = [], [], []
+    for _ in range(ORBAX_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_orbax_checkpoint(src, 4, run.state, json.dumps(meta["config"]), extra)
+        write_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tree = orbax.read_step(os.path.join(src, "4"), subset=None)
+        decode_s.append(time.perf_counter() - t0)
+        del tree
+        t0 = time.perf_counter()
+        _, got_meta = restore_checkpoint(src, run.state)
+        torch.cuda.synchronize()
+        read_s.append(time.perf_counter() - t0)
+        got = run.state.state_dict()
+        check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+              "the Orbax restore differs from the state.pt restore")
+        check(got_meta == meta, f"the Orbax sidecar {got_meta} is not run A's {meta}")
+    del want
+    on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(src) for f in fs)
+    shutil.rmtree(a_ckpt)
+    log("orbax", part="resume_write_read", card=json.dumps(card), state_bytes=nbytes,
+        orbax_bytes_on_disk=on_disk, write_s=json.dumps(write_s),
+        read_s=json.dumps(read_s), decode_s_host=json.dumps(decode_s),
+        write_gb_s=json.dumps([nbytes / t / 1e9 for t in write_s]),
+        read_gb_s=json.dumps([nbytes / t / 1e9 for t in read_s]),
+        state_pt_save_ms=json.dumps(save_ms), state_pt_restore_ms=json.dumps(restore_ms),
+        host_cpu=json.dumps(host_cpu()), read_note="warm: the files were just written")
+
+    def run_c():
+        proc = subprocess.run([sys.executable, "-c", _RESUME_WORKER, repo,
+                               *_resume_argv(os.path.join(tmp, "C")), "--resume", src],
+                              cwd=repo, capture_output=True, text=True,
+                              timeout=RESUME_TIMEOUT_S)
+        check(proc.returncode == 0, f"run C failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        resumed = [ln for ln in proc.stdout.splitlines() if ln.startswith("resumed from")]
+        check(len(resumed) == 1 and " at epoch 2 (step 4, " in resumed[0],
+              f"run C did not resume from the Orbax step 4: {resumed}")
+        c, done = _tagged(proc.stdout, "RESULT")[-1], _tagged(proc.stdout, "DONE")[-1]
+        check(c["steps"] == steps - 4, f"run C took {c['steps']} steps, not {steps - 4}")
+        check(done["fwd"] == done["bwd"] == ATTN_PER_STEP * c["steps"],
+              f"run C: K1 launches {done['fwd']}, {done['bwd']} != {ATTN_PER_STEP} x "
+              f"{c['steps']} steps")
+        c["params_gap_c_to_a"] = _npz_gap(c["npz"], a["npz"])
+        c["loss_gap"] = max(abs(x - y) for x, y in zip(c["losses"], a["losses"][4:]))
+        log("orbax", part="resume_run_c", card=json.dumps(card),
+            params_gap_c_to_a=c["params_gap_c_to_a"],
+            bit_equal=c["params_gap_c_to_a"] == 0.0, loss_gap_resumed_steps=c["loss_gap"],
+            losses_c=json.dumps(c["losses"]), restore_ms_in_cli=float(
+                resumed[0].rsplit(", ", 1)[1].split(" ms")[0]),
+            launches=json.dumps([done["fwd"], done["bwd"]]))
+        return c, done
+
+    return run_c
+
+
+def phase_orbax(card: str) -> None:
+    """[orbax] (a): the JAX package's golden Orbax checkpoint decoded here
+    by the port's reader, every leaf against the digests the JAX package's
+    restore gave (tests/torch_orbax_golden.json), and the golden loss on
+    the card from the decoded state with the recorded draws, the crop view
+    resized at fp32."""
+    from cross_scale_mae_torch import configs
+    from cross_scale_mae_torch.models.mae import mae_loss_fn
+    from cross_scale_mae_torch.ops.image import crop_resize
+    from cross_scale_mae_torch.train.optim import build_optimizer
+    from cross_scale_mae_torch.utils import orbax
+    from cross_scale_mae_torch.utils.checkpoint import checkpoint_meta, restore_orbax_host
+    from cross_scale_mae_torch.utils.params import params_from_jax, train_state_from_jax
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    golden = os.path.join(tests, "golden", "ckpt_v1")
+    with open(os.path.join(tests, "torch_orbax_golden.json")) as f:
+        held = json.load(f)
+    with open(os.path.join(golden, "golden_values.json")) as f:
+        want = json.load(f)["loss_after_restore"]
+    t0 = time.perf_counter()
+    tree, step = restore_orbax_host(golden, subset=None)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    got = orbax.digests(tree)
+    differ = sorted(k for k in set(got) | set(held["leaves"])
+                    if got.get(k) != held["leaves"].get(k))
+    check(step == held["step"] and not differ,
+          f"golden leaves differ from their digests: {differ[:5]} ({len(differ)})")
+    cfg = configs.MAEConfig.from_json(json.dumps(checkpoint_meta(golden, step)["config"]))
+    dev = torch.device("cuda")
+    template = params_from_jax(tree["params"], cfg, dev, full=True)
+    state = train_state_from_jax(tree, cfg, build_optimizer(template, lambda s: 1e-3,
+                                                            weight_decay=0.05), dev)
+    batch = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(4, 16, 16, 3)).astype(np.float32)).to(dev)
+    boxes = torch.from_numpy(np.asarray(held["ms_boxes"], held["ms_boxes_dtype"])).to(dev)
+    noise = torch.tensor(held["noise"], dtype=torch.float32, device=dev)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # IEEE fp32 products, as the CPU's
+    try:
+        with torch.no_grad():
+            # The golden value is JAX's CPU arithmetic, where the crop's
+            # DEFAULT precision is fp32. On the card the training crop rounds
+            # its operands to bf16, as a TPU does (ops/image.py), so the crop
+            # view goes in as a pair's second frame, resized at fp32; the
+            # training crop's loss is the control, logged.
+            crop = crop_resize(batch, boxes, cfg.input_size, "linear", exact=True)
+            loss = float(mae_loss_fn(state.params, state.model_state, cfg,
+                                     torch.stack([batch, crop], 1), noise=noise,
+                                     train=False).loss)
+            control = float(mae_loss_fn(state.params, state.model_state, cfg, batch,
+                                        noise=noise, ms_boxes=boxes, train=False).loss)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    log("orbax", part="golden", card=json.dumps(card), leaves=len(got), digests_equal=True,
+        step=step, read_ms=read_ms, library=orbax.ZSTD_LIBRARY, loss=loss, loss_want=want,
+        loss_gap=abs(loss - want), tol=ORBAX_LOSS_TOL, loss_bf16_crop=control,
+        loss_gap_bf16_crop=abs(control - want))
+    check(abs(loss - want) <= ORBAX_LOSS_TOL,
+          f"golden loss {loss} on the card, {want} wanted (within {ORBAX_LOSS_TOL})")
 
 
 def _ft_argv(tmp: str, impl: str, images: int, steps: int, *extra: str):
@@ -4552,6 +4730,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     rows = phase_kernel(card)
+    phase_orbax(card)
     # Each path is driven with the counts set to 0 just before it and read
     # just after it: serving (forward only), pretraining, finetuning, the
     # finetuning recipe, pretraining with bf16 moments, the SSIM losses, the
@@ -4584,17 +4763,19 @@ def main() -> int:
     phase_native(card)
     temporal_fwd, temporal_bwd = phase_temporal(card)
     sn_fwd, sn_bwd = phase_sentinel(card)
-    resume_fwd, resume_bwd = phase_resume(card)
+    (resume_fwd, resume_bwd), (orbax_fwd, orbax_bwd) = phase_resume(card)
     by_path = {"mha3_fwd": {"serving": served, "train": train_fwd, "train_ddp": ddp_fwd,
                             "train_mesh": mesh_fwd,
-                            "train_resume": resume_fwd, "linprobe": lp_fwd,
+                            "train_resume": resume_fwd,
+                            "train_resume_orbax": orbax_fwd, "linprobe": lp_fwd,
                             "train_temporal": temporal_fwd, "moments": moment_fwd,
                             **new_paths["mha3_fwd"],
                             **{k: v[0] for k, v in eval_paths.items()},
                             "observability": obs_fwd},
                "mha3_bwd": {"serving": 0, "train": train_bwd, "train_ddp": ddp_bwd,
                             "train_mesh": mesh_bwd,
-                            "train_resume": resume_bwd, "linprobe": 0,
+                            "train_resume": resume_bwd,
+                            "train_resume_orbax": orbax_bwd, "linprobe": 0,
                             "train_temporal": temporal_bwd, "moments": moment_bwd,
                             **{k: 0 for k in new_paths["mha3_fwd"]},
                             **{k: v[1] for k, v in eval_paths.items()},

@@ -38,7 +38,8 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("runtime")
     g.add_argument("--seed", default=0, type=int)
     g.add_argument("--output_dir", default="./output_dir")
-    g.add_argument("--resume", default="", help="checkpoint directory to resume from")
+    g.add_argument("--resume", default="", help="checkpoint directory to resume from (the "
+                   "port's, or a JAX run's Orbax one)")
     g.add_argument("--num_workers", default=os.cpu_count() or 4, type=int,
                    help="decode threads of the loader (at least 2)")
     g.add_argument("--log_interval", default=20, type=int)
@@ -323,7 +324,9 @@ def make_loader(args, dataset: Dataset, batch_size: int, rt: Runtime, *,
 def restore_classifier_run(args, state) -> tuple[Any, int, float]:
     """--resume of the classifier CLIs (cli/common.py:183-203 of the JAX
     package; util/misc.py:382-411): the newest checkpoint of the
-    directory restored into ``state`` in place, the epoch after its
+    directory (the port's ``state.pt`` or a JAX run's Orbax step, whose
+    AdamW or LARS state must have the structure of this run's optimizer
+    options) restored into ``state`` in place, the epoch after its
     ``epoch`` to start from, and its ``max_acc``; --start_epoch, where the
     CLI has it, wins when given. Returns (state, start_epoch, max_acc),
     (state, 0, 0.0) without either flag; a --resume directory with no

@@ -159,7 +159,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--drop_path", default=0.1, type=float)
     p.add_argument("--finetune", default="",
                    help="pretrained MAE params: an npz of save_params_npz, or a "
-                        "pretrain run's checkpoint directory")
+                        "pretrain run's checkpoint directory (the port's, or a JAX "
+                        "run's Orbax one)")
     p.add_argument("--eval", action="store_true", help="evaluate only")
     p.add_argument("--embed_dim", default=None, type=int)
     p.add_argument("--depth", default=None, type=int)
@@ -222,10 +223,11 @@ def load_pretrained_encoder(path: str, vcfg: ViTClassifierConfig, params: dict,
     """Overlay a pretrained MAE encoder onto fresh classifier params, from
     an npz of ``save_params_npz``, a reference ``.pth``
     (``utils/torch_import``, read at the classifier's widths) or the newest
-    step of a pretrain run's checkpoint directory (its params and sidecar
-    config). pos_embed and the head stay fresh (and fc_norm with the
-    global-pool head); a patch_embed of another shape keeps the fresh init,
-    any other misfit raises naming the parameter."""
+    step of a pretrain run's checkpoint directory, the port's or a JAX
+    run's Orbax one (its params and sidecar config). pos_embed and the
+    head stay fresh (and fc_norm with the global-pool head); a patch_embed
+    of another shape keeps the fresh init, any other misfit raises naming
+    the parameter."""
     if path.endswith(".pth"):
         if not os.path.isfile(path):
             raise SystemExit(f"--finetune {path}: no such .pth file")
@@ -249,7 +251,8 @@ def load_pretrained_encoder(path: str, vcfg: ViTClassifierConfig, params: dict,
     else:
         raise SystemExit(
             f"--finetune {path}: the port reads save_params_npz files (.npz), "
-            "reference checkpoints (.pth) and its own checkpoint directories")
+            "reference checkpoints (.pth) and checkpoint directories (its own and "
+            "the JAX package's Orbax ones)")
     pre, missing = mae_encoder_to_classifier(mae_params, vcfg)
     if pre["patch_embed"]["kernel"].shape != params["patch_embed"]["kernel"].shape:
         rank0_print("patch_embed shape mismatch; keeping fresh init")

@@ -105,7 +105,8 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="classify from the cls token (the linprobe default)")
     p.add_argument("--finetune", default="",
                    help="pretrained MAE params: an npz of save_params_npz, or a "
-                        "pretrain run's checkpoint directory")
+                        "pretrain run's checkpoint directory (the port's, or a JAX "
+                        "run's Orbax one)")
     p.add_argument("--eval", action="store_true", help="evaluate only")
     p.add_argument("--embed_dim", default=None, type=int)
     p.add_argument("--depth", default=None, type=int)

@@ -101,7 +101,11 @@ def layer_decay_scales(params: Params, layer_decay: float, depth: int) -> list[f
 class _Masked:
     """What the three optimizers share: the trainable leaves (optax
     ``masked``), the clip over them, the update with the layer-decay
-    scales, and the per-leaf state as a tree with None on frozen leaves."""
+    scales, and the per-leaf state as a tree with None on frozen leaves.
+    ``masked`` says whether a frozen mask was given (the JAX chain is then
+    wrapped in ``optax.masked``, which its state's structure shows)."""
+
+    masked = False
 
     def __init__(self, schedule: Callable[[int], float], trainable: list[bool],
                  clip_grad: Optional[float], scales: Optional[list[float]]):
@@ -464,11 +468,14 @@ def build_optimizer(
             raise ValueError("layer_decay needs the model's depth")
         scales = layer_decay_scales(params, layer_decay, depth)
     if optimizer == "lars":
-        return Lars(schedule, trainable, weight_decay=weight_decay, momentum=lars_momentum,
-                    trust_coefficient=lars_trust_coefficient, clip_grad=clip_grad,
-                    scales=scales)
-    if optimizer == "sgd":
-        return Sgd(schedule, trainable, clip_grad=clip_grad, scales=scales)
-    return AdamW(schedule, wd_mask(params, no_decay_names), b1=b1, b2=b2, eps=1e-8,
-                 weight_decay=weight_decay, clip_grad=clip_grad, scales=scales,
-                 trainable=trainable, zero1=zero1, **dtypes)
+        tx = Lars(schedule, trainable, weight_decay=weight_decay, momentum=lars_momentum,
+                  trust_coefficient=lars_trust_coefficient, clip_grad=clip_grad,
+                  scales=scales)
+    elif optimizer == "sgd":
+        tx = Sgd(schedule, trainable, clip_grad=clip_grad, scales=scales)
+    else:
+        tx = AdamW(schedule, wd_mask(params, no_decay_names), b1=b1, b2=b2, eps=1e-8,
+                   weight_decay=weight_decay, clip_grad=clip_grad, scales=scales,
+                   trainable=trainable, zero1=zero1, **dtypes)
+    tx.masked = frozen_mask is not None
+    return tx

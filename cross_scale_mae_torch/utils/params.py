@@ -10,7 +10,11 @@ with ``full=True``, the whole tree the training step runs;
 ``state_from_jax`` carries the predictors' BatchNorm statistics and the
 perceptual loss's VGG16 trunk (HWIO kernels, kept so);
 ``train_state_from_jax`` carries a whole JAX pretrain TrainState (params,
-BatchNorm state, optax's Adam moments and count, step) into the port's;
+BatchNorm state, optax's Adam moments and count, step) into the port's,
+through ``train_state_flat_from_jax``, the mapping of any JAX TrainState
+(pretrain, finetune, linear probe) to the port's flat state_dict, whose
+inverse ``jax_train_state`` the Orbax writer uses; ``optax_layout`` is the
+optax state's structure for each ``build_optimizer`` option;
 ``vit_params_from_jax`` carries the downstream classifier's tree;
 ``params_to_jax`` is the way back for every tree. A tree quantized by the
 JAX package's ``quantize_params_int8`` (``{"__int8__", "scale"}`` kernel
@@ -223,36 +227,176 @@ def state_from_jax(state: Mapping[str, Any], cfg: MAEConfig,
     return _to_torch(_checked(state, mae_state_shapes(cfg), "state"), device)
 
 
-def _adam_state(node: Any) -> Mapping | None:
-    """The Adam state (``count``, ``mu``, ``nu``) inside a chain's state:
-    optax's ``ScaleByAdamState`` or the JAX package's own
-    (``scale_by_adam_moment_dtypes``, with ``--adam_nu_dtype``), a
-    namedtuple in a live JAX TrainState, a dict in a host restore; its place
-    in the chain depends on the options (clipping comes first)."""
-    if hasattr(node, "_asdict"):
-        node = node._asdict()
-    if isinstance(node, Mapping):
-        if "mu" in node and "nu" in node:
-            return node
-        children = list(node.values())
-    elif isinstance(node, (list, tuple)):
-        children = list(node)
-    else:
-        return None
-    for child in children:
-        found = _adam_state(child)
-        if found is not None:
-            return found
-    return None
-
-
 def _from_numpy(value: Any) -> torch.Tensor:
     """A JAX leaf as a tensor of its dtype; numpy has no bfloat16 of its own
-    (JAX's is ml_dtypes'), so a bf16 leaf goes through fp32, exactly."""
+    (JAX's is ml_dtypes'), so a bf16 leaf goes through fp32, exactly. A
+    tensor (``utils/orbax``'s bf16 leaves) is taken as it is."""
+    if isinstance(value, torch.Tensor):
+        return value
     arr = np.asarray(value)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
+
+
+COUNT = "count"
+
+
+def optax_layout(tx) -> Any:
+    """The structure of the JAX package's optax state for the options the
+    port's optimizer ``tx`` was built with (``train/optim.build_optimizer``;
+    the JAX ``build_optimizer``'s chain), as a host restore holds it: dicts
+    for optax's NamedTuple states, lists for chains and tuples, and as
+    leaves ``"count"`` (the step count), ``"mu"`` or ``"nu"`` (a moment tree
+    shaped like the params; SGD's ``trace`` is the port's ``mu``) and None
+    (an empty state). The chain is [clip] + the optimizer + [layer decay],
+    inside ``optax.masked`` when a frozen mask was given; AdamW is optax's
+    ``adamw`` (a chain of its own), or with ``nu_dtype`` the JAX package's
+    ``scale_by_adam_moment_dtypes``, weight decay and lr in the outer chain."""
+    from cross_scale_mae_torch.train.optim import AdamW, Lars, Sgd
+
+    if isinstance(tx, Sgd):
+        core = [[{"trace": "mu"}, {"count": COUNT}]]
+    elif isinstance(tx, Lars):
+        core = [[{"mu": "mu"}, COUNT]]
+    elif isinstance(tx, AdamW):
+        adam = [{"count": COUNT, "mu": "mu", "nu": "nu"}, {"inner_state": None},
+                {"count": COUNT}]
+        core = adam if tx.upcast_first else [adam]
+    else:
+        raise ValueError(f"optimizer {type(tx).__name__}: no known optax state structure "
+                         "(build it with train/optim.build_optimizer)")
+    chain = [None] * (tx.clip_grad is not None) + core + [None] * (tx.scales is not None)
+    return [{"inner_state": chain}, {"inner_state": None}] if tx.masked else chain
+
+
+def _plain(node: Any) -> Any:
+    """A live JAX state's node as a host restore holds it: a NamedTuple as
+    a dict, a tuple as a list, an empty one (optax's EmptyState, a frozen
+    leaf's MaskedNode) as None."""
+    if hasattr(node, "_asdict"):
+        node = dict(node._asdict())
+    elif isinstance(node, tuple):
+        node = list(node)
+    return None if isinstance(node, (dict, list)) and not node else node
+
+
+def opt_state_from_jax(opt_state: Any, tx) -> dict[str, torch.Tensor]:
+    """The port's flat optimizer state (``count``, ``mu/<path>``,
+    ``nu/<path>``; a frozen leaf has none) from the JAX optax state
+    ``opt_state`` (live, or a host restore's dicts and lists), every node
+    placed by :func:`optax_layout` of ``tx``. A node that does not fit, or
+    step counts that disagree, raise naming the node's path: a state the
+    port cannot place is refused, never restarted from zero."""
+    flat: dict[str, torch.Tensor] = {}
+    counts: list[int] = []
+
+    def refuse(path, node, want):
+        got = type(node).__name__ if not isinstance(node, Mapping) else f"keys {sorted(node)}"
+        raise ValueError(f"{path}: the JAX optimizer state holds {got} where the port's "
+                         f"{type(tx).__name__} has {want}: the two runs' optimizer options "
+                         "differ (optimizer, clip_grad, nu_dtype, layer_decay, frozen mask)")
+
+    def walk(node, spec, path):
+        node = _plain(node)
+        if spec is None:
+            if node is not None:
+                refuse(path, node, "an empty state")
+        elif spec == COUNT:
+            if node is None or isinstance(node, (Mapping, list)) or np.ndim(node):
+                refuse(path, node, "a step count")
+            counts.append(int(np.asarray(node)))
+        elif isinstance(spec, str):
+            if not isinstance(node, Mapping):
+                refuse(path, node, f"the moment tree {spec}")
+            flat.update({k: _from_numpy(v) for k, v in jax_paths(node, spec).items()})
+        elif isinstance(spec, dict):
+            if not isinstance(node, Mapping) or set(node) != set(spec):
+                refuse(path, node, f"keys {sorted(spec)}")
+            for k in spec:
+                walk(node[k], spec[k], f"{path}/{k}")
+        else:
+            if not isinstance(node, list) or len(node) != len(spec):
+                refuse(path, node, f"a sequence of {len(spec)}")
+            for i, (child, sub) in enumerate(zip(node, spec)):
+                walk(child, sub, f"{path}/{i}")
+
+    walk(opt_state, optax_layout(tx), "opt_state")
+    if len(set(counts)) != 1:
+        raise ValueError(f"opt_state: the step counts {counts} disagree")
+    flat[COUNT] = torch.tensor(counts[0])
+    return flat
+
+
+def opt_state_to_jax(flat: Mapping[str, Any], tx, param_paths: list[str]) -> Any:
+    """The inverse of :func:`opt_state_from_jax`: the port's flat optimizer
+    state (``count``, ``mu/<path>``, ...) as the JAX optax state of the
+    options ``tx`` was built with; ``param_paths`` are the params'
+    '/'-joined paths (a frozen leaf's moment is None, a MaskedNode)."""
+    count = np.asarray(int(flat[COUNT]), np.int32)
+
+    def moments(name):
+        tree: dict = {}
+        for path in param_paths:
+            value = flat.get(f"{name}/{path}")
+            if value is None and not tx.masked:
+                raise KeyError(f"the optimizer state lacks {name}/{path}")
+            _put(tree, path.split("/"), value)
+        return tree
+
+    def build(spec):
+        if spec is None:
+            return None
+        if spec == COUNT:
+            return count
+        if isinstance(spec, str):
+            return moments(spec)
+        if isinstance(spec, dict):
+            return {k: build(v) for k, v in spec.items()}
+        return [build(v) for v in spec]
+
+    return build(optax_layout(tx))
+
+
+def _put(tree: dict, parts: list[str], value: Any) -> None:
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = value
+
+
+def train_state_flat_from_jax(state: Any, tx) -> dict[str, torch.Tensor]:
+    """The port's flat ``TrainState.state_dict`` (``params/...``,
+    ``model_state/...``, ``opt_state/...``, ``step``; host tensors) of a JAX
+    TrainState: a live one, or the dict of ``restore_arrays_host(...,
+    subset=None)`` from the JAX package or ``utils/orbax``. The optimizer
+    state is placed by :func:`opt_state_from_jax` for ``tx``."""
+    def get(key):
+        return state[key] if isinstance(state, Mapping) else getattr(state, key)
+
+    flat = {k: _from_numpy(v) for prefix in ("params", "model_state")
+            for k, v in jax_paths(get(prefix), prefix).items()}
+    flat.update({f"opt_state/{k}": v for k, v in opt_state_from_jax(get("opt_state"),
+                                                                       tx).items()})
+    flat["step"] = torch.tensor(int(np.asarray(get("step"))))
+    return flat
+
+
+def jax_train_state(flat: Mapping[str, Any], tx) -> dict[str, Any]:
+    """The inverse of :func:`train_state_flat_from_jax`: the JAX TrainState
+    tree (``params``, ``model_state``, ``opt_state``, ``step``; the step and
+    counts int32, as JAX keeps them) of the port's flat state_dict, for the
+    options ``tx`` was built with."""
+    trees: dict[str, dict] = {"params": {}, "model_state": {}}
+    opt = {}
+    for key, value in flat.items():
+        top, _, rest = key.partition("/")
+        if top in trees:
+            _put(trees[top], rest.split("/"), value)
+        elif top == "opt_state":
+            opt[rest] = value
+    param_paths = [k[len("params/"):] for k in flat if k.startswith("params/")]
+    return {**trees, "opt_state": opt_state_to_jax(opt, tx, param_paths),
+            "step": np.asarray(int(flat["step"]), np.int32)}
 
 
 def train_state_from_jax(state: Any, cfg: MAEConfig, tx,
@@ -262,23 +406,14 @@ def train_state_from_jax(state: Any, cfg: MAEConfig, tx,
     state made with ``tx`` (the port's AdamW for the same options, the
     moment dtypes included: bf16 moments restore only into bf16 ones).
     ``state`` is a JAX TrainState or the dict of
-    ``restore_arrays_host(..., subset=None)``; leaves go through numpy,
-    bf16 ones exactly through fp32."""
+    ``restore_arrays_host(..., subset=None)``; the mapping is
+    :func:`train_state_flat_from_jax`, bf16 leaves carried exactly."""
     def get(key):
         return state[key] if isinstance(state, Mapping) else getattr(state, key)
 
-    adam = _adam_state(get("opt_state"))
-    if adam is None:
-        raise ValueError("the JAX optimizer state holds no Adam moments (mu, nu)")
     params = params_from_jax(get("params"), cfg, device, full=True)
     out = TrainState.create(params, state_from_jax(get("model_state"), cfg, device), tx)
-    trees = {"params": get("params"), "model_state": get("model_state"),
-             "opt_state/mu": adam["mu"], "opt_state/nu": adam["nu"]}
-    flat = {k: _from_numpy(v).to(device)
-            for prefix, tree in trees.items() for k, v in jax_paths(tree, prefix).items()}
-    flat["opt_state/count"] = torch.tensor(int(np.asarray(adam["count"])))
-    flat["step"] = torch.tensor(int(np.asarray(get("step"))))
-    return out.load_state_dict(flat)
+    return out.load_state_dict(train_state_flat_from_jax(state, tx))
 
 
 def params_to_jax(tree: Any) -> Any:

@@ -41,8 +41,8 @@ PANEL_TITLES = ("original", "masked", "reconstruction", "recon + visible")
 
 def prepare_model(ckpt_dir: str, step: Optional[int] = None,
                   device: torch.device | str = "cpu") -> tuple[dict, dict, MAEConfig]:
-    """(params, model_state, cfg) of a pretrain checkpoint directory of the
-    port (the newest step, or ``step``), rebuilt from the config its sidecar
+    """(params, model_state, cfg) of a pretrain checkpoint directory, the
+    port's or a JAX run's Orbax one (the newest step, or ``step``), rebuilt from the config its sidecar
     carries (util/viz.py:27-89), on ``device``. Only the params and the
     model state are read, as host arrays: the optimizer's layout does not
     matter."""

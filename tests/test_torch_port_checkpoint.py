@@ -30,6 +30,7 @@ import jax.numpy as jnp
 from cross_scale_mae_torch import configs as pcfg
 from cross_scale_mae_torch.train.state import tree_leaves
 from cross_scale_mae_torch.utils import checkpoint as pckpt
+from tests.torch_jax_state import jax_moments
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "ckpt_v1")
 
@@ -195,7 +196,6 @@ def test_train_state_from_jax_carries_bf16_moments(dtypes):
     from cross_scale_mae_tpu.train import TrainState, build_optimizer
     from cross_scale_mae_torch.train.optim import build_optimizer as pbuild
     from cross_scale_mae_torch.utils.params import (
-        _adam_state,
         params_from_jax,
         params_to_jax,
         train_state_from_jax,
@@ -211,7 +211,7 @@ def test_train_state_from_jax_carries_bf16_moments(dtypes):
         grads = jax.tree.map(lambda a: jnp.asarray(rng.normal(size=a.shape), jnp.float32),
                              params)
         jstate = jstate.apply_gradients(grads)
-    adam = _adam_state(jstate.opt_state)
+    adam = jax_moments(jstate.opt_state)
     assert adam["mu"]["decoder_pred"]["kernel"].dtype == jnp.bfloat16
 
     def template():

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from cross_scale_mae_tpu import configs as jcfg
 from cross_scale_mae_torch import configs as pcfg
 from cross_scale_mae_torch.utils import params as pparams
+from tests.torch_jax_state import jax_moments
 
 # The lockstep's tiny classifier: depth 2, D 32, 4 heads, 16 px, patch 4.
 TINY = dict(input_size=16, patch_size=4, embed_dim=32, depth=2, num_heads=4,
@@ -532,7 +533,7 @@ def test_adam_moment_dtypes_match_jax_over_steps(mu, nu):
     got, ref, state, js = _run_both(kw, steps=6)
     mean, share = _moment_gaps(got, ref)
     assert mean <= MOMENT_MEAN_TOL and share <= MOMENT_SHARE_TOL, (mean, share)
-    adam = pparams._adam_state(js)
+    adam = jax_moments(js)
     _, pc = _cfgs(global_pool=True)
     from cross_scale_mae_torch.train.state import tree_like
 

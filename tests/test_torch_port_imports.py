@@ -1,5 +1,7 @@
-"""The PyTorch port imports no JAX: an AST scan of every module of
-``cross_scale_mae_torch`` and of ``chip_smoke.py``."""
+"""The PyTorch port imports no JAX, and reads the JAX package's Orbax
+checkpoints without orbax, tensorstore, zstandard or msgpack (none is on
+the GPU host): an AST scan of every module of ``cross_scale_mae_torch`` and
+of ``chip_smoke.py``."""
 
 import ast
 from pathlib import Path
@@ -7,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cross_scale_mae_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "msgpack",
+             "cross_scale_mae_tpu"}
 FILES = sorted((ROOT / "cross_scale_mae_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

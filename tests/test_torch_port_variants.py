@@ -44,6 +44,7 @@ from cross_scale_mae_torch import configs as pcfg
 from cross_scale_mae_torch.models import layers as players
 from cross_scale_mae_torch.ops import attention as pattn
 from cross_scale_mae_torch.utils import params as pparams
+from tests.torch_jax_state import jax_moments
 
 VARIANTS = ("linformer", "nystrom", "orthoformer", "local", "fourier_mix")
 DTYPES = ("float32", "bfloat16")
@@ -516,7 +517,7 @@ def test_train_state_from_jax_carries_linformer_projections():
     pp = pparams.params_from_jax(params, pc, full=True)
     port = pparams.train_state_from_jax(jstate, pc, build_optimizer(pp, lambda s: 1e-3))
     sd = port.state_dict()
-    adam = pparams._adam_state(jstate.opt_state)
+    adam = jax_moments(jstate.opt_state)
     for stack in ("encoder_blocks", "decoder_blocks"):
         for name in ("e_proj", "f_proj"):
             path = f"{stack}/attn/{name}"
