@@ -1073,9 +1073,11 @@ LP_KINDS = (("mha3_fwd", ("mha3_fwd",)), ("matmul", MATMUL_NAMES),
             ("copies", ("copy", "catarray")))
 
 
-# The port's torch.profiler ranges (ops/augment.py, train/classify.py): their
-# device-side spans are ranges, not kernels, and are left out of the kinds.
-RANGES = ("randaug", "color_jitter", "random_erasing", "mixup_cutmix")
+# The port's spans (utils/profiling.span, opened by the training steps and
+# ops/augment.py): under a CPU+CUDA window their device-side spans are
+# ranges, not kernels, and are left out of the kinds and the busy time.
+RANGES = ("step", "augment", "forward", "backward", "exchange", "optimizer", "randaug",
+          "color_jitter", "random_erasing", "mixup_cutmix")
 
 
 def _kernel_ms_by_kind(prof, rules=K1_KINDS) -> dict:
@@ -1573,7 +1575,7 @@ def phase_ddp(card: str) -> tuple[int, int]:
             nccl = {}
             busy = 0.0
             for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in RANGES:
                     busy += e.self_device_time_total / 1e3 / 3
                     if "nccl" in e.key.lower():
                         nccl[e.key] = e.self_device_time_total / 1e3 / 3
@@ -3821,7 +3823,8 @@ def phase_ssim(card: str) -> None:
             loss_step("mse_ssim")(None)
         torch.cuda.synchronize()
     kernels = sorted(((e.self_device_time_total / 3e3, e.key) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.key not in RANGES), reverse=True)
     log("ssim", card=json.dumps(card), shape=json.dumps(list(x.shape)),
         card_values=json.dumps(card_r[:2]), host_fp32=json.dumps(host_r[:2]),
         float64=json.dumps(ref[:2]), card_vs_float64=json.dumps(card_gaps),
@@ -4272,7 +4275,8 @@ def phase_variants(card: str) -> dict:
             kinds = _kernel_ms_by_kind(prof, VARIANT_KINDS)
             top = sorted(((e.self_device_time_total / 1e3, e.key[:60]) for e in
                           prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.key not in RANGES), reverse=True)
             ms = sum(times) / len(times)
             busy = sum(kinds.values())
             log("variants", card=json.dumps(card), variant=variant, batch=TRAIN_BATCH,

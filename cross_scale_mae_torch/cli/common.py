@@ -77,7 +77,8 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
                    help="wandb team/entity (main_pretrain.py wandb flags)")
     o.add_argument("--profile_dir", default=None,
                    help="pretraining: a torch.profiler Chrome trace of steps 10-30 of the "
-                        "first epoch here")
+                        "first epoch here, with the step's spans (step, augment, forward, "
+                        "backward, exchange, optimizer) on the kernels' timeline")
     o.add_argument("--jax_platforms", default=None,
                    help="the JAX package's platform pin: 'cpu' runs as --device cpu")
     n = p.add_argument_group("runtime, JAX-only and accepted as not applicable")

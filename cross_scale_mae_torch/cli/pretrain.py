@@ -69,7 +69,9 @@ TensorBoard (``--use_tensorboard``: ``<run dir>/tb``) and wandb (``--use_wandb``
 ``--wandb_project``, ``--wandb_entity``, ``--wandb_id``) on the epoch_1000x
 axis, each where its package imports. ``--profile_dir`` writes a
 torch.profiler Chrome trace of steps 10-30 of the first epoch
-(``utils/profiling.TraceWindow``), closed when the run ends sooner.
+(``utils/profiling.TraceWindow``), closed when the run ends sooner; the
+step's spans (``utils/profiling.span``: step, augment, forward, backward,
+exchange, optimizer) lie on its timeline above the kernels they launched.
 ``--jax_platforms cpu`` runs as ``--device cpu``.
 
 The mesh beyond the data axis (``parallel/mesh.py``), under the gspmd step:

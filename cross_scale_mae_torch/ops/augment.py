@@ -14,7 +14,6 @@ import dataclasses
 from typing import Callable, Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from cross_scale_mae_torch.ops.image import (
     center_crop_resize,
@@ -35,6 +34,7 @@ from cross_scale_mae_torch.ops.randaug import (
     sample_randaug_draws,
 )
 from cross_scale_mae_torch.ops.randaug import color_jitter as color_jitter_fn
+from cross_scale_mae_torch.utils.profiling import span
 
 # RandomResizedCrop area range of the train transform (util/datasets.py:130-136).
 PRETRAIN_CROP_SCALE = (0.25, 1.0)
@@ -135,8 +135,8 @@ def make_finetune_augment(
     rot_k=None, randaug=None, jitter=None, erase=None)``, boxes drawn on the
     batch's canvas with ``PRETRAIN_CROP_SCALE``, the extras' draws from
     ``augment.extras.sample``; ``augment.extras`` is the
-    :class:`AugmentExtras`. Each extra runs in a ``torch.profiler``
-    range of its name (``randaug``, ``color_jitter``, ``random_erasing``)."""
+    :class:`AugmentExtras`. Each extra runs in a span of its name
+    (``randaug``, ``color_jitter``, ``random_erasing``; ``utils/profiling.span``)."""
     extras = AugmentExtras(parse_rand_augment(aa), color_jitter, reprob, remode, recount)
     tdtype = getattr(torch, dtype)
 
@@ -149,15 +149,15 @@ def make_finetune_augment(
             x = random_rot90(x, _rotations(rot_k))
         x = random_resized_crop(x, boxes, input_size, "cubic")
         if extras.aa is not None:
-            with record_function("randaug"):
+            with span("randaug", x.device):
                 x = rand_augment(x, _needed(randaug, "RandAugment"), extras.aa)
         elif extras.jitter is not None:
-            with record_function("color_jitter"):
+            with span("color_jitter", x.device):
                 x = color_jitter_fn(x, _needed(jitter, "ColorJitter"))
         if normalize:
             x = normalize_images(x, mean, std)
         if extras.reprob > 0:
-            with record_function("random_erasing"):
+            with span("random_erasing", x.device):
                 x = random_erasing(x, _needed(erase, "RandomErasing"), extras.remode)
         return x.to(tdtype)
 

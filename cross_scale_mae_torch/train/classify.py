@@ -25,7 +25,6 @@ from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from cross_scale_mae_torch.configs import TrainConfig, ViTClassifierConfig
 from cross_scale_mae_torch.models.vit import drop_path_rates, vit_apply
@@ -48,6 +47,7 @@ from cross_scale_mae_torch.train.mixup import (
     soft_cross_entropy,
 )
 from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_leaves
+from cross_scale_mae_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -127,31 +127,35 @@ def make_classify_loss_fn(cfg: ViTClassifierConfig, tcfg: TrainConfig,
     ``freeze_backbone``), soft cross-entropy. ``global_stats``: the
     global-batch semantics under data parallelism (the BN head's statistics
     over every rank's rows, the mix partners from the mirror rank). The mix
-    runs in a ``torch.profiler`` range, ``mixup_cutmix``."""
+    runs in a span of its own, ``mixup_cutmix``, inside the augment's
+    (``utils/profiling.span``)."""
     mix_cfg = MixupConfig.from_train_config(tcfg)
 
     def loss_fn(params, model_state, imgs, labels, draws: FinetuneDraws):
-        if augment is not None:
-            imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes, draws.rot_k,
-                           **draws.augment_extras())
-        targets = smooth_one_hot(labels, cfg.num_classes, tcfg.label_smoothing)
-        if mix_cfg is not None:
-            if draws.mixup is None:
-                raise ValueError("the step mixes (Mixup/CutMix) and needs its draws")
-            with record_function("mixup_cutmix"):
-                partner_imgs, partner_labels = (mirror_rank_rows([imgs, labels])
-                                                if global_stats else (imgs, labels))
-                imgs, targets = mixup_cutmix(
-                    imgs, targets, partner_imgs.flip(0),
-                    smooth_one_hot(partner_labels.flip(0), cfg.num_classes,
-                                   tcfg.label_smoothing),
-                    draws.mixup, mix_cfg.cutmix_minmax)
-        logits, new_state = vit_apply(params, model_state, cfg, imgs, train=True,
-                                      drop_masks=draws.drop_masks,
-                                      freeze_backbone=freeze_backbone,
-                                      global_stats=global_stats)
-        acc1 = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
-        return soft_cross_entropy(logits, targets), (acc1.detach(), new_state)
+        with span("augment", imgs.device):
+            if augment is not None:
+                imgs = augment(imgs, draws.hflip, draws.vflip, draws.crop_boxes, draws.rot_k,
+                               **draws.augment_extras())
+            targets = smooth_one_hot(labels, cfg.num_classes, tcfg.label_smoothing)
+            if mix_cfg is not None:
+                if draws.mixup is None:
+                    raise ValueError("the step mixes (Mixup/CutMix) and needs its draws")
+                with span("mixup_cutmix", imgs.device):
+                    partner_imgs, partner_labels = (mirror_rank_rows([imgs, labels])
+                                                    if global_stats else (imgs, labels))
+                    imgs, targets = mixup_cutmix(
+                        imgs, targets, partner_imgs.flip(0),
+                        smooth_one_hot(partner_labels.flip(0), cfg.num_classes,
+                                       tcfg.label_smoothing),
+                        draws.mixup, mix_cfg.cutmix_minmax)
+        with span("forward", imgs.device):
+            logits, new_state = vit_apply(params, model_state, cfg, imgs, train=True,
+                                          drop_masks=draws.drop_masks,
+                                          freeze_backbone=freeze_backbone,
+                                          global_stats=global_stats)
+            acc1 = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
+            loss = soft_cross_entropy(logits, targets)
+        return loss, (acc1.detach(), new_state)
 
     return loss_fn
 
@@ -191,44 +195,48 @@ def make_classify_train_step(cfg: ViTClassifierConfig, tcfg: TrainConfig,
     def step(state: TrainState, imgs: torch.Tensor, labels: torch.Tensor,
              draws: FinetuneDraws | Sequence[FinetuneDraws]):
         nonlocal flat
-        draws = [draws] if isinstance(draws, FinetuneDraws) else list(draws)
-        if len(draws) != accum or imgs.shape[0] % accum:
-            raise ValueError(
-                f"batch of {imgs.shape[0]} with {len(draws)} draws does not split "
-                f"into accum_iter={accum} microbatches")
-        leaves = tree_leaves(state.params)
-        for p in leaves:
-            p.grad = None
-        micro = imgs.shape[0] // accum
-        model_state = state.model_state
-        loss, acc1 = 0.0, 0.0
-        for i, d in enumerate(draws):
-            part = slice(i * micro, (i + 1) * micro)
-            mb_loss, (mb_acc, model_state) = loss_fn(
-                state.params, model_state, imgs[part], labels[part], d)
-            mb_loss.backward()
-            loss, acc1 = loss + mb_loss.detach(), acc1 + mb_acc
-        # A parameter the objective does not reach gets a zero gradient, as
-        # in JAX, but for a frozen backbone's, which stay None.
-        grads = [p.grad if p.grad is not None or freeze_backbone else torch.zeros_like(p)
-                 for p in leaves]
-        reached = [g for g in grads if g is not None]
-        specs = [spec_of(p) for p, g in zip(leaves, grads) if g is not None]
-        if data_parallel:
-            flat, averaged = average_gradients(flat, reached, specs)
-            averaged = iter(averaged)
-            grads = [None if g is None else next(averaged) for g in grads]
+        with span("step", imgs.device):
+            draws = [draws] if isinstance(draws, FinetuneDraws) else list(draws)
+            if len(draws) != accum or imgs.shape[0] % accum:
+                raise ValueError(
+                    f"batch of {imgs.shape[0]} with {len(draws)} draws does not split "
+                    f"into accum_iter={accum} microbatches")
+            leaves = tree_leaves(state.params)
+            for p in leaves:
+                p.grad = None
+            micro = imgs.shape[0] // accum
+            model_state = state.model_state
+            loss, acc1 = 0.0, 0.0
+            for i, d in enumerate(draws):
+                part = slice(i * micro, (i + 1) * micro)
+                mb_loss, (mb_acc, model_state) = loss_fn(
+                    state.params, model_state, imgs[part], labels[part], d)
+                with span("backward", imgs.device):
+                    mb_loss.backward()
+                loss, acc1 = loss + mb_loss.detach(), acc1 + mb_acc
+            # A parameter the objective does not reach gets a zero gradient, as
+            # in JAX, but for a frozen backbone's, which stay None.
+            grads = [p.grad if p.grad is not None or freeze_backbone else torch.zeros_like(p)
+                     for p in leaves]
             reached = [g for g in grads if g is not None]
-            all_reduce_mean([loss, acc1])
-        if accum > 1:
-            torch._foreach_mul_(reached, 1.0 / accum)
-            loss, acc1 = loss / accum, acc1 / accum
-        metrics = dict(loss=loss, grad_norm=global_norm(reached, specs),
-                       lr=schedule(state.step), acc1=acc1)
-        state.apply_gradients(grads, model_state)
-        for p in leaves:
-            p.grad = None
-        return state, metrics
+            specs = [spec_of(p) for p, g in zip(leaves, grads) if g is not None]
+            if data_parallel:
+                with span("exchange", imgs.device):
+                    flat, averaged = average_gradients(flat, reached, specs)
+                    averaged = iter(averaged)
+                    grads = [None if g is None else next(averaged) for g in grads]
+                    reached = [g for g in grads if g is not None]
+                    all_reduce_mean([loss, acc1])
+            if accum > 1:
+                torch._foreach_mul_(reached, 1.0 / accum)
+                loss, acc1 = loss / accum, acc1 / accum
+            with span("optimizer", imgs.device):
+                metrics = dict(loss=loss, grad_norm=global_norm(reached, specs),
+                               lr=schedule(state.step), acc1=acc1)
+                state.apply_gradients(grads, model_state)
+            for p in leaves:
+                p.grad = None
+            return state, metrics
 
     return step
 

@@ -50,6 +50,7 @@ from cross_scale_mae_torch.parallel.mesh import (
     spec_of,
 )
 from cross_scale_mae_torch.train.state import TrainState, global_norm, tree_items, tree_leaves
+from cross_scale_mae_torch.utils.profiling import span
 
 DDP_MODES = ("gspmd", "shard_map")
 
@@ -145,12 +146,14 @@ def make_pretrain_loss_fn(cfg: MAEConfig, augment: Callable | None,
         if augment is not None:
             # A pair's frames are rows b * T + t of the augmentation
             # (JAX train/pretrain.py:40-47); the pair axis comes back after.
-            lead = imgs.shape[:-3]
-            flat = augment(imgs.reshape((-1,) + imgs.shape[-3:]), draws.hflip, draws.vflip,
-                           draws.crop_boxes, draws.rot_k)
-            imgs = flat.reshape(lead + flat.shape[1:])
-        out = mae_loss_fn(params, model_state, cfg, imgs, noise=draws.noise,
-                          ms_boxes=draws.ms_boxes, train=True, global_batch=global_batch)
+            with span("augment", imgs.device):
+                lead = imgs.shape[:-3]
+                flat = augment(imgs.reshape((-1,) + imgs.shape[-3:]), draws.hflip,
+                               draws.vflip, draws.crop_boxes, draws.rot_k)
+                imgs = flat.reshape(lead + flat.shape[1:])
+        with span("forward", imgs.device):
+            out = mae_loss_fn(params, model_state, cfg, imgs, noise=draws.noise,
+                              ms_boxes=draws.ms_boxes, train=True, global_batch=global_batch)
         return out.loss, out
 
     return loss_fn
@@ -187,54 +190,59 @@ def make_pretrain_step(cfg: MAEConfig, tcfg: TrainConfig,
     def step(state: TrainState, batch: torch.Tensor,
              draws: PretrainDraws | Sequence[PretrainDraws], stop: bool = False):
         nonlocal flat
-        draws = [draws] if isinstance(draws, PretrainDraws) else list(draws)
-        if len(draws) != accum or batch.shape[0] % accum:
-            raise ValueError(
-                f"batch of {batch.shape[0]} with {len(draws)} draws does not split "
-                f"into accum_iter={accum} microbatches")
-        leaves = tree_leaves(state.params)
-        for p in leaves:
-            p.grad = None
-        micro = batch.shape[0] // accum
-        model_state = state.model_state
-        loss, losses = 0.0, {}
-        for k, d in enumerate(draws):
-            mb_loss, out = loss_fn(state.params, model_state, batch[k * micro:(k + 1) * micro], d)
-            mb_loss.backward()
-            loss = loss + mb_loss.detach()
-            for name, v in out.losses.items():
-                losses[name] = losses.get(name, 0.0) + v.detach()
-            model_state = out.state
-        # A parameter the objective does not reach (encoder_norm while
-        # apply_encoder_norm is False) has a zero gradient, as in JAX.
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
-        specs = [spec_of(p) for p in leaves]
-        stops = {}
-        if ddp_mode is not None:
-            flat, grads = average_gradients(flat, grads, specs)
-            # A fill, not a copy from the host: the step does not wait.
-            stops["stop"] = torch.full((), float(stop), device=batch.device)
-            # shard_map averages the BatchNorm running state; the frozen
-            # VGG trunk is the same on every rank and stays out.
-            stats = ({k: v for k, v in model_state.items() if k != "vgg"}
-                     if ddp_mode == "shard_map" else {})
-            all_reduce_mean([loss, losses, stops, stats], world=True)
-        if accum > 1:
-            torch._foreach_mul_(grads, 1.0 / accum)
-            loss = loss / accum
-            losses = {k: v / accum for k, v in losses.items()}
-        metrics = dict(losses, loss=loss, grad_norm=global_norm(grads, specs),
-                       lr=schedule(state.step), **stops)
-        if tcfg.watch_gradients:
-            # wandb.watch's per-subtree gradient norms (main_pretrain.py:537).
-            names = [path[0] for path, _ in tree_items(state.params)]
-            for name in dict.fromkeys(names):
-                mine = [i for i, owner in enumerate(names) if owner == name]
-                metrics[f"gnorm/{name}"] = global_norm([grads[i] for i in mine],
-                                                       [specs[i] for i in mine])
-        state.apply_gradients(grads, model_state)
-        for p in leaves:
-            p.grad = None
-        return state, metrics
+        with span("step", batch.device):
+            draws = [draws] if isinstance(draws, PretrainDraws) else list(draws)
+            if len(draws) != accum or batch.shape[0] % accum:
+                raise ValueError(
+                    f"batch of {batch.shape[0]} with {len(draws)} draws does not split "
+                    f"into accum_iter={accum} microbatches")
+            leaves = tree_leaves(state.params)
+            for p in leaves:
+                p.grad = None
+            micro = batch.shape[0] // accum
+            model_state = state.model_state
+            loss, losses = 0.0, {}
+            for k, d in enumerate(draws):
+                mb_loss, out = loss_fn(state.params, model_state,
+                                       batch[k * micro:(k + 1) * micro], d)
+                with span("backward", batch.device):
+                    mb_loss.backward()
+                loss = loss + mb_loss.detach()
+                for name, v in out.losses.items():
+                    losses[name] = losses.get(name, 0.0) + v.detach()
+                model_state = out.state
+            # A parameter the objective does not reach (encoder_norm while
+            # apply_encoder_norm is False) has a zero gradient, as in JAX.
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+            specs = [spec_of(p) for p in leaves]
+            stops = {}
+            if ddp_mode is not None:
+                with span("exchange", batch.device):
+                    flat, grads = average_gradients(flat, grads, specs)
+                    # A fill, not a copy from the host: the step does not wait.
+                    stops["stop"] = torch.full((), float(stop), device=batch.device)
+                    # shard_map averages the BatchNorm running state; the
+                    # frozen VGG trunk is the same on every rank and stays out.
+                    stats = ({k: v for k, v in model_state.items() if k != "vgg"}
+                             if ddp_mode == "shard_map" else {})
+                    all_reduce_mean([loss, losses, stops, stats], world=True)
+            if accum > 1:
+                torch._foreach_mul_(grads, 1.0 / accum)
+                loss = loss / accum
+                losses = {k: v / accum for k, v in losses.items()}
+            with span("optimizer", batch.device):
+                metrics = dict(losses, loss=loss, grad_norm=global_norm(grads, specs),
+                               lr=schedule(state.step), **stops)
+                if tcfg.watch_gradients:
+                    # wandb.watch's per-subtree gradient norms (main_pretrain.py:537).
+                    names = [path[0] for path, _ in tree_items(state.params)]
+                    for name in dict.fromkeys(names):
+                        mine = [i for i, owner in enumerate(names) if owner == name]
+                        metrics[f"gnorm/{name}"] = global_norm([grads[i] for i in mine],
+                                                               [specs[i] for i in mine])
+                state.apply_gradients(grads, model_state)
+            for p in leaves:
+                p.grad = None
+            return state, metrics
 
     return step

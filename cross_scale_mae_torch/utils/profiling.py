@@ -13,7 +13,10 @@
   reference's ``max_memory_allocated`` line, util/misc.py:153-166); ``{}``
   on a host without one, as the JAX package gives ``{}`` for a device
   without statistics.
-* :class:`StepTimer`: steady-state images/s with a warm-up discard.
+* :func:`span`: the port's one profiler range. Off (no ``torch.profiler``
+  window open) it costs a flag read; on, it is a ``record_function``
+  range on the trace's timeline, and :func:`recorded` keeps its name,
+  parent, host interval and device ms for the latest window.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ import glob
 import os
 import socket
 import time
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as autograd_profiler
+from torch.profiler import record_function
 
 TRACE_SUFFIX = ".pt.trace.json"
 
@@ -130,25 +135,88 @@ def device_memory_stats() -> dict[str, float]:
             for i in range(torch.cuda.device_count())}
 
 
-class StepTimer:
-    """Steady-state steps/s and images/s, the first ``warmup`` ticks left
-    out (the JAX package's ``StepTimer``). The caller synchronises the
-    device before a tick where it needs device time."""
+class Span(NamedTuple):
+    """One span of the latest profiler window. ``parent``: the index in
+    :func:`recorded` of the span it was opened in (None at the top).
+    ``start_ns``, ``end_ns``: ``time.time_ns()``, the clock the profiler
+    stamps its events with (``end_ns`` None while the span is open).
+    ``device_ms``: the time between the span's two CUDA events on its
+    stream (None off CUDA or while open)."""
 
-    def __init__(self, batch_size: int, warmup: int = 2):
-        self.batch_size = batch_size
-        self.warmup = warmup
-        self._count = 0
-        self._t0: Optional[float] = None
+    name: str
+    parent: Optional[int]
+    start_ns: int
+    end_ns: Optional[int]
+    device_ms: Optional[float]
 
-    def tick(self) -> None:
-        self._count += 1
-        if self._count == self.warmup:
-            self._t0 = time.perf_counter()
 
-    @property
-    def imgs_per_sec(self) -> float:
-        if self._t0 is None or self._count <= self.warmup:
-            return 0.0
-        steady = self._count - self.warmup
-        return steady * self.batch_size / (time.perf_counter() - self._t0)
+class _Open:
+    __slots__ = ("name", "index", "parent", "start_ns", "end_ns", "stream", "events", "range")
+
+    def __init__(self, name: str, device: Optional[torch.device]):
+        self.name, self.end_ns, self.stream, self.events = name, None, None, None
+        if device is not None and device.type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self) -> "_Open":
+        global _stale
+        if _stale:   # the first span of a new window
+            _spans.clear()
+            _open.clear()
+            _stale = False
+        self.index, self.parent = len(_spans), _open[-1].index if _open else None
+        _spans.append(self)
+        _open.append(self)
+        self.start_ns = time.time_ns()
+        self.range = record_function(self.name)
+        self.range.__enter__()
+        if self.events is not None:
+            self.events[0].record(self.stream)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.events is not None:
+            self.events[1].record(self.stream)
+        self.range.__exit__(*exc)
+        self.end_ns = time.time_ns()
+        if _open and _open[-1] is self:
+            _open.pop()
+
+
+_OFF = contextlib.nullcontext()
+_spans: list[_Open] = []   # the latest window's spans, in entry order
+_open: list[_Open] = []    # the spans open now, innermost last
+_stale = True              # a span ran outside a window since the last one recorded
+
+
+def span(name: str, device: Optional[torch.device] = None) -> ContextManager:
+    """A profiler range around one phase of a step (``with span("optimizer",
+    x.device): ...``), opened at phase boundaries only, from one thread.
+
+    Outside a ``torch.profiler`` window it is one shared no-op context: a
+    flag read and a flag set, no allocation, no CUDA call. Inside one it enters
+    ``record_function(name)`` (the Chrome trace of :func:`trace` shows it),
+    takes the host clock at both ends and, on a CUDA ``device``, records a
+    timing event on its current stream at both ends; :func:`recorded`
+    returns it. The first span of a window (a span ran outside a window
+    since the last one recorded) starts the record anew."""
+    global _stale
+    if not autograd_profiler._is_profiler_enabled:
+        _stale = True
+        return _OFF
+    return _Open(name, device)
+
+
+def recorded() -> list[Span]:
+    """The spans of the latest profiler window, in entry order. Waits for
+    each span's end event, so the device ms are read after its work."""
+    out = []
+    for s in _spans:
+        ms = None
+        if s.events is not None and s.end_ns is not None:
+            s.events[1].synchronize()
+            ms = s.events[0].elapsed_time(s.events[1])
+        out.append(Span(s.name, s.parent, s.start_ns, s.end_ns, ms))
+    return out

@@ -3,8 +3,11 @@ on the CPU: ``utils/logging.RunLogger`` (log.jsonl, TensorBoard, wandb)
 against the JAX ``RunLogger`` with the same stand-in ``wandb`` module, the
 TensorBoard scalars read back from the event files; ``utils/profiling``
 (the trace, the pretrain CLI's ``--profile_dir`` window, the memory
-statistics, ``StepTimer``); the three training CLIs' logging flags; and
-``--jax_platforms cpu``.
+statistics, the step's spans); the three training CLIs' logging flags; and
+``--jax_platforms cpu``. One test, marked ``cuda``, holds the spans' clock
+to the kernels' on the card:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_observability.py
 
 No tolerance: the scalars are the same fp32 values on both sides, read back
 exactly.
@@ -18,6 +21,8 @@ import types
 import numpy as np
 import pytest
 import torch
+
+from cross_scale_mae_torch.utils.profiling import device_memory_stats, recorded, span
 
 TINY_PRETRAIN = ["--model", "mae_vit_tiny_MsLdCeCd", "--input_size", "16", "--patch_size", "8",
                  "--batch_size", "2", "--warmup_epochs", "0", "--device", "cpu"]
@@ -218,19 +223,153 @@ def test_jax_cli_leaves_a_short_first_epochs_trace_open_and_the_port_does_not(tm
     assert not torch.autograd.profiler._is_profiler_enabled
 
 
-def test_device_memory_stats_and_step_timer():
-    from cross_scale_mae_tpu.utils.profiling import StepTimer as JaxTimer
-    from cross_scale_mae_torch.utils.profiling import StepTimer, device_memory_stats
-
+def test_device_memory_stats():
     assert device_memory_stats() == {}   # no CUDA device, as JAX's stat-less devices
-    timers = StepTimer(8, warmup=2), JaxTimer(8, warmup=2)
-    for t in timers:
-        assert t.imgs_per_sec == 0.0
-        t.tick()
-        t.tick()
-        assert t.imgs_per_sec == 0.0
-        t.tick()
-        assert t.imgs_per_sec > 0 and t._count == 3
+
+
+# ---------------------------------------------------------------- spans
+
+STEP_PHASES = ["augment", "forward", "backward", "optimizer"]
+
+
+def _window(activities=(torch.profiler.ProfilerActivity.CPU,)):
+    """A profiler window after a span outside one, as a training loop runs
+    steps between windows: its spans are recorded anew."""
+    with span("outside"):
+        pass
+    return torch.profiler.profile(activities=list(activities))
+
+
+def _tree(spans) -> list:
+    """(name, parent's name) of each span, in entry order."""
+    return [(s.name, None if s.parent is None else spans[s.parent].name) for s in spans]
+
+
+def test_span_off_is_one_shared_no_op():
+    """Outside a profiler window every span is the same no-op object and
+    the record keeps the last window's spans."""
+    with _window():
+        with span("kept"):
+            pass
+    before = recorded()
+    first, second = span("step"), span("optimizer", torch.device("cpu"))
+    assert first is second
+    with first as entered:
+        assert entered is None
+    assert recorded() == before and [s.name for s in before] == ["kept"]
+
+
+def test_spans_nest_and_reset_at_the_next_window():
+    with _window():
+        with span("step"):
+            with span("augment"):
+                with span("randaug"):
+                    pass
+            with span("forward"):
+                pass
+        with span("step"):
+            pass
+    spans = recorded()
+    assert _tree(spans) == [("step", None), ("augment", "step"), ("randaug", "augment"),
+                            ("forward", "step"), ("step", None)]
+    assert all(s.start_ns <= s.end_ns and s.device_ms is None for s in spans)
+    assert spans[0].start_ns <= spans[1].start_ns and spans[3].end_ns <= spans[0].end_ns
+    with _window():
+        with span("next"):
+            pass
+    assert _tree(recorded()) == [("next", None)]
+
+
+def test_span_ranges_lie_inside_the_host_interval():
+    """Each span's record_function event in the same profile lies inside
+    the span's host interval (1 ms of slack): the recorder's clock is the
+    profiler's."""
+    with _window() as prof:
+        with span("step"):
+            with span("forward"):
+                (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+            with span("optimizer"):
+                torch.ones(8).mul_(2)
+    spans = recorded()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() in {s.name for s in spans}]
+    assert sorted(e.name() for e in events) == sorted(s.name for s in spans)
+    slack = 1_000_000
+    for s in spans:
+        e = next(e for e in events if e.name() == s.name)
+        assert s.start_ns - slack <= e.start_ns() <= e.start_ns() + e.duration_ns() \
+            <= s.end_ns + slack, s.name
+
+
+def _classify_run():
+    from cross_scale_mae_torch.cli.finetune import build_run, get_args_parser
+
+    args = get_args_parser().parse_args(
+        TINY_CLASSIFIER + ["--mixup", "0.8", "--cutmix", "1.0", "--aa", "rand-m9-mstd0.5-inc1",
+                           "--reprob", "0.25"])
+    run = build_run(args)
+    return lambda: run.step_fn(run.state, run.images[:4], run.labels[:4],
+                               run.draws(run.state.step))
+
+
+def _pretrain_run(accum: int):
+    from cross_scale_mae_torch.cli.pretrain import build_run, get_args_parser
+
+    run = build_run(get_args_parser().parse_args(
+        TINY_PRETRAIN + ["--synthetic_len", "8", "--accum_iter", str(accum)]))
+    return lambda: run.step_fn(run.state, run.images[:2 * accum], run.draws(run.state.step))
+
+
+@pytest.mark.parametrize("which,children", [
+    ("pretrain", STEP_PHASES),
+    ("pretrain_accum2", STEP_PHASES[:3] * 2 + STEP_PHASES[3:]),
+    ("classify", STEP_PHASES),
+])
+def test_training_steps_record_their_phases(which, children):
+    """A tiny pretrain step (one microbatch and two) and a tiny classify
+    step with RandAugment, RandomErasing and Mixup/CutMix record ``step``
+    with its phases under it, in order; the augment's extras and the mix
+    are the augment's children."""
+    step = _classify_run() if which == "classify" else _pretrain_run(2 if "accum" in which
+                                                                      else 1)
+    step()   # outside the window: nothing recorded, the next window starts anew
+    with _window():
+        step()
+    spans = recorded()
+    tree = _tree(spans)
+    assert tree[0] == ("step", None)
+    assert [name for name, parent in tree if parent == "step"] == children
+    inner = [name for name, parent in tree if parent not in (None, "step")]
+    assert inner == (["randaug", "random_erasing", "mixup_cutmix"] if which == "classify"
+                     else [])
+    assert all(parent == "augment" for _, parent in tree[2:] if _ in inner)
+
+
+@pytest.mark.cuda
+def test_span_clock_matches_the_cards_kernels():
+    """On the card: a sleep kernel inside a span lies inside the span's host
+    interval within 50 us on the profiler's clock (a CUDA-only window, as
+    the benchmark traces), the span's event pair reads the kernel's
+    duration within 5%, and the device trace holds no activity named after
+    a span (a GPU annotation there would count as device work)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from portbench.trace import from_profiler
+
+    dev = torch.device("cuda")
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with _window([torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with span("step", dev):
+            with span("augment", dev):
+                torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+    spans = recorded()
+    device = from_profiler(prof).device
+    assert not [a for a in device if a.name in ("step", "augment")]
+    (kernel,), (outer, inner) = [a for a in device if a.kind == "kernel"], spans
+    assert outer.start_ns / 1e3 - 50 <= kernel.start and kernel.end <= outer.end_ns / 1e3 + 50
+    assert inner.device_ms == pytest.approx((kernel.end - kernel.start) / 1e3, rel=0.05)
 
 
 # ---------------------------------------------------------------- the CLIs
