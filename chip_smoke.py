@@ -8,7 +8,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
 1. device: the card's name and power limit (nvidia-smi).
 2. build: compile every CUDA kernel (``ops/cuda_build.KERNELS``: K1
    ``csrc/mha3_fwd.cu`` and ``csrc/mha3_bwd.cu``, K2 ``csrc/mha_fwd.cu`` and
-   ``csrc/mha_bwd.cu``, K3 ``csrc/mha2_fwd.cu`` and ``csrc/mha2_bwd.cu``),
+   ``csrc/mha_bwd.cu``, K3 ``csrc/mha2_fwd.cu`` and ``csrc/mha2_bwd.cu``, the
+   fused AdamW ``csrc/adamw.cu``),
    one nvcc each, all at once; the phase fails unless ptxas reports every
    tensor-core instantiation (the bodies of ``csrc/mha_tc.cuh``,
    ``TC_KERNELS``) and none of them spills.
@@ -293,6 +294,22 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
     card's training crop (bf16 operands, as a TPU's) logged as the control
     (the golden is ``attention_impl`` "xla": the decoder's check, not a
     kernel's). Parts (b) and (c) run in phase 15.
+30. adamw (runs after phase 3): the fused AdamW kernel (``csrc/adamw.cu``)
+    on the cells' trainable leaf sets at full size, ViT-L's (the finetuning
+    cell's optimizer: layer decay 0.75, b2 0.999) with fp32 and with bf16
+    moments and the flagship MAE's (b2 0.95), random gradients: one update
+    through the kernel and one through the foreach chain from the same
+    state, the change of the params within ``ADAMW_DELTA_TOL`` of each other
+    (relative L2); then each timed (CUDA events over ``ADAMW_REPS`` updates,
+    the clip-free update a cell runs, host included), the kernel alone
+    (torch.profiler), and the byte bound (28 bytes an element with fp32
+    moments, 20 with bf16, at 3.35 TB/s). Gates: one launch an update, a
+    fused share of 1.0, and the kernel alone at ``ADAMW_BOUND_SHARE`` of its
+    bound or above. ``host_ms`` is the host's time to issue one update.
+    The training paths gate the kernel as well, each with the count set to
+    0 just before it and read just after it (phases 6, 8, 9 and 17: one
+    launch an update, every update of fused share 1.0); the ``adamw`` row
+    of the kernels line gives their launches by path.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -300,6 +317,7 @@ script exits with code 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -434,6 +452,17 @@ LP_CLASSES = 10
 LP_STEPS = 8            # 2 epochs
 LP_REPEAT_STEPS = 12
 LP_ATTN = 12
+# [adamw]: updates a timing, and the limit of the params' change through the
+# kernel against the foreach chain's (relative L2, lr 1e-3): both round each
+# element's update a few times in another order, about 1e-6 of the change;
+# weight decay left out moves it by some 2e-3.
+ADAMW_REPS = 20
+ADAMW_DELTA_TOL = 1e-4
+# The least share of its byte bound the kernel alone must reach on each set.
+ADAMW_BOUND_SHARE = 0.75
+# The fused AdamW kernel's launches in each training path that gates them
+# (_adamw_watch, _check_adamw): one an update, each of fused share 1.
+ADAMW_BY_PATH: dict[str, int] = {}
 
 
 # The script's clock: every log line ends with the seconds since import,
@@ -449,6 +478,40 @@ def log(phase: str, **fields) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+@contextlib.contextmanager
+def _adamw_watch():
+    """Sets ``fused_adamw.launches`` to 0 and yields the list that the fused
+    share of every ``AdamW`` update made inside is appended to."""
+    from unittest import mock
+
+    from cross_scale_mae_torch.ops.adamw import fused_adamw
+    from cross_scale_mae_torch.train import optim
+
+    shares = []
+    update = optim.AdamW.update
+
+    def watched(self, *args, **kwargs):
+        update(self, *args, **kwargs)
+        shares.append(self.fused_share)
+
+    fused_adamw.launches = 0
+    with mock.patch.object(optim.AdamW, "update", watched):
+        yield shares
+
+
+def _check_adamw(path: str, shares: list, updates: int) -> None:
+    """A training path's gate on the fused AdamW kernel, read just after the
+    path: ``updates`` updates (one a step), one launch each, every one of
+    fused share 1.0; the launches kept in ``ADAMW_BY_PATH``."""
+    from cross_scale_mae_torch.ops.adamw import fused_adamw
+
+    launches = fused_adamw.launches
+    check(len(shares) == updates == launches and all(v == 1.0 for v in shares),
+          f"adamw {path}: {launches} launches, {len(shares)} updates of fused shares "
+          f"{sorted(set(shares))}; expected {updates} of 1.0")
+    ADAMW_BY_PATH[path] = launches
 
 
 def time_ms(fn, inputs, reps: int = 30) -> float:
@@ -693,6 +756,111 @@ def phase_kernel(card: str) -> dict:
     phase_kernel_k2(gen, report)
     phase_kernel_k3(gen, report)
     return rows
+
+
+def phase_adamw(card: str) -> dict:
+    """The fused AdamW kernel on ViT-L's and the MAE's trainable leaves
+    (module docstring, phase 30). Returns the ViT-L fp32 row."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cross_scale_mae_torch import configs
+    from cross_scale_mae_torch.models.mae import mae_init
+    from cross_scale_mae_torch.models.vit import vit_init
+    from cross_scale_mae_torch.ops import adamw as fused
+    from cross_scale_mae_torch.train import optim
+    from cross_scale_mae_torch.train.state import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vit_cfg = configs.get_vit_config("vit_large_patch16", input_size=64, patch_size=8,
+                                     num_classes=62)
+    mae_cfg = configs.get_mae_config("mae_vit_base_MsLdCeCd", input_size=128)
+    sets = {"vit_l": (lambda: vit_init(vit_cfg, gen)[0],
+                      dict(b2=0.999, layer_decay=0.75, depth=24,
+                           no_decay_names=("pos_embed", "cls_token")),
+                      ("float32", "bfloat16")),
+            "mae": (lambda: mae_init(mae_cfg, gen)[0], dict(b2=0.95), ("float32",))}
+
+    def device_ms(fn) -> tuple[float, float]:
+        """The device's and the host's ms an update."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(ADAMW_REPS):
+            fn()
+        host = (time.perf_counter() - t0) / ADAMW_REPS * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / ADAMW_REPS, host
+
+    rows = {}
+    for label, (init, kw, moments) in sets.items():
+        params = init()
+        leaves = tree_leaves(params)
+        grads = [torch.randn(p.shape, device="cuda", generator=gen) * 1e-2 for p in leaves]
+        n = sum(p.numel() for p in leaves)
+        for moment in moments:
+            dtypes = {} if moment == "float32" else {"mu_dtype": moment, "nu_dtype": moment}
+            start = [p.clone() for p in leaves]
+            deltas = {}
+            for path in ("kernel", "foreach"):
+                for p, p0 in zip(leaves, start):
+                    p.copy_(p0)
+                tx = optim.build_optimizer(params, lambda s: 1e-3, weight_decay=0.05,
+                                           **kw, **dtypes)
+                state = tx.init(params)
+                takes = fused.kernel_takes if path == "kernel" else (lambda *leaf: False)
+                with mock.patch.object(fused, "kernel_takes", takes):
+                    before = fused.fused_adamw.launches
+                    tx.update(leaves, grads, state)
+                    torch.cuda.synchronize()
+                    launches = fused.fused_adamw.launches - before
+                    share = tx.fused_share
+                    deltas[path] = torch.cat([(p - p0).flatten() for p, p0 in zip(leaves, start)])
+                    ms, host_ms = device_ms(lambda: tx.update(leaves, grads, state))
+                    if path == "kernel":
+                        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                            for _ in range(5):
+                                tx.update(leaves, grads, state)
+                            torch.cuda.synchronize()
+                        kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                                        if "adamw_kernel" in e.key) / 5e3
+                        kernel = dict(launches=launches, share=share, ms=ms,
+                                      kernel_ms=kernel_ms, host_ms=host_ms)
+                    else:
+                        foreach_ms, foreach_host_ms = ms, host_ms
+                del tx, state
+            gap = (torch.linalg.vector_norm(deltas["kernel"] - deltas["foreach"])
+                   / torch.linalg.vector_norm(deltas["foreach"])).item()
+            per = 28 if moment == "float32" else 20
+            bound = per * n / PEAK_BYTES_PER_S * 1e3
+            row = {"elements": n, "leaves": len(leaves), "moments": moment,
+                   "launches_per_update": kernel["launches"], "fused_share": kernel["share"],
+                   "delta_gap": gap, "update_ms": kernel["ms"], "kernel_ms": kernel["kernel_ms"],
+                   "foreach_ms": foreach_ms, "host_ms": kernel["host_ms"],
+                   "foreach_host_ms": foreach_host_ms, "bound_ms": bound, "bound_by": "bytes",
+                   "kernel_bound_share": bound / max(kernel["kernel_ms"], 1e-9),
+                   "bytes_per_element": per}
+            log("adamw", case=label, card=json.dumps(card),
+                **{k: json.dumps(v) for k, v in row.items()})
+            check(kernel["launches"] == 1 and kernel["share"] == 1.0,
+                  f"adamw {label} {moment}: {kernel['launches']} launches, fused share "
+                  f"{kernel['share']}")
+            check(math.isfinite(gap) and gap <= ADAMW_DELTA_TOL,
+                  f"adamw {label} {moment}: the params' change {gap} from the foreach chain's")
+            check(row["kernel_bound_share"] >= ADAMW_BOUND_SHARE,
+                  f"adamw {label} {moment}: {row['kernel_bound_share']} of the byte bound")
+            rows[(label, moment)] = row
+            for p, p0 in zip(leaves, start):
+                p.copy_(p0)
+            del start, deltas
+        del params, leaves, grads
+        torch.cuda.empty_cache()
+    return rows[("vit_l", "float32")]
 
 
 def _k1_order(q, k, v, do, h):
@@ -1373,9 +1541,11 @@ def phase_train(card: str, keep_npz: str) -> tuple[int, int]:
             return _train_argv(tmp, impl)
 
         mha_v3.launches = mha_v3.bwd_launches = 0
-        result = pretrain_main(argv("pallas_v3"))
+        with _adamw_watch() as shares:
+            result = pretrain_main(argv("pallas_v3"))
         fwd, bwd = mha_v3.launches, mha_v3.bwd_launches
         losses, steps = result["losses"], result["steps"]
+        _check_adamw("train", shares, steps)
         check(steps == TRAIN_STEPS and len(losses) == steps, f"{steps} steps, {len(losses)} losses")
         check(all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}")
         check(fwd == bwd == ATTN_PER_STEP * steps,
@@ -1518,8 +1688,10 @@ def phase_ddp(card: str) -> tuple[int, int]:
                 argv = _train_argv(tmp, "pallas_v3", "--ddp_mode", mode, *group,
                                    "--max_steps", str(DDP_STEPS))
                 mha_v3.launches = mha_v3.bwd_launches = 0
-                result = pretrain_main(argv)
+                with _adamw_watch() as shares:
+                    result = pretrain_main(argv)
                 launches[mode] = (mha_v3.launches, mha_v3.bwd_launches)
+                _check_adamw(f"train_ddp_{mode}", shares, result["steps"])
                 losses = result["losses"]
                 check(result["steps"] == DDP_STEPS and result["world_size"] == 1,
                       f"{mode}: {result['steps']} steps at world size {result['world_size']}")
@@ -2221,10 +2393,12 @@ def phase_finetune(card: str, keep_npz: str) -> tuple[int, int]:
 
     with tempfile.TemporaryDirectory() as tmp:
         mha.launches = mha.bwd_launches = mha_v3.launches = mha_v3.bwd_launches = 0
-        result = finetune_main(_ft_argv(tmp, "pallas", FT_SYNTHETIC, FT_STEPS))
-        shutil.copy(result["npz"], keep_npz)
-        repeated = finetune_main(_ft_argv(tmp, "pallas", FT_BATCH, FT_REPEAT_STEPS))
+        with _adamw_watch() as shares:
+            result = finetune_main(_ft_argv(tmp, "pallas", FT_SYNTHETIC, FT_STEPS))
+            shutil.copy(result["npz"], keep_npz)
+            repeated = finetune_main(_ft_argv(tmp, "pallas", FT_BATCH, FT_REPEAT_STEPS))
         fwd, bwd = mha.launches, mha.bwd_launches
+        _check_adamw("finetune", shares, result["steps"] + repeated["steps"])
         check(mha_v3.launches == mha_v3.bwd_launches == 0, "finetuning launched the K1 kernels")
         steps = result["steps"] + repeated["steps"]
         eval_batches = result["eval_batches"] + repeated["eval_batches"]
@@ -3100,11 +3274,13 @@ def phase_moments(card: str) -> tuple[int, int]:
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "bf16")
         mha_v3.launches = mha_v3.bwd_launches = 0
-        result = pretrain_main(_train_argv(out, "pallas_v3", *MOMENT_FLAGS, "--max_steps",
-                                           str(MOMENT_STEPS), "--ckpt_interval",
-                                           str(MOMENT_STEPS)))
+        with _adamw_watch() as shares:
+            result = pretrain_main(_train_argv(out, "pallas_v3", *MOMENT_FLAGS, "--max_steps",
+                                               str(MOMENT_STEPS), "--ckpt_interval",
+                                               str(MOMENT_STEPS)))
         fwd, bwd = mha_v3.launches, mha_v3.bwd_launches
         losses, steps = result["losses"], result["steps"]
+        _check_adamw("moments", shares, steps)
         check(steps == MOMENT_STEPS and len(losses) == steps, f"{steps} steps, {len(losses)} losses")
         check(all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}")
         check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
@@ -4734,6 +4910,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     rows = phase_kernel(card)
+    adamw_row = phase_adamw(card)
     phase_orbax(card)
     # Each path is driven with the counts set to 0 just before it and read
     # just after it: serving (forward only), pretraining, finetuning, the
@@ -4815,6 +4992,18 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    kernels.append({
+        "name": "adamw", "route": "cuda", "source": "cross_scale_mae_torch/csrc/adamw.cu",
+        "replaces": "none: optax adamw under XLA (the foreach chain of train/optim.py)",
+        "case": "vit_l", "shape": [adamw_row["elements"]],
+        "launches": sum(ADAMW_BY_PATH.values()), "launches_by_path": ADAMW_BY_PATH,
+        "design": "one block a chunk of one leaf, found by a binary search of the leaves' "
+        "first items; 16-byte loads where the pointers allow; one table of pointers and "
+        "per-leaf constants copied from pinned memory with each launch",
+        "max_abs_err": None, "delta_gap": adamw_row["delta_gap"],
+        "ms": adamw_row["kernel_ms"], "plain_ms": adamw_row["foreach_ms"],
+        "bound_ms": adamw_row["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # Every kernel of the package, by source name (csrc/<name>.cu).
-KERNELS = ("mha3_fwd", "mha3_bwd", "mha_fwd", "mha_bwd", "mha2_fwd", "mha2_bwd")
+KERNELS = ("mha3_fwd", "mha3_bwd", "mha_fwd", "mha_bwd", "mha2_fwd", "mha2_bwd", "adamw")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

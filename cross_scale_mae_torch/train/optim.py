@@ -24,8 +24,14 @@ moment to fp32 first. (These are the ops' semantics, as JAX runs them
 eagerly; under jit XLA may keep the bf16 product in fp32, its default
 excess precision.)
 Either way the update is computed in fp32 and the new moments are rounded
-to their dtype for storage. Everything runs as PyTorch multi-tensor
-(``torch._foreach_*``) ops over the trainable leaves at once.
+to their dtype for storage. On the card, every leaf that
+``ops/adamw.kernel_takes`` (fp32 params and gradients, contiguous) is
+updated by one launch of the fused kernel ``csrc/adamw.cu``
+(``ops/adamw.fused_adamw``), which reads and writes each element once; the
+other leaves, and every leaf on the CPU, run as PyTorch multi-tensor
+(``torch._foreach_*``) ops over those leaves at once, the kernel's plain
+version. ``AdamW.fused_share``
+is the share of the elements the last update gave the kernel.
 
 Under a mesh layout (``parallel/mesh.py``) the leaves are this rank's
 parts: the clip's global norm and LARS's per-leaf norms sum a split leaf's
@@ -51,6 +57,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from cross_scale_mae_torch.ops.adamw import fused_adamw
 from cross_scale_mae_torch.parallel.collectives import gather_parts
 from cross_scale_mae_torch.parallel.dist import data_group, mesh
 from cross_scale_mae_torch.parallel.mesh import is_split, moment_spec, reduce_leaf_squares, \
@@ -120,24 +127,32 @@ class _Masked:
         return [leaves[i] for i in self.idx]
 
     def _select(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]]):
-        """The trainable params and their gradients (a trainable leaf the
-        objective did not reach has a zero gradient), clipped when asked:
-        ``optax.clip_by_global_norm`` scales by max_norm / norm when above."""
+        """The trainable params, their gradients (a trainable leaf the
+        objective did not reach has a zero gradient) and, when asked, the
+        clip factor to scale them by, a 0-d tensor
+        (``optax.clip_by_global_norm``: max_norm / norm when above), else None."""
         ps = [params[i] for i in self.idx]
         gs = [torch.zeros_like(params[i]) if grads[i] is None else grads[i] for i in self.idx]
+        factor = None
         if self.clip_grad is not None:
             norm = global_norm(gs, [spec_of(p) for p in ps])
             factor = torch.clamp(self.clip_grad / norm, max=1.0)
-            gs = torch._foreach_mul(gs, factor)
-        return ps, gs
+        return ps, gs, factor
 
-    def _apply(self, ps: list[torch.Tensor], upd: list[torch.Tensor], lr: float) -> None:
-        if self.scales is None:
+    def _clipped(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]]):
+        """:meth:`_select`'s params, and the gradients clipped when asked."""
+        ps, gs, factor = self._select(params, grads)
+        return ps, gs if factor is None else torch._foreach_mul(gs, factor)
+
+    @staticmethod
+    def _apply(ps: list[torch.Tensor], upd: list[torch.Tensor], lr: float,
+               scales: Optional[list[float]]) -> None:
+        if scales is None:
             torch._foreach_add_(ps, upd, alpha=-lr)
         else:
             # optax's order: -lr * u, then the layer scale, then p + u.
             upd = torch._foreach_mul(upd, -lr)
-            torch._foreach_mul_(upd, self.scales)
+            torch._foreach_mul_(upd, scales)
             torch._foreach_add_(ps, upd)
 
     def _tree(self, leaves: list[torch.Tensor], params: Params) -> Any:
@@ -163,16 +178,6 @@ class AdamWState:
     count: int
     mu: list[torch.Tensor]   # one per trainable leaf, in mu_dtype
     nu: list[torch.Tensor]   # one per trainable leaf, in nu_dtype
-    # A moment stored in another dtype than the params': one flat buffer,
-    # of which ``mu``/``nu`` are views, so that it is upcast and cast back
-    # in one kernel each.
-    mu_flat: Optional[torch.Tensor] = None
-    nu_flat: Optional[torch.Tensor] = None
-
-
-def _views(flat: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
-    """``flat`` split into views shaped as the tensors of ``like``."""
-    return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in like]), like)]
 
 
 class AdamW(_Masked):
@@ -181,7 +186,9 @@ class AdamW(_Masked):
     multiply each leaf's whole update, as the JAX package's layer-decay
     ``scale_by_tree`` chained after ``adamw`` does. ``mu_dtype`` and
     ``nu_dtype`` (torch dtypes, None: the param's) store the moments
-    (module docstring: the two rounding rules)."""
+    (module docstring: the two rounding rules). ``fused_share`` is the
+    share of the trainable elements the last update gave the fused kernel
+    (None before the first)."""
 
     def __init__(self, schedule: Callable[[int], float], decay: list[bool], *,
                  b1: float, b2: float, eps: float, weight_decay: float,
@@ -196,6 +203,7 @@ class AdamW(_Masked):
         # JAX's scale_by_adam_moment_dtypes (JAX optim.py:131-172) when nu_dtype is
         # set, else optax.adamw's scale_by_adam.
         self.upcast_first = nu_dtype is not None
+        self.fused_share: Optional[float] = None
 
     def _chunk(self, t: torch.Tensor, spec) -> torch.Tensor:
         """ZeRO-1: this rank's chunk (a view) of a whole leaf of ``spec``."""
@@ -207,61 +215,74 @@ class AdamW(_Masked):
         full = self._check(params)
         specs = [spec_of(p) for p in full]
         leaves = [self._chunk(p, s) for p, s in zip(full, specs)]
-
-        def zeros(dtype):
-            if dtype is None or all(p.dtype == dtype for p in leaves):
-                return [torch.zeros_like(p, memory_format=torch.contiguous_format)
-                        for p in leaves], None
-            flat = torch.zeros(sum(p.numel() for p in leaves), dtype=dtype,
-                               device=leaves[0].device)
-            return _views(flat, leaves), flat
-
-        (mu, mu_flat), (nu, nu_flat) = zeros(self.mu_dtype), zeros(self.nu_dtype)
+        mu, nu = ([torch.zeros_like(p, dtype=dtype, memory_format=torch.contiguous_format)
+                   for p in leaves] for dtype in (self.mu_dtype, self.nu_dtype))
         for moments in (mu, nu):
             for t, s in zip(moments, specs):
                 tag(t, moment_spec(s, self.zero1))
-        return AdamWState(0, mu, nu, mu_flat, nu_flat)
+        return AdamWState(0, mu, nu)
 
-    def _moments(self, state: AdamWState, gs: list[torch.Tensor]):
+    def _moments(self, ps: list[torch.Tensor], gs: list[torch.Tensor],
+                 mu: list[torch.Tensor], nu: list[torch.Tensor]):
         """The new moments as fp32 leaves, by the chain's rounding rule, and
-        the (flat store, its new fp32 values) pairs to cast back: a moment
-        stored like the params is updated in place."""
+        the (stored moments, their new fp32 values) pairs to cast back: a
+        moment stored like its param is updated in place."""
         b1, b2 = self.b1, self.b2
         casts = []
-        if state.mu_flat is None:
-            mu = state.mu
+        if all(m.dtype == p.dtype for m, p in zip(mu, ps)):
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, gs, alpha=1 - b1)
+            mu32 = mu
         else:
             if self.upcast_first:
-                mu32 = state.mu_flat.float()
-                mu = _views(mu32, gs)
-                torch._foreach_mul_(mu, b1)
+                mu32 = [m.float() for m in mu]
+                torch._foreach_mul_(mu32, b1)
             else:
                 # optax tree_update_moment: (1 - b1) g + b1 m, with b1 m in
                 # m's dtype; JAX's weak-typed b1 takes that dtype too (0.9 is
                 # 0.900390625 in bf16).
-                b1_stored = float(torch.tensor(b1, dtype=state.mu_flat.dtype))
-                mu32 = (state.mu_flat * b1_stored).float()
-                mu = _views(mu32, gs)
-            torch._foreach_add_(mu, torch._foreach_mul(gs, 1 - b1))
-            casts.append((state.mu_flat, mu32))
-        if state.nu_flat is None:
-            nu = state.nu
+                b1_stored = float(torch.tensor(b1, dtype=mu[0].dtype))
+                mu32 = [(m * b1_stored).float() for m in mu]
+            torch._foreach_add_(mu32, torch._foreach_mul(gs, 1 - b1))
+            casts.append((mu, mu32))
+        if all(v.dtype == p.dtype for v, p in zip(nu, ps)):
             torch._foreach_mul_(nu, b2)
             torch._foreach_addcmul_(nu, gs, gs, value=1 - b2)
+            nu32 = nu
         else:
-            nu32 = state.nu_flat.float()
-            nu = _views(nu32, gs)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(gs, gs), 1 - b2))
-            casts.append((state.nu_flat, nu32))
-        return mu, nu, casts
+            nu32 = [v.float() for v in nu]
+            torch._foreach_mul_(nu32, b2)
+            torch._foreach_add_(nu32, torch._foreach_mul(torch._foreach_mul(gs, gs), 1 - b2))
+            casts.append((nu, nu32))
+        return mu32, nu32, casts
+
+    def _foreach_update(self, idx: list[int], ps: list[torch.Tensor], gs: list[torch.Tensor],
+                        state: AdamWState, factor: Optional[torch.Tensor], lr: float,
+                        t: int) -> None:
+        """The update of the leaves ``idx`` (of the trainable ones) by the
+        foreach chain."""
+        ps, gs = [ps[i] for i in idx], [gs[i] for i in idx]
+        if factor is not None:
+            gs = torch._foreach_mul(gs, factor)
+        mu, nu, casts = self._moments(ps, gs, [state.mu[i] for i in idx],
+                                      [state.nu[i] for i in idx])
+        denom = torch._foreach_div(nu, 1 - self.b2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mu, 1 - self.b1 ** t)
+        torch._foreach_div_(upd, denom)
+        decayed = [j for j, i in enumerate(idx) if self.decay[i]]
+        if self.wd and decayed:
+            torch._foreach_add_([upd[j] for j in decayed], [ps[j] for j in decayed],
+                                alpha=self.wd)
+        for stored, new in casts:
+            torch._foreach_copy_(stored, new)   # the new moment, rounded to its dtype
+        self._apply(ps, upd, lr, None if self.scales is None else [self.scales[i] for i in idx])
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
                state: AdamWState) -> None:
-        ps, gs = self._select(params, grads)
+        ps, gs, factor = self._select(params, grads)
         whole = ps
         if self.zero1:
             specs = [spec_of(p) for p in ps]
@@ -269,19 +290,13 @@ class AdamW(_Masked):
             gs = [self._chunk(g, sp) for g, sp in zip(gs, specs)]
         lr = self.schedule(state.count)
         t = state.count + 1
-        mu, nu, casts = self._moments(state, gs)
-        denom = torch._foreach_div(nu, 1 - self.b2 ** t)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, 1 - self.b1 ** t)
-        torch._foreach_div_(upd, denom)
-        decayed = [i for i, d in enumerate(self.decay) if d]
-        if self.wd and decayed:
-            torch._foreach_add_([upd[i] for i in decayed], [ps[i] for i in decayed],
-                                alpha=self.wd)
-        for flat, new in casts:
-            flat.copy_(new)   # the new moment, rounded to its stored dtype
-        self._apply(ps, upd, lr)
+        rest = fused_adamw(ps, gs, state.mu, state.nu, self.decay, self.scales, factor, lr=lr,
+                           b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=self.wd,
+                           count=t, upcast_first=self.upcast_first)
+        if rest:
+            self._foreach_update(rest, ps, gs, state, factor, lr, t)
+        total = sum(p.numel() for p in ps)
+        self.fused_share = 1 - sum(ps[i].numel() for i in rest) / total if total else 1.0
         if self.zero1:
             self._gather_chunks(whole, ps)
         state.count = t
@@ -355,7 +370,7 @@ class Lars(_Masked):
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
                state: LarsState) -> None:
-        ps, dps = self._select(params, grads)
+        ps, dps = self._clipped(params, grads)
         dps = list(dps)
         wide = [j for j, p in enumerate(ps) if p.dim() > 1]
         if wide:
@@ -378,7 +393,7 @@ class Lars(_Masked):
         lr = self.schedule(state.count)
         torch._foreach_mul_(state.mu, self.momentum)
         torch._foreach_add_(state.mu, dps)
-        self._apply(ps, state.mu, lr)
+        self._apply(ps, state.mu, lr, self.scales)
         state.count += 1
 
     def state_dict(self, state: LarsState, params: Params) -> dict[str, torch.Tensor]:
@@ -406,11 +421,11 @@ class Sgd(Lars):
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[Optional[torch.Tensor]],
                state: LarsState) -> None:
-        ps, gs = self._select(params, grads)
+        ps, gs = self._clipped(params, grads)
         lr = self.schedule(state.count)
         torch._foreach_mul_(state.mu, self.momentum)
         torch._foreach_add_(state.mu, gs)
-        self._apply(ps, state.mu, lr)
+        self._apply(ps, state.mu, lr, self.scales)
         state.count += 1
 
 

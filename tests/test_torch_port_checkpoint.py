@@ -162,13 +162,14 @@ def test_bf16_moments_round_trip_and_do_not_restore_into_fp32_moments(tmp_path, 
     against an fp32-moment state (``copy_`` would cast without a word),
     and the other way round."""
     src = _random_steps(_mae_state(0, **dtypes), seed=1)
-    # The bf16 moments are views of one flat buffer; fp32 ones are leaves of their own.
+    # Every moment is a leaf of its own, stored in its dtype.
     opt = src.opt_state
-    assert opt.mu_flat is not None and opt.mu[0].data_ptr() == opt.mu_flat.data_ptr()
-    assert (opt.nu_flat is None) == ("nu_dtype" not in dtypes)
+    nu_dtype = torch.bfloat16 if "nu_dtype" in dtypes else torch.float32
+    assert all(m.dtype == torch.bfloat16 and m.is_contiguous() for m in opt.mu)
+    assert all(v.dtype == nu_dtype and v.is_contiguous() for v in opt.nu)
+    assert len({t.data_ptr() for t in opt.mu + opt.nu}) == len(opt.mu) + len(opt.nu)
     flat = src.state_dict()
     assert flat["opt_state/mu/encoder_blocks/attn/qkv/kernel"].dtype == torch.bfloat16
-    nu_dtype = torch.bfloat16 if "nu_dtype" in dtypes else torch.float32
     assert flat["opt_state/nu/decoder_pred/bias"].dtype == nu_dtype
     pckpt.save_checkpoint(str(tmp_path / "bf16"), src.step, src)
     dst = _mae_state(5, **dtypes)

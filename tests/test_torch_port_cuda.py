@@ -442,3 +442,154 @@ def test_cuda_device_prefetch_delivers_the_host_bytes(cuda_device):
     for (imgs, labels), (h_imgs, h_labels) in zip(seen, host, strict=True):
         assert torch.equal(imgs, torch.from_numpy(h_imgs).to(cuda_device))
         assert torch.equal(labels, torch.from_numpy(h_labels).to(cuda_device))
+
+
+# The fused AdamW kernel (csrc/adamw.cu) against the foreach chain it
+# replaces on the card, both in train/optim.AdamW. Each update starts both
+# sides from the same state (the chain's), so a rounding that differs in
+# one update is not carried into the next: a moment stored in bf16 that
+# rounded the other way would move the next update by a bf16 ulp. Limits,
+# each in units of the last place of the largest magnitude in the
+# element's arithmetic (the terms of m, v and p, and lr s |u| for p): the
+# fp32 params and moments within ADAMW_FP32_ULPS (the kernel contracts
+# where the chain's own kernels may not: a few roundings of u differ), a
+# moment stored in bf16 within one bf16 ulp (a rounding to nearest that
+# went the other way).
+ADAMW_FP32_ULPS = 8
+ADAMW_BF16_ULPS = 1
+ADAMW_RULES = {"fp32": (None, None), "bf16_mu": (torch.bfloat16, None),
+               "bf16_nu": (None, torch.bfloat16), "bf16_both": (torch.bfloat16, torch.bfloat16)}
+
+
+def _ulps(got: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor) -> float:
+    """The largest |got - ref| in units of the last place of ``scale``, in
+    got's dtype (fp32: 23 fraction bits, bf16: 7)."""
+    bits = 7 if got.dtype == torch.bfloat16 else 23
+    scale = scale.double().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - bits)
+    return ((got.double() - ref.double()).abs() / ulp).max().item()
+
+
+def _adamw_leaves(device, gen):
+    """Params and gradients: odd lengths, a leaf of several chunks with a
+    ragged tail, a ZeRO-1 chunk on the leading axis (a view at an offset
+    that is not 16-byte aligned), a chunk cut across the rows (not
+    contiguous: the foreach chain), a gradient that is a view at an odd
+    offset (as FlatGrads' after an odd length), a frozen leaf and a
+    trainable leaf without a gradient."""
+    from cross_scale_mae_torch.ops.adamw import CHUNK
+
+    def randn(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+
+    params = [randn(64, 96), randn(62), randn(3, 5, 7), randn(2 * CHUNK + 3),
+              randn(9, 37).chunk(2, 0)[1], randn(6, 10).chunk(2, 1)[1], randn(16), randn(4, 4)]
+
+    def grads(step_scale):
+        out = [randn(*p.shape) * s for p, s in zip(params, (1.0, 0.3, 2.0, 1e-3, 0.5, 1.0, 1.0))]
+        flat = torch.empty(out[2].numel() + 1, device=device)
+        out[2] = flat[1:].view(3, 5, 7).copy_(out[2])
+        return [g * step_scale for g in out] + [None]
+
+    return params, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", sorted(ADAMW_RULES))
+@pytest.mark.parametrize("full", [False, True])
+def test_cuda_adamw_kernel_matches_the_foreach_chain(cuda_device, rule, full):
+    """Three updates through the kernel against the foreach chain on the
+    card, for each moment-dtype rule; ``full`` adds layer decay, a clip
+    factor below 1 and a frozen leaf (the weight-decay mask is on in both).
+    One launch an update, and the fused share the kernel's elements over
+    the trainable ones (all but the chunk cut across the rows)."""
+    from unittest import mock
+
+    from cross_scale_mae_torch.ops import adamw as fused
+    from cross_scale_mae_torch.train import optim
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    params, grads = _adamw_leaves(cuda_device, gen)
+    mu_dtype, nu_dtype = ADAMW_RULES[rule]
+    trainable = [True] * 8
+    if full:
+        trainable[6] = False
+
+    def make():
+        return optim.AdamW(lambda s: 1e-3 * (1 + s), [True, False, True, True, True, False,
+                                                     True, True],
+                           b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.05,
+                           clip_grad=1.0 if full else None,
+                           scales=[0.75 ** k for k in range(8)] if full else None,
+                           trainable=trainable, mu_dtype=mu_dtype, nu_dtype=nu_dtype)
+
+    tx, ref = make(), make()
+    ref_params = [p.clone() for p in params]
+    state, ref_state = tx.init(params), ref.init(ref_params)
+    idx = tx.idx
+    fused_numel = sum(params[i].numel() for i in idx if i != 5)
+    for step in range(3):
+        gs = grads(1.0 + step)
+        for a, b in zip(params + state.mu + state.nu, ref_params + ref_state.mu + ref_state.nu):
+            a.copy_(b)
+        state.count = ref_state.count
+        old = [t.clone() for t in ref_params + ref_state.mu + ref_state.nu]
+        before = fused.fused_adamw.launches
+        tx.update(params, gs, state)
+        with mock.patch.object(fused, "kernel_takes", lambda *leaf: False):
+            ref.update(ref_params, gs, ref_state)
+        torch.cuda.synchronize()
+        assert fused.fused_adamw.launches == before + 1 and ref.fused_share == 0.0
+        assert tx.fused_share == pytest.approx(
+            fused_numel / sum(params[i].numel() for i in idx), rel=1e-12)
+        t = step + 1
+        lr = 1e-3 * (1 + step)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(gs[i] if gs[i] is not None else params[i] * 0)
+             for i in idx]))
+        c = min(1.0, 1.0 / norm.item()) if full else 1.0
+        n = len(params)
+        for j, i in enumerate(idx):
+            g = (gs[i] if gs[i] is not None else torch.zeros_like(params[i])).double() * c
+            p0, m0, v0 = old[i].double(), old[n + j].double(), old[n + len(idx) + j].double()
+            m1, v1 = ref_state.mu[j].double(), ref_state.nu[j].double()
+            u = (m1 / (1 - 0.9 ** t)) / ((v1 / (1 - 0.95 ** t)).sqrt() + 1e-8)
+            s = 0.75 ** i if full else 1.0
+            wd = 0.05 if tx.decay[j] else 0.0
+            scale_p = torch.maximum(torch.maximum(p0.abs(), ref_params[i].double().abs()),
+                                    lr * s * (u.abs() + wd * p0.abs()))
+            scale_m = torch.maximum(torch.maximum(m1.abs(), 0.9 * m0.abs()), 0.1 * g.abs())
+            scale_v = torch.maximum(torch.maximum(v1, 0.95 * v0), 0.05 * g * g)
+            for got, want, scale in ((params[i], ref_params[i], scale_p),
+                                     (state.mu[j], ref_state.mu[j], scale_m),
+                                     (state.nu[j], ref_state.nu[j], scale_v)):
+                limit = ADAMW_BF16_ULPS if got.dtype == torch.bfloat16 else ADAMW_FP32_ULPS
+                assert got.dtype == want.dtype
+                assert _ulps(got, want, scale) <= limit, (rule, step, i)
+        if full:
+            assert torch.equal(params[6], ref_params[6]) and torch.equal(params[6], old[6])
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_kernel_returns_what_it_does_not_take(cuda_device):
+    """The wrapper leaves a leaf kernel_takes refuses as it was and returns
+    its index, launching nothing for it, and refuses leaves whose moments
+    differ in dtype."""
+    from cross_scale_mae_torch.ops import adamw as fused
+
+    p = torch.ones(6, 4, device=cuda_device)
+    leaf = (p, torch.ones_like(p), torch.zeros_like(p), torch.zeros_like(p))
+    kw = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.05, count=1,
+              upcast_first=False)
+    before = fused.fused_adamw.launches
+    transposed = [t.t() for t in leaf]
+    assert fused.fused_adamw(*([t] for t in transposed), [True], None, None, **kw) == [0]
+    assert fused.fused_adamw.launches == before and (p == 1).all()
+    other = torch.ones(5, device=cuda_device)
+    with pytest.raises(ValueError, match="one dtype for each moment"):
+        fused.fused_adamw([p, other], [leaf[1], torch.ones_like(other)],
+                          [leaf[2], torch.zeros_like(other, dtype=torch.bfloat16)],
+                          [leaf[3], torch.zeros_like(other)], [True, True], None, None, **kw)
+    assert fused.fused_adamw(*([t] for t in leaf), [True], None, None, **kw) == []
+    torch.cuda.synchronize()
+    assert fused.fused_adamw.launches == before + 1 and (p < 1).all()
